@@ -1,0 +1,163 @@
+"""Declarative backend registry of the multisplit pipeline (counterpart of
+``repro/core/pipeline/registry.py``).
+
+A :class:`Backend` bundles capability flags, which the stage graph consults
+instead of matching backend names, with a :class:`StageImpl`: the
+backend's prescan / postscan-positions / postscan-reorder over pre-tiled
+``(L, T)`` buffers. Three backends are registered:
+
+* ``reference`` — the O(n·m) direct solve, untiled: the oracle.
+* ``vmap`` — tiled pure-torch stages (the plain in-tile bodies of
+  :mod:`repro_torch.kernels.common`), the analogue of ``VmapStages``.
+* ``cuda`` — the hand-written Hopper kernels K1-K3 with in-kernel labels
+  (:mod:`repro_torch.kernels.ops`). On CPU tensors the kernel wrappers run
+  their plain versions; on CUDA tensors they launch the kernels or raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import common as _body
+from repro_torch.kernels import ops as kops
+
+Tensor = torch.Tensor
+
+
+class StageImpl:
+    """Backend implementations of the local pipeline stages on PRE-TILED
+    ``(L, tile)`` buffers. ``spec`` is the resolved
+    :class:`~repro_torch.core.pipeline.spec.PipelineSpec`; ``ids_tiled is
+    None`` selects fused labels (computed inside the stage from
+    ``spec.bucket_fn``)."""
+
+    def prescan(self, spec, keys_tiled, ids_tiled) -> Tensor:
+        raise NotImplementedError
+
+    def positions(self, spec, g, keys_tiled, ids_tiled) -> Tensor:
+        raise NotImplementedError
+
+    def reorder(self, spec, g, keys_tiled, ids_tiled, vals_tiled):
+        raise NotImplementedError
+
+
+class KernelStages(StageImpl):
+    """The CUDA kernel stages: one block per tile, labels in-kernel from the
+    plan's declarative spec. They take fused labels only: materialised-label
+    (ids-strip) kernels are ROADMAP queue B item 7."""
+
+    @staticmethod
+    def _fused_only(ids_tiled) -> None:
+        if ids_tiled is not None:
+            raise NotImplementedError(
+                "the cuda backend computes labels in-kernel; ids-strip kernels "
+                "are ROADMAP queue B item 7"
+            )
+
+    def prescan(self, spec, keys_tiled, ids_tiled):
+        self._fused_only(ids_tiled)
+        return kops.spec_tile_histograms(keys_tiled, spec.bucket_fn)
+
+    def positions(self, spec, g, keys_tiled, ids_tiled):
+        self._fused_only(ids_tiled)
+        return kops.spec_tile_positions(keys_tiled, g, spec.bucket_fn)
+
+    def reorder(self, spec, g, keys_tiled, ids_tiled, vals_tiled):
+        self._fused_only(ids_tiled)
+        return kops.spec_fused_postscan_reorder(keys_tiled, g, vals_tiled, spec.bucket_fn)
+
+
+class VmapStages(StageImpl):
+    """Tiled pure-torch stages: every tile's rank, histogram, starts and
+    destinations from one one-hot cumsum (:func:`~repro_torch.kernels.
+    common.tile_rank`). Fused-label plans derive the tile labels from
+    ``spec.bucket_fn.emit`` inside the stage."""
+
+    @staticmethod
+    def _tile_ids(spec, keys_tiled, ids_tiled):
+        return ids_tiled if ids_tiled is not None else spec.bucket_fn.emit(keys_tiled)
+
+    def prescan(self, spec, keys_tiled, ids_tiled):
+        return _body.counts_body(self._tile_ids(spec, keys_tiled, ids_tiled), spec.num_buckets)
+
+    def positions(self, spec, g, keys_tiled, ids_tiled):
+        ids = self._tile_ids(spec, keys_tiled, ids_tiled)
+        return _body.positions_body(ids, g, spec.num_buckets)
+
+    def reorder(self, spec, g, keys_tiled, ids_tiled, vals_tiled):
+        ids = self._tile_ids(spec, keys_tiled, ids_tiled)
+        return _body.postscan_body(ids, g, keys_tiled, vals_tiled, spec.num_buckets)
+
+
+@dataclasses.dataclass(frozen=True)
+class Backend:
+    """A registered execution target for the pipeline stage graph.
+
+    ``tiled=False`` marks the direct-solve oracle (no tiling, no scan).
+    ``fuses_labels`` advertises that fusable specs are evaluated inside the
+    tile stage; ``key_itemsize`` restricts the key width (the CUDA kernels
+    take 32-bit words); ``families`` lists the kernel families the stages
+    implement (the packed family is ROADMAP queue B items 4-6)."""
+
+    name: str
+    description: str
+    stages: Optional[StageImpl] = None
+    tiled: bool = True
+    uses_kernels: bool = False
+    fuses_labels: bool = False
+    key_itemsize: Optional[int] = None
+    families: Tuple[str, ...] = ("onehot",)
+
+    def check_keys(self, keys: Tensor) -> None:
+        if self.key_itemsize is not None and keys.element_size() != self.key_itemsize:
+            raise ValueError(
+                f"backend {self.name!r} requires {8 * self.key_itemsize}-bit keys "
+                f"(got {keys.dtype}); use backend='vmap' for other widths"
+            )
+
+
+_REGISTRY: dict = {}
+
+
+def register_backend(backend: Backend) -> Backend:
+    if backend.name in _REGISTRY:
+        raise ValueError(f"backend {backend.name!r} already registered")
+    _REGISTRY[backend.name] = backend
+    return backend
+
+
+def get_backend(name: str) -> Backend:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown backend {name!r}; expected one of {backend_names()}"
+        ) from None
+
+
+def backend_names() -> Tuple[str, ...]:
+    return tuple(_REGISTRY)
+
+
+register_backend(Backend(
+    name="reference",
+    description="O(n·m) direct evaluation of paper eq. (1); the oracle",
+    tiled=False,
+))
+register_backend(Backend(
+    name="vmap",
+    description="tiled pure-torch stages (the plain in-tile bodies)",
+    stages=VmapStages(),
+    fuses_labels=True,
+))
+register_backend(Backend(
+    name="cuda",
+    description="hand-written Hopper kernels with in-kernel labels",
+    stages=KernelStages(),
+    uses_kernels=True,
+    fuses_labels=True,
+    key_itemsize=4,
+))

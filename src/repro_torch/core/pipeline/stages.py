@@ -1,0 +1,112 @@
+"""Stage primitives of the multisplit pipeline (paper §4.1).
+
+Counterpart of ``repro/core/pipeline/stages.py`` for the flat layout: every
+multisplit variant factors into {local prescan} -> {one global scan} ->
+{local postscan (+ reorder)}. This module owns the layout and scan
+primitives and the O(n·m) direct solve, with no backend logic. The in-tile
+body (stable rank, tile histogram, tile starts) lives in
+:mod:`repro_torch.kernels.common`, beside the kernels it is the plain
+version of.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core.identifiers import bits_dtype
+from repro_torch.kernels.common import tile_rank
+
+Tensor = torch.Tensor
+
+
+class MultisplitResult(NamedTuple):
+    """Flat plans: shapes as commented. Partial pipelines return ``None``
+    for the fields they never compute: ``counts_only`` fills only
+    ``bucket_starts``/``bucket_counts``; ``positions_only`` also fills
+    ``permutation``."""
+
+    keys: Optional[Tensor]          # permuted keys, bucket-major, stable
+    values: Optional[Tensor]        # permuted values (None for key-only)
+    bucket_starts: Tensor           # (m,) start index of each bucket
+    bucket_counts: Tensor           # (m,) histogram
+    permutation: Optional[Tensor]   # (n,) dest position of input element i
+
+
+def as_bits(x: Tensor) -> Tensor:
+    """Bit-pattern view of ``x`` as the signed integer type of its width."""
+    return x.view(bits_dtype(x.dtype))
+
+
+def bits_fill(fill, dtype: torch.dtype) -> int:
+    """``fill`` (a value of ``dtype``) as the bit pattern of :func:`as_bits`."""
+    return int(as_bits(torch.tensor([fill], dtype=dtype)).item())
+
+
+def pad_to_tiles(x: Tensor, tile: int, fill) -> Tuple[Tensor, int]:
+    """Pad a 1-D tensor to a multiple of ``tile`` with ``fill`` (a value of
+    ``x``'s dtype); padding runs on the bit-pattern view, so it works for
+    every 32-bit key type on every device."""
+    n = x.shape[0]
+    n_pad = (-n) % tile
+    if n_pad:
+        xb = as_bits(x)
+        tail = torch.full((n_pad,), bits_fill(fill, x.dtype), dtype=xb.dtype, device=x.device)
+        x = torch.cat([xb, tail]).view(x.dtype)
+    return x, n_pad
+
+
+def global_scan(hist_per_tile: Tensor) -> Tensor:
+    """Exclusive scan over the bucket-major H (paper §4.1): (L, m) int32
+    tile histograms -> (L, m) int32 bases G, where G[l, b] is the global
+    start of (tile l, bucket b)."""
+    h_t = hist_per_tile.t().reshape(-1)                   # bucket-major
+    g = torch.cumsum(h_t, 0, dtype=torch.int32) - h_t
+    return g.view(hist_per_tile.shape[1], hist_per_tile.shape[0]).t().contiguous()
+
+
+def exclusive_rows(counts: Tensor) -> Tensor:
+    """Exclusive prefix along the last axis: bucket start offsets."""
+    return (torch.cumsum(counts, -1, dtype=torch.int32) - counts).to(torch.int32)
+
+
+def tile_local_offsets(ids: Tensor, m: int) -> Tuple[Tensor, Tensor]:
+    """(stable in-bucket rank, histogram) of one (T,) strip of ids."""
+    rank, hist, _ = tile_rank(ids.reshape(1, -1), m)
+    return rank[0], hist[0]
+
+
+def scatter(src: Tensor, idx: Tensor, n_total: int) -> Tensor:
+    """``out[idx[i]] = src[i]`` for an int64 permutation ``idx`` of
+    ``range(n_total)``, on the int32 bit-pattern view (``index_copy_``)."""
+    sb = as_bits(src.reshape(-1))
+    out = torch.empty((n_total,), dtype=sb.dtype, device=src.device)
+    out.index_copy_(0, idx, sb)
+    return out.view(src.dtype)
+
+
+def direct_solve_ids(
+    keys: Tensor, ids: Tensor, m: int, values: Optional[Tensor]
+) -> MultisplitResult:
+    """O(n·m) direct evaluation of paper eq. (1) on precomputed bucket ids:
+    the whole input is one subproblem."""
+    n = keys.shape[0]
+    if n == 0:
+        zeros = torch.zeros((m,), dtype=torch.int32, device=keys.device)
+        perm = torch.zeros((0,), dtype=torch.int32, device=keys.device)
+        return MultisplitResult(keys, values, zeros, zeros, perm)
+    local, hist = tile_local_offsets(ids, m)
+    starts = exclusive_rows(hist)
+    perm = starts[ids.long()] + local
+    idx = perm.long()
+    keys_out = scatter(keys, idx, n)
+    values_out = scatter(values, idx, n) if values is not None else None
+    return MultisplitResult(keys_out, values_out, starts, hist, perm)
+
+
+def direct_counts(ids: Tensor, m: int) -> Tensor:
+    """Histogram of bucket ids via scatter-add: the counts_only form of the
+    direct solve."""
+    out = torch.zeros((m,), dtype=torch.int32, device=ids.device)
+    return out.index_add_(0, ids.reshape(-1).long(), torch.ones_like(ids.reshape(-1)))

@@ -1,0 +1,215 @@
+// Shared device code of the multisplit tile kernels (paper §4.5, §5.5).
+//
+// One block of kThreads threads runs one tile (the paper's subproblem) of T
+// 32-bit keys. Bucket ids are computed in-register from a declarative spec
+// (repro_torch/core/identifiers.py): they never exist in device memory.
+//
+// The stable in-tile rank is the paper's warp-synchronous WMS/BMS design:
+// each warp owns a contiguous run of the tile and walks it in rounds of 32
+// keys, in order. Inside a round, __match_any_sync groups the lanes of one
+// bucket and popc(peers & lanemask_lt) ranks a lane among them; warp-private
+// per-bucket counters in shared memory carry the rank from round to round.
+// After the walk, an exclusive scan of those counters over the warps gives
+// each warp's offset inside each bucket. Rank = warp offset + counter before
+// the round + rank in the round: stable, with no atomics. Everything is
+// int32, so G[b] + rank is exact for every n < 2^31.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace ms {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxBuckets = 256;     // one thread per bucket in the scans
+constexpr int kLabelBits = 9;        // meta word: rank << kLabelBits | bucket
+constexpr unsigned kFull = 0xffffffffu;
+
+enum SpecKind { kDelta = 0, kIdentity = 1, kBitfield = 2, kRange = 3, kEven = 4 };
+enum KeyKind { kI32 = 0, kU32 = 1, kF32 = 2 };
+
+// A declarative bucket spec, flattened to scalars by the Python wrapper.
+struct Label {
+  int kind;
+  int key_kind;       // KeyKind of the keys
+  int m;              // number of buckets, <= kMaxBuckets
+  unsigned u0;        // delta: delta; bitfield: shift
+  unsigned u1;        // bitfield: mask
+  float f0;           // even: lo (float32)
+  float f1;           // even: width (float32)
+  const uint32_t* splitters;  // range: sorted splitters as compare-plane words
+  int n_split;
+  int plane;          // range: KeyKind of the compare plane
+};
+
+__device__ __forceinline__ float key_as_float(uint32_t w, int key_kind) {
+  if (key_kind == kF32) return __uint_as_float(w);
+  if (key_kind == kU32) return __uint2float_rn(w);
+  return __int2float_rn(static_cast<int>(w));
+}
+
+// splitter s <= key u, in the compare plane (NaN keys compare false).
+__device__ __forceinline__ bool splitter_le(uint32_t s, uint32_t u, const Label& L) {
+  if (L.plane == kU32) return s <= u;
+  if (L.plane == kI32) return static_cast<int>(s) <= static_cast<int>(u);
+  return __uint_as_float(s) <= key_as_float(u, L.key_kind);
+}
+
+// Bucket id of one key word, as identifiers.py defines it. `sp` holds the
+// range splitters in shared memory.
+__device__ __forceinline__ int bucket_of(uint32_t w, const Label& L, const uint32_t* sp) {
+  int b = 0;
+  switch (L.kind) {
+    case kDelta: {
+      // (uint32)u saturates for float keys (NaN -> 0), as XLA's convert does
+      const uint32_t u = L.key_kind == kF32 ? __float2uint_rz(__uint_as_float(w)) : w;
+      const uint32_t q = u / L.u0;
+      b = q < static_cast<uint32_t>(L.m - 1) ? static_cast<int>(q) : L.m - 1;
+      break;
+    }
+    case kIdentity:
+      b = L.key_kind == kF32 ? __float2int_rz(__uint_as_float(w)) : static_cast<int>(w);
+      break;
+    case kBitfield:
+      b = static_cast<int>((w >> L.u0) & L.u1);
+      break;
+    case kRange: {
+      // count of splitters <= key: upper bound in the sorted splitters
+      int lo = 0, hi = L.n_split;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (splitter_le(sp[mid], w, L)) lo = mid + 1; else hi = mid;
+      }
+      b = lo;
+      break;
+    }
+    case kEven: {
+      // IEEE float32 subtract and divide (no fast math), clip in float, NaN last
+      const float x = floorf(__fdiv_rn(__fsub_rn(key_as_float(w, L.key_kind), L.f0), L.f1));
+      b = x != x ? L.m - 1 : static_cast<int>(fminf(fmaxf(x, 0.f), static_cast<float>(L.m - 1)));
+      break;
+    }
+  }
+  // identity keys must lie in [0, m); the clamp only keeps a key outside
+  // that contract from writing out of bounds
+  return min(max(b, 0), L.m - 1);
+}
+
+__device__ __forceinline__ void load_splitters(const Label& L, uint32_t* sp) {
+  if (L.kind == kRange)
+    for (int j = threadIdx.x; j < L.n_split; j += blockDim.x) sp[j] = L.splitters[j];
+}
+
+__device__ __forceinline__ void zero(int* x, int count) {
+  for (int j = threadIdx.x; j < count; j += blockDim.x) x[j] = 0;
+}
+
+// Rounds of 32 keys per warp: warp w owns rounds [w * R, min((w + 1) * R, nr)).
+__device__ __forceinline__ int rounds_per_warp(int T) {
+  const int nr = (T + 31) >> 5;
+  return (nr + kWarps - 1) / kWarps;
+}
+
+// Phase 1: each warp walks its run of the tile in order and counts its keys
+// per bucket in its private row cnt[warp * m + b]. With kMeta, it stores
+// each key's (rank within the warp's run, bucket) in meta[i]; with kKeys,
+// the key word in ks[i]. cnt must be zeroed and the splitters loaded, and
+// the caller synchronises the block afterwards.
+template <bool kMeta, bool kKeys>
+__device__ __forceinline__ void rank_tile(const uint32_t* __restrict__ keys, int T, const Label& L,
+                                          const uint32_t* sp, int* cnt, int* meta, uint32_t* ks) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nr = (T + 31) >> 5, R = rounds_per_warp(T);
+  const int r1 = min((warp + 1) * R, nr);
+  int* mine = cnt + warp * L.m;
+  const unsigned lanemask_lt = (1u << lane) - 1u;
+  for (int rd = warp * R; rd < r1; ++rd) {
+    const int i = (rd << 5) + lane;
+    const bool valid = i < T;
+    const uint32_t w = valid ? keys[i] : 0u;
+    const int b = valid ? bucket_of(w, L, sp) : -1;
+    const unsigned peers = __match_any_sync(kFull, b);
+    const int before = valid ? mine[b] : 0;     // the same value for all peers
+    __syncwarp();
+    if (valid && lane == __ffs(peers) - 1) mine[b] = before + __popc(peers);
+    __syncwarp();
+    if (valid) {
+      if (kMeta) meta[i] = ((before + __popc(peers & lanemask_lt)) << kLabelBits) | b;
+      if (kKeys) ks[i] = w;
+    }
+  }
+}
+
+// Phase 2, one thread per bucket b < m: turn the warp rows of cnt into
+// exclusive offsets over the warps and return the tile's count of b (0 for
+// threads past m).
+__device__ __forceinline__ int warp_offsets(int* cnt, int m) {
+  const int b = threadIdx.x;
+  int run = 0;
+  if (b < m) {
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = cnt[w * m + b];
+      cnt[w * m + b] = run;
+      run += c;
+    }
+  }
+  return run;
+}
+
+// Exclusive scan of one int per thread over the block (kThreads threads).
+// Every thread of the block must call it; wsum holds kWarps ints.
+__device__ __forceinline__ int block_exclusive_scan(int h, int* wsum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = h;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int s = lane < kWarps ? wsum[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < kWarps; d <<= 1) {
+      const int y = __shfl_up_sync(kFull, s, d);
+      if (lane >= d) s += y;
+    }
+    if (lane < kWarps) wsum[lane] = s;
+  }
+  __syncthreads();
+  return (warp ? wsum[warp - 1] : 0) + x - h;
+}
+
+// Opt a kernel in to the dynamic shared memory it needs above 48 KB.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+inline Label make_label(int kind, int key_kind, int m, unsigned u0, unsigned u1, float f0,
+                        float f1, const void* splitters, int n_split, int plane) {
+  Label L;
+  L.kind = kind;
+  L.key_kind = key_kind;
+  L.m = m;
+  L.u0 = u0;
+  L.u1 = u1;
+  L.f0 = f0;
+  L.f1 = f1;
+  L.splitters = static_cast<const uint32_t*>(splitters);
+  L.n_split = n_split;
+  L.plane = plane;
+  return L;
+}
+
+}  // namespace ms
+
+// The label arguments every entry point takes after its own, in this order.
+#define MS_LABEL_PARAMS                                                                  \
+  int kind, int key_kind, int m, unsigned u0, unsigned u1, float f0, float f1,           \
+      const void *splitters, int n_split, int plane
+#define MS_LABEL_ARGS kind, key_kind, m, u0, u1, f0, f1, splitters, n_split, plane

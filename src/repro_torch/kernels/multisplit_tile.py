@@ -1,0 +1,254 @@
+"""The multisplit tile kernels for Hopper, each beside its plain version.
+
+Counterpart of the fused-label kernels of ``repro/kernels/multisplit_tile.py``:
+
+* :func:`spec_tile_histograms` (K1, ``csrc/tile_histograms.cu``) replaces
+  ``spec_tile_histograms_pallas`` (``multisplit_tile.py:368``): keys (L, T)
+  -> (L, m) int32 tile histograms.
+* :func:`spec_fused_postscan_reorder` (K2,
+  ``csrc/fused_postscan_reorder.cu``) replaces
+  ``spec_fused_postscan_reorder_pallas`` (``:460``): keys (L, T), bases G
+  (L, m) and optional values -> (keys_r, vals_r, pos_r, perm).
+* :func:`spec_tile_positions` (K3, ``csrc/tile_positions.cu``) replaces
+  ``spec_tile_positions_pallas`` (``:396``): keys and G -> (L, T) int32
+  destinations ``G[b] + rank``.
+
+Labels are computed inside the kernels from the declarative spec, which
+each wrapper flattens to scalars (:func:`label_args`). Keys and values are
+32-bit words: int32, uint32 or float32.
+
+Dispatch: a wrapper runs its plain version (``*_plain``, pure torch, the
+same function) only for a tensor on the CPU. For a CUDA tensor it launches
+the kernel on the current stream, checks the C function's return code
+(``cudaGetLastError()`` after the launch) and raises on any error; a failed
+build raises too. Nothing falls back. Each wrapper counts its launches in
+its ``launches`` attribute, incremented only where the kernel launches.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.identifiers import (
+    BitfieldSpec,
+    DeltaSpec,
+    EvenSpec,
+    IdentitySpec,
+    RangeSpec,
+)
+from repro_torch.kernels import build, common
+
+Tensor = torch.Tensor
+
+MAX_BUCKETS = 256         # one thread per bucket in the kernels' scans
+MAX_TILE = 8192           # K2 keeps five T-word planes in shared memory
+
+KEY_KINDS = {torch.int32: 0, torch.uint32: 1, torch.float32: 2}
+_SPEC_KINDS = {DeltaSpec: 0, IdentitySpec: 1, BitfieldSpec: 2, RangeSpec: 3, EvenSpec: 4}
+_NP_PLANE = {torch.int32: np.int32, torch.uint32: np.uint32, torch.float32: np.float32}
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch returned a CUDA error."""
+
+
+# ---------------------------------------------------------------------------
+# Spec -> kernel label arguments
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def _splitter_words(spec: RangeSpec, key_dtype: torch.dtype, device: torch.device):
+    """(plane kind, splitters as 32-bit compare-plane words on ``device``)."""
+    plane, vals = spec.compare_plane(key_dtype)
+    words = np.asarray(vals, _NP_PLANE[plane]).view(np.int32)
+    return KEY_KINDS[plane], torch.from_numpy(words.copy()).to(device)
+
+
+def label_args(spec, key_dtype: torch.dtype, device: torch.device) -> Tuple:
+    """The kernels' ten label arguments for ``spec`` over keys of
+    ``key_dtype``: (kind, key_kind, m, u0, u1, f0, f1, splitters, n_split,
+    plane). Raises for a spec or key type the kernels do not take."""
+    kind = _SPEC_KINDS.get(type(spec))
+    if kind is None:
+        raise NotImplementedError(
+            f"the CUDA kernels compute labels for the declarative specs only, "
+            f"not {type(spec).__name__}: materialised-label (ids-strip) kernels "
+            f"are ROADMAP queue B item 7"
+        )
+    if key_dtype not in KEY_KINDS:
+        raise ValueError(f"the CUDA kernels take 32-bit keys (int32, uint32, float32), got {key_dtype}")
+    m = spec.num_buckets
+    if not 1 <= m <= MAX_BUCKETS:
+        raise ValueError(f"the CUDA kernels take 1 <= m <= {MAX_BUCKETS} buckets, got {m}")
+    u0 = u1 = 0
+    f0 = f1 = 0.0
+    splitters, n_split, plane = None, 0, 0
+    if isinstance(spec, DeltaSpec):
+        u0 = spec.delta
+        if u0 >= 1 << 32:
+            raise ValueError(f"DeltaSpec delta {u0} does not fit the kernels' uint32 keys")
+    elif isinstance(spec, BitfieldSpec):
+        spec._check_integer(key_dtype)
+        u0, u1 = spec.shift, spec.mask
+    elif isinstance(spec, RangeSpec):
+        n_split = len(spec.splitters)
+        if n_split:
+            plane, words = _splitter_words(spec, key_dtype, device)
+            splitters = words.data_ptr()
+    elif isinstance(spec, EvenSpec):
+        f0, f1 = float(np.float32(spec.lo)), float(np.float32(spec.width))
+    return (kind, KEY_KINDS[key_dtype], m, u0, u1, f0, f1, splitters, n_split, plane)
+
+
+def _on_cuda(x: Tensor, what: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises for any other."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"{what}: tensors must lie on the CPU or a CUDA device, got {x.device}")
+
+
+def _check_tiles(x: Tensor, shape, what: str, dtypes=tuple(KEY_KINDS)) -> None:
+    if x.dtype not in dtypes:
+        raise ValueError(f"{what} must be one of {dtypes}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{what} must have shape {tuple(shape)}, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def _check_keys(keys_tiled: Tensor) -> Tuple[int, int]:
+    if keys_tiled.dim() != 2:
+        raise ValueError(f"keys must be (L, T) tiles, got shape {tuple(keys_tiled.shape)}")
+    n_tiles, t = keys_tiled.shape
+    _check_tiles(keys_tiled, (n_tiles, t), "keys")
+    if not 1 <= t <= MAX_TILE:
+        raise ValueError(f"the CUDA kernels take tiles of 1..{MAX_TILE} keys, got {t}")
+    return n_tiles, t
+
+
+def _check_bases(g: Tensor, keys_tiled: Tensor, m: int) -> None:
+    _check_tiles(g, (keys_tiled.shape[0], m), "G", (torch.int32,))
+    if g.device != keys_tiled.device:
+        raise ValueError(f"G lies on {g.device}, keys on {keys_tiled.device}")
+
+
+def _stream(x: Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _raise_on(err: int, kernel: str) -> None:
+    if err != 0:
+        raise KernelLaunchError(f"{kernel} kernel launch failed with CUDA error {err}")
+
+
+def _ptr(x: Optional[Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# K1: per-tile histograms (prescan)
+# ---------------------------------------------------------------------------
+
+def spec_tile_histograms_plain(keys_tiled: Tensor, spec) -> Tensor:
+    return common.counts_body(spec.emit(keys_tiled), spec.num_buckets)
+
+
+def spec_tile_histograms(keys_tiled: Tensor, spec) -> Tensor:
+    """(L, T) keys -> (L, m) int32 per-tile histograms; labels in-kernel."""
+    if not _on_cuda(keys_tiled, "spec_tile_histograms"):
+        return spec_tile_histograms_plain(keys_tiled, spec)
+    n_tiles, t = _check_keys(keys_tiled)
+    label = label_args(spec, keys_tiled.dtype, keys_tiled.device)
+    hist = torch.empty((n_tiles, spec.num_buckets), dtype=torch.int32, device=keys_tiled.device)
+    if n_tiles:
+        fn = build.load("tile_histograms")
+        _raise_on(fn(keys_tiled.data_ptr(), hist.data_ptr(), n_tiles, t, *label,
+                     _stream(keys_tiled)), "tile_histograms")
+        spec_tile_histograms.launches += 1
+    return hist
+
+
+# ---------------------------------------------------------------------------
+# K3: DMS postscan (element-order destinations)
+# ---------------------------------------------------------------------------
+
+def spec_tile_positions_plain(keys_tiled: Tensor, g: Tensor, spec) -> Tensor:
+    return common.positions_body(spec.emit(keys_tiled), g, spec.num_buckets)
+
+
+def spec_tile_positions(keys_tiled: Tensor, g: Tensor, spec) -> Tensor:
+    """(L, T) keys + (L, m) int32 bases -> (L, T) int32 destinations
+    ``G[b] + rank`` (paper eq. (2)); labels in-kernel."""
+    if not _on_cuda(keys_tiled, "spec_tile_positions"):
+        return spec_tile_positions_plain(keys_tiled, g, spec)
+    n_tiles, t = _check_keys(keys_tiled)
+    _check_bases(g, keys_tiled, spec.num_buckets)
+    label = label_args(spec, keys_tiled.dtype, keys_tiled.device)
+    pos = torch.empty((n_tiles, t), dtype=torch.int32, device=keys_tiled.device)
+    if n_tiles:
+        fn = build.load("tile_positions")
+        _raise_on(fn(keys_tiled.data_ptr(), g.data_ptr(), pos.data_ptr(), n_tiles, t, *label,
+                     _stream(keys_tiled)), "tile_positions")
+        spec_tile_positions.launches += 1
+    return pos
+
+
+# ---------------------------------------------------------------------------
+# K2: fused WMS/BMS postscan + bucket-major reorder
+# ---------------------------------------------------------------------------
+
+def spec_fused_postscan_reorder_plain(
+    keys_tiled: Tensor, g: Tensor, values_tiled: Optional[Tensor], spec
+) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
+    return common.postscan_body(
+        spec.emit(keys_tiled), g, keys_tiled, values_tiled, spec.num_buckets
+    )
+
+
+def spec_fused_postscan_reorder(
+    keys_tiled: Tensor, g: Tensor, values_tiled: Optional[Tensor], spec
+) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
+    """(L, T) keys, (L, m) int32 bases [+ (L, T) values] -> (keys_r,
+    vals_r, pos_r, perm): the first three stably bucket-major within each
+    tile, ``pos_r`` the global destination of each reordered slot, ``perm``
+    the element-order destination. Labels in-kernel."""
+    if not _on_cuda(keys_tiled, "spec_fused_postscan_reorder"):
+        return spec_fused_postscan_reorder_plain(keys_tiled, g, values_tiled, spec)
+    n_tiles, t = _check_keys(keys_tiled)
+    _check_bases(g, keys_tiled, spec.num_buckets)
+    if values_tiled is not None:
+        _check_tiles(values_tiled, (n_tiles, t), "values")
+        if values_tiled.device != keys_tiled.device:
+            raise ValueError(f"values lie on {values_tiled.device}, keys on {keys_tiled.device}")
+    label = label_args(spec, keys_tiled.dtype, keys_tiled.device)
+    keys_r = torch.empty_like(keys_tiled)
+    vals_r = torch.empty_like(values_tiled) if values_tiled is not None else None
+    pos_r = torch.empty((n_tiles, t), dtype=torch.int32, device=keys_tiled.device)
+    perm = torch.empty_like(pos_r)
+    if n_tiles:
+        fn = build.load("fused_postscan_reorder")
+        _raise_on(fn(keys_tiled.data_ptr(), g.data_ptr(), _ptr(values_tiled), keys_r.data_ptr(),
+                     _ptr(vals_r), pos_r.data_ptr(), perm.data_ptr(), n_tiles, t, *label,
+                     _stream(keys_tiled)), "fused_postscan_reorder")
+        spec_fused_postscan_reorder.launches += 1
+    return keys_r, vals_r, pos_r, perm
+
+
+KERNELS = (spec_tile_histograms, spec_fused_postscan_reorder, spec_tile_positions)
+reset_launches()

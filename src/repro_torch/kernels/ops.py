@@ -1,0 +1,32 @@
+"""The kernel doors the pipeline calls (counterpart of
+``repro/kernels/ops.py:129-152``).
+
+Each door takes tiled tensors and a declarative spec and dispatches on the
+tensors' device through the wrappers of
+:mod:`repro_torch.kernels.multisplit_tile`: the CUDA kernel for a CUDA
+tensor, the plain version for a CPU one.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import multisplit_tile as _mst
+
+Tensor = torch.Tensor
+
+
+def spec_tile_histograms(keys_tiled: Tensor, spec) -> Tensor:
+    return _mst.spec_tile_histograms(keys_tiled, spec)
+
+
+def spec_tile_positions(keys_tiled: Tensor, g: Tensor, spec) -> Tensor:
+    return _mst.spec_tile_positions(keys_tiled, g, spec)
+
+
+def spec_fused_postscan_reorder(
+    keys_tiled: Tensor, g: Tensor, values_tiled: Optional[Tensor], spec
+) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
+    return _mst.spec_fused_postscan_reorder(keys_tiled, g, values_tiled, spec)
