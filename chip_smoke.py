@@ -14,6 +14,10 @@ Phases, one line or more each, every one of which must pass:
    card: the main path's shapes (n = 2^25 keys in 8192 tiles of 4096), every
    spec kind, m in {2, 32, 256}, key-only and key-value, int32 / uint32 /
    float32 keys, NaN and inf keys, bases G above 2^24, ragged tiles.
+   The segmented kernels K1s-K3s likewise: the segmented main path's
+   shapes, every spec kind with ragged segment strips that hold empty
+   segments, bases above 2^24, and a strip of about 50,000 one- to
+   eight-key segments (hundreds of runs a tile).
 4. main    — the port's entry points at the paper's size, n = 2^25 uniform
    random 32-bit keys on the cuda backend: ``ops.multisplit`` for
    ``DeltaSpec(m, 2^32)`` (equal widths over the whole key range, so the
@@ -21,10 +25,17 @@ Phases, one line or more each, every one of which must pass:
    key-only and key-value; ``ops.histogram``; ``ops.radix_sort`` at r = 8 (4 passes), key-only and
    key-value. Every result is held bitwise against a stable ``torch.sort``
    of the labels (``rb_sort_multisplit``), or of the keys for the sort.
-5. launches — every kernel's launch count from the main path's run alone.
-6. times   — per kernel: ms, the plain version's ms, the bound (bytes moved
+5. segmented — the segmented entry points, held bitwise against a stable
+   ``torch.sort`` of the int64 combined key: S1 ``ops.segmented_multisplit``
+   at n = 2^25 over 64 ragged segments (``DeltaSpec(32, 2^32)``, m_eff =
+   2048), bms and dms, key-only and key-value, positions_only and
+   counts_only; S2 ``ops.segmented_radix_sort`` at n = 2^25 over 16
+   segments, r = 8; S3 the serving routing launch, 2^20 expert ids over 256
+   requests (``IdentitySpec(64)``, dms, positions_only).
+6. launches — every kernel's launch count from its main path's run alone.
+7. times   — per kernel: ms, the plain version's ms, the bound (bytes moved
    over 3.35 TB/s, the H100 SXM data-sheet rate) and one PyTorch call as a
-   yardstick; end to end: ms and Gkeys/s; peak device memory.
+   yardstick; end to end: ms and Gkeys/s; stage splits; peak device memory.
 
 The last lines are the ``nvidia-smi`` line, one JSON line of the kernels
 and ``{"ok": true, "device": {...}}``. The script exits non-zero, printing
@@ -46,6 +57,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 N_MAIN = 1 << 25
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 SEED = 0
+# K1-K3 at n = 2^25, m = 256 on an H100 80GB HBM3 at 700 W, as this script
+# measured them when they were added (PERF.md's kernel table)
+FLAT_MS_BEFORE = {"spec_tile_histograms": 0.3485, "spec_fused_postscan_reorder": 0.7949,
+                  "spec_tile_positions": 0.3852}
 
 
 def log(phase: str, msg: str) -> None:
@@ -123,7 +138,7 @@ def main() -> int:
         return ops.DeltaSpec(m, 1 << 32)
 
     # ---- 3. kernels against their plain versions
-    errs = {"spec_tile_histograms": 0, "spec_fused_postscan_reorder": 0, "spec_tile_positions": 0}
+    errs = {fn.__name__: 0 for fn in mst.KERNELS}
     n_checks = 0
 
     def check_case(what, keys_tiled, spec, values_tiled, g_offset=0):
@@ -205,6 +220,103 @@ def main() -> int:
                    f"float32 keys, key-only and key-value, G above 2^24: all bitwise equal "
                    f"({time.perf_counter() - t0:.1f} s)")
 
+    # ---- 3b. the segmented kernels K1s-K3s against their plain versions
+    def ragged_starts(n, s, rng, empty=(), fixed=None):
+        """s start offsets over n: the segments in ``empty`` hold no key,
+        those in ``fixed`` the given number, the others random shares."""
+        fixed = dict(fixed or {})
+        lens = np.zeros(s, np.int64)
+        free = [i for i in range(s) if i not in empty and i not in fixed]
+        for i, k in fixed.items():
+            lens[i] = k
+        w = rng.random(len(free)) + 0.05
+        share = np.floor(w / w.sum() * (n - lens.sum())).astype(np.int64)
+        share[-1] += n - lens.sum() - share.sum()
+        lens[free] = share
+        assert lens.min() >= 0 and lens.sum() == n
+        return (np.cumsum(lens) - lens).astype(np.int32)
+
+    def seg_strip(starts, shape):
+        return st.segment_ids_from_starts(torch.from_numpy(starts).to(dev), shape[0] * shape[1]).view(shape)
+
+    def check_seg_case(what, keys_tiled, seg_tiled, s, spec, values_tiled, g_offset=0):
+        nonlocal n_checks
+        h_plain = mst.seg_spec_tile_histograms_plain(keys_tiled, seg_tiled, spec, s)
+        e1 = max_err(mst.seg_spec_tile_histograms(keys_tiled, seg_tiled, spec, s), h_plain)
+        g = st.global_scan(h_plain) + g_offset
+        del h_plain
+        e3 = max_err(mst.seg_spec_tile_positions(keys_tiled, seg_tiled, g, spec, s),
+                     mst.seg_spec_tile_positions_plain(keys_tiled, seg_tiled, g, spec, s))
+        e2 = 0
+        for vals in (None, values_tiled):
+            got = mst.seg_spec_fused_postscan_reorder(keys_tiled, seg_tiled, g, vals, spec, s)
+            want = mst.seg_spec_fused_postscan_reorder_plain(keys_tiled, seg_tiled, g, vals, spec, s)
+            e2 = max(e2, *(max_err(a, b) for a, b in zip(got, want)))
+        torch.cuda.synchronize()
+        errs["seg_spec_tile_histograms"] = max(errs["seg_spec_tile_histograms"], e1)
+        errs["seg_spec_tile_positions"] = max(errs["seg_spec_tile_positions"], e3)
+        errs["seg_spec_fused_postscan_reorder"] = max(errs["seg_spec_fused_postscan_reorder"], e2)
+        n_checks += 1
+        if e1 or e2 or e3:
+            raise AssertionError(f"segmented kernel != plain for {what}: K1s {e1}, K2s {e2}, K3s {e3}")
+
+    t0, n0 = time.perf_counter(), n_checks
+    # (a) the segmented main path's shapes: S1 (m = 32, s = 64), S2 (radix
+    # digits, s = 16) and S3 (IdentitySpec(64), s = 256 over 2^20 keys)
+    s1_starts = ragged_starts(N_MAIN, 64, np_rng, empty=(0, 31, 63), fixed={7: 1, 40: 1000})
+    s2_starts = ragged_starts(N_MAIN, 16, np_rng, empty=(5,))
+    n3 = 1 << 20
+    s3_starts = ragged_starts(n3, 256, np_rng, empty=tuple(range(0, 256, 37)),
+                              fixed={3: 1, 100: 17})
+    seg_main = seg_strip(s1_starts, (l_main, t_main))
+    check_seg_case("S1 shape", keys_main, seg_main, 64, main_spec(32), vals_main)
+    seg2_main = seg_strip(s2_starts, (l_main, t_main))
+    for shift in (0, 24):
+        check_seg_case(f"S2 shape digit {shift}", keys_main, seg2_main, 16,
+                       ops.BitfieldSpec(shift, 8), vals_main)
+    del seg2_main
+    ids3 = torch.randint(0, 64, (n3 // 4096, 4096), dtype=torch.int32, device=dev, generator=gen)
+    check_seg_case("S3 shape", ids3, seg_strip(s3_starts, (n3 // 4096, 4096)), 256,
+                   ops.IdentitySpec(64), None)
+    # (b) every spec kind, m in (2, 32, 256), every key type, ragged strips
+    for shape, s in (((64, 4096), 37), ((3, 1000), 5), ((5, 100), 9)):
+        for dtype in (torch.int32, torch.uint32, torch.float32):
+            lo, hi = spans[dtype]
+            for m in (2, 32, 256):
+                starts = ragged_starts(shape[0] * shape[1], s, np_rng, empty=(1, s - 1),
+                                       fixed={2: 1})
+                seg = seg_strip(starts, shape)
+                vals = rand_i32(shape)
+                specs = [(ops.DeltaSpec(m), keys_for(dtype, shape, lo, hi)),
+                         (ops.EvenSpec(-3.7, 11.3, m), keys_for(dtype, shape, -5, 14)),
+                         (ops.IdentitySpec(m), keys_for(dtype, shape, 0, m))]
+                if dtype != torch.float32:
+                    specs.append((ops.BitfieldSpec({2: 31, 32: 7, 256: 24}[m], m.bit_length() - 1),
+                                  keys_for(dtype, shape, lo, hi)))
+                sp = (np_rng.uniform(lo, hi, m - 1).astype(np.float32).tolist()
+                      if dtype == torch.float32 else np_rng.integers(lo, hi, m - 1).tolist())
+                specs.append((ops.RangeSpec(tuple(sp)), keys_for(dtype, shape, lo, hi)))
+                for spec, keys in specs:
+                    check_seg_case(f"{spec.name} {dtype} {shape} s={s}", keys, seg, s, spec, vals)
+                # (c) bases past 2^24
+                check_seg_case(f"{specs[0][0].name} {dtype} {shape} G+2^24", specs[0][1], seg, s,
+                               specs[0][0], vals, g_offset=(1 << 24) + 1)
+    # (d) one- to eight-key segments: hundreds of runs in every tile
+    for shape, m in (((64, 4096), 2), ((16, 4096), 256)):
+        lens = np_rng.integers(1, 9, shape[0] * shape[1])
+        starts = (np.cumsum(lens) - lens)
+        starts = starts[starts < shape[0] * shape[1]].astype(np.int32)
+        keys = keys_for(torch.uint32, shape, 0, 2**32)
+        check_seg_case(f"{starts.size} tiny segments m={m}", keys, seg_strip(starts, shape),
+                       starts.size, ops.DeltaSpec(m, 1 << 32), rand_i32(shape))
+        log("kernels", f"{starts.size} segments of 1-8 keys over {shape}, m = {m}: K1s-K3s "
+                       f"bitwise equal")
+    del ids3, seg_main
+    log("kernels", f"{n_checks - n0} segmented cases (main shapes of S1-S3, every spec kind, "
+                   f"m in (2, 32, 256), int32/uint32/float32 keys, empty segments, G above "
+                   f"2^24, tiny segments): K1s-K3s all bitwise equal "
+                   f"({time.perf_counter() - t0:.1f} s)")
+
     # ---- 4. main path at the paper's size, with the launch counts of that run alone
     keys = rand_i32((N_MAIN,)).view(torch.uint32)
     values = rand_i32((N_MAIN,))
@@ -258,15 +370,108 @@ def main() -> int:
 
     # ---- 5. launches
     for name, count in launches.items():
-        log("launches", f"{name}: {count}")
-        if count == 0:
+        log("launches", f"flat path: {name}: {count}")
+        if count == 0 and not name.startswith("seg_"):
             raise AssertionError(f"{name} was never launched on the main path")
     # per run: a multisplit launches K1 once and K2 (bms) or K3 (dms) once; a
     # histogram K1 once; a radix sort K1 and K2 once a pass, 4 passes
     expect = {"spec_tile_histograms": 12 + 3 + 8, "spec_fused_postscan_reorder": 6 + 8,
-              "spec_tile_positions": 6}
+              "spec_tile_positions": 6, "seg_spec_tile_histograms": 0,
+              "seg_spec_fused_postscan_reorder": 0, "seg_spec_tile_positions": 0}
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
+
+    # ---- 5b. the segmented main path, with its own launch counts
+    def seg_oracle(keys, starts, spec, values=None):
+        """Stable torch.sort of the int64 combined key seg·m + label."""
+        m = spec.num_buckets
+        n = keys.shape[0]
+        starts_t = torch.from_numpy(starts).to(dev)
+        seg = st.segment_ids_from_starts(starts_t, n)
+        cid = seg.long() * m + spec.emit(keys).long()
+        _, order = torch.sort(cid, stable=True)
+        counts = torch.bincount(cid, minlength=len(starts) * m).to(torch.int32).view(-1, m)
+        dest = torch.empty(n, dtype=torch.int32, device=dev)
+        dest[order] = torch.arange(n, dtype=torch.int32, device=dev)
+        return ops.MultisplitResult(
+            bits(keys)[order].view(keys.dtype),
+            None if values is None else bits(values)[order].view(values.dtype),
+            st.exclusive_rows(counts), counts, dest - starts_t.index_select(0, seg))
+
+    def check_result(what, got, want, fields):
+        for f in fields:
+            if max_err(getattr(got, f), getattr(want, f)):
+                raise AssertionError(f"{what}: {f} differs from the stable-sort oracle")
+
+    def seg_sort_oracle(keys, starts, values=None):
+        seg = st.segment_ids_from_starts(torch.from_numpy(starts).to(dev), keys.shape[0])
+        _, order = torch.sort((seg.long() << 32) | (bits(keys).long() & 0xFFFFFFFF), stable=True)
+        return bits(keys)[order].view(keys.dtype), None if values is None else values[order]
+
+    spec1 = main_spec(32)
+    ids3_flat = torch.randint(0, 64, (n3,), dtype=torch.int32, device=dev, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mst.reset_launches()
+    t0 = time.perf_counter()
+    seg_runs = {}
+    for method in ("bms", "dms"):
+        seg_runs[(method, False)] = ops.segmented_multisplit(keys, spec1, s1_starts, method=method,
+                                                             device=dev)
+        seg_runs[(method, True)] = ops.segmented_multisplit(keys, spec1, s1_starts, values,
+                                                            method=method, device=dev)
+    seg_runs["positions_only"] = ops.segmented_multisplit(keys, spec1, s1_starts,
+                                                          mode="positions_only", device=dev)
+    seg_runs["counts_only"] = ops.segmented_multisplit(keys, spec1, s1_starts,
+                                                       mode="counts_only", device=dev)
+    seg_runs["S2"] = ops.segmented_radix_sort(keys, s2_starts, device=dev)
+    seg_runs["S2 kv"] = ops.segmented_radix_sort(keys, s2_starts, values, device=dev)
+    seg_runs["S3"] = ops.segmented_multisplit(ids3_flat, ops.IdentitySpec(64), s3_starts,
+                                              method="dms", mode="positions_only", device=dev)
+    torch.cuda.synchronize()
+    seg_s = time.perf_counter() - t0
+    seg_launches = mst.launch_counts()
+    peak_seg = torch.cuda.max_memory_allocated() - base_mem
+    log("segmented", f"S1 4 multisplits + positions_only + counts_only (n = 2^25, s = 64, m = 32), "
+                     f"S2 2 radix sorts (s = 16), S3 routing (n = 2^20, s = 256, m = 64) in "
+                     f"{seg_s:.2f} s (first calls); peak device memory above the inputs "
+                     f"{peak_seg / 2**30:.2f} GiB")
+    want = seg_oracle(keys, s1_starts, spec1, values)
+    for (method, kv), got in [(k, v) for k, v in seg_runs.items() if isinstance(k, tuple)]:
+        check_result(f"S1 {method} kv={kv}", got, want if kv else want._replace(values=None),
+                     ("keys", "values", "bucket_starts", "bucket_counts", "permutation"))
+    check_result("S1 positions_only", seg_runs["positions_only"],
+                 want._replace(keys=None, values=None),
+                 ("keys", "values", "bucket_starts", "bucket_counts", "permutation"))
+    check_result("S1 counts_only", seg_runs["counts_only"],
+                 want._replace(keys=None, values=None, permutation=None),
+                 ("keys", "values", "bucket_starts", "bucket_counts", "permutation"))
+    del want
+    want_k, want_v = seg_sort_oracle(keys, s2_starts, values)
+    if max_err(seg_runs["S2"][0], want_k) or seg_runs["S2"][1] is not None:
+        raise AssertionError("S2 segmented_radix_sort keys differ")
+    if max_err(seg_runs["S2 kv"][0], want_k) or max_err(seg_runs["S2 kv"][1], want_v):
+        raise AssertionError("S2 segmented_radix_sort key-value differs")
+    del want_k, want_v
+    check_result("S3 routing", seg_runs["S3"],
+                 seg_oracle(ids3_flat, s3_starts, ops.IdentitySpec(64))._replace(keys=None),
+                 ("keys", "values", "bucket_starts", "bucket_counts", "permutation"))
+    del seg_runs
+    log("segmented", "S1 (bms, dms, key-only, key-value, positions_only, counts_only), S2 and S3 "
+                     "are bitwise equal to the stable-sort oracle")
+    for name, count in seg_launches.items():
+        log("launches", f"segmented path: {name}: {count}")
+    # S1: K1s in each of the 6 calls, K2s in the 2 bms calls, K3s in the 2
+    # dms calls and positions_only; S2: K1s and K2s once a pass, 2 x 4
+    # passes; S3: K1s and K3s once
+    seg_expect = {name: 0 for name in expect}
+    seg_expect.update({"seg_spec_tile_histograms": 6 + 8 + 1,
+                       "seg_spec_fused_postscan_reorder": 2 + 8,
+                       "seg_spec_tile_positions": 3 + 1})
+    if seg_launches != seg_expect:
+        raise AssertionError(f"segmented launch counts {seg_launches} != expected {seg_expect}")
+    for name, count in seg_launches.items():
+        launches[name] = launches.get(name, 0) + count
 
     # ---- 6. times
     def cuda_ms(fn, reps=7, inner=3) -> float:
@@ -318,11 +523,69 @@ def main() -> int:
             "bitwise": errs[name] == 0, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": lib_ms,
         })
+        log("times", f"{name}: {ms_k:.4f} ms (when added: {FLAT_MS_BEFORE[name]:.4f} ms; bound "
+                     f"{bound:.4f} ms = {nbytes / 2**20:.0f} MiB / 3.35 TB/s, {bound / ms_k:.1%} of "
+                     f"it), plain {ms_p:.2f} ms, library {lib_ms:.4f} ms; {launches[name]} launches "
+                     f"on the main path [n = 2^25, {spec}, tiles 8192 x 4096; {smi}]")
+    del g, cid
+
+    # the segmented kernels at S1's shape: 8192 tiles of 4096, s = 64, m = 32
+    s, m1 = 64, spec1.num_buckets
+    seg_main = seg_strip(s1_starts, (l_main, t_main))
+    hist1 = mst.seg_spec_tile_histograms_plain(kt, seg_main, spec1, s)
+    g1 = st.global_scan(hist1)
+    # K1s writes its whole (L, s·m) row; K2s and K3s need only the bases
+    # their keys hit, one for each distinct (tile, cid): the nonzeros of H
+    hbytes = 4 * l_main * s * m1
+    gbytes_hit = 4 * int(torch.count_nonzero(hist1))
+    del hist1
+    cid1 = (torch.arange(l_main, device=dev, dtype=torch.int32)[:, None] * (s * m1)
+            + seg_main * m1 + spec1.emit(kt)).view(-1)
+    sort1_ms = cuda_ms(lambda: torch.sort(cid1, stable=True))
+    log("times", f"G bases the S1 keys hit: {gbytes_hit // 4} of {hbytes // 4} "
+                 f"({gbytes_hit / 2**20:.2f} of {hbytes / 2**20:.0f} MiB)")
+    seg_rows = [
+        ("seg_spec_tile_histograms", "seg_tile_histograms.cu",
+         "src/repro/kernels/multisplit_tile.py:512",
+         lambda: mst.seg_spec_tile_histograms(kt, seg_main, spec1, s),
+         lambda: mst.seg_spec_tile_histograms_plain(kt, seg_main, spec1, s),
+         4 * n + 4 * n + hbytes,
+         cuda_ms(lambda: torch.bincount(cid1, minlength=l_main * s * m1))),
+        ("seg_spec_fused_postscan_reorder", "seg_fused_postscan_reorder.cu",
+         "src/repro/kernels/multisplit_tile.py:587",
+         lambda: mst.seg_spec_fused_postscan_reorder(kt, seg_main, g1, vt, spec1, s),
+         lambda: mst.seg_spec_fused_postscan_reorder_plain(kt, seg_main, g1, vt, spec1, s),
+         4 * n + 4 * n + gbytes_hit + 4 * n + 16 * n, sort1_ms),
+        ("seg_spec_tile_positions", "seg_tile_positions.cu",
+         "src/repro/kernels/multisplit_tile.py:544",
+         lambda: mst.seg_spec_tile_positions(kt, seg_main, g1, spec1, s),
+         lambda: mst.seg_spec_tile_positions_plain(kt, seg_main, g1, spec1, s),
+         4 * n + 4 * n + gbytes_hit + 4 * n, sort1_ms),
+    ]
+    for name, src, replaces, kern, plain, nbytes, lib_ms in seg_rows:
+        ms_k = cuda_ms(kern)
+        ms_p = cuda_ms(plain, reps=3, inner=1)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
+            "bitwise": errs[name] == 0, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": lib_ms,
+        })
         log("times", f"{name}: {ms_k:.4f} ms (bound {bound:.4f} ms = {nbytes / 2**20:.0f} MiB / "
                      f"3.35 TB/s, {bound / ms_k:.1%} of it), plain {ms_p:.2f} ms, library "
-                     f"{lib_ms:.4f} ms; {launches[name]} launches on the main path "
-                     f"[n = 2^25, {spec}, tiles 8192 x 4096; {smi}]")
-    del g, cid
+                     f"{lib_ms:.4f} ms; {launches[name]} launches on the segmented path "
+                     f"[S1: n = 2^25, s = 64, {spec1}, m_eff = 2048, tiles 8192 x 4096; {smi}]")
+    # the flat kernels at S1's m and keys: what the segment layer adds
+    g32 = st.global_scan(mst.spec_tile_histograms_plain(kt, spec1))
+    same_m = {
+        "K1": cuda_ms(lambda: mst.spec_tile_histograms(kt, spec1)),
+        "K2 key-value": cuda_ms(lambda: mst.spec_fused_postscan_reorder(kt, g32, vt, spec1)),
+        "K3": cuda_ms(lambda: mst.spec_tile_positions(kt, g32, spec1)),
+    }
+    log("times", "flat kernels at S1's m = 32 on the same keys: " + "; ".join(
+        f"{k} {v:.4f} ms" for k, v in same_m.items()) + f" [{smi}]")
+    del cid1, g1, g32
 
     e2e = {
         "multisplit kv bms m=256": (lambda: ops.multisplit(keys, spec, values, method="bms", device=dev),
@@ -338,11 +601,45 @@ def main() -> int:
         "radix_sort kv r=8": (lambda: ops.radix_sort(keys, values, device=dev),
                               lambda: torch.sort(bits(keys) ^ torch.iinfo(torch.int32).min, stable=True)),
     }
+    s1_t = torch.from_numpy(s1_starts).to(dev)
+    s2_t = torch.from_numpy(s2_starts).to(dev)
+    s3_t = torch.from_numpy(s3_starts).to(dev)
+
+    def combined_sort(k, starts_t, spec_):
+        seg = st.segment_ids_from_starts(starts_t, k.shape[0])
+        return torch.sort(seg.long() * spec_.num_buckets + spec_.emit(k).long(), stable=True)
+
+    def seg_key_sort(k, starts_t):
+        seg = st.segment_ids_from_starts(starts_t, k.shape[0])
+        return torch.sort((seg.long() << 32) | (bits(k).long() & 0xFFFFFFFF), stable=True)
+
+    e2e.update({
+        "S1 segmented_multisplit kv bms s=64 m=32": (
+            lambda: ops.segmented_multisplit(keys, spec1, s1_t, values, method="bms", device=dev),
+            lambda: combined_sort(keys, s1_t, spec1)),
+        "S2 segmented_radix_sort s=16 r=8": (
+            lambda: ops.segmented_radix_sort(keys, s2_t, device=dev),
+            lambda: seg_key_sort(keys, s2_t)),
+        "S2 segmented_radix_sort kv s=16 r=8": (
+            lambda: ops.segmented_radix_sort(keys, s2_t, values, device=dev),
+            lambda: seg_key_sort(keys, s2_t)),
+        "S3 routing positions_only s=256 m=64 n=2^20": (
+            lambda: ops.segmented_multisplit(ids3_flat, ops.IdentitySpec(64), s3_t, method="dms",
+                                             mode="positions_only", device=dev),
+            lambda: combined_sort(ids3_flat, s3_t, ops.IdentitySpec(64))),
+        # the serving step's own input: starts as a host numpy array
+        "S3 routing, host starts": (
+            lambda: ops.segmented_multisplit(ids3_flat, ops.IdentitySpec(64), s3_starts,
+                                             method="dms", mode="positions_only", device=dev),
+            lambda: combined_sort(ids3_flat, s3_t, ops.IdentitySpec(64))),
+    })
     torch.cuda.reset_peak_memory_stats()
     for what, (fn, lib) in e2e.items():
         ms_e, ms_l = cuda_ms(fn, reps=5, inner=1), cuda_ms(lib, reps=5, inner=1)
-        log("times", f"end to end {what}: {ms_e:.3f} ms = {n / ms_e / 1e6:.2f} Gkeys/s; "
-                     f"library (stable torch.sort / bincount) {ms_l:.3f} ms [{smi}]")
+        n_keys = n3 if what.startswith("S3") else n
+        log("times", f"end to end {what}: {ms_e:.3f} ms = {n_keys / ms_e / 1e6:.2f} Gkeys/s; "
+                     f"library (stable torch.sort / bincount; for S1-S3 the oracle's sort of the "
+                     f"combined key) {ms_l:.3f} ms [{smi}]")
     # where the time of one key-value bms multisplit (m = 256) goes, stage by stage
     from repro_torch.core.pipeline import make_plan
 
@@ -360,6 +657,46 @@ def main() -> int:
     log("times", "stages of multisplit kv bms m=256: " + "; ".join(
         f"{k} {v:.4f} ms" for k, v in stage_ms.items()) + f" [{smi}]")
     del hist, g, src_k, src_v, pos
+    # where the time of one S1 key-value bms segmented multisplit goes
+    plan = make_plan(n, m1, method="bms", key_value=True, backend="cuda", bucket_fn=spec1,
+                     segments=s)
+    hist = plan.prescan(kt, None, seg_main)
+    g = st.global_scan(hist)
+    src_k, src_v, pos, _ = plan.postscan(g, kt, None, vt, seg_main)
+    stage_ms = {
+        "segment ids (prefix sum of start marks)": cuda_ms(lambda: st.segment_ids_from_starts(s1_t, n)),
+        "prescan K1s": cuda_ms(lambda: plan.prescan(kt, None, seg_main)),
+        "global scan (8192 x 2048)": cuda_ms(lambda: st.global_scan(hist)),
+        "postscan K2s": cuda_ms(lambda: plan.postscan(g, kt, None, vt, seg_main)),
+        "scatter (int64 index + 2 index_copy_)": cuda_ms(lambda: (
+            lambda idx: (st.scatter(src_k, idx, n), st.scatter(src_v, idx, n)))(pos.reshape(-1).long())),
+    }
+    log("times", "stages of S1 segmented multisplit kv bms s=64 m=32: " + "; ".join(
+        f"{k} {v:.4f} ms" for k, v in stage_ms.items()) + f" [{smi}]")
+    del hist, g, src_k, src_v, pos, seg_main
+    # the device stages of one S3 routing launch, each timed alone: their
+    # sum against the end-to-end calls above is what the host adds
+    spec3 = ops.IdentitySpec(64)
+    plan = make_plan(n3, 64, method="dms", backend="cuda", bucket_fn=spec3, segments=256,
+                     mode="positions_only")
+    seg3 = st.segment_ids_from_starts(s3_t, n3)
+    ids3_t, seg3_t = ids3_flat.view(-1, plan.tile), seg3.view(-1, plan.tile)
+    hist = plan.prescan(ids3_t, None, seg3_t)
+    g = st.global_scan(hist)
+    pos = plan.postscan(g, ids3_t, None, None, seg3_t)[2]
+    stage_ms = {
+        "segment ids": cuda_ms(lambda: st.segment_ids_from_starts(s3_t, n3)),
+        "prescan K1s": cuda_ms(lambda: plan.prescan(ids3_t, None, seg3_t)),
+        "global scan (256 x 16384)": cuda_ms(lambda: st.global_scan(hist)),
+        "postscan K3s": cuda_ms(lambda: plan.postscan(g, ids3_t, None, None, seg3_t)),
+        "counts, starts, segment-local perm": cuda_ms(lambda: (
+            st.exclusive_rows(hist.sum(0, dtype=torch.int32).view(256, 64)),
+            pos.reshape(-1) - s3_t.index_select(0, seg3))),
+    }
+    log("times", "device stages of S3 routing (each alone): " + "; ".join(
+        f"{k} {v:.4f} ms" for k, v in stage_ms.items())
+        + f"; sum {sum(stage_ms.values()):.4f} ms [{smi}]")
+    del hist, g, pos, seg3
     log("times", f"peak device memory of the timed runs above the inputs: "
                  f"{(torch.cuda.max_memory_allocated() - base_mem) / 2**30:.2f} GiB")
 

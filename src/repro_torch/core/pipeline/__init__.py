@@ -1,4 +1,4 @@
-"""The multisplit stage-graph pipeline, flat layout (counterpart of
+"""The multisplit stage-graph pipeline, flat and segmented layouts (counterpart of
 ``repro/core/pipeline``): {local prescan} → {one global scan} → {local
 postscan} (paper §4.1).
 
@@ -28,6 +28,8 @@ from repro_torch.core.pipeline.spec import (
     PipelineSpec,
     make_plan,
     make_radix_plan,
+    make_segmented_plan,
+    make_segmented_radix_plan,
 )
 from repro_torch.core.pipeline.stages import (
     MultisplitResult,
@@ -36,6 +38,8 @@ from repro_torch.core.pipeline.stages import (
     exclusive_rows,
     global_scan,
     pad_to_tiles,
+    seg_tile_local,
+    segment_ids_from_starts,
     tile_local_offsets,
 )
 from repro_torch.core.pipeline.tiles import (
@@ -52,7 +56,8 @@ __all__ = [
     "MultisplitPlan", "MultisplitResult", "PipelineSpec", "RadixPipeline",
     "StageImpl", "VmapStages", "WMS_TILE", "backend_names",
     "direct_counts", "direct_solve_ids", "exclusive_rows", "get_backend",
-    "global_scan", "make_plan", "make_radix_plan", "pad_to_tiles",
-    "radix_passes", "register_backend", "resolve_kernel_family",
-    "resolve_tile", "tile_local_offsets",
+    "global_scan", "make_plan", "make_radix_plan", "make_segmented_plan",
+    "make_segmented_radix_plan", "pad_to_tiles", "radix_passes",
+    "register_backend", "resolve_kernel_family", "resolve_tile",
+    "seg_tile_local", "segment_ids_from_starts", "tile_local_offsets",
 ]

@@ -9,8 +9,8 @@ backend's prescan / postscan-positions / postscan-reorder over pre-tiled
 * ``reference`` — the O(n·m) direct solve, untiled: the oracle.
 * ``vmap`` — tiled pure-torch stages (the plain in-tile bodies of
   :mod:`repro_torch.kernels.common`), the analogue of ``VmapStages``.
-* ``cuda`` — the hand-written Hopper kernels K1-K3 with in-kernel labels
-  (:mod:`repro_torch.kernels.ops`). On CPU tensors the kernel wrappers run
+* ``cuda`` — the hand-written Hopper kernels K1-K3 (flat) and K1s-K3s
+  (segmented) with in-kernel labels (:mod:`repro_torch.kernels.ops`). On CPU tensors the kernel wrappers run
   their plain versions; on CUDA tensors they launch the kernels or raise.
 """
 
@@ -32,63 +32,84 @@ class StageImpl:
     ``(L, tile)`` buffers. ``spec`` is the resolved
     :class:`~repro_torch.core.pipeline.spec.PipelineSpec`; ``ids_tiled is
     None`` selects fused labels (computed inside the stage from
-    ``spec.bucket_fn``)."""
+    ``spec.bucket_fn``) and ``seg_tiled is not None`` the segmented layout
+    (the combined id ``seg·m + b``)."""
 
-    def prescan(self, spec, keys_tiled, ids_tiled) -> Tensor:
+    def prescan(self, spec, keys_tiled, ids_tiled, seg_tiled) -> Tensor:
         raise NotImplementedError
 
-    def positions(self, spec, g, keys_tiled, ids_tiled) -> Tensor:
+    def positions(self, spec, g, keys_tiled, ids_tiled, seg_tiled) -> Tensor:
         raise NotImplementedError
 
-    def reorder(self, spec, g, keys_tiled, ids_tiled, vals_tiled):
+    def reorder(self, spec, g, keys_tiled, ids_tiled, vals_tiled, seg_tiled):
         raise NotImplementedError
 
 
 class KernelStages(StageImpl):
     """The CUDA kernel stages: one block per tile, labels in-kernel from the
-    plan's declarative spec. They take fused labels only: materialised-label
-    (ids-strip) kernels are ROADMAP queue B item 7."""
+    plan's declarative spec; with a segment strip, the segmented kernels
+    K1s-K3s. They take fused labels only: materialised-label (ids-strip)
+    kernels are ROADMAP queue B items 7 (flat) and 8 (segmented)."""
 
     @staticmethod
     def _fused_only(ids_tiled) -> None:
         if ids_tiled is not None:
             raise NotImplementedError(
-                "the cuda backend computes labels in-kernel; ids-strip kernels "
-                "are ROADMAP queue B item 7"
+                "the cuda backend computes labels in-kernel; ids-strip kernels are "
+                "ROADMAP queue B items 7 (flat) and 8 (segmented, seg_tile_*_pallas)"
             )
 
-    def prescan(self, spec, keys_tiled, ids_tiled):
+    def prescan(self, spec, keys_tiled, ids_tiled, seg_tiled):
         self._fused_only(ids_tiled)
+        if seg_tiled is not None:
+            return kops.seg_spec_tile_histograms(keys_tiled, seg_tiled, spec.bucket_fn,
+                                                 spec.segments)
         return kops.spec_tile_histograms(keys_tiled, spec.bucket_fn)
 
-    def positions(self, spec, g, keys_tiled, ids_tiled):
+    def positions(self, spec, g, keys_tiled, ids_tiled, seg_tiled):
         self._fused_only(ids_tiled)
+        if seg_tiled is not None:
+            return kops.seg_spec_tile_positions(keys_tiled, seg_tiled, g, spec.bucket_fn,
+                                                spec.segments)
         return kops.spec_tile_positions(keys_tiled, g, spec.bucket_fn)
 
-    def reorder(self, spec, g, keys_tiled, ids_tiled, vals_tiled):
+    def reorder(self, spec, g, keys_tiled, ids_tiled, vals_tiled, seg_tiled):
         self._fused_only(ids_tiled)
+        if seg_tiled is not None:
+            return kops.seg_spec_fused_postscan_reorder(
+                keys_tiled, seg_tiled, g, vals_tiled, spec.bucket_fn, spec.segments)
         return kops.spec_fused_postscan_reorder(keys_tiled, g, vals_tiled, spec.bucket_fn)
 
 
 class VmapStages(StageImpl):
     """Tiled pure-torch stages: every tile's rank, histogram, starts and
     destinations from one one-hot cumsum (:func:`~repro_torch.kernels.
-    common.tile_rank`). Fused-label plans derive the tile labels from
-    ``spec.bucket_fn.emit`` inside the stage."""
+    common.tile_rank`). Segmented tiles take its carry form
+    (:func:`~repro_torch.kernels.common.seg_tile_rank`) and a scatter-add
+    histogram into s·m columns, O(T·m) whatever s. Fused-label plans derive
+    the tile labels from ``spec.bucket_fn.emit`` inside the stage."""
 
     @staticmethod
     def _tile_ids(spec, keys_tiled, ids_tiled):
         return ids_tiled if ids_tiled is not None else spec.bucket_fn.emit(keys_tiled)
 
-    def prescan(self, spec, keys_tiled, ids_tiled):
-        return _body.counts_body(self._tile_ids(spec, keys_tiled, ids_tiled), spec.num_buckets)
-
-    def positions(self, spec, g, keys_tiled, ids_tiled):
+    def prescan(self, spec, keys_tiled, ids_tiled, seg_tiled):
         ids = self._tile_ids(spec, keys_tiled, ids_tiled)
+        if seg_tiled is not None:
+            return _body.seg_counts_body(ids, seg_tiled, spec.num_buckets, spec.segments)
+        return _body.counts_body(ids, spec.num_buckets)
+
+    def positions(self, spec, g, keys_tiled, ids_tiled, seg_tiled):
+        ids = self._tile_ids(spec, keys_tiled, ids_tiled)
+        if seg_tiled is not None:
+            return _body.seg_positions_body(ids, seg_tiled, g, spec.num_buckets)
         return _body.positions_body(ids, g, spec.num_buckets)
 
-    def reorder(self, spec, g, keys_tiled, ids_tiled, vals_tiled):
+    def reorder(self, spec, g, keys_tiled, ids_tiled, vals_tiled, seg_tiled):
         ids = self._tile_ids(spec, keys_tiled, ids_tiled)
+        if seg_tiled is not None:
+            return _body.seg_postscan_body(ids, seg_tiled, g, keys_tiled, vals_tiled,
+                                           spec.num_buckets, spec.segments)
         return _body.postscan_body(ids, g, keys_tiled, vals_tiled, spec.num_buckets)
 
 

@@ -1,6 +1,7 @@
-"""PipelineSpec and the executable plan of the FLAT layout: the stage graph
-of the multisplit pipeline (paper §4.1), with partial-pipeline modes.
-Counterpart of ``repro/core/pipeline/spec.py:550-664``.
+"""PipelineSpec and the executable plan of the flat and segmented layouts:
+the stage graph of the multisplit pipeline (paper §4.1), with
+partial-pipeline modes. Counterpart of ``repro/core/pipeline/spec.py``
+(``:131-165, 329-334, 435-452, 550-858``).
 
 ``mode`` selects how much of the pipeline runs:
 
@@ -10,11 +11,16 @@ Counterpart of ``repro/core/pipeline/spec.py:550-664``.
 * ``positions_only``: {prescan, scan, postscan-positions} — the eq. (2)
   destinations without moving any key.
 
-Pads ride in bucket m−1 at the tail: fused-label plans pad with the spec's
-pad key (for the radix digit, the all-ones key, digit m−1 in every pass),
-so pads land after every real element and ``finalize_counts`` takes them
-out of the last bucket. The batched and segmented layouts are ROADMAP queue
-A items 5 and 6.
+Pads ride in (segment s−1,) bucket m−1 at the tail: fused-label plans pad
+with the spec's pad key (for the radix digit, the all-ones key, digit m−1
+in every pass), so pads land after every real element and
+``finalize_counts`` takes them out of the last combined bucket.
+
+``segments=s`` selects the segmented layout: flat ``(n,)`` keys plus an
+``(s,)`` ``segment_starts`` call argument; every segment is multisplit on
+its own, in one launch per stage, with the segment id riding as the high
+part of the combined id ``seg·m + b`` (width ``m_eff = s·m``). The batched
+layout is ROADMAP queue A item 5.
 """
 
 from __future__ import annotations
@@ -37,10 +43,11 @@ MODES = ("reorder", "counts_only", "positions_only")
 
 @dataclasses.dataclass(frozen=True)
 class PipelineSpec:
-    """A declarative multisplit pipeline for one flat problem shape.
+    """A declarative multisplit pipeline for one problem shape.
 
     Frozen and hashable by value (``bucket_fn`` is a value-hashable spec).
-    Build it with :func:`make_plan` or :func:`make_radix_plan`."""
+    Build it with :func:`make_plan`, :func:`make_radix_plan` or their
+    segmented forms."""
 
     n: int
     num_buckets: int
@@ -49,8 +56,20 @@ class PipelineSpec:
     backend: str
     tile: int
     bucket_fn: Optional[BucketSpec] = None
+    segments: Optional[int] = None  # ragged segments over (n,)
     mode: str = "reorder"
     family: str = "onehot"
+
+    @property
+    def m_eff(self) -> int:
+        """Width of the histograms and the scan: ``s·m`` for segmented
+        plans, else m."""
+        return self.num_buckets * (self.segments or 1)
+
+    @property
+    def layout(self) -> str:
+        """flat | segmented."""
+        return "flat" if self.segments is None else "segmented"
 
     def ids_fn(self) -> BucketSpec:
         if self.bucket_fn is None:
@@ -78,59 +97,72 @@ class PipelineSpec:
     def stages(self) -> Tuple[str, ...]:
         """The stage graph as ``name:impl`` strings."""
         be = get_backend(self.backend)
-        if not be.tiled:
-            return ("direct-solve:reference",)
         eng = "kernel" if be.uses_kernels else "vmap"
         fused = self.bucket_fn is not None and self.bucket_fn.fusable
         lab = "fused-label-" if fused else ""
         pre = f"prescan:{lab}{eng}"
         positions = f"postscan:{lab}positions-{eng}"
         post = positions if self.method == "dms" else f"postscan:{lab}reorder-{eng}"
-        if self.mode == "counts_only":
-            return (pre, "reduce:counts")
-        if self.mode == "positions_only":
-            return (pre, "scan:global", positions)
-        return (pre, "scan:global", post, "scatter:bucket-major")
+        if not be.tiled:
+            base = ("direct-solve:reference",)
+        elif self.mode == "counts_only":
+            base = (pre, "reduce:counts")
+        elif self.mode == "positions_only":
+            base = (pre, "scan:global", positions)
+        else:
+            base = (pre, "scan:global", post, "scatter:bucket-major")
+        if self.segments is None:
+            return base
+        return (f"layout:segmented[{self.segments}]",) + base
 
 
 @dataclasses.dataclass(frozen=True)
 class MultisplitPlan(PipelineSpec):
     """An executable :class:`PipelineSpec`: call it with tensors."""
 
-    def prescan(self, keys_tiled: Optional[Tensor], ids_tiled: Optional[Tensor]) -> Tensor:
-        """Stage 1: per-tile bucket histograms H (L, m)."""
-        return get_backend(self.backend).stages.prescan(self, keys_tiled, ids_tiled)
+    def prescan(
+        self, keys_tiled: Optional[Tensor], ids_tiled: Optional[Tensor],
+        seg_tiled: Optional[Tensor] = None,
+    ) -> Tensor:
+        """Stage 1: per-tile (combined) bucket histograms H (L, m_eff)."""
+        return get_backend(self.backend).stages.prescan(self, keys_tiled, ids_tiled, seg_tiled)
 
     def postscan(
         self, g: Tensor, keys_tiled: Tensor, ids_tiled: Optional[Tensor],
-        vals_tiled: Optional[Tensor],
+        vals_tiled: Optional[Tensor], seg_tiled: Optional[Tensor] = None,
     ) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
         """Stage 3: (scatter_src_keys, scatter_src_vals, scatter_pos, perm).
-        For wms/bms the sources are bucket-major within each tile; ``perm``
-        is the element-order destination (paper eq. (2))."""
+        For wms/bms the sources are (segment,) bucket-major within each
+        tile; ``perm`` is the element-order destination (paper eq. (2))."""
         impl = get_backend(self.backend).stages
         if self.method == "dms":
-            pos = impl.positions(self, g, keys_tiled, ids_tiled)
+            pos = impl.positions(self, g, keys_tiled, ids_tiled, seg_tiled)
             return keys_tiled, vals_tiled, pos, pos
-        return impl.reorder(self, g, keys_tiled, ids_tiled, vals_tiled)
+        return impl.reorder(self, g, keys_tiled, ids_tiled, vals_tiled, seg_tiled)
 
     def run_tiled(
         self, keys_tiled: Tensor, ids_tiled: Optional[Tensor] = None,
-        vals_tiled: Optional[Tensor] = None,
+        vals_tiled: Optional[Tensor] = None, seg_tiled: Optional[Tensor] = None,
     ) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
         """One {prescan, scan, postscan, scatter} sweep over PRE-TILED
         buffers, at the full padded length: ``(keys_pad, vals_pad, hist,
-        perm_tiled)``. The chained radix pipeline iterates this."""
-        hist = self.prescan(keys_tiled, ids_tiled)
+        perm_tiled)``. The chained radix pipeline iterates this. The
+        (segment, bucket)-major order of a segmented sweep is the
+        concatenation of every segment's bucket-major order, so the same
+        flat scatter lands each segment in its input span."""
+        hist = self.prescan(keys_tiled, ids_tiled, seg_tiled)
         g = _st.global_scan(hist)
-        src_keys, src_vals, pos, perm_tiled = self.postscan(g, keys_tiled, ids_tiled, vals_tiled)
+        src_keys, src_vals, pos, perm_tiled = self.postscan(
+            g, keys_tiled, ids_tiled, vals_tiled, seg_tiled)
         n_total, idx = keys_tiled.numel(), pos.reshape(-1).long()
         keys_pad = _st.scatter(src_keys, idx, n_total)
         vals_pad = _st.scatter(src_vals, idx, n_total) if vals_tiled is not None else None
         return keys_pad, vals_pad, hist, perm_tiled
 
     def _empty_result(self, keys: Tensor, values: Optional[Tensor]) -> MultisplitResult:
-        zeros = torch.zeros((self.num_buckets,), dtype=torch.int32, device=keys.device)
+        """n == 0: every output empty or zero, in the layout's shapes."""
+        shape = (self.num_buckets,) if self.segments is None else (self.segments, self.num_buckets)
+        zeros = torch.zeros(shape, dtype=torch.int32, device=keys.device)
         perm = torch.zeros((0,), dtype=torch.int32, device=keys.device)
         if self.mode == "counts_only":
             return MultisplitResult(None, None, zeros, zeros, None)
@@ -138,7 +170,26 @@ class MultisplitPlan(PipelineSpec):
             return MultisplitResult(None, None, zeros, zeros, perm)
         return MultisplitResult(keys, values, zeros, zeros, perm)
 
-    def __call__(self, keys: Tensor, values: Optional[Tensor] = None) -> MultisplitResult:
+    def _segment_ids(self, keys: Tensor, segment_starts) -> Tuple[Optional[Tensor], Optional[Tensor]]:
+        """(starts, seg_ids) on the keys' device, or (None, None) for a flat
+        plan."""
+        if self.segments is None:
+            if segment_starts is not None:
+                raise ValueError("plan is not segmented; segment_starts not accepted")
+            return None, None
+        if segment_starts is None:
+            raise ValueError("segmented plan requires segment_starts")
+        starts = torch.as_tensor(segment_starts).to(device=keys.device, dtype=torch.int32)
+        if tuple(starts.shape) != (self.segments,):
+            raise ValueError(
+                f"plan resolved for {self.segments} segments, got segment_starts shape "
+                f"{tuple(starts.shape)}"
+            )
+        return starts, _st.segment_ids_from_starts(starts, self.n)
+
+    def __call__(
+        self, keys: Tensor, values: Optional[Tensor] = None, segment_starts=None,
+    ) -> MultisplitResult:
         if (values is not None) != self.key_value:
             raise ValueError(
                 f"plan resolved for key_value={self.key_value} but called with "
@@ -148,18 +199,20 @@ class MultisplitPlan(PipelineSpec):
             raise ValueError(f"plan resolved for keys of shape ({self.n},), got {tuple(keys.shape)}")
         if values is not None and values.shape != keys.shape:
             raise ValueError(f"values must have shape {tuple(keys.shape)}, got {tuple(values.shape)}")
+        starts, seg_ids = self._segment_ids(keys, segment_starts)
         if self.n == 0:
             return self._empty_result(keys, values)
         be = get_backend(self.backend)
         if not be.tiled:
-            return self._call_direct(keys, values)
+            return self._call_direct(keys, values, seg_ids, starts)
 
         if be.uses_kernels or self.mode == "reorder":
             be.check_keys(keys)
         keys = keys.contiguous()
-        m, n, tile = self.num_buckets, self.n, self.tile
+        m, s, n, tile = self.num_buckets, self.segments, self.n, self.tile
+        m_eff = self.m_eff
 
-        # ---- layout: pads ride in bucket m-1 at the very tail
+        # ---- layout: pads ride in (segment s-1,) bucket m-1 at the very tail
         if self.label_fusion(keys):
             keys_p, _ = _st.pad_to_tiles(keys, tile, self.pad_key(keys.dtype))
             keys_tiled, ids_tiled = keys_p.view(-1, tile), None
@@ -169,6 +222,9 @@ class MultisplitPlan(PipelineSpec):
             keys_tiled = None
             if self.mode == "reorder":
                 keys_tiled = _st.pad_to_tiles(keys, tile, 0)[0].view(-1, tile)
+        seg_tiled = None
+        if s is not None:
+            seg_tiled = _st.pad_to_tiles(seg_ids, tile, s - 1)[0].view(-1, tile)
         n_total = (keys_tiled if keys_tiled is not None else ids_tiled).numel()
         vals_tiled = None
         if values is not None:
@@ -176,36 +232,55 @@ class MultisplitPlan(PipelineSpec):
 
         def finalize_counts(hist: Tensor) -> Tensor:
             counts = hist.sum(0, dtype=torch.int32)
-            counts[m - 1] -= n_total - n                        # drop pad sentinels
-            return counts
+            counts[m_eff - 1] -= n_total - n                    # drop pad sentinels
+            return counts if s is None else counts.view(s, m)
+
+        def local(perm: Tensor) -> Tensor:
+            """Segment-local destinations: perm - starts[seg]."""
+            return perm if s is None else perm - starts.index_select(0, seg_ids)
 
         if self.mode == "counts_only":
-            counts = finalize_counts(self.prescan(keys_tiled, ids_tiled))
+            counts = finalize_counts(self.prescan(keys_tiled, ids_tiled, seg_tiled))
             return MultisplitResult(None, None, _st.exclusive_rows(counts), counts, None)
 
         if self.mode == "positions_only":
-            hist = self.prescan(keys_tiled, ids_tiled)
-            pos = be.stages.positions(self, _st.global_scan(hist), keys_tiled, ids_tiled)
+            hist = self.prescan(keys_tiled, ids_tiled, seg_tiled)
+            pos = be.stages.positions(self, _st.global_scan(hist), keys_tiled, ids_tiled, seg_tiled)
             counts = finalize_counts(hist)
             return MultisplitResult(
-                None, None, _st.exclusive_rows(counts), counts, pos.reshape(-1)[:n]
+                None, None, _st.exclusive_rows(counts), counts, local(pos.reshape(-1)[:n])
             )
 
-        keys_pad, vals_pad, hist, perm_tiled = self.run_tiled(keys_tiled, ids_tiled, vals_tiled)
+        keys_pad, vals_pad, hist, perm_tiled = self.run_tiled(
+            keys_tiled, ids_tiled, vals_tiled, seg_tiled)
         counts = finalize_counts(hist)
         return MultisplitResult(
             keys_pad[:n], vals_pad[:n] if values is not None else None,
-            _st.exclusive_rows(counts), counts, perm_tiled.reshape(-1)[:n],
+            _st.exclusive_rows(counts), counts, local(perm_tiled.reshape(-1)[:n]),
         )
 
-    def _call_direct(self, keys: Tensor, values: Optional[Tensor]) -> MultisplitResult:
-        """The untiled oracle: paper eq. (1) over the whole input."""
-        m = self.num_buckets
+    def _call_direct(
+        self, keys: Tensor, values: Optional[Tensor], seg_ids: Optional[Tensor],
+        starts: Optional[Tensor],
+    ) -> MultisplitResult:
+        """The untiled oracle: paper eq. (1) over the whole input, on the
+        combined id ``seg·m + b`` for segmented plans."""
+        m, s = self.num_buckets, self.segments
         ids = self.ids_fn()(keys)
+        if s is not None:
+            ids = seg_ids * m + ids
         if self.mode == "counts_only":
-            counts = _st.direct_counts(ids, m)
+            counts = _st.direct_counts(ids, self.m_eff)
+            if s is not None:
+                counts = counts.view(s, m)
             return MultisplitResult(None, None, _st.exclusive_rows(counts), counts, None)
-        res = _st.direct_solve_ids(keys, ids, m, values)
+        res = _st.direct_solve_ids(keys, ids, self.m_eff, values)
+        if s is not None:
+            counts = res.bucket_counts.view(s, m)
+            res = MultisplitResult(
+                res.keys, res.values, _st.exclusive_rows(counts), counts,
+                res.permutation - starts.index_select(0, seg_ids),
+            )
         if self.mode == "positions_only":
             return MultisplitResult(
                 None, None, res.bucket_starts, res.bucket_counts, res.permutation
@@ -223,6 +298,15 @@ def _validate(method: str, backend: str, mode: str, key_value: bool) -> None:
         raise ValueError(f"mode={mode!r} never touches values; resolve with key_value=False")
 
 
+def _validate_layout(batch: Optional[int], segments: Optional[int]) -> None:
+    if batch is not None and segments is not None:
+        raise ValueError("batch and segments are mutually exclusive plan layouts")
+    if batch is not None:
+        raise NotImplementedError("the batched layout (batch=) is ROADMAP queue A item 5")
+    if segments is not None and segments < 1:
+        raise ValueError(f"segments must be >= 1, got {segments}")
+
+
 def make_plan(
     n: int,
     num_buckets: int,
@@ -237,12 +321,10 @@ def make_plan(
     mode: str = "reorder",
     family: Optional[str] = None,
 ) -> MultisplitPlan:
-    """Resolve (n, m, method, key-value-ness, backend, mode) into a flat
-    staged plan."""
-    if batch is not None:
-        raise NotImplementedError("the batched layout (batch=) is ROADMAP queue A item 5")
-    if segments is not None:
-        raise NotImplementedError("the segmented layout (segments=) is ROADMAP queue A item 6")
+    """Resolve (n, m, method, key-value-ness, backend, mode) into a staged
+    plan: flat, or segmented with ``segments=s`` (call it with an ``(s,)``
+    ``segment_starts``)."""
+    _validate_layout(batch, segments)
     _validate(method, backend, mode, key_value)
     if bucket_fn is not None:
         bucket_fn = as_spec(bucket_fn)
@@ -253,13 +335,14 @@ def make_plan(
         if get_backend(backend).uses_kernels and not bucket_fn.fusable:
             raise NotImplementedError(
                 f"backend {backend!r} computes labels in-kernel; the {type(bucket_fn).__name__} "
-                f"needs the ids-strip kernels, ROADMAP queue B item 7 (use backend='vmap')"
+                f"needs the ids-strip kernels, ROADMAP queue B items 7 and 8 (use backend='vmap')"
             )
+    m_eff = num_buckets * (segments or 1)
     return MultisplitPlan(
         n=n, num_buckets=num_buckets, method=method, key_value=key_value,
-        backend=backend, tile=resolve_tile(n, num_buckets, method, key_value, backend, tile),
-        bucket_fn=bucket_fn, mode=mode,
-        family=resolve_kernel_family(n, num_buckets, method, backend, family),
+        backend=backend, tile=resolve_tile(n, m_eff, method, key_value, backend, tile),
+        bucket_fn=bucket_fn, segments=segments, mode=mode,
+        family=resolve_kernel_family(n, m_eff, method, backend, family),
     )
 
 
@@ -272,11 +355,27 @@ def make_radix_plan(
     key_value: bool = False,
     backend: str = "vmap",
     tile: Optional[int] = None,
+    segments: Optional[int] = None,
     mode: str = "reorder",
     family: Optional[str] = None,
 ) -> MultisplitPlan:
     """A plan whose bucket spec is the radix digit BitfieldSpec(shift, bits)."""
     return make_plan(
         n, 1 << bits, method=method, key_value=key_value, backend=backend,
-        tile=tile, bucket_fn=BitfieldSpec(shift, bits), mode=mode, family=family,
+        tile=tile, bucket_fn=BitfieldSpec(shift, bits), segments=segments, mode=mode,
+        family=family,
     )
+
+
+def make_segmented_plan(n: int, num_segments: int, num_buckets: int, **kw) -> MultisplitPlan:
+    """Segmented plan over flat ``(n,)`` keys with ``num_segments`` ragged
+    segments (call it with ``segment_starts=``): one launch a stage for all
+    segments."""
+    return make_plan(n, num_buckets, segments=num_segments, **kw)
+
+
+def make_segmented_radix_plan(
+    n: int, num_segments: int, shift: int, bits: int, **kw
+) -> MultisplitPlan:
+    """Segmented radix plan: one digit pass over all segments."""
+    return make_radix_plan(n, shift, bits, segments=num_segments, **kw)

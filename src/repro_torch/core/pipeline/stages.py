@@ -1,6 +1,7 @@
 """Stage primitives of the multisplit pipeline (paper §4.1).
 
-Counterpart of ``repro/core/pipeline/stages.py`` for the flat layout: every
+Counterpart of ``repro/core/pipeline/stages.py`` for the flat and
+segmented layouts: every
 multisplit variant factors into {local prescan} -> {one global scan} ->
 {local postscan (+ reorder)}. This module owns the layout and scan
 primitives and the O(n·m) direct solve, with no backend logic. The in-tile
@@ -16,14 +17,17 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.identifiers import bits_dtype
-from repro_torch.kernels.common import tile_rank
+from repro_torch.kernels.common import seg_tile_rank, tile_rank
 
 Tensor = torch.Tensor
 
 
 class MultisplitResult(NamedTuple):
-    """Flat plans: shapes as commented. Partial pipelines return ``None``
-    for the fields they never compute: ``counts_only`` fills only
+    """Flat plans: shapes as commented. Segmented plans keep flat ``(n,)``
+    data (each segment occupies its input span) and return ``(s, m)``
+    segment-local starts and counts and a segment-local ``(n,)``
+    permutation. Partial pipelines return ``None`` for the fields they
+    never compute: ``counts_only`` fills only
     ``bucket_starts``/``bucket_counts``; ``positions_only`` also fills
     ``permutation``."""
 
@@ -32,6 +36,21 @@ class MultisplitResult(NamedTuple):
     bucket_starts: Tensor           # (m,) start index of each bucket
     bucket_counts: Tensor           # (m,) histogram
     permutation: Optional[Tensor]   # (n,) dest position of input element i
+
+
+def segment_ids_from_starts(segment_starts: Tensor, n: int) -> Tensor:
+    """(s,) ascending start offsets (``starts[0] == 0``) -> (n,) int32
+    segment id of each element. Equal consecutive starts are empty segments;
+    the last segment ends at ``n``.
+
+    The id of element i is the number of starts at or before i, minus one
+    (``searchsorted(starts, i, right=True) - 1``), computed as a prefix sum
+    of start marks: one pass over n instead of a binary search per
+    element."""
+    starts = segment_starts.to(torch.int32).clamp(0, n)
+    marks = torch.zeros((n + 1,), dtype=torch.int32, device=starts.device)
+    marks.index_add_(0, starts, torch.ones_like(starts))
+    return torch.cumsum(marks[:n], 0, dtype=torch.int32) - 1
 
 
 def as_bits(x: Tensor) -> Tensor:
@@ -75,6 +94,13 @@ def tile_local_offsets(ids: Tensor, m: int) -> Tuple[Tensor, Tensor]:
     """(stable in-bucket rank, histogram) of one (T,) strip of ids."""
     rank, hist, _ = tile_rank(ids.reshape(1, -1), m)
     return rank[0], hist[0]
+
+
+def seg_tile_local(ids: Tensor, segs: Tensor, m: int) -> Tensor:
+    """Segmented stable in-bucket rank of one (T,) strip whose segment ids
+    never decrease: the m-wide cumsum with a per-segment carry, O(T·m)
+    whatever the number of segments."""
+    return seg_tile_rank(ids.reshape(1, -1), segs.reshape(1, -1), m)[0]
 
 
 def scatter(src: Tensor, idx: Tensor, n_total: int) -> Tensor:

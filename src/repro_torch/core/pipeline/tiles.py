@@ -22,10 +22,12 @@ FAMILIES = ("onehot",)
 WMS_TILE = 1024
 BMS_TILE = 4096
 
-# The cuda backend's tile, for every method: 4096 keys give L = 8192 tiles
-# (62 blocks an SM) at n = 2^25 and keep K2's shared memory (about 92 KB
-# key-value at m = 256) within two blocks an SM. Not measured yet: ROADMAP
-# queue A item 8 measures the tile on the H100.
+# The cuda backend's tile, for every method and layout: 4096 keys give
+# L = 8192 tiles (62 blocks an SM) at n = 2^25 and keep K2's shared memory
+# (about 92 KB key-value at m = 256; K2s about 109 KB) within two blocks an
+# SM. The segmented kernels keep m-wide state, so their shared memory does
+# not grow with s and the tile stays the same at any m_eff = s·m. Not
+# measured yet: ROADMAP queue A item 8 measures the tile on the H100.
 CUDA_TILE = 4096
 _MIN_TILE = 256
 
@@ -61,8 +63,9 @@ def resolve_tile(
     n: int, m: int, method: str, key_value: bool, backend: str,
     requested: Optional[int] = None,
 ) -> int:
-    """Tile height for one shape, cached per shape. An explicit request is
-    returned as it is and never cached."""
+    """Tile height for one shape, cached per shape; ``m`` is the scan width
+    ``m_eff`` (``s·m`` for segmented plans). An explicit request is returned
+    as it is and never cached."""
     if requested is not None:
         if requested < 1:
             raise ValueError(f"tile must be >= 1, got {requested}")

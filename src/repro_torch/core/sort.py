@@ -1,9 +1,11 @@
 """Multisplit-based radix sort (paper §7.1) and the reduced-bit-sort
-baseline (§3.4), flat layout. Counterpart of ``repro/core/sort.py``.
+baseline (§3.4). Counterpart of ``repro/core/sort.py``.
 
 * :func:`radix_sort` — LSD radix sort from chained multisplit passes with
   radix-digit buckets, as one :class:`~repro_torch.core.pipeline.radix.
   RadixPipeline`.
+* :func:`segmented_radix_sort` — every ragged segment sorted on its own, in
+  one chained sequence of segmented passes.
 * :func:`rb_sort_multisplit` — multisplit by a stable ``torch.sort`` of the
   labels. It is the oracle and the library baseline of the port's checks on
   the card, and never runs on the main path.
@@ -43,6 +45,33 @@ def radix_sort(
         key_value=values is not None, backend=backend, tile=tile, family=family,
     )
     return pipe(keys, values)
+
+
+def segmented_radix_sort(
+    keys: Tensor,
+    segment_starts,
+    values: Optional[Tensor] = None,
+    *,
+    radix_bits: int = 8,
+    key_bits: int = 32,
+    method: str = "bms",
+    backend: str = "vmap",
+    tile: Optional[int] = None,
+    family: Optional[str] = None,
+) -> Tuple[Tensor, Optional[Tensor]]:
+    """Sort every ragged segment of flat integer ``keys`` on its own, in ONE
+    chained sequence of ⌈key_bits/radix_bits⌉ segmented multisplit passes,
+    not one sequence a segment. ``segment_starts`` is the (s,) ascending
+    start-offset vector of :func:`~repro_torch.core.multisplit.
+    segmented_multisplit`. Stable; bitwise equal to sorting each segment
+    alone with :func:`radix_sort`."""
+    starts = torch.as_tensor(segment_starts)
+    pipe = RadixPipeline(
+        keys.shape[0], radix_bits=radix_bits, key_bits=key_bits, method=method,
+        key_value=values is not None, backend=backend, tile=tile,
+        segments=int(starts.shape[0]), family=family,
+    )
+    return pipe(keys, values, segment_starts=starts)
 
 
 def rb_sort_multisplit(

@@ -27,8 +27,11 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-SOURCES = ("tile_histograms", "tile_positions", "fused_postscan_reorder")
-HEADERS = ("multisplit_common.cuh",)
+SOURCES = (
+    "tile_histograms", "tile_positions", "fused_postscan_reorder",
+    "seg_tile_histograms", "seg_tile_positions", "seg_fused_postscan_reorder",
+)
+HEADERS = ("multisplit_common.cuh", "multisplit_segmented.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-lineinfo", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -43,6 +46,16 @@ ENTRY_POINTS = {
     "fused_postscan_reorder": (
         "ms_fused_postscan_reorder",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I] + _LABEL_ARGTYPES + [_P],
+    ),
+    "seg_tile_histograms": (
+        "ms_seg_tile_histograms", [_P, _P, _P, _I, _I, _I] + _LABEL_ARGTYPES + [_P],
+    ),
+    "seg_tile_positions": (
+        "ms_seg_tile_positions", [_P, _P, _P, _P, _I, _I, _I] + _LABEL_ARGTYPES + [_P],
+    ),
+    "seg_fused_postscan_reorder": (
+        "ms_seg_fused_postscan_reorder",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I] + _LABEL_ARGTYPES + [_P],
     ),
 }
 

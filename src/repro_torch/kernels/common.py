@@ -14,6 +14,12 @@ kernels they are the plain version of, never leave int32.
 These bodies are the CPU path of the kernel wrappers, the tiled stages of
 the ``vmap`` backend, and the oracle the kernels are held against on the
 card. They are no yardstick of speed.
+
+The segmented bodies (``seg_*``) work over the combined id ``cid = seg·m +
+b`` of ``repro/kernels/multisplit_tile.py:504-632``: the rank comes from
+the m-wide one-hot with a per-segment carry, as the JAX ``VmapStages`` do
+(``repro/core/pipeline/registry.py:257-268, 303-316``), and the histogram
+is a scatter-add into ``s·m`` columns.
 """
 
 from __future__ import annotations
@@ -76,6 +82,74 @@ def postscan_body(
     idx = ids.long()
     dest = (starts.gather(1, idx) + rank).long()                  # within the tile
     gpos = g.gather(1, idx) + rank
+
+    def reorder(x: Tensor) -> Tensor:
+        xb = x.view(bits_dtype(x.dtype))
+        return torch.empty_like(xb).scatter_(1, dest, xb).view(x.dtype)
+
+    vals_r = reorder(vals) if vals is not None else None
+    return reorder(keys), vals_r, reorder(gpos), gpos
+
+
+# ---------------------------------------------------------------------------
+# Segmented bodies: the combined id cid = seg·m + b, with the segment ids of
+# each tile non-decreasing (the input is segment-contiguous).
+# ---------------------------------------------------------------------------
+
+def seg_tile_rank(ids: Tensor, seg: Tensor, m: int) -> Tensor:
+    """(L, T) int32 bucket ids and segment ids -> (L, T) int32 stable rank
+    of each element among the earlier elements of its (segment, bucket) in
+    its tile. The m-wide one-hot cumsum of :func:`tile_rank` minus a
+    per-segment carry: the count of the bucket before the first element of
+    the segment in the tile. O(T·m) whatever the number of segments; an
+    s·m-wide one-hot is never formed."""
+    n_tiles, t = ids.shape
+    rank = torch.empty((n_tiles, t), dtype=torch.int32, device=ids.device)
+    cols = torch.arange(m, dtype=torch.int32, device=ids.device)
+    step = max(1, _CHUNK_ELEMS // max(1, t * m))
+    for lo in range(0, n_tiles, step):
+        chunk, sg = ids[lo:lo + step], seg[lo:lo + step].contiguous()
+        one_hot = (chunk[:, :, None] == cols).to(torch.int32)     # (l, T, m)
+        incl = torch.cumsum(one_hot, 1, dtype=torch.int32).view(chunk.shape[0], t * m)
+        idx = chunk.long()
+        first = torch.searchsorted(sg, sg, right=False)             # first row of my segment
+        at_first = first * m + idx
+        carry = incl.gather(1, at_first) - (chunk.gather(1, first) == chunk).to(torch.int32)
+        rank[lo:lo + step] = incl.gather(1, torch.arange(t, device=ids.device) * m + idx) - carry - 1
+    return rank
+
+
+def combined_ids(ids: Tensor, seg: Tensor, m: int) -> Tensor:
+    """``seg·m + b`` in int32 (s·m < 2^31)."""
+    return seg * m + ids
+
+
+def seg_counts_body(ids: Tensor, seg: Tensor, m: int, s: int) -> Tensor:
+    """(L, T) ids and segment ids -> (L, s·m) int32 histograms of the
+    combined id, by scatter-add."""
+    return counts_body(combined_ids(ids, seg, m), s * m)
+
+
+def seg_positions_body(ids: Tensor, seg: Tensor, g: Tensor, m: int) -> Tensor:
+    """(L, T) ids and segment ids + (L, s·m) bases -> (L, T) global
+    destinations ``G[l, cid] + rank``, in element order."""
+    rank = seg_tile_rank(ids, seg, m)
+    return g.gather(1, combined_ids(ids, seg, m).long()) + rank
+
+
+def seg_postscan_body(
+    ids: Tensor, seg: Tensor, g: Tensor, keys: Tensor, vals: Optional[Tensor], m: int, s: int
+) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
+    """The segmented fused postscan of every tile, the contract of
+    :func:`postscan_body` over the combined id: ``keys_r``, ``vals_r`` and
+    ``pos_r`` stably (segment, bucket)-major within each tile."""
+    rank = seg_tile_rank(ids, seg, m)
+    cid32 = combined_ids(ids, seg, m)
+    hist = counts_body(cid32, s * m)
+    cid = cid32.long()
+    starts = torch.cumsum(hist, 1, dtype=torch.int32) - hist        # (L, s·m) tile starts
+    dest = (starts.gather(1, cid) + rank).long()
+    gpos = g.gather(1, cid) + rank
 
     def reorder(x: Tensor) -> Tensor:
         xb = x.view(bits_dtype(x.dtype))

@@ -12,6 +12,15 @@ Counterpart of the fused-label kernels of ``repro/kernels/multisplit_tile.py``:
 * :func:`spec_tile_positions` (K3, ``csrc/tile_positions.cu``) replaces
   ``spec_tile_positions_pallas`` (``:396``): keys and G -> (L, T) int32
   destinations ``G[b] + rank``.
+* :func:`seg_spec_tile_histograms` (K1s, ``csrc/seg_tile_histograms.cu``),
+  :func:`seg_spec_fused_postscan_reorder` (K2s,
+  ``csrc/seg_fused_postscan_reorder.cu``) and :func:`seg_spec_tile_positions`
+  (K3s, ``csrc/seg_tile_positions.cu``) replace
+  ``seg_spec_tile_histograms_pallas`` (``:512``),
+  ``seg_spec_fused_postscan_reorder_pallas`` (``:587``) and
+  ``seg_spec_tile_positions_pallas`` (``:544``): the same contracts over the
+  combined id ``cid = seg·m + b``, with an (L, T) int32 segment strip that
+  never decreases along a tile and (L, s·m) histograms and bases.
 
 Labels are computed inside the kernels from the declarative spec, which
 each wrapper flattens to scalars (:func:`label_args`). Keys and values are
@@ -45,7 +54,7 @@ from repro_torch.kernels import build, common
 Tensor = torch.Tensor
 
 MAX_BUCKETS = 256         # one thread per bucket in the kernels' scans
-MAX_TILE = 8192           # K2 keeps five T-word planes in shared memory
+MAX_TILE = 8192           # K2s keeps six T-word planes in shared memory (206 KB)
 
 KEY_KINDS = {torch.int32: 0, torch.uint32: 1, torch.float32: 2}
 _SPEC_KINDS = {DeltaSpec: 0, IdentitySpec: 1, BitfieldSpec: 2, RangeSpec: 3, EvenSpec: 4}
@@ -250,5 +259,118 @@ def spec_fused_postscan_reorder(
     return keys_r, vals_r, pos_r, perm
 
 
-KERNELS = (spec_tile_histograms, spec_fused_postscan_reorder, spec_tile_positions)
+# ---------------------------------------------------------------------------
+# Segmented kernels: the combined id cid = seg·m + b (K1s, K2s, K3s)
+# ---------------------------------------------------------------------------
+
+def _check_segments(seg_tiled: Tensor, keys_tiled: Tensor, spec, num_segments: int) -> int:
+    """Check the segment strip and return s·m, the width of the histogram
+    row and of G."""
+    _check_tiles(seg_tiled, tuple(keys_tiled.shape), "segment ids", (torch.int32,))
+    if seg_tiled.device != keys_tiled.device:
+        raise ValueError(f"segment ids lie on {seg_tiled.device}, keys on {keys_tiled.device}")
+    if num_segments < 1:
+        raise ValueError(f"num_segments must be >= 1, got {num_segments}")
+    width = num_segments * spec.num_buckets
+    if width >= 1 << 31:
+        raise ValueError(f"the CUDA kernels take s·m < 2^31 combined buckets, got {width}")
+    return width
+
+
+def seg_spec_tile_histograms_plain(keys_tiled: Tensor, seg_tiled: Tensor, spec,
+                                   num_segments: int) -> Tensor:
+    return common.seg_counts_body(spec.emit(keys_tiled), seg_tiled, spec.num_buckets,
+                                  num_segments)
+
+
+def seg_spec_tile_histograms(keys_tiled: Tensor, seg_tiled: Tensor, spec,
+                             num_segments: int) -> Tensor:
+    """(L, T) keys + (L, T) int32 segment ids, non-decreasing along each
+    tile -> (L, s·m) int32 histograms of ``cid = seg·m + b``; labels
+    in-kernel."""
+    if not _on_cuda(keys_tiled, "seg_spec_tile_histograms"):
+        return seg_spec_tile_histograms_plain(keys_tiled, seg_tiled, spec, num_segments)
+    n_tiles, t = _check_keys(keys_tiled)
+    width = _check_segments(seg_tiled, keys_tiled, spec, num_segments)
+    label = label_args(spec, keys_tiled.dtype, keys_tiled.device)
+    hist = torch.empty((n_tiles, width), dtype=torch.int32, device=keys_tiled.device)
+    if n_tiles:
+        fn = build.load("seg_tile_histograms")
+        _raise_on(fn(keys_tiled.data_ptr(), seg_tiled.data_ptr(), hist.data_ptr(), n_tiles, t,
+                     num_segments, *label, _stream(keys_tiled)), "seg_tile_histograms")
+        seg_spec_tile_histograms.launches += 1
+    return hist
+
+
+def seg_spec_tile_positions_plain(keys_tiled: Tensor, seg_tiled: Tensor, g: Tensor, spec,
+                                  num_segments: int) -> Tensor:
+    return common.seg_positions_body(spec.emit(keys_tiled), seg_tiled, g, spec.num_buckets)
+
+
+def seg_spec_tile_positions(keys_tiled: Tensor, seg_tiled: Tensor, g: Tensor, spec,
+                            num_segments: int) -> Tensor:
+    """(L, T) keys and segment ids + (L, s·m) int32 bases -> (L, T) int32
+    destinations ``G[cid] + rank`` (paper eq. (2)); labels in-kernel."""
+    if not _on_cuda(keys_tiled, "seg_spec_tile_positions"):
+        return seg_spec_tile_positions_plain(keys_tiled, seg_tiled, g, spec, num_segments)
+    n_tiles, t = _check_keys(keys_tiled)
+    width = _check_segments(seg_tiled, keys_tiled, spec, num_segments)
+    _check_bases(g, keys_tiled, width)
+    label = label_args(spec, keys_tiled.dtype, keys_tiled.device)
+    pos = torch.empty((n_tiles, t), dtype=torch.int32, device=keys_tiled.device)
+    if n_tiles:
+        fn = build.load("seg_tile_positions")
+        _raise_on(fn(keys_tiled.data_ptr(), seg_tiled.data_ptr(), g.data_ptr(), pos.data_ptr(),
+                     n_tiles, t, num_segments, *label, _stream(keys_tiled)), "seg_tile_positions")
+        seg_spec_tile_positions.launches += 1
+    return pos
+
+
+def seg_spec_fused_postscan_reorder_plain(
+    keys_tiled: Tensor, seg_tiled: Tensor, g: Tensor, values_tiled: Optional[Tensor], spec,
+    num_segments: int,
+) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
+    return common.seg_postscan_body(
+        spec.emit(keys_tiled), seg_tiled, g, keys_tiled, values_tiled, spec.num_buckets,
+        num_segments,
+    )
+
+
+def seg_spec_fused_postscan_reorder(
+    keys_tiled: Tensor, seg_tiled: Tensor, g: Tensor, values_tiled: Optional[Tensor], spec,
+    num_segments: int,
+) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
+    """(L, T) keys and segment ids, (L, s·m) int32 bases [+ (L, T) values]
+    -> (keys_r, vals_r, pos_r, perm): the contract of
+    :func:`spec_fused_postscan_reorder` with the first three stably
+    (segment, bucket)-major within each tile. Labels in-kernel."""
+    if not _on_cuda(keys_tiled, "seg_spec_fused_postscan_reorder"):
+        return seg_spec_fused_postscan_reorder_plain(
+            keys_tiled, seg_tiled, g, values_tiled, spec, num_segments)
+    n_tiles, t = _check_keys(keys_tiled)
+    width = _check_segments(seg_tiled, keys_tiled, spec, num_segments)
+    _check_bases(g, keys_tiled, width)
+    if values_tiled is not None:
+        _check_tiles(values_tiled, (n_tiles, t), "values")
+        if values_tiled.device != keys_tiled.device:
+            raise ValueError(f"values lie on {values_tiled.device}, keys on {keys_tiled.device}")
+    label = label_args(spec, keys_tiled.dtype, keys_tiled.device)
+    keys_r = torch.empty_like(keys_tiled)
+    vals_r = torch.empty_like(values_tiled) if values_tiled is not None else None
+    pos_r = torch.empty((n_tiles, t), dtype=torch.int32, device=keys_tiled.device)
+    perm = torch.empty_like(pos_r)
+    if n_tiles:
+        fn = build.load("seg_fused_postscan_reorder")
+        _raise_on(fn(keys_tiled.data_ptr(), seg_tiled.data_ptr(), g.data_ptr(),
+                     _ptr(values_tiled), keys_r.data_ptr(), _ptr(vals_r), pos_r.data_ptr(),
+                     perm.data_ptr(), n_tiles, t, num_segments, *label, _stream(keys_tiled)),
+                  "seg_fused_postscan_reorder")
+        seg_spec_fused_postscan_reorder.launches += 1
+    return keys_r, vals_r, pos_r, perm
+
+
+KERNELS = (
+    spec_tile_histograms, spec_fused_postscan_reorder, spec_tile_positions,
+    seg_spec_tile_histograms, seg_spec_fused_postscan_reorder, seg_spec_tile_positions,
+)
 reset_launches()

@@ -198,8 +198,14 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     g = global_scan(mst.spec_tile_histograms(keys, spec))
     mst.spec_tile_positions(keys, g, spec)
     mst.spec_fused_postscan_reorder(keys, g, keys, spec)
+    seg = torch.zeros((2, 256), dtype=torch.int32)
+    h = mst.seg_spec_tile_histograms(keys, seg, spec, 1)
+    mst.seg_spec_tile_positions(keys, seg, global_scan(h), spec, 1)
+    mst.seg_spec_fused_postscan_reorder(keys, seg, global_scan(h), None, spec, 1)
     assert mst.launch_counts() == {
         "spec_tile_histograms": 0, "spec_fused_postscan_reorder": 0, "spec_tile_positions": 0,
+        "seg_spec_tile_histograms": 0, "seg_spec_fused_postscan_reorder": 0,
+        "seg_spec_tile_positions": 0,
     }
 
 
@@ -252,6 +258,12 @@ def test_label_args_refuses(spec, dtype, err):
     ("tile_positions.cu", ["spec_tile_positions_pallas", "radix_tile_positions_pallas"]),
     ("fused_postscan_reorder.cu", ["spec_fused_postscan_reorder_pallas",
                                    "radix_fused_postscan_reorder_pallas"]),
+    ("seg_tile_histograms.cu", ["seg_spec_tile_histograms_pallas",
+                                "seg_radix_tile_histograms_pallas"]),
+    ("seg_tile_positions.cu", ["seg_spec_tile_positions_pallas",
+                               "seg_radix_tile_positions_pallas"]),
+    ("seg_fused_postscan_reorder.cu", ["seg_spec_fused_postscan_reorder_pallas",
+                                       "seg_radix_fused_postscan_reorder_pallas"]),
 ])
 def test_kernel_sources_carry_their_note(source, replaces):
     """Each kernel names the Pallas function it replaces and its bound, and
@@ -263,6 +275,22 @@ def test_kernel_sources_carry_their_note(source, replaces):
     symbol, argtypes = build.ENTRY_POINTS[source[:-3]]
     assert f'extern "C" int {symbol}(' in text
     assert source[:-3] in build.SOURCES
+
+
+LIBRARY_MARKS = ("cub::", "thrust::", "cublas", "cusparse", "cutlass::", "cute::", "at::",
+                 "c10::", "torch::")
+
+
+@pytest.mark.parametrize("source", sorted(p.name for p in CSRC.iterdir()))
+def test_kernel_sources_call_no_library(source):
+    """Every kernel is written by hand: its source includes only the CUDA
+    runtime and the repository's own headers, and calls no library kernel."""
+    text = (CSRC / source).read_text()
+    for mark in LIBRARY_MARKS:
+        assert mark not in text, (source, mark)
+    includes = [line.split()[1] for line in text.splitlines() if line.startswith("#include")]
+    assert set(includes) <= {"<cuda_runtime.h>", "<stdint.h>", '"multisplit_common.cuh"',
+                             '"multisplit_segmented.cuh"'}, includes
 
 
 def test_build_flags_and_missing_nvcc(monkeypatch, tmp_path):
@@ -282,5 +310,5 @@ def test_kernel_modules_defer_cuda_work_to_the_launch():
     tree = ast.parse(Path(mst.__file__).read_text())
     calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
              and isinstance(n.func, ast.Attribute) and n.func.attr == "load"]
-    assert len(calls) == 3
+    assert len(calls) == len(mst.KERNELS) == len(build.SOURCES) == 6
     assert not build._FNS

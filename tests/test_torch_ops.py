@@ -255,7 +255,8 @@ def test_radix_pipeline_pads_once(monkeypatch):
 
 @pytest.mark.parametrize("call,err", [
     (lambda: tpipe.make_plan(8, 4, batch=2), NotImplementedError),
-    (lambda: tpipe.make_plan(8, 4, segments=2), NotImplementedError),
+    (lambda: tpipe.make_plan(8, 4, segments=2, backend="cuda",
+                             bucket_fn=ops.from_fn(lambda k: k % 4, 4)), NotImplementedError),
     (lambda: tpipe.make_plan(8, 4, method="xms"), ValueError),
     (lambda: tpipe.make_plan(8, 4, backend="pallas"), ValueError),
     (lambda: tpipe.make_plan(8, 4, mode="sorted"), ValueError),
