@@ -13,11 +13,19 @@ Phases, one line or more each, every one of which must pass:
 3. kernels — K1-K3 held bitwise against their plain PyTorch versions on the
    card: the main path's shapes (n = 2^25 keys in 8192 tiles of 4096), every
    spec kind, m in {2, 32, 256}, key-only and key-value, int32 / uint32 /
-   float32 keys, NaN and inf keys, bases G above 2^24, ragged tiles.
+   float32 keys, NaN and inf keys, bases G above 2^24, ragged tiles. In
+   every case the ids path equals the fused path: ``spec_bucket_ids`` (held
+   against its plain version) writes the labels out, and K1, K3 and K2 on
+   those ids equal K1, K3 and K2 with the labels in the kernel.
    The segmented kernels K1s-K3s likewise: the segmented main path's
    shapes, every spec kind with ragged segment strips that hold empty
    segments, bases above 2^24, and a strip of about 50,000 one- to
    eight-key segments (hundreds of runs a tile).
+   The six ids kernels (K1-K3 and K1s-K3s on a materialised int32 ids
+   strip) likewise: the main paths' shapes at m = 10 and 256, m in {1, 2,
+   7, 32, 255, 256}, tails and tiles up to ``MAX_TILE``, labels outside
+   [0, m) (both sides clamp them), bases above 2^24, empty and one- to
+   eight-key segments.
 4. main    — the port's entry points at the paper's size, n = 2^25 uniform
    random 32-bit keys on the cuda backend: ``ops.multisplit`` for
    ``DeltaSpec(m, 2^32)`` (equal widths over the whole key range, so the
@@ -32,10 +40,21 @@ Phases, one line or more each, every one of which must pass:
    counts_only; S2 ``ops.segmented_radix_sort`` at n = 2^25 over 16
    segments, r = 8; S3 the serving routing launch, 2^20 expert ids over 256
    requests (``IdentitySpec(64)``, dms, positions_only).
-6. launches — every kernel's launch count from its main path's run alone.
+   Callable — a programmer's bucket functions (``ops.from_fn``) at n =
+   2^25 through the ids kernels, held against the same oracles: the
+   delta-stepping bucket of ``examples/sssp.py`` (m = 10, int32 distances,
+   vertex-id values, wms and bms); a multiplicative hash at m in {2, 32,
+   256} (bms and dms, key-only and key-value, counts_only, positions_only);
+   int16 and int64 keys through ``histogram`` and positions_only; the
+   ``even_bucket_ids`` / ``device_histogram`` doors; and the hash at S1's
+   shape through ``ops.segmented_multisplit``.
+6. launches — every kernel's launch count from its own path's run alone
+   (flat, segmented, flat callable, segmented callable); every kernel is
+   launched on one of them.
 7. times   — per kernel: ms, the plain version's ms, the bound (bytes moved
    over 3.35 TB/s, the H100 SXM data-sheet rate) and one PyTorch call as a
-   yardstick; end to end: ms and Gkeys/s; stage splits; peak device memory.
+   yardstick; end to end: ms and Gkeys/s, with the same labels as
+   ``DeltaSpec`` and as a callable; stage splits; peak device memory.
 
 The last lines are the ``nvidia-smi`` line, one JSON line of the kernels
 and ``{"ok": true, "device": {...}}``. The script exits non-zero, printing
@@ -139,7 +158,7 @@ def main() -> int:
 
     # ---- 3. kernels against their plain versions
     errs = {fn.__name__: 0 for fn in mst.KERNELS}
-    n_checks = 0
+    n_checks = n_ids_paths = 0
 
     def check_case(what, keys_tiled, spec, values_tiled, g_offset=0):
         nonlocal n_checks
@@ -161,6 +180,26 @@ def main() -> int:
         n_checks += 1
         if e1 or e2 or e3:
             raise AssertionError(f"kernel != plain for {what}: K1 {e1}, K2 {e2}, K3 {e3}")
+        check_ids_path(what, keys_tiled, spec, values_tiled, g)
+
+    def check_ids_path(what, keys_tiled, spec, values_tiled, g):
+        """The labels written out by spec_bucket_ids (held against its plain
+        version) through the ids kernels equal the fused kernels' result."""
+        nonlocal n_ids_paths
+        m = spec.num_buckets
+        ids = mst.spec_bucket_ids(keys_tiled, spec)
+        e0 = max_err(ids, mst.spec_bucket_ids_plain(keys_tiled, spec))
+        errs["spec_bucket_ids"] = max(errs["spec_bucket_ids"], e0)
+        d = [max_err(mst.tile_histograms(ids, m), mst.spec_tile_histograms(keys_tiled, spec)),
+             max_err(mst.tile_positions(ids, g, m), mst.spec_tile_positions(keys_tiled, g, spec))]
+        got = mst.fused_postscan_reorder(ids, g, keys_tiled, values_tiled, m)
+        want = mst.spec_fused_postscan_reorder(keys_tiled, g, values_tiled, spec)
+        d.append(max(max_err(a, b) for a, b in zip(got, want)))
+        torch.cuda.synchronize()
+        n_ids_paths += 1
+        if e0 or any(d):
+            raise AssertionError(f"ids path != fused path for {what}: spec_bucket_ids {e0} "
+                                 f"(vs plain), K1/K3/K2 on ids vs fused {d}")
 
     t0 = time.perf_counter()
     # the main path's shapes: 8192 tiles of 4096 keys, G up to 2^25
@@ -219,6 +258,9 @@ def main() -> int:
     log("kernels", f"{n_checks} cases over every spec kind, m in (2, 32, 256), int32/uint32/"
                    f"float32 keys, key-only and key-value, G above 2^24: all bitwise equal "
                    f"({time.perf_counter() - t0:.1f} s)")
+    log("kernels", f"{n_ids_paths} of them through the ids path as well: spec_bucket_ids equal "
+                   f"to its plain version, then tile_histograms / tile_positions / "
+                   f"fused_postscan_reorder on those ids equal to K1 / K3 / K2")
 
     # ---- 3b. the segmented kernels K1s-K3s against their plain versions
     def ragged_starts(n, s, rng, empty=(), fixed=None):
@@ -317,6 +359,79 @@ def main() -> int:
                    f"2^24, tiny segments): K1s-K3s all bitwise equal "
                    f"({time.perf_counter() - t0:.1f} s)")
 
+    # ---- 3c. the ids kernels (materialised labels) against their plain versions
+    def check_ids_case(what, ids, keys_tiled, values_tiled, m, seg=None, s=1, g_offset=0):
+        """The six ids wrappers on one (L, T) ids strip (labels outside
+        [0, m) included: both clamp), flat and, with a strip, segmented."""
+        nonlocal n_checks
+        e = {}
+        h_plain = mst.tile_histograms_plain(ids, m)
+        e["tile_histograms"] = max_err(mst.tile_histograms(ids, m), h_plain)
+        g = st.global_scan(h_plain) + g_offset
+        del h_plain
+        e["tile_positions"] = max_err(mst.tile_positions(ids, g, m),
+                                      mst.tile_positions_plain(ids, g, m))
+        e["fused_postscan_reorder"] = 0
+        for vals in (None, values_tiled):
+            got = mst.fused_postscan_reorder(ids, g, keys_tiled, vals, m)
+            want = mst.fused_postscan_reorder_plain(ids, g, keys_tiled, vals, m)
+            e["fused_postscan_reorder"] = max(e["fused_postscan_reorder"],
+                                              *(max_err(a, b) for a, b in zip(got, want)))
+        del g
+        if seg is not None:
+            h_plain = mst.seg_tile_histograms_plain(ids, seg, m, s)
+            e["seg_tile_histograms"] = max_err(mst.seg_tile_histograms(ids, seg, m, s), h_plain)
+            g = st.global_scan(h_plain) + g_offset
+            del h_plain
+            e["seg_tile_positions"] = max_err(mst.seg_tile_positions(ids, seg, g, m, s),
+                                              mst.seg_tile_positions_plain(ids, seg, g, m, s))
+            e["seg_fused_postscan_reorder"] = 0
+            for vals in (None, values_tiled):
+                got = mst.seg_fused_postscan_reorder(ids, seg, g, keys_tiled, vals, m, s)
+                want = mst.seg_fused_postscan_reorder_plain(ids, seg, g, keys_tiled, vals, m, s)
+                e["seg_fused_postscan_reorder"] = max(e["seg_fused_postscan_reorder"],
+                                                      *(max_err(a, b) for a, b in zip(got, want)))
+        torch.cuda.synchronize()
+        n_checks += 1
+        for name, err in e.items():
+            errs[name] = max(errs[name], err)
+        if any(e.values()):
+            raise AssertionError(f"ids kernel != plain for {what}: {e}")
+
+    t0, n0 = time.perf_counter(), n_checks
+    # the main paths' shapes: 8192 tiles of 4096 ids, labels of m = 10 (the
+    # delta-stepping buckets) and 256, segmented as S1, G up to 2^25
+    seg_main = seg_strip(s1_starts, (l_main, t_main))
+    for m in (10, 256):
+        ids = torch.randint(0, m, (l_main, t_main), dtype=torch.int32, device=dev, generator=gen)
+        check_ids_case(f"main shape m={m}", ids, keys_main, vals_main, m, seg_main, 64)
+    del ids, seg_main
+    # every m, tails and tiles up to MAX_TILE, labels outside [0, m) (they
+    # clamp), bases above 2^24, ragged strips with empty segments
+    for shape, s in (((64, 4096), 37), ((3, mst.MAX_TILE), 5), ((5, 100), 9), ((7, 33), 3),
+                     ((2, 1), 2)):
+        for i, m in enumerate((1, 2, 7, 32, 255, 256)):
+            starts = ragged_starts(shape[0] * shape[1], s, np_rng, empty=(1, s - 1))
+            ids = torch.randint(-3, m + 3, shape, dtype=torch.int32, device=dev, generator=gen)
+            dtype = (torch.int32, torch.uint32, torch.float32)[i % 3]     # the moved keys' type
+            keys = keys_for(dtype, shape, *spans[dtype])
+            check_ids_case(f"ids m={m} {dtype} {shape} s={s}", ids, keys, rand_i32(shape), m,
+                           seg_strip(starts, shape), s, g_offset=(1 << 24) + 1 if i % 2 else 0)
+    # one- to eight-key segments: hundreds of runs in every tile
+    for shape, m in (((64, 4096), 2), ((16, 4096), 256)):
+        lens = np_rng.integers(1, 9, shape[0] * shape[1])
+        starts = np.cumsum(lens) - lens
+        starts = starts[starts < shape[0] * shape[1]].astype(np.int32)
+        ids = torch.randint(-1, m + 1, shape, dtype=torch.int32, device=dev, generator=gen)
+        check_ids_case(f"ids {starts.size} tiny segments m={m}", ids,
+                       keys_for(torch.uint32, shape, 0, 2**32), rand_i32(shape), m,
+                       seg_strip(starts, shape), starts.size)
+    del ids
+    log("kernels", f"{n_checks - n0} ids cases (the main shapes at m = 10 and 256, m in (1, 2, 7, "
+                   f"32, 255, 256), tiles up to {mst.MAX_TILE}, labels outside [0, m), G above "
+                   f"2^24, empty and tiny segments): the six ids kernels all bitwise equal to "
+                   f"their plain versions ({time.perf_counter() - t0:.1f} s)")
+
     # ---- 4. main path at the paper's size, with the launch counts of that run alone
     keys = rand_i32((N_MAIN,)).view(torch.uint32)
     values = rand_i32((N_MAIN,))
@@ -371,13 +486,12 @@ def main() -> int:
     # ---- 5. launches
     for name, count in launches.items():
         log("launches", f"flat path: {name}: {count}")
-        if count == 0 and not name.startswith("seg_"):
-            raise AssertionError(f"{name} was never launched on the main path")
     # per run: a multisplit launches K1 once and K2 (bms) or K3 (dms) once; a
-    # histogram K1 once; a radix sort K1 and K2 once a pass, 4 passes
-    expect = {"spec_tile_histograms": 12 + 3 + 8, "spec_fused_postscan_reorder": 6 + 8,
-              "spec_tile_positions": 6, "seg_spec_tile_histograms": 0,
-              "seg_spec_fused_postscan_reorder": 0, "seg_spec_tile_positions": 0}
+    # histogram K1 once; a radix sort K1 and K2 once a pass, 4 passes; no
+    # other kernel
+    expect = {name: 0 for name in launches}
+    expect.update({"spec_tile_histograms": 12 + 3 + 8, "spec_fused_postscan_reorder": 6 + 8,
+                   "spec_tile_positions": 6})
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
 
@@ -473,6 +587,147 @@ def main() -> int:
     for name, count in seg_launches.items():
         launches[name] = launches.get(name, 0) + count
 
+    # ---- 5c. the flat callable path: a programmer's bucket functions (and
+    # off-width keys in the partial modes) at n = 2^25, through the ids kernels
+    def sssp_fn(floor, delta, m):
+        """The delta-stepping bucket of examples/sssp.py: clip((u - floor) //
+        delta, 0, m - 1), returned as int64 as a user's function may."""
+        return lambda u: torch.clamp((u.long() - floor) // delta, 0, m - 1)
+
+    def hash_fn(bits_):
+        """A multiplicative (Fibonacci) hash of the 32-bit word into 2^bits
+        buckets, which no declarative spec expresses."""
+        return lambda u: (((bits(u).long() & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF) >> (32 - bits_)
+
+    # int32 distances around the delta-stepping window, vertex ids as values
+    floor, delta, m_sssp = 1 << 20, 1 << 16, 10
+    dist = torch.randint(floor - (1 << 18), floor + delta * (m_sssp + 2), (N_MAIN,),
+                         dtype=torch.int32, device=dev, generator=gen)
+    verts = torch.randperm(N_MAIN, dtype=torch.int32, device=dev, generator=gen)
+    sssp = ops.from_fn(sssp_fn(floor, delta, m_sssp), m_sssp, "sssp")
+    hashes = {m: ops.from_fn(hash_fn(m.bit_length() - 1), m, f"hash{m}") for m in (2, 32, 256)}
+    keys16 = (keys.view(torch.int32) >> 16).to(torch.int16)
+    keys64 = keys.view(torch.int32).long() * 3
+    spec16, spec64 = ops.DeltaSpec(16, 1 << 15), ops.DeltaSpec(256, 1 << 32)
+    torch.cuda.synchronize()
+    mst.reset_launches()
+    t0 = time.perf_counter()
+    cruns = {}
+    for method in ("wms", "bms"):
+        cruns[("sssp", method)] = ops.multisplit(dist, sssp, verts, method=method, device=dev)
+    for m, spec in hashes.items():
+        for method in ("bms", "dms"):
+            cruns[(m, method, False)] = ops.multisplit(keys, spec, method=method, device=dev)
+            cruns[(m, method, True)] = ops.multisplit(keys, spec, values, method=method, device=dev)
+        cruns[(m, "counts_only")] = ops.multisplit(keys, spec, mode="counts_only", device=dev)
+        cruns[(m, "positions_only")] = ops.multisplit(keys, spec, mode="positions_only",
+                                                      device=dev)
+    for name, k, spec in (("int16", keys16, spec16), ("int64", keys64, spec64)):
+        cruns[(name, "hist")] = ops.histogram(k, spec, device=dev)
+        cruns[(name, "positions_only")] = ops.multisplit(k, spec, mode="positions_only",
+                                                         device=dev)
+    # the kernel doors: even-width labels written out, then their histogram
+    from repro_torch.kernels import ops as kops
+
+    even = ops.EvenSpec(0.0, float(1 << 32), 256)
+    cruns["door"] = kops.device_histogram(kops.even_bucket_ids(keys.view(l_main, t_main), 0.0,
+                                                               float(1 << 32), 256), 256)
+    torch.cuda.synchronize()
+    callable_s = time.perf_counter() - t0
+    call_launches = mst.launch_counts()
+    log("callable", f"n = 2^25: 2 delta-stepping multisplits (m = 10, int32 distances, vertex-id "
+                    f"values), 18 hash multisplits (m = 2, 32, 256), int16 and int64 keys through "
+                    f"histogram and positions_only, the even-ids door: {callable_s:.2f} s "
+                    f"(first calls)")
+    for method in ("wms", "bms"):
+        check_result(f"sssp {method}", cruns[("sssp", method)],
+                     rb_sort_multisplit(dist, sssp, verts), fields)
+    for m, spec in hashes.items():
+        want = rb_sort_multisplit(keys, spec, values)
+        for method in ("bms", "dms"):
+            check_result(f"hash{m} {method}", cruns[(m, method, False)],
+                         want._replace(values=None), fields)
+            check_result(f"hash{m} {method} kv", cruns[(m, method, True)], want, fields)
+        check_result(f"hash{m} counts_only", cruns[(m, "counts_only")],
+                     want._replace(keys=None, values=None, permutation=None), fields)
+        check_result(f"hash{m} positions_only", cruns[(m, "positions_only")],
+                     want._replace(keys=None, values=None), fields)
+        del want
+    for name, k, spec in (("int16", keys16, spec16), ("int64", keys64, spec64)):
+        want = rb_sort_multisplit(k, spec)
+        if max_err(cruns[(name, "hist")], want.bucket_counts):
+            raise AssertionError(f"{name} keys: histogram differs")
+        check_result(f"{name} positions_only", cruns[(name, "positions_only")],
+                     want._replace(keys=None, values=None), fields)
+        del want
+    if max_err(cruns["door"], torch.bincount(even.emit(keys).long(), minlength=256).to(torch.int32)):
+        raise AssertionError("device_histogram(even_bucket_ids) differs from bincount")
+    del cruns, keys16, keys64
+    log("callable", "every callable multisplit (bms, wms, dms, key-only, key-value, counts_only, "
+                    "positions_only), the off-width keys and the door are bitwise equal to the "
+                    "stable-sort oracle")
+    for name, count in call_launches.items():
+        log("launches", f"flat callable path: {name}: {count}")
+    # sssp: K1 and K2 on ids twice; each hash m: K1 on ids 6 times, K2 twice
+    # (bms), K3 3 times (dms twice, positions_only); each off-width type: K1
+    # twice, K3 once; the door: spec_bucket_ids and K1 on ids once
+    call_expect = {name: 0 for name in call_launches}
+    call_expect.update({"tile_histograms": 2 + 3 * 6 + 2 * 2 + 1,
+                        "fused_postscan_reorder": 2 + 3 * 2,
+                        "tile_positions": 3 * 3 + 2, "spec_bucket_ids": 1})
+    if call_launches != call_expect:
+        raise AssertionError(f"callable launch counts {call_launches} != expected {call_expect}")
+    for name, count in call_launches.items():
+        launches[name] += count
+
+
+    # ---- 5d. the segmented callable path at S1's shape: 2^25 keys, 64 ragged
+    # segments, a hash into 32 buckets (m_eff = 2048)
+    hash32 = hashes[32]
+    torch.cuda.synchronize()
+    mst.reset_launches()
+    t0 = time.perf_counter()
+    sruns = {}
+    for method in ("bms", "dms"):
+        sruns[(method, False)] = ops.segmented_multisplit(keys, hash32, s1_starts, method=method,
+                                                          device=dev)
+        sruns[(method, True)] = ops.segmented_multisplit(keys, hash32, s1_starts, values,
+                                                         method=method, device=dev)
+    sruns["positions_only"] = ops.segmented_multisplit(keys, hash32, s1_starts,
+                                                       mode="positions_only", device=dev)
+    sruns["counts_only"] = ops.segmented_multisplit(keys, hash32, s1_starts, mode="counts_only",
+                                                    device=dev)
+    torch.cuda.synchronize()
+    seg_call_s = time.perf_counter() - t0
+    seg_call_launches = mst.launch_counts()
+    want = seg_oracle(keys, s1_starts, hash32, values)
+    for (method, kv), got in [(k, v) for k, v in sruns.items() if isinstance(k, tuple)]:
+        check_result(f"S1 callable {method} kv={kv}", got,
+                     want if kv else want._replace(values=None), fields)
+    check_result("S1 callable positions_only", sruns["positions_only"],
+                 want._replace(keys=None, values=None), fields)
+    check_result("S1 callable counts_only", sruns["counts_only"],
+                 want._replace(keys=None, values=None, permutation=None), fields)
+    del want, sruns
+    log("callable", f"S1 shape with the hash into 32 buckets: 4 segmented multisplits + "
+                    f"positions_only + counts_only in {seg_call_s:.2f} s (first calls), bitwise "
+                    f"equal to the stable-sort oracle")
+    for name, count in seg_call_launches.items():
+        log("launches", f"segmented callable path: {name}: {count}")
+    # K1s on ids in each of the 6 calls, K2s on ids in the 2 bms calls, K3s on
+    # ids in the 2 dms calls and positions_only
+    seg_call_expect = {name: 0 for name in seg_call_launches}
+    seg_call_expect.update({"seg_tile_histograms": 6, "seg_fused_postscan_reorder": 2,
+                            "seg_tile_positions": 3})
+    if seg_call_launches != seg_call_expect:
+        raise AssertionError(f"segmented callable launch counts {seg_call_launches} != "
+                             f"expected {seg_call_expect}")
+    for name, count in seg_call_launches.items():
+        launches[name] += count
+    for name in launches:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was launched on none of the paths")
+
     # ---- 6. times
     def cuda_ms(fn, reps=7, inner=3) -> float:
         fn()
@@ -496,12 +751,15 @@ def main() -> int:
     n = N_MAIN
     gbytes = 4 * l_main * m
     sort_cid_ms = cuda_ms(lambda: torch.sort(cid, stable=True))
+    bincount_ms = cuda_ms(lambda: torch.bincount(cid, minlength=l_main * m))
+    # the ids kernels on the same labels, materialised: what the ids path adds
+    ids = mst.spec_bucket_ids_plain(kt, spec)
+    even = ops.EvenSpec(0.0, float(1 << 32), 256)
     rows = [
         ("spec_tile_histograms", "tile_histograms.cu", "src/repro/kernels/multisplit_tile.py:368",
          lambda: mst.spec_tile_histograms(kt, spec),
          lambda: mst.spec_tile_histograms_plain(kt, spec),
-         4 * n + gbytes,
-         cuda_ms(lambda: torch.bincount(cid, minlength=l_main * m))),
+         4 * n + gbytes, bincount_ms),
         ("spec_fused_postscan_reorder", "fused_postscan_reorder.cu",
          "src/repro/kernels/multisplit_tile.py:460",
          lambda: mst.spec_fused_postscan_reorder(kt, g, vt, spec),
@@ -511,6 +769,21 @@ def main() -> int:
          lambda: mst.spec_tile_positions(kt, g, spec),
          lambda: mst.spec_tile_positions_plain(kt, g, spec),
          4 * n + gbytes + 4 * n, sort_cid_ms),
+        ("tile_histograms", "tile_histograms.cu", "src/repro/kernels/multisplit_tile.py:94",
+         lambda: mst.tile_histograms(ids, m), lambda: mst.tile_histograms_plain(ids, m),
+         4 * n + gbytes, bincount_ms),
+        ("fused_postscan_reorder", "fused_postscan_reorder.cu",
+         "src/repro/kernels/multisplit_tile.py:168",
+         lambda: mst.fused_postscan_reorder(ids, g, kt, vt, m),
+         lambda: mst.fused_postscan_reorder_plain(ids, g, kt, vt, m),
+         4 * n + 8 * n + gbytes + 16 * n, sort_cid_ms),
+        ("tile_positions", "tile_positions.cu", "src/repro/kernels/multisplit_tile.py:123",
+         lambda: mst.tile_positions(ids, g, m), lambda: mst.tile_positions_plain(ids, g, m),
+         4 * n + gbytes + 4 * n, sort_cid_ms),
+        # no single PyTorch call computes a spec's labels: library_ms is null
+        ("spec_bucket_ids", "spec_bucket_ids.cu", "src/repro/kernels/multisplit_tile.py:421",
+         lambda: mst.spec_bucket_ids(kt, even), lambda: mst.spec_bucket_ids_plain(kt, even),
+         4 * n + 4 * n, None),
     ]
     kernels = []
     for name, src, replaces, kern, plain, nbytes, lib_ms in rows:
@@ -523,11 +796,14 @@ def main() -> int:
             "bitwise": errs[name] == 0, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": lib_ms,
         })
-        log("times", f"{name}: {ms_k:.4f} ms (when added: {FLAT_MS_BEFORE[name]:.4f} ms; bound "
-                     f"{bound:.4f} ms = {nbytes / 2**20:.0f} MiB / 3.35 TB/s, {bound / ms_k:.1%} of "
-                     f"it), plain {ms_p:.2f} ms, library {lib_ms:.4f} ms; {launches[name]} launches "
-                     f"on the main path [n = 2^25, {spec}, tiles 8192 x 4096; {smi}]")
-    del g, cid
+        before = f"when added: {FLAT_MS_BEFORE[name]:.4f} ms; " if name in FLAT_MS_BEFORE else ""
+        library = f"{lib_ms:.4f} ms" if lib_ms is not None else "none (no single PyTorch call)"
+        label = even if name == "spec_bucket_ids" else spec
+        log("times", f"{name}: {ms_k:.4f} ms ({before}bound {bound:.4f} ms = {nbytes / 2**20:.0f} "
+                     f"MiB / 3.35 TB/s, {bound / ms_k:.1%} of it), plain {ms_p:.2f} ms, library "
+                     f"{library}; {launches[name]} launches on the main paths [n = 2^25, {label}, "
+                     f"tiles 8192 x 4096; {smi}]")
+    del g, cid, ids
 
     # the segmented kernels at S1's shape: 8192 tiles of 4096, s = 64, m = 32
     s, m1 = 64, spec1.num_buckets
@@ -544,13 +820,14 @@ def main() -> int:
     sort1_ms = cuda_ms(lambda: torch.sort(cid1, stable=True))
     log("times", f"G bases the S1 keys hit: {gbytes_hit // 4} of {hbytes // 4} "
                  f"({gbytes_hit / 2**20:.2f} of {hbytes / 2**20:.0f} MiB)")
+    bincount1_ms = cuda_ms(lambda: torch.bincount(cid1, minlength=l_main * s * m1))
+    ids1 = mst.spec_bucket_ids_plain(kt, spec1)
     seg_rows = [
         ("seg_spec_tile_histograms", "seg_tile_histograms.cu",
          "src/repro/kernels/multisplit_tile.py:512",
          lambda: mst.seg_spec_tile_histograms(kt, seg_main, spec1, s),
          lambda: mst.seg_spec_tile_histograms_plain(kt, seg_main, spec1, s),
-         4 * n + 4 * n + hbytes,
-         cuda_ms(lambda: torch.bincount(cid1, minlength=l_main * s * m1))),
+         4 * n + 4 * n + hbytes, bincount1_ms),
         ("seg_spec_fused_postscan_reorder", "seg_fused_postscan_reorder.cu",
          "src/repro/kernels/multisplit_tile.py:587",
          lambda: mst.seg_spec_fused_postscan_reorder(kt, seg_main, g1, vt, spec1, s),
@@ -560,6 +837,22 @@ def main() -> int:
          "src/repro/kernels/multisplit_tile.py:544",
          lambda: mst.seg_spec_tile_positions(kt, seg_main, g1, spec1, s),
          lambda: mst.seg_spec_tile_positions_plain(kt, seg_main, g1, spec1, s),
+         4 * n + 4 * n + gbytes_hit + 4 * n, sort1_ms),
+        # the ids kernels on the same labels, materialised
+        ("seg_tile_histograms", "seg_tile_histograms.cu",
+         "src/repro/kernels/multisplit_tile.py:227",
+         lambda: mst.seg_tile_histograms(ids1, seg_main, m1, s),
+         lambda: mst.seg_tile_histograms_plain(ids1, seg_main, m1, s),
+         4 * n + 4 * n + hbytes, bincount1_ms),
+        ("seg_fused_postscan_reorder", "seg_fused_postscan_reorder.cu",
+         "src/repro/kernels/multisplit_tile.py:303",
+         lambda: mst.seg_fused_postscan_reorder(ids1, seg_main, g1, kt, vt, m1, s),
+         lambda: mst.seg_fused_postscan_reorder_plain(ids1, seg_main, g1, kt, vt, m1, s),
+         4 * n + 4 * n + 4 * n + gbytes_hit + 4 * n + 16 * n, sort1_ms),
+        ("seg_tile_positions", "seg_tile_positions.cu",
+         "src/repro/kernels/multisplit_tile.py:259",
+         lambda: mst.seg_tile_positions(ids1, seg_main, g1, m1, s),
+         lambda: mst.seg_tile_positions_plain(ids1, seg_main, g1, m1, s),
          4 * n + 4 * n + gbytes_hit + 4 * n, sort1_ms),
     ]
     for name, src, replaces, kern, plain, nbytes, lib_ms in seg_rows:
@@ -574,7 +867,7 @@ def main() -> int:
         })
         log("times", f"{name}: {ms_k:.4f} ms (bound {bound:.4f} ms = {nbytes / 2**20:.0f} MiB / "
                      f"3.35 TB/s, {bound / ms_k:.1%} of it), plain {ms_p:.2f} ms, library "
-                     f"{lib_ms:.4f} ms; {launches[name]} launches on the segmented path "
+                     f"{lib_ms:.4f} ms; {launches[name]} launches on the segmented paths "
                      f"[S1: n = 2^25, s = 64, {spec1}, m_eff = 2048, tiles 8192 x 4096; {smi}]")
     # the flat kernels at S1's m and keys: what the segment layer adds
     g32 = st.global_scan(mst.spec_tile_histograms_plain(kt, spec1))
@@ -585,8 +878,12 @@ def main() -> int:
     }
     log("times", "flat kernels at S1's m = 32 on the same keys: " + "; ".join(
         f"{k} {v:.4f} ms" for k, v in same_m.items()) + f" [{smi}]")
-    del cid1, g1, g32
+    del cid1, g1, g32, ids1
 
+    top8 = ops.from_fn(lambda u: (bits(u) >> 24) & 255, 256, "top8")
+    check_result("top-byte callable against DeltaSpec(256, 2^32)",
+                 ops.multisplit(keys, top8, values, device=dev),
+                 ops.multisplit(keys, spec, values, device=dev), fields)
     e2e = {
         "multisplit kv bms m=256": (lambda: ops.multisplit(keys, spec, values, method="bms", device=dev),
                                     lambda: rb_sort_multisplit(keys, spec, values)),
@@ -600,6 +897,19 @@ def main() -> int:
                            lambda: torch.sort(bits(keys) ^ torch.iinfo(torch.int32).min, stable=True)),
         "radix_sort kv r=8": (lambda: ops.radix_sort(keys, values, device=dev),
                               lambda: torch.sort(bits(keys) ^ torch.iinfo(torch.int32).min, stable=True)),
+        # the escape hatch: DeltaSpec(256, 2^32)'s labels (the top byte) as a callable
+        "multisplit kv bms m=256, the same labels as a callable": (
+            lambda: ops.multisplit(keys, top8, values, method="bms", device=dev),
+            lambda: rb_sort_multisplit(keys, spec, values)),
+        "multisplit kv bms m=256, hash callable": (
+            lambda: ops.multisplit(keys, hashes[256], values, method="bms", device=dev),
+            lambda: rb_sort_multisplit(keys, hashes[256], values)),
+        "delta-stepping multisplit kv wms m=10 (callable)": (
+            lambda: ops.multisplit(dist, sssp, verts, method="wms", device=dev),
+            lambda: rb_sort_multisplit(dist, sssp, verts)),
+        "histogram m=256, hash callable": (
+            lambda: ops.histogram(keys, hashes[256], device=dev),
+            lambda: torch.bincount(hashes[256].emit(keys).long(), minlength=256)),
     }
     s1_t = torch.from_numpy(s1_starts).to(dev)
     s2_t = torch.from_numpy(s2_starts).to(dev)
@@ -617,6 +927,9 @@ def main() -> int:
         "S1 segmented_multisplit kv bms s=64 m=32": (
             lambda: ops.segmented_multisplit(keys, spec1, s1_t, values, method="bms", device=dev),
             lambda: combined_sort(keys, s1_t, spec1)),
+        "S1 segmented_multisplit kv bms s=64 m=32, hash callable": (
+            lambda: ops.segmented_multisplit(keys, hash32, s1_t, values, method="bms", device=dev),
+            lambda: combined_sort(keys, s1_t, hash32)),
         "S2 segmented_radix_sort s=16 r=8": (
             lambda: ops.segmented_radix_sort(keys, s2_t, device=dev),
             lambda: seg_key_sort(keys, s2_t)),
@@ -657,6 +970,25 @@ def main() -> int:
     log("times", "stages of multisplit kv bms m=256: " + "; ".join(
         f"{k} {v:.4f} ms" for k, v in stage_ms.items()) + f" [{smi}]")
     del hist, g, src_k, src_v, pos
+    # the same labels through the escape hatch: the user's function, the
+    # int32 strip, then K1 and K2 on the ids
+    plan = make_plan(n, m, method="bms", key_value=True, backend="cuda", bucket_fn=top8)
+    ids_t = plan._host_labels(keys).view(-1, plan.tile)
+    hist = plan.prescan(None, ids_t)
+    g = st.global_scan(hist)
+    src_k, src_v, pos, _ = plan.postscan(g, kt, ids_t, vt)
+    stage_ms = {
+        "the user's function": cuda_ms(lambda: top8.fn(keys)),
+        "labels as an int32 strip (function + cast)": cuda_ms(lambda: plan._host_labels(keys)),
+        "prescan K1 on ids": cuda_ms(lambda: plan.prescan(None, ids_t)),
+        "global scan": cuda_ms(lambda: st.global_scan(hist)),
+        "postscan K2 on ids": cuda_ms(lambda: plan.postscan(g, kt, ids_t, vt)),
+        "scatter (int64 index + 2 index_copy_)": cuda_ms(lambda: (
+            lambda idx: (st.scatter(src_k, idx, n), st.scatter(src_v, idx, n)))(pos.reshape(-1).long())),
+    }
+    log("times", "stages of multisplit kv bms m=256, the top-byte callable: " + "; ".join(
+        f"{k} {v:.4f} ms" for k, v in stage_ms.items()) + f" [{smi}]")
+    del ids_t, hist, g, src_k, src_v, pos
     # where the time of one S1 key-value bms segmented multisplit goes
     plan = make_plan(n, m1, method="bms", key_value=True, backend="cuda", bucket_fn=spec1,
                      segments=s)

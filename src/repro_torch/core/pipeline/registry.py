@@ -10,7 +10,8 @@ backend's prescan / postscan-positions / postscan-reorder over pre-tiled
 * ``vmap`` — tiled pure-torch stages (the plain in-tile bodies of
   :mod:`repro_torch.kernels.common`), the analogue of ``VmapStages``.
 * ``cuda`` — the hand-written Hopper kernels K1-K3 (flat) and K1s-K3s
-  (segmented) with in-kernel labels (:mod:`repro_torch.kernels.ops`). On CPU tensors the kernel wrappers run
+  (segmented), with labels in-kernel or read from a materialised ids strip
+  (:mod:`repro_torch.kernels.ops`). On CPU tensors the kernel wrappers run
   their plain versions; on CUDA tensors they launch the kernels or raise.
 """
 
@@ -46,38 +47,42 @@ class StageImpl:
 
 
 class KernelStages(StageImpl):
-    """The CUDA kernel stages: one block per tile, labels in-kernel from the
-    plan's declarative spec; with a segment strip, the segmented kernels
-    K1s-K3s. They take fused labels only: materialised-label (ids-strip)
-    kernels are ROADMAP queue B items 7 (flat) and 8 (segmented)."""
-
-    @staticmethod
-    def _fused_only(ids_tiled) -> None:
-        if ids_tiled is not None:
-            raise NotImplementedError(
-                "the cuda backend computes labels in-kernel; ids-strip kernels are "
-                "ROADMAP queue B items 7 (flat) and 8 (segmented, seg_tile_*_pallas)"
-            )
+    """The CUDA kernel stages: one block per tile. Fused labels (``ids_tiled
+    is None``) are computed in-kernel from the plan's declarative spec
+    (K1-K3, or K1s-K3s with a segment strip); a materialised ids strip (a
+    ``CallableSpec`` plan, or off-width keys in a partial mode) goes to the
+    ids kernels, flat or segmented."""
 
     def prescan(self, spec, keys_tiled, ids_tiled, seg_tiled):
-        self._fused_only(ids_tiled)
+        m, s = spec.num_buckets, spec.segments
+        if ids_tiled is not None:
+            if seg_tiled is not None:
+                return kops.seg_tile_histograms(ids_tiled, seg_tiled, m, s)
+            return kops.tile_histograms(ids_tiled, m)
         if seg_tiled is not None:
-            return kops.seg_spec_tile_histograms(keys_tiled, seg_tiled, spec.bucket_fn,
-                                                 spec.segments)
+            return kops.seg_spec_tile_histograms(keys_tiled, seg_tiled, spec.bucket_fn, s)
         return kops.spec_tile_histograms(keys_tiled, spec.bucket_fn)
 
     def positions(self, spec, g, keys_tiled, ids_tiled, seg_tiled):
-        self._fused_only(ids_tiled)
+        m, s = spec.num_buckets, spec.segments
+        if ids_tiled is not None:
+            if seg_tiled is not None:
+                return kops.seg_tile_positions(ids_tiled, seg_tiled, g, m, s)
+            return kops.tile_positions(ids_tiled, g, m)
         if seg_tiled is not None:
-            return kops.seg_spec_tile_positions(keys_tiled, seg_tiled, g, spec.bucket_fn,
-                                                spec.segments)
+            return kops.seg_spec_tile_positions(keys_tiled, seg_tiled, g, spec.bucket_fn, s)
         return kops.spec_tile_positions(keys_tiled, g, spec.bucket_fn)
 
     def reorder(self, spec, g, keys_tiled, ids_tiled, vals_tiled, seg_tiled):
-        self._fused_only(ids_tiled)
+        m, s = spec.num_buckets, spec.segments
+        if ids_tiled is not None:
+            if seg_tiled is not None:
+                return kops.seg_fused_postscan_reorder(
+                    ids_tiled, seg_tiled, g, keys_tiled, vals_tiled, m, s)
+            return kops.fused_postscan_reorder(ids_tiled, g, keys_tiled, vals_tiled, m)
         if seg_tiled is not None:
             return kops.seg_spec_fused_postscan_reorder(
-                keys_tiled, seg_tiled, g, vals_tiled, spec.bucket_fn, spec.segments)
+                keys_tiled, seg_tiled, g, vals_tiled, spec.bucket_fn, s)
         return kops.spec_fused_postscan_reorder(keys_tiled, g, vals_tiled, spec.bucket_fn)
 
 
@@ -176,7 +181,7 @@ register_backend(Backend(
 ))
 register_backend(Backend(
     name="cuda",
-    description="hand-written Hopper kernels with in-kernel labels",
+    description="hand-written Hopper kernels, labels in-kernel or from an ids strip",
     stages=KernelStages(),
     uses_kernels=True,
     fuses_labels=True,

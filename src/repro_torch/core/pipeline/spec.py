@@ -79,7 +79,8 @@ class PipelineSpec:
     def label_fusion(self, keys: Tensor) -> bool:
         """Whether this call computes bucket ids inside the tile stage: a
         fusable spec on a label-fusing tiled backend, with keys of the
-        backend's width."""
+        backend's width. Otherwise the labels are materialised
+        (:meth:`_host_labels`) and the stages take the ids strip."""
         bf = self.bucket_fn
         be = get_backend(self.backend)
         if bf is None or not bf.fusable or not be.tiled or not be.fuses_labels:
@@ -87,22 +88,45 @@ class PipelineSpec:
         return be.key_itemsize is None or keys.element_size() == be.key_itemsize
 
     def _host_labels(self, keys: Tensor) -> Tensor:
-        """The single label-materialisation door (CallableSpec plans)."""
-        return self.ids_fn()(keys)
+        """The single label-materialisation door: a ``CallableSpec`` plan,
+        or off-width keys in a partial mode. The spec runs on the keys'
+        device; its labels come back as a contiguous int32 strip there (a
+        user's function may return int64 or a strided view), and labels on
+        another device are refused rather than copied."""
+        spec = self.ids_fn()
+        ids = spec(keys)
+        if tuple(ids.shape) != tuple(keys.shape) or ids.device != keys.device:
+            raise ValueError(
+                f"bucket function {spec.name!r} returned labels of shape {tuple(ids.shape)} on "
+                f"{ids.device} for keys of shape {tuple(keys.shape)} on {keys.device}"
+            )
+        return ids.to(torch.int32).contiguous()
+
+    def _check_key_width(self, keys: Tensor) -> None:
+        """Kernel backends take 32-bit words, but keys enter the kernels
+        only when the pipeline reorders them. In the partial modes off-width
+        keys turn label fusion off: their labels are materialised and the
+        kernels see int32 ids alone."""
+        if self.mode == "reorder":
+            get_backend(self.backend).check_keys(keys)
 
     def pad_key(self, dtype: torch.dtype):
         """A key whose bucket is m−1: the layout's pad sentinel."""
         return self.ids_fn().pad_key(dtype)
 
     def stages(self) -> Tuple[str, ...]:
-        """The stage graph as ``name:impl`` strings."""
+        """The stage graph as ``name:impl`` strings. Fused-label stages
+        assume keys of the backend's width: off-width keys in a partial
+        mode take the materialised-label stages at call time, which the
+        shape-free plan cannot show."""
         be = get_backend(self.backend)
         eng = "kernel" if be.uses_kernels else "vmap"
         fused = self.bucket_fn is not None and self.bucket_fn.fusable
         lab = "fused-label-" if fused else ""
         pre = f"prescan:{lab}{eng}"
         positions = f"postscan:{lab}positions-{eng}"
-        post = positions if self.method == "dms" else f"postscan:{lab}reorder-{eng}"
+        post = positions if self.method == "dms" else (
+            f"postscan:fused-label-reorder-{eng}" if fused else f"postscan:fused-reorder-{eng}")
         if not be.tiled:
             base = ("direct-solve:reference",)
         elif self.mode == "counts_only":
@@ -206,8 +230,7 @@ class MultisplitPlan(PipelineSpec):
         if not be.tiled:
             return self._call_direct(keys, values, seg_ids, starts)
 
-        if be.uses_kernels or self.mode == "reorder":
-            be.check_keys(keys)
+        self._check_key_width(keys)
         keys = keys.contiguous()
         m, s, n, tile = self.num_buckets, self.segments, self.n, self.tile
         m_eff = self.m_eff
@@ -331,11 +354,6 @@ def make_plan(
         if bucket_fn.num_buckets != num_buckets:
             raise ValueError(
                 f"num_buckets={num_buckets} but the spec has {bucket_fn.num_buckets}"
-            )
-        if get_backend(backend).uses_kernels and not bucket_fn.fusable:
-            raise NotImplementedError(
-                f"backend {backend!r} computes labels in-kernel; the {type(bucket_fn).__name__} "
-                f"needs the ids-strip kernels, ROADMAP queue B items 7 and 8 (use backend='vmap')"
             )
     m_eff = num_buckets * (segments or 1)
     return MultisplitPlan(

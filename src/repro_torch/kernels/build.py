@@ -30,6 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = (
     "tile_histograms", "tile_positions", "fused_postscan_reorder",
     "seg_tile_histograms", "seg_tile_positions", "seg_fused_postscan_reorder",
+    "spec_bucket_ids",
 )
 HEADERS = ("multisplit_common.cuh", "multisplit_segmented.cuh")
 NVCC_FLAGS = (
@@ -39,7 +40,8 @@ NVCC_FLAGS = (
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _LABEL_ARGTYPES = [_I, _I, _I, _U, _U, _F, _F, _P, _I, _I]
-# entry point -> argtypes (label arguments, then the stream)
+# entry point -> (C symbol, argtypes); the entry point of each source is
+# named after it, and the label arguments come before the stream
 ENTRY_POINTS = {
     "tile_histograms": ("ms_tile_histograms", [_P, _P, _I, _I] + _LABEL_ARGTYPES + [_P]),
     "tile_positions": ("ms_tile_positions", [_P, _P, _P, _I, _I] + _LABEL_ARGTYPES + [_P]),
@@ -57,6 +59,20 @@ ENTRY_POINTS = {
         "ms_seg_fused_postscan_reorder",
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I] + _LABEL_ARGTYPES + [_P],
     ),
+    "spec_bucket_ids": ("ms_spec_bucket_ids", [_P, _P, _I, _I] + _LABEL_ARGTYPES + [_P]),
+    # the ids-plane entry points of the K2 and K2s sources: m, not a label
+    "fused_postscan_reorder_ids": (
+        "ms_fused_postscan_reorder_ids", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    ),
+    "seg_fused_postscan_reorder_ids": (
+        "ms_seg_fused_postscan_reorder_ids",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    ),
+}
+# entry point -> its source, where the two names differ
+ENTRY_SOURCE = {
+    "fused_postscan_reorder_ids": "fused_postscan_reorder",
+    "seg_fused_postscan_reorder_ids": "seg_fused_postscan_reorder",
 }
 
 _LOCK = threading.Lock()
@@ -125,12 +141,14 @@ def build_all() -> Dict[str, Path]:
 
 
 def load(name: str):
-    """The C entry point of one kernel source, built on first use."""
+    """One C entry point (a key of ``ENTRY_POINTS``), its source built on
+    first use."""
     with _LOCK:
         fn = _FNS.get(name)
         if fn is None:
             symbol, argtypes = ENTRY_POINTS[name]
-            fn = getattr(ctypes.CDLL(str(build_all()[name])), symbol)
+            source = ENTRY_SOURCE.get(name, name)
+            fn = getattr(ctypes.CDLL(str(build_all()[source])), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _FNS[name] = fn

@@ -111,13 +111,26 @@ __device__ __forceinline__ int rounds_per_warp(int T) {
   return (nr + kWarps - 1) / kWarps;
 }
 
+// The label source of a tile: with kIds the labels are read from an int32
+// ids plane under the identity label (L = identity over int32 words, so the
+// label of an id is min(max(id, 0), m - 1), as bucket_of clamps it), and
+// the keys plane only supplies the words to move; else each label is
+// computed from its key word. The ids plane takes no shared memory.
+template <bool kIds>
+__device__ __forceinline__ int label_at(const uint32_t* __restrict__ ids, int i, uint32_t w,
+                                        const Label& L, const uint32_t* sp) {
+  return bucket_of(kIds ? ids[i] : w, L, sp);
+}
+
 // Phase 1: each warp walks its run of the tile in order and counts its keys
 // per bucket in its private row cnt[warp * m + b]. With kMeta, it stores
 // each key's (rank within the warp's run, bucket) in meta[i]; with kKeys,
-// the key word in ks[i]. cnt must be zeroed and the splitters loaded, and
-// the caller synchronises the block afterwards.
-template <bool kMeta, bool kKeys>
-__device__ __forceinline__ void rank_tile(const uint32_t* __restrict__ keys, int T, const Label& L,
+// the key word in ks[i]. With kIds the labels come from `ids` (label_at);
+// `ids` is unused otherwise. cnt must be zeroed and the splitters loaded,
+// and the caller synchronises the block afterwards.
+template <bool kMeta, bool kKeys, bool kIds = false>
+__device__ __forceinline__ void rank_tile(const uint32_t* __restrict__ keys,
+                                          const uint32_t* __restrict__ ids, int T, const Label& L,
                                           const uint32_t* sp, int* cnt, int* meta, uint32_t* ks) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nr = (T + 31) >> 5, R = rounds_per_warp(T);
@@ -127,8 +140,8 @@ __device__ __forceinline__ void rank_tile(const uint32_t* __restrict__ keys, int
   for (int rd = warp * R; rd < r1; ++rd) {
     const int i = (rd << 5) + lane;
     const bool valid = i < T;
-    const uint32_t w = valid ? keys[i] : 0u;
-    const int b = valid ? bucket_of(w, L, sp) : -1;
+    const uint32_t w = valid && (kKeys || !kIds) ? keys[i] : 0u;
+    const int b = valid ? label_at<kIds>(ids, i, w, L, sp) : -1;
     const unsigned peers = __match_any_sync(kFull, b);
     const int before = valid ? mine[b] : 0;     // the same value for all peers
     __syncwarp();
@@ -204,6 +217,11 @@ inline Label make_label(int kind, int key_kind, int m, unsigned u0, unsigned u1,
   L.n_split = n_split;
   L.plane = plane;
   return L;
+}
+
+// The label of an ids plane: identity over int32 words, clamped into [0, m).
+inline Label identity_label(int m) {
+  return make_label(kIdentity, kI32, m, 0u, 0u, 0.f, 0.f, nullptr, 0, 0);
 }
 
 }  // namespace ms

@@ -82,20 +82,23 @@ __device__ inline int find_runs(const int* __restrict__ seg, int T, int* runs, i
 // One short run [a, a + len), len <= 32, in one warp: lane l takes key a + l
 // and returns its bucket (-1 past the run), its stable rank among the run's
 // keys of that bucket, the count of the run's keys in smaller buckets, and
-// the match mask of its bucket. Every lane of the warp must call it.
+// the match mask of its bucket. With kIds the bucket is read from the ids
+// plane (label_at). Every lane of the warp must call it.
 struct ShortRank {
   uint32_t w;
   int b, rank, before;
   unsigned peers;
 };
 
-__device__ __forceinline__ ShortRank short_run_rank(const uint32_t* __restrict__ keys, int a,
+template <bool kIds = false>
+__device__ __forceinline__ ShortRank short_run_rank(const uint32_t* __restrict__ keys,
+                                                    const uint32_t* __restrict__ ids, int a,
                                                     int len, const Label& L, const uint32_t* sp) {
   const int lane = threadIdx.x & 31;
   ShortRank r;
   const bool valid = lane < len;
   r.w = valid ? keys[a + lane] : 0u;
-  r.b = valid ? bucket_of(r.w, L, sp) : -1;
+  r.b = valid ? label_at<kIds>(ids, a + lane, r.w, L, sp) : -1;
   r.peers = __match_any_sync(kFull, r.b);
   r.rank = __popc(r.peers & ((1u << lane) - 1u));
   r.before = 0;

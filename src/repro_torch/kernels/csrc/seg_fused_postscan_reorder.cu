@@ -1,34 +1,45 @@
-// K2s: the segmented fused WMS/BMS postscan with labels in the kernel:
-// stable rank of the combined id cid = seg·m + b, the tile's (seg, b)
-// starts, the global destination G[cid] + rank, then the (seg, b)-major
-// reorder of keys, values and destinations through shared memory and
-// coalesced writes.
+// K2s: the segmented fused WMS/BMS postscan: stable rank of the combined
+// id cid = seg·m + b, the tile's (seg, b) starts, the global destination
+// G[cid] + rank, then the (seg, b)-major reorder of keys, values and
+// destinations through shared memory and coalesced writes. Two entry
+// points share one kernel body, which a template flag gives its label
+// source:
 //
-// Replaces seg_spec_fused_postscan_reorder_pallas
-// (src/repro/kernels/multisplit_tile.py:587) and its BitfieldSpec instance
-// seg_radix_fused_postscan_reorder_pallas (src/repro/kernels/radix_pass.py:95).
+// * ms_seg_fused_postscan_reorder: labels in the kernel from a declarative
+//   spec. Replaces seg_spec_fused_postscan_reorder_pallas
+//   (src/repro/kernels/multisplit_tile.py:587) and its BitfieldSpec
+//   instance seg_radix_fused_postscan_reorder_pallas
+//   (src/repro/kernels/radix_pass.py:95).
+// * ms_seg_fused_postscan_reorder_ids: labels read from a materialised
+//   int32 ids plane, clamped into [0, m). Replaces
+//   seg_fused_postscan_reorder_pallas
+//   (src/repro/kernels/multisplit_tile.py:303).
 //
-// keys (L, T) 32-bit words, seg (L, T) int32 non-decreasing along each
-// tile, G (L, s·m) int32, optional values (L, T) 32-bit words -> keys_r,
-// vals_r, pos_r (L, T), (seg, b)-major within each tile, with pos_r the
-// global destination of each reordered slot, and perm (L, T) int32, the
-// element-order destination. One block per tile, run by run
-// (multisplit_segmented.cuh). The tile start of (seg, b) is the first index
-// of seg's run plus the exclusive scan of the run's m bucket counts: a short
-// run counts its smaller buckets with shuffles, a long run takes the flat K2
-// machinery over the run. Shared memory is m-wide and T-long, never s·m.
+// keys (L, T) 32-bit words [, ids (L, T) int32], seg (L, T) int32
+// non-decreasing along each tile, G (L, s·m) int32, optional values (L, T)
+// 32-bit words -> keys_r, vals_r, pos_r (L, T), (seg, b)-major within each
+// tile, with pos_r the global destination of each reordered slot, and perm
+// (L, T) int32, the element-order destination. One block per tile, run by
+// run (multisplit_segmented.cuh). The tile start of (seg, b) is the first
+// index of seg's run plus the exclusive scan of the run's m bucket counts:
+// a short run counts its smaller buckets with shuffles, a long run takes
+// the flat K2 machinery over the run. Shared memory is m-wide and T-long,
+// never s·m; the ids plane takes none.
 //
 // Bound: memory. It reads 4 bytes a key, 4 of segment id (and 4 of value)
 // and the G bases its keys hit (4 bytes for each distinct cid of a tile,
 // the nonzeros of the tile's histogram row, at most m a run), and writes
 // keys_r, pos_r, perm (and vals_r): (20·L·T + 4·nnz(H)) bytes key-only,
-// (28·L·T + 4·nnz(H)) key-value, over 3.35 TB/s on an H100 SXM.
+// (28·L·T + 4·nnz(H)) key-value, and 4·L·T more for the ids plane, over
+// 3.35 TB/s on an H100 SXM.
 #include "multisplit_segmented.cuh"
 
 namespace {
 
+template <bool kIds>
 __global__ void __launch_bounds__(ms::kThreads)
     seg_fused_postscan_reorder_kernel(const uint32_t* __restrict__ keys,
+                                      const uint32_t* __restrict__ ids,
                                       const int* __restrict__ segs, const int* __restrict__ g,
                                       const uint32_t* __restrict__ vals,
                                       uint32_t* __restrict__ keys_r, uint32_t* __restrict__ vals_r,
@@ -51,6 +62,7 @@ __global__ void __launch_bounds__(ms::kThreads)
   const size_t tile = blockIdx.x;
   const size_t base = tile * T;
   const uint32_t* k = keys + base;
+  const uint32_t* id = kIds ? ids + base : nullptr;
   const int* seg = segs + base;
   const int* grow = g + tile * static_cast<size_t>(s) * m;
   const bool has_vals = vals != nullptr;
@@ -63,7 +75,7 @@ __global__ void __launch_bounds__(ms::kThreads)
   for (int r = warp; r < nruns; r += ms::kWarps) {
     const int a = runs[r], len = runs[r + 1] - a;
     if (len > ms::kShortRun) continue;
-    const ms::ShortRank x = ms::short_run_rank(k, a, len, L, sp);
+    const ms::ShortRank x = ms::short_run_rank<kIds>(k, id, a, len, L, sp);
     if (lane < len) {
       const int i = a + lane;
       const int gpos = grow[static_cast<size_t>(ms::seg_at(seg, a, s)) * m + x.b] + x.rank;
@@ -83,7 +95,8 @@ __global__ void __launch_bounds__(ms::kThreads)
     ms::zero(cnt, ms::kWarps * m);
     for (int b = threadIdx.x; b < m; b += blockDim.x) sg[b] = gseg[b];
     __syncthreads();
-    ms::rank_tile<true, true>(k + a, len, L, sp, cnt, meta + a, ks + a);
+    ms::rank_tile<true, true, kIds>(k + a, kIds ? id + a : nullptr, len, L, sp, cnt, meta + a,
+                                    ks + a);
     __syncthreads();
     const int count = ms::warp_offsets(cnt, m);      // thread b: the run's count of bucket b
     const int first = ms::block_exclusive_scan(count, wsum);
@@ -112,25 +125,41 @@ __global__ void __launch_bounds__(ms::kThreads)
   }
 }
 
+template <bool kIds>
+int launch(const void* keys, const void* ids, const void* segs, const void* g, const void* vals,
+           void* keys_r, void* vals_r, void* pos_r, void* perm, int n_tiles, int T, int s,
+           const ms::Label& L, void* stream) {
+  if (n_tiles == 0) return 0;
+  const size_t planes = vals ? 6 : 5;
+  const size_t smem =
+      sizeof(int) * (ms::kWarps * L.m + 2 * L.m + planes * static_cast<size_t>(T) + 1);
+  cudaError_t err = ms::allow_smem(seg_fused_postscan_reorder_kernel<kIds>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  seg_fused_postscan_reorder_kernel<kIds><<<n_tiles, ms::kThreads, smem,
+                                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys), static_cast<const uint32_t*>(ids),
+      static_cast<const int*>(segs), static_cast<const int*>(g),
+      static_cast<const uint32_t*>(vals), static_cast<uint32_t*>(keys_r),
+      static_cast<uint32_t*>(vals_r), static_cast<int*>(pos_r), static_cast<int*>(perm), T, s, L);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// vals and vals_r are null for a key-only reorder.
+// vals and vals_r are null for a key-only reorder. Both entry points return
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int ms_seg_fused_postscan_reorder(const void* keys, const void* segs, const void* g,
                                              const void* vals, void* keys_r, void* vals_r,
                                              void* pos_r, void* perm, int n_tiles, int T, int s,
                                              MS_LABEL_PARAMS, void* stream) {
-  if (n_tiles == 0) return 0;
-  const ms::Label L = ms::make_label(MS_LABEL_ARGS);
-  const size_t planes = vals ? 6 : 5;
-  const size_t smem =
-      sizeof(int) * (ms::kWarps * m + 2 * m + planes * static_cast<size_t>(T) + 1);
-  cudaError_t err = ms::allow_smem(seg_fused_postscan_reorder_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  seg_fused_postscan_reorder_kernel<<<n_tiles, ms::kThreads, smem,
-                                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(keys), static_cast<const int*>(segs),
-      static_cast<const int*>(g), static_cast<const uint32_t*>(vals),
-      static_cast<uint32_t*>(keys_r), static_cast<uint32_t*>(vals_r), static_cast<int*>(pos_r),
-      static_cast<int*>(perm), T, s, L);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(keys, nullptr, segs, g, vals, keys_r, vals_r, pos_r, perm, n_tiles, T, s,
+                       ms::make_label(MS_LABEL_ARGS), stream);
+}
+
+extern "C" int ms_seg_fused_postscan_reorder_ids(const void* ids, const void* segs, const void* g,
+                                                 const void* keys, const void* vals, void* keys_r,
+                                                 void* vals_r, void* pos_r, void* perm,
+                                                 int n_tiles, int T, int s, int m, void* stream) {
+  return launch<true>(keys, ids, segs, g, vals, keys_r, vals_r, pos_r, perm, n_tiles, T, s,
+                      ms::identity_label(m), stream);
 }

@@ -4,6 +4,9 @@
 // Replaces seg_spec_tile_histograms_pallas
 // (src/repro/kernels/multisplit_tile.py:512) and its BitfieldSpec instance
 // seg_radix_tile_histograms_pallas (src/repro/kernels/radix_pass.py:73).
+// Launched on a materialised int32 ids strip as its keys under the identity
+// label (min(max(id, 0), m - 1)), it is also seg_tile_histograms_pallas
+// (src/repro/kernels/multisplit_tile.py:227).
 //
 // keys (L, T) 32-bit words, seg (L, T) int32 non-decreasing along each tile
 // -> hist (L, s·m) int32. One block per tile. The block first writes its
@@ -42,7 +45,7 @@ __global__ void __launch_bounds__(ms::kThreads)
   for (int r = warp; r < nruns; r += ms::kWarps) {
     const int a = runs[r], len = runs[r + 1] - a;
     if (len > ms::kShortRun) continue;
-    const ms::ShortRank x = ms::short_run_rank(k, a, len, L, sp);
+    const ms::ShortRank x = ms::short_run_rank(k, nullptr, a, len, L, sp);
     if (x.b >= 0 && lane == __ffs(x.peers) - 1)
       row[static_cast<size_t>(ms::seg_at(sg, a, s)) * m + x.b] = __popc(x.peers);
   }
@@ -51,7 +54,7 @@ __global__ void __launch_bounds__(ms::kThreads)
     if (len <= ms::kShortRun) continue;
     ms::zero(cnt, ms::kWarps * m);
     __syncthreads();
-    ms::rank_tile<false, false>(k + a, len, L, sp, cnt, nullptr, nullptr);
+    ms::rank_tile<false, false>(k + a, nullptr, len, L, sp, cnt, nullptr, nullptr);
     __syncthreads();
     int* out = row + static_cast<size_t>(ms::seg_at(sg, a, s)) * m;
     for (int b = threadIdx.x; b < m; b += blockDim.x) {

@@ -5,6 +5,9 @@
 // Replaces seg_spec_tile_positions_pallas
 // (src/repro/kernels/multisplit_tile.py:544) and its BitfieldSpec instance
 // seg_radix_tile_positions_pallas (src/repro/kernels/radix_pass.py:84).
+// Launched on a materialised int32 ids strip as its keys under the identity
+// label (min(max(id, 0), m - 1)), it is also seg_tile_positions_pallas
+// (src/repro/kernels/multisplit_tile.py:259).
 //
 // keys (L, T) 32-bit words, seg (L, T) int32 non-decreasing along each
 // tile, G (L, s·m) int32 -> pos (L, T) int32. One block per tile, run by run
@@ -47,7 +50,7 @@ __global__ void __launch_bounds__(ms::kThreads)
   for (int r = warp; r < nruns; r += ms::kWarps) {
     const int a = runs[r], len = runs[r + 1] - a;
     if (len > ms::kShortRun) continue;
-    const ms::ShortRank x = ms::short_run_rank(k, a, len, L, sp);
+    const ms::ShortRank x = ms::short_run_rank(k, nullptr, a, len, L, sp);
     if (lane < len)
       out[a + lane] = grow[static_cast<size_t>(ms::seg_at(seg, a, s)) * m + x.b] + x.rank;
   }
@@ -59,7 +62,7 @@ __global__ void __launch_bounds__(ms::kThreads)
     ms::zero(cnt, ms::kWarps * m);
     for (int b = threadIdx.x; b < m; b += blockDim.x) sg[b] = gseg[b];
     __syncthreads();
-    ms::rank_tile<true, false>(k + a, len, L, sp, cnt, meta + a, nullptr);
+    ms::rank_tile<true, false>(k + a, nullptr, len, L, sp, cnt, meta + a, nullptr);
     __syncthreads();
     ms::warp_offsets(cnt, m);
     __syncthreads();

@@ -3,7 +3,9 @@
 //
 // Replaces spec_tile_histograms_pallas (src/repro/kernels/multisplit_tile.py:368)
 // and its BitfieldSpec instance radix_tile_histograms_pallas
-// (src/repro/kernels/radix_pass.py:37).
+// (src/repro/kernels/radix_pass.py:37). Launched on a materialised int32
+// ids strip as its keys under the identity label (min(max(id, 0), m - 1)),
+// it is also tile_histograms_pallas (src/repro/kernels/multisplit_tile.py:94).
 //
 // keys (L, T) 32-bit words -> hist (L, m) int32. One block per tile; each
 // warp counts its run of the tile in warp-private shared-memory counters
@@ -26,7 +28,7 @@ __global__ void __launch_bounds__(ms::kThreads)
   ms::zero(cnt, ms::kWarps * L.m);
   __syncthreads();
   const size_t tile = blockIdx.x;
-  ms::rank_tile<false, false>(keys + tile * T, T, L, sp, cnt, nullptr, nullptr);
+  ms::rank_tile<false, false>(keys + tile * T, nullptr, T, L, sp, cnt, nullptr, nullptr);
   __syncthreads();
   for (int b = threadIdx.x; b < L.m; b += blockDim.x) {
     int s = 0;

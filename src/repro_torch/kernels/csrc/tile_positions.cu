@@ -3,7 +3,9 @@
 //
 // Replaces spec_tile_positions_pallas (src/repro/kernels/multisplit_tile.py:396)
 // and its BitfieldSpec instance radix_tile_positions_pallas
-// (src/repro/kernels/radix_pass.py:46).
+// (src/repro/kernels/radix_pass.py:46). Launched on a materialised int32
+// ids strip as its keys under the identity label (min(max(id, 0), m - 1)),
+// it is also tile_positions_pallas (src/repro/kernels/multisplit_tile.py:123).
 //
 // keys (L, T) 32-bit words, G (L, m) int32 -> pos (L, T) int32. One block
 // per tile: the warp-ballot stable rank of multisplit_common.cuh, then one
@@ -29,7 +31,7 @@ __global__ void __launch_bounds__(ms::kThreads)
   ms::zero(cnt, ms::kWarps * L.m);
   for (int b = threadIdx.x; b < L.m; b += blockDim.x) sg[b] = g[tile * L.m + b];
   __syncthreads();
-  ms::rank_tile<true, false>(keys + tile * T, T, L, sp, cnt, meta, nullptr);
+  ms::rank_tile<true, false>(keys + tile * T, nullptr, T, L, sp, cnt, meta, nullptr);
   __syncthreads();
   ms::warp_offsets(cnt, L.m);
   __syncthreads();

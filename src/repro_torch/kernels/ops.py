@@ -1,11 +1,10 @@
 """The kernel doors the pipeline calls (counterpart of
-``repro/kernels/ops.py:129-190`` and, for the segmented radix pass,
-``:384-419``).
+``repro/kernels/ops.py:72-79, 95-107, 129-190, 346-450``).
 
-Each door takes tiled tensors and a declarative spec and dispatches on the
-tensors' device through the wrappers of
-:mod:`repro_torch.kernels.multisplit_tile`: the CUDA kernel for a CUDA
-tensor, the plain version for a CPU one.
+Each door takes tiled tensors and a declarative spec, or a materialised
+int32 ids strip and the number of buckets, and dispatches on the tensors'
+device through the wrappers of :mod:`repro_torch.kernels.multisplit_tile`:
+the CUDA kernel for a CUDA tensor, the plain version for a CPU one.
 """
 
 from __future__ import annotations
@@ -14,10 +13,68 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.identifiers import EvenSpec
 from repro_torch.kernels import multisplit_tile as _mst
 from repro_torch.kernels import radix_pass as _radix
 
 Tensor = torch.Tensor
+
+
+# -- materialised labels: the int32 ids strip --------------------------------
+
+def tile_histograms(ids_tiled: Tensor, num_buckets: int) -> Tensor:
+    return _mst.tile_histograms(ids_tiled, num_buckets)
+
+
+def tile_positions(ids_tiled: Tensor, g: Tensor, num_buckets: int) -> Tensor:
+    return _mst.tile_positions(ids_tiled, g, num_buckets)
+
+
+def fused_postscan_reorder(
+    ids_tiled: Tensor, g: Tensor, keys_tiled: Tensor, values_tiled: Optional[Tensor],
+    num_buckets: int,
+) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
+    return _mst.fused_postscan_reorder(ids_tiled, g, keys_tiled, values_tiled, num_buckets)
+
+
+def seg_tile_histograms(
+    ids_tiled: Tensor, seg_tiled: Tensor, num_buckets: int, num_segments: int
+) -> Tensor:
+    return _mst.seg_tile_histograms(ids_tiled, seg_tiled, num_buckets, num_segments)
+
+
+def seg_tile_positions(
+    ids_tiled: Tensor, seg_tiled: Tensor, g: Tensor, num_buckets: int, num_segments: int
+) -> Tensor:
+    return _mst.seg_tile_positions(ids_tiled, seg_tiled, g, num_buckets, num_segments)
+
+
+def seg_fused_postscan_reorder(
+    ids_tiled: Tensor, seg_tiled: Tensor, g: Tensor, keys_tiled: Tensor,
+    values_tiled: Optional[Tensor], num_buckets: int, num_segments: int,
+) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
+    return _mst.seg_fused_postscan_reorder(
+        ids_tiled, seg_tiled, g, keys_tiled, values_tiled, num_buckets, num_segments
+    )
+
+
+def device_histogram(ids_tiled: Tensor, num_buckets: int) -> Tensor:
+    """(L, T) ids -> (m,) int32 device-wide histogram: the tile histograms
+    summed over the tiles."""
+    return _mst.tile_histograms(ids_tiled, num_buckets).sum(0, dtype=torch.int32)
+
+
+def spec_bucket_ids(keys_tiled: Tensor, spec) -> Tensor:
+    """(L, T) keys -> (L, T) int32 labels of any declarative spec."""
+    return _mst.spec_bucket_ids(keys_tiled, spec)
+
+
+def even_bucket_ids(keys_tiled: Tensor, lo: float, hi: float, num_buckets: int) -> Tensor:
+    """Even-width labels through the spec-ids kernel."""
+    return _mst.spec_bucket_ids(keys_tiled, EvenSpec(float(lo), float(hi), num_buckets))
+
+
+# -- labels in the kernel: a declarative spec --------------------------------
 
 
 def spec_tile_histograms(keys_tiled: Tensor, spec) -> Tensor:

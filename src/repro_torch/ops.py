@@ -13,7 +13,9 @@ backward of the permutation is its inverse gather, ``d_in[i] =
 ct_out[perm[i]]``; the key-value :func:`segmented_multisplit` gathers by the
 global destination ``perm[i] + starts[seg[i]]``. Plans are cached per
 (spec, shape, config); declarative specs hash by value, so the cache is
-exact.
+exact. A :class:`CallableSpec` (``from_fn``: a programmer's bucket
+function) runs on the keys' device, its int32 labels go to the ids-strip
+kernels, and its plan is never cached.
 """
 
 from __future__ import annotations
@@ -104,8 +106,10 @@ def multisplit(
     device="cuda",
 ) -> MultisplitResult:
     """Stable multisplit of ``keys`` (and optional ``values``) into the
-    buckets of a declarative ``spec`` (paper §3.1). ``mode`` selects a
-    partial pipeline (``counts_only`` / ``positions_only``, key-only)."""
+    buckets of ``spec``, declarative or a ``CallableSpec`` (paper §3.1).
+    ``mode`` selects a partial pipeline (``counts_only`` /
+    ``positions_only``, key-only), which also takes keys that are not 32
+    bits wide on the cuda backend (their labels are materialised)."""
     spec = as_spec(spec)
     keys = _place(keys, device)
     _check_flat(keys, "ops.multisplit")

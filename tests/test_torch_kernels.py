@@ -202,10 +202,17 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     h = mst.seg_spec_tile_histograms(keys, seg, spec, 1)
     mst.seg_spec_tile_positions(keys, seg, global_scan(h), spec, 1)
     mst.seg_spec_fused_postscan_reorder(keys, seg, global_scan(h), None, spec, 1)
+    ids = mst.spec_bucket_ids(keys, spec)
+    mst.tile_positions(ids, mst.tile_histograms(ids, 4), 4)
+    mst.fused_postscan_reorder(ids, g, keys, None, 4)
+    mst.seg_tile_positions(ids, seg, global_scan(mst.seg_tile_histograms(ids, seg, 4, 1)), 4, 1)
+    mst.seg_fused_postscan_reorder(ids, seg, global_scan(h), keys, keys, 4, 1)
     assert mst.launch_counts() == {
         "spec_tile_histograms": 0, "spec_fused_postscan_reorder": 0, "spec_tile_positions": 0,
         "seg_spec_tile_histograms": 0, "seg_spec_fused_postscan_reorder": 0,
-        "seg_spec_tile_positions": 0,
+        "seg_spec_tile_positions": 0, "tile_histograms": 0, "fused_postscan_reorder": 0,
+        "tile_positions": 0, "seg_tile_histograms": 0, "seg_fused_postscan_reorder": 0,
+        "seg_tile_positions": 0, "spec_bucket_ids": 0,
     }
 
 
@@ -264,6 +271,17 @@ def test_label_args_refuses(spec, dtype, err):
                                "seg_radix_tile_positions_pallas"]),
     ("seg_fused_postscan_reorder.cu", ["seg_spec_fused_postscan_reorder_pallas",
                                        "seg_radix_fused_postscan_reorder_pallas"]),
+    ("spec_bucket_ids.cu", ["spec_bucket_ids_pallas"]),
+    ("tile_histograms.cu", ["tile_histograms_pallas (src/repro/kernels/multisplit_tile.py:94)"]),
+    ("tile_positions.cu", ["tile_positions_pallas (src/repro/kernels/multisplit_tile.py:123)"]),
+    ("fused_postscan_reorder.cu", ["fused_postscan_reorder_pallas\n//   (src/repro/kernels/"
+                                   "multisplit_tile.py:168)"]),
+    ("seg_tile_histograms.cu", ["seg_tile_histograms_pallas\n// (src/repro/kernels/"
+                                "multisplit_tile.py:227)"]),
+    ("seg_tile_positions.cu", ["seg_tile_positions_pallas\n// (src/repro/kernels/"
+                               "multisplit_tile.py:259)"]),
+    ("seg_fused_postscan_reorder.cu", ["seg_fused_postscan_reorder_pallas\n//   (src/repro/kernels/"
+                                       "multisplit_tile.py:303)"]),
 ])
 def test_kernel_sources_carry_their_note(source, replaces):
     """Each kernel names the Pallas function it replaces and its bound, and
@@ -275,6 +293,19 @@ def test_kernel_sources_carry_their_note(source, replaces):
     symbol, argtypes = build.ENTRY_POINTS[source[:-3]]
     assert f'extern "C" int {symbol}(' in text
     assert source[:-3] in build.SOURCES
+
+
+@pytest.mark.parametrize("entry", sorted(build.ENTRY_SOURCE))
+def test_ids_entry_points_live_in_their_source(entry):
+    """The ids entry points of K2 and K2s are declared in the K2 and K2s
+    sources, with the number of buckets in place of the label arguments."""
+    symbol, argtypes = build.ENTRY_POINTS[entry]
+    text = (CSRC / f"{build.ENTRY_SOURCE[entry]}.cu").read_text()
+    assert f'extern "C" int {symbol}(' in text
+    assert build.ENTRY_SOURCE[entry] in build.SOURCES
+    fused_argtypes = build.ENTRY_POINTS[build.ENTRY_SOURCE[entry]][1]
+    # the ids pointer and m in place of the ten label arguments
+    assert len(argtypes) == len(fused_argtypes) - len(build._LABEL_ARGTYPES) + 2
 
 
 LIBRARY_MARKS = ("cub::", "thrust::", "cublas", "cusparse", "cutlass::", "cute::", "at::",
@@ -310,5 +341,7 @@ def test_kernel_modules_defer_cuda_work_to_the_launch():
     tree = ast.parse(Path(mst.__file__).read_text())
     calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
              and isinstance(n.func, ast.Attribute) and n.func.attr == "load"]
-    assert len(calls) == len(mst.KERNELS) == len(build.SOURCES) == 6
+    assert len(calls) == len(mst.KERNELS) == 13
+    assert len(build.SOURCES) == 7
+    assert set(build.ENTRY_POINTS) == set(build.SOURCES) | set(build.ENTRY_SOURCE)
     assert not build._FNS

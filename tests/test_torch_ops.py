@@ -255,15 +255,11 @@ def test_radix_pipeline_pads_once(monkeypatch):
 
 @pytest.mark.parametrize("call,err", [
     (lambda: tpipe.make_plan(8, 4, batch=2), NotImplementedError),
-    (lambda: tpipe.make_plan(8, 4, segments=2, backend="cuda",
-                             bucket_fn=ops.from_fn(lambda k: k % 4, 4)), NotImplementedError),
     (lambda: tpipe.make_plan(8, 4, method="xms"), ValueError),
     (lambda: tpipe.make_plan(8, 4, backend="pallas"), ValueError),
     (lambda: tpipe.make_plan(8, 4, mode="sorted"), ValueError),
     (lambda: tpipe.make_plan(8, 4, mode="counts_only", key_value=True), ValueError),
     (lambda: tpipe.make_plan(8, 4, family="packed"), ValueError),
-    (lambda: tpipe.make_plan(8, 4, backend="cuda", bucket_fn=ops.from_fn(lambda k: k % 4, 4)),
-     NotImplementedError),
     (lambda: ops.multisplit(np.zeros(8, np.int64), ops.DeltaSpec(4), backend="cuda", device="cpu"),
      ValueError),
     (lambda: ops.multisplit(np.zeros((2, 4), np.int32), ops.DeltaSpec(4), device="cpu"), ValueError),

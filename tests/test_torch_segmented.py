@@ -247,14 +247,14 @@ def test_seg_wrappers_check_what_the_kernels_take():
         mst.seg_spec_tile_histograms(keys, keys, ops.DeltaSpec(4), 2)
     keys = torch.zeros((2, 256), dtype=torch.int32)
     seg = torch.zeros((2, 256), dtype=torch.int32)
-    spec = ops.DeltaSpec(4)
+    m = ops.DeltaSpec(4).num_buckets
     with pytest.raises(ValueError, match="segment ids"):
-        mst._check_segments(seg.long(), keys, spec, 2)
+        mst._check_segments(seg.long(), keys, m, 2)
     with pytest.raises(ValueError, match="num_segments"):
-        mst._check_segments(seg, keys, spec, 0)
+        mst._check_segments(seg, keys, m, 0)
     with pytest.raises(ValueError, match="2\\^31"):
-        mst._check_segments(seg, keys, spec, 1 << 30)
-    assert mst._check_segments(seg, keys, spec, 3) == 12
+        mst._check_segments(seg, keys, m, 1 << 30)
+    assert mst._check_segments(seg, keys, m, 3) == 12
 
 
 # ---------------------------------------------------------------------------
@@ -458,13 +458,6 @@ def test_cuda_backend_routes_through_the_segmented_doors(monkeypatch):
     assert plan.stages() == ("layout:segmented[4]", "prescan:fused-label-kernel", "scan:global",
                              "postscan:fused-label-reorder-kernel", "scatter:bucket-major")
     assert plan.tile == tpipe.CUDA_TILE and plan.m_eff == 256 and plan.layout == "segmented"
-
-
-def test_ids_strip_with_segments_names_the_roadmap():
-    plan = tpipe.make_segmented_plan(8, 2, 4, backend="vmap")
-    ids = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="8 \\(segmented"):
-        tpipe.KernelStages().prescan(plan, None, ids, ids)
 
 
 # ---------------------------------------------------------------------------
