@@ -26,6 +26,13 @@ Phases, one line or more each, every one of which must pass:
    7, 32, 255, 256}, tails and tiles up to ``MAX_TILE``, labels outside
    [0, m) (both sides clamp them), bases above 2^24, empty and one- to
    eight-key segments.
+   The packed kernels K1p-K3p in their four forms ({labels in the kernel |
+   ids strip} x {flat | segmented}), each held bitwise against its plain
+   version and against the onehot kernel of the same form: the main shapes
+   (flat at m in {8, 32, 256} and two radix digits, S1, S3), m in {1, 2, 7,
+   8, 255, 256}, tiles of 128 to ``MAX_TILE`` keys, subtiles 1, 32, 128 and
+   255, one-bucket tiles that drive a counter lane to the 255 cap, labels
+   outside [0, m), bases above 2^24, empty and one- to eight-key segments.
 4. main    — the port's entry points at the paper's size, n = 2^25 uniform
    random 32-bit keys on the cuda backend: ``ops.multisplit`` for
    ``DeltaSpec(m, 2^32)`` (equal widths over the whole key range, so the
@@ -48,13 +55,23 @@ Phases, one line or more each, every one of which must pass:
    int16 and int64 keys through ``histogram`` and positions_only; the
    ``even_bucket_ids`` / ``device_histogram`` doors; and the hash at S1's
    shape through ``ops.segmented_multisplit``.
+   Packed — the same entry points with ``family="packed"`` at n = 2^25, one
+   path a form: flat (key-value bms, dms and ``histogram`` at m in {8, 32,
+   256}; ``radix_sort`` r = 8), segmented (S1 key-value bms, S2, S3), flat
+   callable (the hash at m = 32) and segmented callable (the hash at S1's
+   shape). Every result is held bitwise against the same call on the
+   default (onehot) family and against the stable-sort oracle.
 6. launches — every kernel's launch count from its own path's run alone
-   (flat, segmented, flat callable, segmented callable); every kernel is
-   launched on one of them.
+   (flat, segmented, flat callable, segmented callable, and the four
+   packed paths, which launch K1p-K3p and no onehot kernel); every kernel
+   is launched on one of them.
 7. times   — per kernel: ms, the plain version's ms, the bound (bytes moved
    over 3.35 TB/s, the H100 SXM data-sheet rate) and one PyTorch call as a
-   yardstick; end to end: ms and Gkeys/s, with the same labels as
-   ``DeltaSpec`` and as a callable; stage splits; peak device memory.
+   yardstick; the onehot and packed kernels side by side on the same
+   inputs (flat at m in {8, 32, 256}, S1, both label sources); end to end:
+   ms and Gkeys/s, with the same labels as ``DeltaSpec`` and as a
+   callable, and every packed path's call beside its onehot twin; stage
+   splits; peak device memory.
 
 The last lines are the ``nvidia-smi`` line, one JSON line of the kernels
 and ``{"ok": true, "device": {...}}``. The script exits non-zero, printing
@@ -63,6 +80,7 @@ no result, when no CUDA device is present or a phase fails.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -432,6 +450,143 @@ def main() -> int:
                    f"2^24, empty and tiny segments): the six ids kernels all bitwise equal to "
                    f"their plain versions ({time.perf_counter() - t0:.1f} s)")
 
+    # ---- 3d. the packed kernels K1p-K3p against their plain versions and the
+    # onehot kernels, in their four forms ({spec labels | ids strip} x {flat |
+    # segmented})
+    def onehot_stages(tiled, keys_tiled, spec, m, seg, s):
+        """The onehot wrappers of the same form: (histograms, positions(g),
+        reorder(g, vals))."""
+        if spec is not None and seg is None:
+            return (lambda: mst.spec_tile_histograms(tiled, spec),
+                    lambda g: mst.spec_tile_positions(tiled, g, spec),
+                    lambda g, v: mst.spec_fused_postscan_reorder(tiled, g, v, spec))
+        if spec is not None:
+            return (lambda: mst.seg_spec_tile_histograms(tiled, seg, spec, s),
+                    lambda g: mst.seg_spec_tile_positions(tiled, seg, g, spec, s),
+                    lambda g, v: mst.seg_spec_fused_postscan_reorder(tiled, seg, g, v, spec, s))
+        if seg is None:
+            return (lambda: mst.tile_histograms(tiled, m),
+                    lambda g: mst.tile_positions(tiled, g, m),
+                    lambda g, v: mst.fused_postscan_reorder(tiled, g, keys_tiled, v, m))
+        return (lambda: mst.seg_tile_histograms(tiled, seg, m, s),
+                lambda g: mst.seg_tile_positions(tiled, seg, g, m, s),
+                lambda g, v: mst.seg_fused_postscan_reorder(tiled, seg, g, keys_tiled, v, m, s))
+
+    packed_forms = set()
+
+    def check_packed_case(what, tiled, values_tiled, spec=None, m=None, keys_tiled=None, seg=None,
+                          s=1, g_offset=0, subtile=None):
+        """K1p, K3p and K2p (key-only and key-value) on one form, each held
+        bitwise against its plain version and against the onehot kernel of
+        the same form."""
+        nonlocal n_checks
+        kw = dict(seg_tiled=seg, num_segments=s, subtile=subtile)
+        kw.update(spec=spec) if spec is not None else kw.update(num_buckets=m)
+        hist, positions, reorder = onehot_stages(tiled, keys_tiled, spec, m, seg, s)
+        e = {}
+        h_plain = mst.packed_tile_histograms_plain(tiled, **kw)
+        h = mst.packed_tile_histograms(tiled, **kw)
+        e["packed_tile_histograms"] = max(max_err(h, h_plain), max_err(h, hist()))
+        g = st.global_scan(h_plain) + g_offset
+        del h, h_plain
+        p = mst.packed_tile_positions(tiled, g, **kw)
+        e["packed_tile_positions"] = max(max_err(p, mst.packed_tile_positions_plain(tiled, g, **kw)),
+                                         max_err(p, positions(g)))
+        del p
+        e["packed_fused_postscan_reorder"] = 0
+        for vals in (None, values_tiled):
+            got = mst.packed_fused_postscan_reorder(tiled, g, keys_tiled, vals, **kw)
+            for want in (mst.packed_fused_postscan_reorder_plain(tiled, g, keys_tiled, vals, **kw),
+                         reorder(g, vals)):
+                e["packed_fused_postscan_reorder"] = max(
+                    e["packed_fused_postscan_reorder"], *(max_err(a, b) for a, b in zip(got, want)))
+        torch.cuda.synchronize()
+        n_checks += 1
+        packed_forms.add(("spec" if spec is not None else "ids", "flat" if seg is None else "segmented"))
+        for name, err in e.items():
+            errs[name] = max(errs[name], err)
+        if any(e.values()):
+            raise AssertionError(f"packed kernel != plain or onehot for {what}: {e}")
+
+    t0, n0 = time.perf_counter(), n_checks
+    # (a) the main shapes: 8192 tiles of 4096 keys at m = 8, 32, 256 and the
+    # radix digits, flat; S1 (s = 64, m = 32) and S3 (s = 256, m = 64); the
+    # ids forms beside them; G up to 2^25
+    for spec in (main_spec(8), main_spec(32), main_spec(256), ops.BitfieldSpec(0, 8),
+                 ops.BitfieldSpec(24, 8)):
+        check_packed_case(f"main shape {spec.name}", keys_main, vals_main, spec=spec)
+    ids = torch.randint(0, 256, (l_main, t_main), dtype=torch.int32, device=dev, generator=gen)
+    check_packed_case("main shape ids m=256", ids, vals_main, m=256, keys_tiled=keys_main)
+    seg_main = seg_strip(s1_starts, (l_main, t_main))
+    check_packed_case("S1 shape", keys_main, vals_main, spec=main_spec(32), seg=seg_main, s=64)
+    ids = torch.randint(0, 32, (l_main, t_main), dtype=torch.int32, device=dev, generator=gen)
+    check_packed_case("S1 shape ids", ids, vals_main, m=32, keys_tiled=keys_main, seg=seg_main, s=64)
+    del ids, seg_main
+    shape3 = (n3 // 4096, 4096)
+    ids3 = torch.randint(0, 64, shape3, dtype=torch.int32, device=dev, generator=gen)
+    seg3 = seg_strip(s3_starts, shape3)
+    check_packed_case("S3 shape", ids3, None, spec=ops.IdentitySpec(64), seg=seg3, s=256)
+    check_packed_case("S3 shape ids", ids3, rand_i32(shape3), m=64, keys_tiled=rand_i32(shape3),
+                      seg=seg3, s=256)
+    del ids3, seg3
+    log("kernels", f"packed, main shapes (flat {l_main} x {t_main} at m = 8, 32, 256 and two radix "
+                   f"digits; S1; S3; spec and ids forms): K1p-K3p bitwise equal to their plain "
+                   f"versions and to the onehot kernels ({time.perf_counter() - t0:.1f} s)")
+    # (b) m in (1, 2, 7, 8, 255, 256), tiles of 128 to 8192 keys, every
+    # subtile the kernels take on one shape, labels outside [0, m) (both
+    # families clamp them), bases above 2^24, ragged strips with empty
+    # segments; every form
+    for shape, s in (((16, 128), 5), ((3, 1000), 9), ((8, 4096), 37), ((3, mst.MAX_TILE), 5),
+                     ((7, 33), 3)):
+        for i, m in enumerate((1, 2, 7, 8, 255, 256)):
+            starts = ragged_starts(shape[0] * shape[1], s, np_rng, empty=(1, s - 1))
+            seg = seg_strip(starts, shape)
+            keys = keys_for(torch.uint32, shape, 0, 2**32)
+            spec = main_spec(m) if m > 1 else ops.DeltaSpec(1)
+            ids = torch.randint(-3, m + 3, shape, dtype=torch.int32, device=dev, generator=gen)
+            vals = rand_i32(shape)
+            off = (1 << 24) + 1 if i % 2 else 0
+            for sub in ((None, 255, 32, 1) if shape == (3, 1000) else (None,)):
+                tag = f"m={m} {shape} s={s} subtile={sub}"
+                check_packed_case(f"spec {tag}", keys, vals, spec=spec, g_offset=off, subtile=sub)
+                check_packed_case(f"spec seg {tag}", keys, vals, spec=spec, seg=seg, s=s,
+                                  g_offset=off, subtile=sub)
+                check_packed_case(f"ids {tag}", ids, vals, m=m, keys_tiled=keys, g_offset=off,
+                                  subtile=sub)
+                check_packed_case(f"ids seg {tag}", ids, vals, m=m, keys_tiled=keys, seg=seg, s=s,
+                                  g_offset=off, subtile=sub)
+    # (c) adversarial tiles: every key in one bucket, so a counter lane
+    # reaches exactly the subtile cap of 255 keys (flat, and long runs)
+    for sub in (255, None):
+        keys = torch.full((8, 4096), 7, dtype=torch.int32, device=dev)
+        seg = seg_strip(np.array([0, 5000, 5001, 20000], np.int32), (8, 4096))
+        check_packed_case(f"one bucket subtile={sub}", keys, rand_i32((8, 4096)),
+                          spec=ops.IdentitySpec(8), subtile=sub, g_offset=(1 << 24) + 1)
+        check_packed_case(f"one bucket seg subtile={sub}", keys, rand_i32((8, 4096)),
+                          spec=ops.IdentitySpec(8), seg=seg, s=4, subtile=sub)
+        check_packed_case(f"one bucket ids subtile={sub}", keys, rand_i32((8, 4096)), m=256,
+                          keys_tiled=rand_i32((8, 4096)), subtile=sub)
+    # (d) one- to eight-key segments: hundreds of runs in every tile
+    for shape, m in (((64, 4096), 2), ((16, 4096), 256)):
+        lens = np_rng.integers(1, 9, shape[0] * shape[1])
+        starts = np.cumsum(lens) - lens
+        starts = starts[starts < shape[0] * shape[1]].astype(np.int32)
+        seg = seg_strip(starts, shape)
+        keys = keys_for(torch.uint32, shape, 0, 2**32)
+        check_packed_case(f"{starts.size} tiny segments m={m}", keys, rand_i32(shape),
+                          spec=main_spec(m), seg=seg, s=starts.size)
+        ids = torch.randint(-1, m + 1, shape, dtype=torch.int32, device=dev, generator=gen)
+        check_packed_case(f"ids {starts.size} tiny segments m={m}", ids, rand_i32(shape), m=m,
+                          keys_tiled=keys, seg=seg, s=starts.size)
+    del ids, seg, keys, vals
+    if len(packed_forms) != 4:
+        raise AssertionError(f"packed forms checked: {sorted(packed_forms)}")
+    log("kernels", f"{n_checks - n0} packed cases (the main shapes, m in (1, 2, 7, 8, 255, 256), "
+                   f"tiles of 128 to {mst.MAX_TILE}, subtiles 1, 32, 128 and 255, one-bucket tiles "
+                   f"at the 255 cap, labels outside [0, m), G above 2^24, empty and tiny segments; "
+                   f"all four forms): K1p-K3p all bitwise equal to their plain versions and to the "
+                   f"onehot kernels ({time.perf_counter() - t0:.1f} s)")
+
     # ---- 4. main path at the paper's size, with the launch counts of that run alone
     keys = rand_i32((N_MAIN,)).view(torch.uint32)
     values = rand_i32((N_MAIN,))
@@ -724,6 +879,129 @@ def main() -> int:
                              f"expected {seg_call_expect}")
     for name, count in seg_call_launches.items():
         launches[name] += count
+
+    # ---- 5e. the packed family's paths (family="packed"), one form each, each
+    # with its own launch counts and held bitwise against the stable-sort
+    # oracle and against the same call on the default (onehot) family
+    sort_key = bits(keys) ^ torch.iinfo(torch.int32).min        # unsigned order as signed
+    _, order = torch.sort(sort_key, stable=True)
+    sorted_kv = (bits(keys)[order].view(torch.uint32), values[order])
+    del order, sort_key
+    ref_ms = {}                                  # what -> (packed call, its onehot twin)
+
+    def packed_path(path, calls, expect, oracles):
+        """Run ``calls`` (label -> a function of the family) with the packed
+        family alone, check the launch counts, then every result against
+        its oracle and the onehot family's result."""
+        torch.cuda.synchronize()
+        mst.reset_launches()
+        t0 = time.perf_counter()
+        got = {what: fn("packed") for what, fn in calls.items()}
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = mst.launch_counts()
+        want = {name: 0 for name in counts}
+        want.update(expect)
+        if counts != want:
+            raise AssertionError(f"packed {path} launch counts {counts} != expected {want}")
+        for name, count in counts.items():
+            launches[name] += count
+            if count:
+                log("launches", f"packed {path} path: {name}: {count}")
+        for what, fn in calls.items():
+            res, onehot = got.pop(what), fn(None)
+            if isinstance(res, tuple) and not hasattr(res, "_fields"):        # a sort
+                for a, b, c in zip(res, onehot, oracles[what]()):
+                    if max_err(a, b) or max_err(a, c):
+                        raise AssertionError(f"packed {what} differs from onehot or the oracle")
+            elif isinstance(res, torch.Tensor):                                # a histogram
+                if max_err(res, onehot) or max_err(res, oracles[what]()):
+                    raise AssertionError(f"packed {what} differs from onehot or the oracle")
+            else:
+                check_result(f"packed {what}", res, onehot, fields)
+                check_result(f"packed {what}", res, oracles[what](), fields)
+            ref_ms[what] = fn
+        log("packed", f"{path}: {len(calls)} calls in {secs:.2f} s (first calls), every one bitwise "
+                      f"equal to the onehot family and to the stable-sort oracle")
+
+    flat_calls, flat_oracles = {}, {}
+    for m in (8, 32, 256):
+        spec_m = main_spec(m)
+        want_m = functools.lru_cache(None)(lambda spec_m=spec_m: rb_sort_multisplit(keys, spec_m, values))
+        flat_calls[f"multisplit kv bms m={m}"] = (
+            lambda fam, spec_m=spec_m: ops.multisplit(keys, spec_m, values, method="bms", family=fam,
+                                                      device=dev))
+        flat_oracles[f"multisplit kv bms m={m}"] = want_m
+        flat_calls[f"multisplit dms m={m}"] = (
+            lambda fam, spec_m=spec_m: ops.multisplit(keys, spec_m, method="dms", family=fam,
+                                                      device=dev))
+        flat_oracles[f"multisplit dms m={m}"] = lambda want_m=want_m: want_m()._replace(values=None)
+        flat_calls[f"histogram m={m}"] = (
+            lambda fam, spec_m=spec_m: ops.histogram(keys, spec_m, family=fam, device=dev))
+        flat_oracles[f"histogram m={m}"] = lambda want_m=want_m: want_m().bucket_counts
+    flat_calls["radix_sort kv r=8"] = lambda fam: ops.radix_sort(keys, values, family=fam, device=dev)
+    flat_oracles["radix_sort kv r=8"] = lambda: sorted_kv
+    # per m: K1p in 3 calls, K2p in the bms call, K3p in the dms call; the
+    # sort: K1p and K2p once a pass, 4 passes
+    packed_path("flat (labels in the kernels)", flat_calls,
+                {"packed_tile_histograms": 3 * 3 + 4, "packed_fused_postscan_reorder": 3 + 4,
+                 "packed_tile_positions": 3}, flat_oracles)
+    del flat_calls, flat_oracles
+
+    s1_want = functools.lru_cache(None)(lambda: seg_oracle(keys, s1_starts, spec1, values))
+    seg_calls = {
+        "S1 segmented_multisplit kv bms": lambda fam: ops.segmented_multisplit(
+            keys, spec1, s1_starts, values, method="bms", family=fam, device=dev),
+        "S2 segmented_radix_sort kv": lambda fam: ops.segmented_radix_sort(
+            keys, s2_starts, values, family=fam, device=dev),
+        "S3 routing positions_only": lambda fam: ops.segmented_multisplit(
+            ids3_flat, ops.IdentitySpec(64), s3_starts, method="dms", mode="positions_only",
+            family=fam, device=dev),
+    }
+    seg_oracles = {
+        "S1 segmented_multisplit kv bms": s1_want,
+        "S2 segmented_radix_sort kv": lambda: seg_sort_oracle(keys, s2_starts, values),
+        "S3 routing positions_only": lambda: seg_oracle(ids3_flat, s3_starts, ops.IdentitySpec(64))._replace(keys=None),
+    }
+    # S1: K1p, K2p; S2: K1p and K2p once a pass; S3: K1p, K3p
+    packed_path("segmented (labels in the kernels)", seg_calls,
+                {"packed_tile_histograms": 1 + 4 + 1, "packed_fused_postscan_reorder": 1 + 4,
+                 "packed_tile_positions": 1}, seg_oracles)
+    del seg_calls, seg_oracles
+
+    h32_want = functools.lru_cache(None)(lambda: rb_sort_multisplit(keys, hash32, values))
+    call_calls = {
+        "hash32 multisplit kv bms": lambda fam: ops.multisplit(keys, hash32, values, method="bms",
+                                                               family=fam, device=dev),
+        "hash32 multisplit dms": lambda fam: ops.multisplit(keys, hash32, method="dms", family=fam,
+                                                            device=dev),
+        "hash32 histogram": lambda fam: ops.histogram(keys, hash32, family=fam, device=dev),
+    }
+    call_oracles = {
+        "hash32 multisplit kv bms": h32_want,
+        "hash32 multisplit dms": lambda: h32_want()._replace(values=None),
+        "hash32 histogram": lambda: h32_want().bucket_counts,
+    }
+    packed_path("flat callable (ids strip)", call_calls,
+                {"packed_tile_histograms": 3, "packed_fused_postscan_reorder": 1,
+                 "packed_tile_positions": 1}, call_oracles)
+    del call_calls, call_oracles, h32_want
+
+    s1h_want = functools.lru_cache(None)(lambda: seg_oracle(keys, s1_starts, hash32, values))
+    segc_calls = {
+        "S1 hash32 segmented_multisplit kv bms": lambda fam: ops.segmented_multisplit(
+            keys, hash32, s1_starts, values, method="bms", family=fam, device=dev),
+        "S1 hash32 positions_only": lambda fam: ops.segmented_multisplit(
+            keys, hash32, s1_starts, method="dms", mode="positions_only", family=fam, device=dev),
+    }
+    segc_oracles = {
+        "S1 hash32 segmented_multisplit kv bms": s1h_want,
+        "S1 hash32 positions_only": lambda: s1h_want()._replace(keys=None, values=None),
+    }
+    packed_path("segmented callable (ids strip)", segc_calls,
+                {"packed_tile_histograms": 2, "packed_fused_postscan_reorder": 1,
+                 "packed_tile_positions": 1}, segc_oracles)
+    del segc_calls, segc_oracles, s1h_want, s1_want, sorted_kv
     for name in launches:
         if launches[name] == 0:
             raise AssertionError(f"{name} was launched on none of the paths")
@@ -784,6 +1062,21 @@ def main() -> int:
         ("spec_bucket_ids", "spec_bucket_ids.cu", "src/repro/kernels/multisplit_tile.py:421",
          lambda: mst.spec_bucket_ids(kt, even), lambda: mst.spec_bucket_ids_plain(kt, even),
          4 * n + 4 * n, None),
+        # the packed family: the bytes of K1, K2 and K3 at the same shapes
+        ("packed_tile_histograms", "packed_tile_histograms.cu",
+         "src/repro/kernels/multisplit_tile.py:662",
+         lambda: mst.packed_tile_histograms(kt, spec=spec),
+         lambda: mst.packed_tile_histograms_plain(kt, spec=spec), 4 * n + gbytes, bincount_ms),
+        ("packed_fused_postscan_reorder", "packed_fused_postscan_reorder.cu",
+         "src/repro/kernels/multisplit_tile.py:772",
+         lambda: mst.packed_fused_postscan_reorder(kt, g, None, vt, spec=spec),
+         lambda: mst.packed_fused_postscan_reorder_plain(kt, g, None, vt, spec=spec),
+         8 * n + gbytes + 16 * n, sort_cid_ms),
+        ("packed_tile_positions", "packed_tile_positions.cu",
+         "src/repro/kernels/multisplit_tile.py:706",
+         lambda: mst.packed_tile_positions(kt, g, spec=spec),
+         lambda: mst.packed_tile_positions_plain(kt, g, spec=spec), 4 * n + gbytes + 4 * n,
+         sort_cid_ms),
     ]
     kernels = []
     for name, src, replaces, kern, plain, nbytes, lib_ms in rows:
@@ -803,6 +1096,33 @@ def main() -> int:
                      f"MiB / 3.35 TB/s, {bound / ms_k:.1%} of it), plain {ms_p:.2f} ms, library "
                      f"{library}; {launches[name]} launches on the main paths [n = 2^25, {label}, "
                      f"tiles 8192 x 4096; {smi}]")
+
+    # the two families side by side, kernel by kernel, on the same inputs
+    def family_pair(label, onehot_fn, packed_fn) -> str:
+        a, b = cuda_ms(onehot_fn), cuda_ms(packed_fn)
+        return f"{label} {a:.4f} / {b:.4f} ms ({b / a:.3f}x)"
+
+    for m_ in (8, 32, 256):
+        spec_ = main_spec(m_)
+        g_ = st.global_scan(mst.spec_tile_histograms(kt, spec_))
+        log("times", f"onehot / packed, flat m = {m_}, labels in the kernels: " + "; ".join([
+            family_pair("K1 / K1p", lambda: mst.spec_tile_histograms(kt, spec_),
+                        lambda: mst.packed_tile_histograms(kt, spec=spec_)),
+            family_pair("K3 / K3p", lambda: mst.spec_tile_positions(kt, g_, spec_),
+                        lambda: mst.packed_tile_positions(kt, g_, spec=spec_)),
+            family_pair("K2 / K2p key-value",
+                        lambda: mst.spec_fused_postscan_reorder(kt, g_, vt, spec_),
+                        lambda: mst.packed_fused_postscan_reorder(kt, g_, None, vt, spec=spec_)),
+        ]) + f" [n = 2^25, tiles 8192 x 4096; {smi}]")
+    del g_
+    log("times", "onehot / packed, flat m = 256, labels from the ids strip: " + "; ".join([
+        family_pair("K1 / K1p", lambda: mst.tile_histograms(ids, m),
+                    lambda: mst.packed_tile_histograms(ids, num_buckets=m)),
+        family_pair("K3 / K3p", lambda: mst.tile_positions(ids, g, m),
+                    lambda: mst.packed_tile_positions(ids, g, num_buckets=m)),
+        family_pair("K2 / K2p key-value", lambda: mst.fused_postscan_reorder(ids, g, kt, vt, m),
+                    lambda: mst.packed_fused_postscan_reorder(ids, g, kt, vt, num_buckets=m)),
+    ]) + f" [n = 2^25, tiles 8192 x 4096; {smi}]")
     del g, cid, ids
 
     # the segmented kernels at S1's shape: 8192 tiles of 4096, s = 64, m = 32
@@ -878,7 +1198,28 @@ def main() -> int:
     }
     log("times", "flat kernels at S1's m = 32 on the same keys: " + "; ".join(
         f"{k} {v:.4f} ms" for k, v in same_m.items()) + f" [{smi}]")
-    del cid1, g1, g32, ids1
+    seg_kw = dict(seg_tiled=seg_main, num_segments=s)
+    log("times", "onehot / packed at S1, labels in the kernels: " + "; ".join([
+        family_pair("K1s / K1p", lambda: mst.seg_spec_tile_histograms(kt, seg_main, spec1, s),
+                    lambda: mst.packed_tile_histograms(kt, spec=spec1, **seg_kw)),
+        family_pair("K3s / K3p", lambda: mst.seg_spec_tile_positions(kt, seg_main, g1, spec1, s),
+                    lambda: mst.packed_tile_positions(kt, g1, spec=spec1, **seg_kw)),
+        family_pair("K2s / K2p key-value",
+                    lambda: mst.seg_spec_fused_postscan_reorder(kt, seg_main, g1, vt, spec1, s),
+                    lambda: mst.packed_fused_postscan_reorder(kt, g1, None, vt, spec=spec1,
+                                                              **seg_kw)),
+    ]) + f" [S1: n = 2^25, s = 64, m = 32, tiles 8192 x 4096; {smi}]")
+    log("times", "onehot / packed at S1, labels from the ids strip: " + "; ".join([
+        family_pair("K1s / K1p", lambda: mst.seg_tile_histograms(ids1, seg_main, m1, s),
+                    lambda: mst.packed_tile_histograms(ids1, num_buckets=m1, **seg_kw)),
+        family_pair("K3s / K3p", lambda: mst.seg_tile_positions(ids1, seg_main, g1, m1, s),
+                    lambda: mst.packed_tile_positions(ids1, g1, num_buckets=m1, **seg_kw)),
+        family_pair("K2s / K2p key-value",
+                    lambda: mst.seg_fused_postscan_reorder(ids1, seg_main, g1, kt, vt, m1, s),
+                    lambda: mst.packed_fused_postscan_reorder(ids1, g1, kt, vt, num_buckets=m1,
+                                                              **seg_kw)),
+    ]) + f" [S1: n = 2^25, s = 64, m = 32, tiles 8192 x 4096; {smi}]")
+    del cid1, g1, g32, ids1, seg_kw
 
     top8 = ops.from_fn(lambda u: (bits(u) >> 24) & 255, 256, "top8")
     check_result("top-byte callable against DeltaSpec(256, 2^32)",
@@ -953,6 +1294,14 @@ def main() -> int:
         log("times", f"end to end {what}: {ms_e:.3f} ms = {n_keys / ms_e / 1e6:.2f} Gkeys/s; "
                      f"library (stable torch.sort / bincount; for S1-S3 the oracle's sort of the "
                      f"combined key) {ms_l:.3f} ms [{smi}]")
+    # the two families end to end, in turns on the same inputs
+    for what, fn in ref_ms.items():
+        ms_o = cuda_ms(lambda: fn(None), reps=5, inner=1)
+        ms_p = cuda_ms(lambda: fn("packed"), reps=5, inner=1)
+        n_keys = n3 if what.startswith("S3") else n
+        log("times", f"end to end onehot / packed, {what}: {ms_o:.3f} / {ms_p:.3f} ms "
+                     f"({ms_p / ms_o:.3f}x) = {n_keys / ms_o / 1e6:.2f} / {n_keys / ms_p / 1e6:.2f} "
+                     f"Gkeys/s [{smi}]")
     # where the time of one key-value bms multisplit (m = 256) goes, stage by stage
     from repro_torch.core.pipeline import make_plan
 

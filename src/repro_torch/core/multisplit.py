@@ -102,17 +102,18 @@ def _empty_segmented_result(
 
 
 def segmented_multisplit(
-    keys: Tensor,
+    keys,
     bucket_fn: BucketSpec,
     segment_starts,
-    values: Optional[Tensor] = None,
+    values=None,
     *,
     method: str = "bms",
     tile: Optional[int] = None,
-    backend: str = "vmap",
+    backend: str = "cuda",
     mode: str = "reorder",
     family: Optional[str] = None,
     build_plan: Callable[..., MultisplitPlan] = make_segmented_plan,
+    device="cuda",
 ) -> MultisplitResult:
     """Multisplit every ragged segment of flat ``keys`` independently in one
     launch. ``segment_starts`` is an (s,) ascending vector of start offsets
@@ -124,7 +125,10 @@ def segmented_multisplit(
     ``bucket_counts`` are (s, m) segment-local, and so is ``permutation``.
     ``s == 0`` is legal with empty keys. ``build_plan`` resolves the plan
     with :func:`make_segmented_plan`'s signature (``ops`` passes its
-    cached one)."""
+    cached one). Inputs, tensors or numpy arrays, are placed on
+    ``device``."""
+    keys = torch.as_tensor(keys).to(device)
+    values = None if values is None else torch.as_tensor(values).to(device)
     starts = torch.as_tensor(segment_starts)
     if starts.shape[0] == 0:
         return _empty_segmented_result(keys, values, bucket_fn.num_buckets, mode)

@@ -37,6 +37,8 @@ from repro_torch.core.pipeline.stages import (
     direct_solve_ids,
     exclusive_rows,
     global_scan,
+    packed_direct_solve_ids,
+    packed_tile_local_offsets,
     pad_to_tiles,
     seg_tile_local,
     segment_ids_from_starts,
@@ -47,6 +49,8 @@ from repro_torch.core.pipeline.tiles import (
     CUDA_TILE,
     FAMILIES,
     WMS_TILE,
+    family_decision,
+    family_decisions,
     resolve_kernel_family,
     resolve_tile,
 )
@@ -55,9 +59,10 @@ __all__ = [
     "BMS_TILE", "Backend", "CUDA_TILE", "FAMILIES", "KernelStages", "MODES",
     "MultisplitPlan", "MultisplitResult", "PipelineSpec", "RadixPipeline",
     "StageImpl", "VmapStages", "WMS_TILE", "backend_names",
-    "direct_counts", "direct_solve_ids", "exclusive_rows", "get_backend",
-    "global_scan", "make_plan", "make_radix_plan", "make_segmented_plan",
-    "make_segmented_radix_plan", "pad_to_tiles", "radix_passes",
+    "direct_counts", "direct_solve_ids", "exclusive_rows", "family_decision",
+    "family_decisions", "get_backend", "global_scan", "make_plan", "make_radix_plan",
+    "make_segmented_plan", "make_segmented_radix_plan", "packed_direct_solve_ids",
+    "packed_tile_local_offsets", "pad_to_tiles", "radix_passes",
     "register_backend", "resolve_kernel_family", "resolve_tile",
     "seg_tile_local", "segment_ids_from_starts", "tile_local_offsets",
 ]

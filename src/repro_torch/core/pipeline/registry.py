@@ -11,8 +11,12 @@ backend's prescan / postscan-positions / postscan-reorder over pre-tiled
   :mod:`repro_torch.kernels.common`), the analogue of ``VmapStages``.
 * ``cuda`` — the hand-written Hopper kernels K1-K3 (flat) and K1s-K3s
   (segmented), with labels in-kernel or read from a materialised ids strip
-  (:mod:`repro_torch.kernels.ops`). On CPU tensors the kernel wrappers run
-  their plain versions; on CUDA tensors they launch the kernels or raise.
+  (:mod:`repro_torch.kernels.ops`), and for the packed family K1p-K3p in
+  all four of those forms. On CPU tensors the kernel wrappers run their
+  plain versions; on CUDA tensors they launch the kernels or raise.
+
+All three implement both kernel families, ``onehot`` and ``packed``
+(``spec.family``), which give the same bits.
 """
 
 from __future__ import annotations
@@ -51,10 +55,16 @@ class KernelStages(StageImpl):
     is None``) are computed in-kernel from the plan's declarative spec
     (K1-K3, or K1s-K3s with a segment strip); a materialised ids strip (a
     ``CallableSpec`` plan, or off-width keys in a partial mode) goes to the
-    ids kernels, flat or segmented."""
+    ids kernels, flat or segmented. A packed plan takes one packed door a
+    stage (K1p-K3p), which covers all four forms."""
 
     def prescan(self, spec, keys_tiled, ids_tiled, seg_tiled):
         m, s = spec.num_buckets, spec.segments
+        if spec.family == "packed":
+            fused = ids_tiled is None
+            return kops.packed_tile_histograms(
+                keys_tiled if fused else ids_tiled, seg_tiled, num_buckets=m,
+                spec=spec.bucket_fn if fused else None, num_segments=s or 1)
         if ids_tiled is not None:
             if seg_tiled is not None:
                 return kops.seg_tile_histograms(ids_tiled, seg_tiled, m, s)
@@ -65,6 +75,11 @@ class KernelStages(StageImpl):
 
     def positions(self, spec, g, keys_tiled, ids_tiled, seg_tiled):
         m, s = spec.num_buckets, spec.segments
+        if spec.family == "packed":
+            fused = ids_tiled is None
+            return kops.packed_tile_positions(
+                keys_tiled if fused else ids_tiled, g, seg_tiled, num_buckets=m,
+                spec=spec.bucket_fn if fused else None, num_segments=s or 1)
         if ids_tiled is not None:
             if seg_tiled is not None:
                 return kops.seg_tile_positions(ids_tiled, seg_tiled, g, m, s)
@@ -75,6 +90,13 @@ class KernelStages(StageImpl):
 
     def reorder(self, spec, g, keys_tiled, ids_tiled, vals_tiled, seg_tiled):
         m, s = spec.num_buckets, spec.segments
+        if spec.family == "packed":
+            fused = ids_tiled is None
+            return kops.packed_fused_postscan_reorder(
+                keys_tiled if fused else ids_tiled, g,
+                keys_tiled=None if fused else keys_tiled, values_tiled=vals_tiled,
+                seg_tiled=seg_tiled, num_buckets=m, spec=spec.bucket_fn if fused else None,
+                num_segments=s or 1)
         if ids_tiled is not None:
             if seg_tiled is not None:
                 return kops.seg_fused_postscan_reorder(
@@ -92,26 +114,45 @@ class VmapStages(StageImpl):
     common.tile_rank`). Segmented tiles take its carry form
     (:func:`~repro_torch.kernels.common.seg_tile_rank`) and a scatter-add
     histogram into s·m columns, O(T·m) whatever s. Fused-label plans derive
-    the tile labels from ``spec.bucket_fn.emit`` inside the stage."""
+    the tile labels from ``spec.bucket_fn.emit`` inside the stage. Packed
+    plans take the two-level packed rank (:func:`~repro_torch.kernels.
+    common.packed_local_offsets`, the gather form), over the combined id
+    ``seg·m + b`` when segmented, as the JAX ``VmapStages`` do; a
+    ``counts_only`` prescan stays the plain scatter-add on either family."""
 
     @staticmethod
     def _tile_ids(spec, keys_tiled, ids_tiled):
         return ids_tiled if ids_tiled is not None else spec.bucket_fn.emit(keys_tiled)
 
+    @staticmethod
+    def _packed_ids(spec, ids, seg_tiled):
+        """(combined ids, packed layout) of a packed plan's tiles."""
+        if seg_tiled is not None:
+            ids = _body.combined_ids(ids, seg_tiled, spec.num_buckets)
+        return ids, _body.packed_layout(ids.shape[1], spec.m_eff)
+
     def prescan(self, spec, keys_tiled, ids_tiled, seg_tiled):
         ids = self._tile_ids(spec, keys_tiled, ids_tiled)
+        if spec.family == "packed" and spec.mode != "counts_only":
+            return _body.packed_counts(*self._packed_ids(spec, ids, seg_tiled))
         if seg_tiled is not None:
             return _body.seg_counts_body(ids, seg_tiled, spec.num_buckets, spec.segments)
         return _body.counts_body(ids, spec.num_buckets)
 
     def positions(self, spec, g, keys_tiled, ids_tiled, seg_tiled):
         ids = self._tile_ids(spec, keys_tiled, ids_tiled)
+        if spec.family == "packed":
+            cid, layout = self._packed_ids(spec, ids, seg_tiled)
+            return _body.packed_positions_body(cid, g, layout)
         if seg_tiled is not None:
             return _body.seg_positions_body(ids, seg_tiled, g, spec.num_buckets)
         return _body.positions_body(ids, g, spec.num_buckets)
 
     def reorder(self, spec, g, keys_tiled, ids_tiled, vals_tiled, seg_tiled):
         ids = self._tile_ids(spec, keys_tiled, ids_tiled)
+        if spec.family == "packed":
+            cid, layout = self._packed_ids(spec, ids, seg_tiled)
+            return _body.packed_postscan_body(cid, g, keys_tiled, vals_tiled, layout)
         if seg_tiled is not None:
             return _body.seg_postscan_body(ids, seg_tiled, g, keys_tiled, vals_tiled,
                                            spec.num_buckets, spec.segments)
@@ -126,7 +167,7 @@ class Backend:
     ``fuses_labels`` advertises that fusable specs are evaluated inside the
     tile stage; ``key_itemsize`` restricts the key width (the CUDA kernels
     take 32-bit words); ``families`` lists the kernel families the stages
-    implement (the packed family is ROADMAP queue B items 4-6)."""
+    implement."""
 
     name: str
     description: str
@@ -172,12 +213,14 @@ register_backend(Backend(
     name="reference",
     description="O(n·m) direct evaluation of paper eq. (1); the oracle",
     tiled=False,
+    families=("onehot", "packed"),     # packed: the packed direct oracle
 ))
 register_backend(Backend(
     name="vmap",
     description="tiled pure-torch stages (the plain in-tile bodies)",
     stages=VmapStages(),
     fuses_labels=True,
+    families=("onehot", "packed"),
 ))
 register_backend(Backend(
     name="cuda",
@@ -186,4 +229,5 @@ register_backend(Backend(
     uses_kernels=True,
     fuses_labels=True,
     key_itemsize=4,
+    families=("onehot", "packed"),
 ))

@@ -118,15 +118,20 @@ class PipelineSpec:
         """The stage graph as ``name:impl`` strings. Fused-label stages
         assume keys of the backend's width: off-width keys in a partial
         mode take the materialised-label stages at call time, which the
-        shape-free plan cannot show."""
+        shape-free plan cannot show. Packed plans carry a ``-packed``
+        suffix on their local-solve stages, but for the vmap
+        ``counts_only`` prescan, a plain scatter-add on either family."""
         be = get_backend(self.backend)
         eng = "kernel" if be.uses_kernels else "vmap"
         fused = self.bucket_fn is not None and self.bucket_fn.fusable
         lab = "fused-label-" if fused else ""
-        pre = f"prescan:{lab}{eng}"
-        positions = f"postscan:{lab}positions-{eng}"
+        fam = "-packed" if be.tiled and self.family == "packed" else ""
+        pre_fam = fam if be.uses_kernels or self.mode != "counts_only" else ""
+        pre = f"prescan:{lab}{eng}{pre_fam}"
+        positions = f"postscan:{lab}positions-{eng}{fam}"
         post = positions if self.method == "dms" else (
-            f"postscan:fused-label-reorder-{eng}" if fused else f"postscan:fused-reorder-{eng}")
+            f"postscan:fused-label-reorder-{eng}{fam}" if fused
+            else f"postscan:fused-reorder-{eng}{fam}")
         if not be.tiled:
             base = ("direct-solve:reference",)
         elif self.mode == "counts_only":
@@ -287,7 +292,8 @@ class MultisplitPlan(PipelineSpec):
         starts: Optional[Tensor],
     ) -> MultisplitResult:
         """The untiled oracle: paper eq. (1) over the whole input, on the
-        combined id ``seg·m + b`` for segmented plans."""
+        combined id ``seg·m + b`` for segmented plans, with the local solve
+        of the plan's family (one-hot, or the packed direct solve)."""
         m, s = self.num_buckets, self.segments
         ids = self.ids_fn()(keys)
         if s is not None:
@@ -297,7 +303,8 @@ class MultisplitPlan(PipelineSpec):
             if s is not None:
                 counts = counts.view(s, m)
             return MultisplitResult(None, None, _st.exclusive_rows(counts), counts, None)
-        res = _st.direct_solve_ids(keys, ids, self.m_eff, values)
+        solve = _st.packed_direct_solve_ids if self.family == "packed" else _st.direct_solve_ids
+        res = solve(keys, ids, self.m_eff, values)
         if s is not None:
             counts = res.bucket_counts.view(s, m)
             res = MultisplitResult(

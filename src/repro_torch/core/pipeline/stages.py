@@ -17,7 +17,12 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.identifiers import bits_dtype
-from repro_torch.kernels.common import seg_tile_rank, tile_rank
+from repro_torch.kernels.common import (
+    packed_layout,
+    packed_local_offsets,
+    seg_tile_rank,
+    tile_rank,
+)
 
 Tensor = torch.Tensor
 
@@ -112,23 +117,47 @@ def scatter(src: Tensor, idx: Tensor, n_total: int) -> Tensor:
     return out.view(src.dtype)
 
 
-def direct_solve_ids(
-    keys: Tensor, ids: Tensor, m: int, values: Optional[Tensor]
+def packed_tile_local_offsets(ids: Tensor, m: int) -> Tuple[Tensor, Tensor]:
+    """The packed analogue of :func:`tile_local_offsets`: (stable in-bucket
+    rank, histogram) of one (T,) strip from 8-bit subword counters and the
+    two-level subtile scan, bitwise equal to it (the gather form)."""
+    local, hist = packed_local_offsets(ids.reshape(1, -1), packed_layout(ids.shape[0], m))
+    return local[0], hist[0]
+
+
+def _direct_solve_with(
+    local_offsets, keys: Tensor, ids: Tensor, m: int, values: Optional[Tensor]
 ) -> MultisplitResult:
-    """O(n·m) direct evaluation of paper eq. (1) on precomputed bucket ids:
-    the whole input is one subproblem."""
+    """Paper eq. (1) on precomputed bucket ids with the local solve of a
+    kernel family: the whole input is one subproblem."""
     n = keys.shape[0]
     if n == 0:
         zeros = torch.zeros((m,), dtype=torch.int32, device=keys.device)
         perm = torch.zeros((0,), dtype=torch.int32, device=keys.device)
         return MultisplitResult(keys, values, zeros, zeros, perm)
-    local, hist = tile_local_offsets(ids, m)
+    local, hist = local_offsets(ids, m)
     starts = exclusive_rows(hist)
     perm = starts[ids.long()] + local
     idx = perm.long()
     keys_out = scatter(keys, idx, n)
     values_out = scatter(values, idx, n) if values is not None else None
     return MultisplitResult(keys_out, values_out, starts, hist, perm)
+
+
+def direct_solve_ids(
+    keys: Tensor, ids: Tensor, m: int, values: Optional[Tensor]
+) -> MultisplitResult:
+    """O(n·m) direct evaluation of paper eq. (1) on precomputed bucket ids:
+    the whole input is one subproblem."""
+    return _direct_solve_with(tile_local_offsets, keys, ids, m, values)
+
+
+def packed_direct_solve_ids(
+    keys: Tensor, ids: Tensor, m: int, values: Optional[Tensor]
+) -> MultisplitResult:
+    """The packed family's direct solve (the reference backend's packed
+    oracle), bitwise equal to :func:`direct_solve_ids`."""
+    return _direct_solve_with(packed_tile_local_offsets, keys, ids, m, values)
 
 
 def direct_counts(ids: Tensor, m: int) -> Tensor:

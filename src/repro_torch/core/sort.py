@@ -24,20 +24,27 @@ from repro_torch.core.pipeline.stages import as_bits, exclusive_rows
 Tensor = torch.Tensor
 
 
+def _place(x, device) -> Optional[Tensor]:
+    return None if x is None else torch.as_tensor(x).to(device)
+
+
 def radix_sort(
-    keys: Tensor,
-    values: Optional[Tensor] = None,
+    keys,
+    values=None,
     *,
     radix_bits: int = 8,
     key_bits: int = 32,
     method: str = "bms",
-    backend: str = "vmap",
+    backend: str = "cuda",
     tile: Optional[int] = None,
     family: Optional[str] = None,
+    device="cuda",
 ) -> Tuple[Tensor, Optional[Tensor]]:
     """Stable sort of integer keys (and values) by their low ``key_bits``
     bits as unsigned integers, in ⌈key_bits/radix_bits⌉ multisplit passes.
-    ``radix_bits=8`` makes each pass a 256-bucket multisplit."""
+    ``radix_bits=8`` makes each pass a 256-bucket multisplit. Inputs,
+    tensors or numpy arrays, are placed on ``device``."""
+    keys, values = _place(keys, device), _place(values, device)
     if keys.dim() != 1:
         raise NotImplementedError("batched (b, n) radix sort is ROADMAP queue A item 5")
     pipe = RadixPipeline(
@@ -48,23 +55,25 @@ def radix_sort(
 
 
 def segmented_radix_sort(
-    keys: Tensor,
+    keys,
     segment_starts,
-    values: Optional[Tensor] = None,
+    values=None,
     *,
     radix_bits: int = 8,
     key_bits: int = 32,
     method: str = "bms",
-    backend: str = "vmap",
+    backend: str = "cuda",
     tile: Optional[int] = None,
     family: Optional[str] = None,
+    device="cuda",
 ) -> Tuple[Tensor, Optional[Tensor]]:
     """Sort every ragged segment of flat integer ``keys`` on its own, in ONE
     chained sequence of ⌈key_bits/radix_bits⌉ segmented multisplit passes,
     not one sequence a segment. ``segment_starts`` is the (s,) ascending
     start-offset vector of :func:`~repro_torch.core.multisplit.
     segmented_multisplit`. Stable; bitwise equal to sorting each segment
-    alone with :func:`radix_sort`."""
+    alone with :func:`radix_sort`. Inputs are placed on ``device``."""
+    keys, values = _place(keys, device), _place(values, device)
     starts = torch.as_tensor(segment_starts)
     pipe = RadixPipeline(
         keys.shape[0], radix_bits=radix_bits, key_bits=key_bits, method=method,

@@ -31,8 +31,9 @@ SOURCES = (
     "tile_histograms", "tile_positions", "fused_postscan_reorder",
     "seg_tile_histograms", "seg_tile_positions", "seg_fused_postscan_reorder",
     "spec_bucket_ids",
+    "packed_tile_histograms", "packed_tile_positions", "packed_fused_postscan_reorder",
 )
-HEADERS = ("multisplit_common.cuh", "multisplit_segmented.cuh")
+HEADERS = ("multisplit_common.cuh", "multisplit_segmented.cuh", "multisplit_packed.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-lineinfo", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -60,6 +61,18 @@ ENTRY_POINTS = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I] + _LABEL_ARGTYPES + [_P],
     ),
     "spec_bucket_ids": ("ms_spec_bucket_ids", [_P, _P, _I, _I] + _LABEL_ARGTYPES + [_P]),
+    # the packed family: keys, ids and segment strip (either of the last two
+    # null), then n_tiles, T, s and the subtile
+    "packed_tile_histograms": (
+        "ms_packed_tile_histograms", [_P, _P, _P, _P, _I, _I, _I, _I] + _LABEL_ARGTYPES + [_P],
+    ),
+    "packed_tile_positions": (
+        "ms_packed_tile_positions", [_P, _P, _P, _P, _P, _I, _I, _I, _I] + _LABEL_ARGTYPES + [_P],
+    ),
+    "packed_fused_postscan_reorder": (
+        "ms_packed_fused_postscan_reorder",
+        [_P] * 9 + [_I, _I, _I, _I] + _LABEL_ARGTYPES + [_P],
+    ),
     # the ids-plane entry points of the K2 and K2s sources: m, not a label
     "fused_postscan_reorder_ids": (
         "ms_fused_postscan_reorder_ids", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -20,11 +20,24 @@ b`` of ``repro/kernels/multisplit_tile.py:504-632``: the rank comes from
 the m-wide one-hot with a per-segment carry, as the JAX ``VmapStages`` do
 (``repro/core/pipeline/registry.py:257-268, 303-316``), and the histogram
 is a scatter-add into ``s·m`` columns.
+
+The packed bodies (``packed_*``) are the packed family's plain version
+(``repro/kernels/common.py:150-410``, in its gather form,
+``oblivious=False``): 8-bit subword counters, four to a word, and a
+two-level rank, an inclusive scan of packed words inside each subtile and
+an exclusive scan of the subtile totals across the subtiles. The JAX
+module's ``rank16`` guard and lane-packed rank planes are left out: they
+work around what Mosaic lowers, and are not part of the contract. The
+packed words are carried as int64 (torch on the CPU has no ``>>`` for
+uint32); no lane carries into the next, as a lane counts at most
+``subtile <= 2^bits - 1`` keys. A segmented tile takes the combined id
+``seg·m + b`` over ``s·m`` buckets, as the JAX kernels do.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -150,6 +163,190 @@ def seg_postscan_body(
     starts = torch.cumsum(hist, 1, dtype=torch.int32) - hist        # (L, s·m) tile starts
     dest = (starts.gather(1, cid) + rank).long()
     gpos = g.gather(1, cid) + rank
+
+    def reorder(x: Tensor) -> Tensor:
+        xb = x.view(bits_dtype(x.dtype))
+        return torch.empty_like(xb).scatter_(1, dest, xb).view(x.dtype)
+
+    vals_r = reorder(vals) if vals is not None else None
+    return reorder(keys), vals_r, reorder(gpos), gpos
+
+
+# ---------------------------------------------------------------------------
+# Packed subword counters (paper §4.3): the packed family's plain bodies
+# ---------------------------------------------------------------------------
+
+DEFAULT_PACKED_BITS = 8      # counter width: k = 32 / bits counters a word
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedLayout:
+    """The packed-counter geometry of one tile shape: ``bits`` a counter,
+    ``k = 32 // bits`` counters a word, ``w = ceil(m_eff / k)`` words a
+    key, ``subtile`` keys a level-1 scan (at most ``2^bits - 1``, so no
+    lane overflows) and ``n_sub = ceil(tile / subtile)`` subtiles."""
+
+    tile: int
+    m_eff: int
+    bits: int
+    k: int
+    w: int
+    subtile: int
+    n_sub: int
+
+    @property
+    def lane_mask(self) -> int:
+        return (1 << self.bits) - 1
+
+
+def packed_layout(
+    tile: int, m_eff: int, bits: int = DEFAULT_PACKED_BITS, subtile: Optional[int] = None
+) -> PackedLayout:
+    """Resolve and guard the packed geometry of one tile, with the JAX
+    package's rules and messages: a subtile taller than ``2^bits - 1``
+    keys could wrap a counter lane on an all-one-bucket input and raises
+    ``ValueError``; the auto subtile is the largest power of two that is
+    safe and at most 128."""
+    if tile < 1:
+        raise ValueError(f"packed layout needs tile >= 1, got {tile}")
+    if m_eff < 1:
+        raise ValueError(f"packed layout needs m_eff >= 1, got {m_eff}")
+    if bits not in (1, 2, 4, 8, 16):
+        raise ValueError(
+            f"bits-per-counter must divide 32 and be <= 16, got {bits}"
+        )
+    cap = (1 << bits) - 1                     # max exact count per lane
+    if subtile is None:
+        subtile = 1
+        while subtile * 2 <= min(tile, cap, 128):
+            subtile *= 2
+    if subtile < 1:
+        raise ValueError(f"subtile must be >= 1, got {subtile}")
+    if subtile > cap:
+        raise ValueError(
+            f"subtile={subtile} overflows {bits}-bit packed counters: a "
+            f"single-bucket subtile reaches count {subtile} > {cap} "
+            f"(= 2^{bits} - 1). Use a shorter subtile or wider counters."
+        )
+    k = 32 // bits
+    return PackedLayout(tile=tile, m_eff=m_eff, bits=bits, k=k, w=-(-m_eff // k),
+                        subtile=subtile, n_sub=-(-tile // subtile))
+
+
+def _packed_chunks(ids: Tensor, layout: PackedLayout) -> Iterator[slice]:
+    """Slices of the tile axis whose (l, T, w) packed planes stay within
+    the chunk budget."""
+    per_tile = layout.n_sub * layout.subtile * layout.w
+    step = max(1, _CHUNK_ELEMS // max(1, per_tile))
+    for lo in range(0, ids.shape[0], step):
+        yield slice(lo, lo + step)
+
+
+def _packed_pad_ids(ids: Tensor, layout: PackedLayout) -> Tuple[Tensor, int]:
+    """Pad each (T,) row to whole subtiles with bucket ``m_eff - 1``: a
+    tail pad never changes an earlier key's rank, and the callers take its
+    count back out of the last bucket."""
+    n_pad = layout.n_sub * layout.subtile - ids.shape[1]
+    if n_pad:
+        tail = torch.full((ids.shape[0], n_pad), layout.m_eff - 1, dtype=ids.dtype,
+                          device=ids.device)
+        ids = torch.cat([ids, tail], 1)
+    return ids, n_pad
+
+
+def packed_encode(ids: Tensor, layout: PackedLayout) -> Tensor:
+    """(L, T) int32 ids -> (L, T, w) int64 packed one-hot: a key adds
+    ``1 << bits·(id mod k)`` to word ``id div k``."""
+    idx = ids.long()
+    q, shift = idx // layout.k, layout.bits * (idx % layout.k)
+    cols = torch.arange(layout.w, device=ids.device)
+    unit = torch.ones_like(idx) << shift
+    return torch.where(cols == q[..., None], unit[..., None], torch.zeros_like(unit[..., None]))
+
+
+def packed_unpack(words: Tensor, layout: PackedLayout) -> Tensor:
+    """(..., w) int64 packed counters -> (..., m_eff) int32 counts."""
+    shifts = layout.bits * torch.arange(layout.k, device=words.device)
+    lanes = (words[..., None] >> shifts) & layout.lane_mask
+    return lanes.reshape(*words.shape[:-1], layout.w * layout.k)[..., :layout.m_eff].to(torch.int32)
+
+
+def _packed_state(ids: Tensor, layout: PackedLayout) -> Tuple[Tensor, Tensor, Tensor]:
+    """The two-level solve of (L, T) ids: (rank_incl, sub_hist, excl_sub),
+    the 1-based rank of each key in its (subtile, bucket) cell (L, T_pad),
+    the (L, S, m_eff) subtile histograms and their exclusive scan over the
+    subtiles, the level-2 carry."""
+    ids_p, _ = _packed_pad_ids(ids, layout)
+    n_tiles, t_pad = ids_p.shape
+    idx = ids_p.long()
+    q, shift = idx // layout.k, layout.bits * (idx % layout.k)
+    contrib = packed_encode(ids_p, layout)
+    # level 1: inclusive scan of packed words inside each subtile; counts
+    # stay <= subtile <= 2^bits - 1, so no lane carries into the next
+    incl4 = torch.cumsum(contrib.view(n_tiles, layout.n_sub, layout.subtile, layout.w), 2)
+    word = incl4.view(n_tiles, t_pad, layout.w).gather(2, q[..., None])[..., 0]
+    rank_incl = ((word >> shift) & layout.lane_mask).to(torch.int32)
+    # level 2: unpack only the S subtile totals and scan those
+    sub_hist = packed_unpack(incl4[:, :, -1, :], layout)
+    excl_sub = torch.cumsum(sub_hist, 1, dtype=torch.int32) - sub_hist
+    return rank_incl, sub_hist, excl_sub
+
+
+def _drop_pad_count(hist: Tensor, m_eff: int, n_pad: int) -> Tensor:
+    if n_pad:
+        hist[:, m_eff - 1] -= n_pad
+    return hist
+
+
+def packed_local_offsets(ids: Tensor, layout: PackedLayout) -> Tuple[Tensor, Tensor]:
+    """(L, T) ids -> (local, hist): the stable 0-based rank of each key in
+    its bucket of its tile (L, T) and the tile histograms (L, m_eff), both
+    int32, bitwise those of the one-hot :func:`tile_rank`."""
+    n_tiles, t = ids.shape
+    local = torch.empty((n_tiles, t), dtype=torch.int32, device=ids.device)
+    hist = torch.empty((n_tiles, layout.m_eff), dtype=torch.int32, device=ids.device)
+    sub_idx = torch.arange(t, device=ids.device) // layout.subtile
+    n_pad = layout.n_sub * layout.subtile - t
+    for sl in _packed_chunks(ids, layout):
+        chunk = ids[sl]
+        rank_incl, sub_hist, excl_sub = _packed_state(chunk, layout)
+        at = sub_idx * layout.m_eff + chunk.long()
+        carry = excl_sub.reshape(chunk.shape[0], -1).gather(1, at)
+        local[sl] = carry + rank_incl[:, :t] - 1
+        hist[sl] = _drop_pad_count(sub_hist.sum(1, dtype=torch.int32), layout.m_eff, n_pad)
+    return local, hist
+
+
+def packed_counts(ids: Tensor, layout: PackedLayout) -> Tensor:
+    """(L, T) ids -> (L, m_eff) int32 tile histograms: the packed sums of
+    each subtile (no scan) and one unpack."""
+    hist = torch.empty((ids.shape[0], layout.m_eff), dtype=torch.int32, device=ids.device)
+    for sl in _packed_chunks(ids, layout):
+        ids_p, n_pad = _packed_pad_ids(ids[sl], layout)
+        contrib = packed_encode(ids_p, layout)
+        sub_tot = contrib.view(ids_p.shape[0], layout.n_sub, layout.subtile, layout.w).sum(2)
+        hist[sl] = _drop_pad_count(packed_unpack(sub_tot, layout).sum(1, dtype=torch.int32),
+                                   layout.m_eff, n_pad)
+    return hist
+
+
+def packed_positions_body(ids: Tensor, g: Tensor, layout: PackedLayout) -> Tensor:
+    """Packed DMS postscan: (L, T) global destinations ``G[id] + rank``
+    (paper eq. (2)), int32 throughout."""
+    local, _ = packed_local_offsets(ids, layout)
+    return g.gather(1, ids.long()) + local
+
+
+def packed_postscan_body(
+    ids: Tensor, g: Tensor, keys: Tensor, vals: Optional[Tensor], layout: PackedLayout
+) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
+    """The packed fused postscan: the contract of :func:`postscan_body`
+    (keys_r, vals_r, pos_r, perm) on the two-level packed rank."""
+    local, hist = packed_local_offsets(ids, layout)
+    idx = ids.long()
+    starts = torch.cumsum(hist, 1, dtype=torch.int32) - hist
+    dest = (starts.gather(1, idx) + local).long()                  # within the tile
+    gpos = g.gather(1, idx) + local
 
     def reorder(x: Tensor) -> Tensor:
         xb = x.view(bits_dtype(x.dtype))

@@ -43,6 +43,23 @@ programmer's bucket function computed outside the kernels:
   ``spec_bucket_ids_pallas`` (``:421``): keys (L, T) -> the spec's int32
   labels (L, T), bitwise the labels K1-K3 compute in-register.
 
+Counterpart of the packed-counter family (paper §4.3), one wrapper a
+pipeline stage for {labels in-kernel from a spec | an ids strip} × {flat |
+segmented}, with the JAX doors' arguments (``repro/kernels/ops.py:193-270``):
+
+* :func:`packed_tile_histograms` (K1p, ``csrc/packed_tile_histograms.cu``)
+  replaces ``packed_tile_histograms_pallas`` (``:662``);
+* :func:`packed_tile_positions` (K3p, ``csrc/packed_tile_positions.cu``)
+  replaces ``packed_tile_positions_pallas`` (``:706``);
+* :func:`packed_fused_postscan_reorder` (K2p,
+  ``csrc/packed_fused_postscan_reorder.cu``) replaces
+  ``packed_fused_postscan_reorder_pallas`` (``:772``).
+
+Their outputs are the onehot kernels' bit for bit; the family is a cost
+axis. The kernels take 8-bit counters and any subtile the guard of
+:func:`~repro_torch.kernels.common.packed_layout` accepts (1 to 255 keys);
+other ``bits`` raise ``ValueError`` on a CUDA tensor.
+
 The label of an id is ``min(max(id, 0), m - 1)`` in every kernel and plain
 version: an id outside ``[0, m)`` is outside the contract, as an
 ``IdentitySpec`` key is, and the clamp only keeps it from writing out of
@@ -608,11 +625,197 @@ def spec_bucket_ids(keys_tiled: Tensor, spec) -> Tensor:
     return ids
 
 
+# ---------------------------------------------------------------------------
+# The packed family: K1p, K3p, K2p over {spec | ids} × {flat | segmented}
+# ---------------------------------------------------------------------------
+
+PACKED_BITS = common.DEFAULT_PACKED_BITS     # the only counter width the kernels take
+
+
+def _packed_labels(tiled: Tensor, seg_tiled: Optional[Tensor], num_buckets: Optional[int], spec,
+                   num_segments: int) -> Tuple[Tensor, int]:
+    """The plain versions' (combined) label strip and its width m_eff: the
+    spec's labels, or the ids, clamped into [0, m) as the kernels read
+    them, plus ``seg·m`` with a segment strip."""
+    m = _packed_m(num_buckets, spec)
+    _check_flat_segments(seg_tiled, num_segments)
+    ids = clamp_ids(spec.emit(tiled) if spec is not None else tiled, m)
+    if seg_tiled is not None:
+        ids = common.combined_ids(ids, seg_tiled, m)
+    return ids, m * num_segments
+
+
+def _check_flat_segments(seg_tiled: Optional[Tensor], num_segments: int) -> None:
+    if seg_tiled is None and num_segments != 1:
+        raise ValueError(f"num_segments={num_segments} needs a segment strip")
+
+
+def _packed_keys(tiled: Tensor, keys_tiled: Optional[Tensor], spec) -> Tensor:
+    """The words K2p moves: the key strip itself under a spec, else the
+    keys beside the ids strip."""
+    if spec is not None:
+        if keys_tiled is not None:
+            raise ValueError("packed_fused_postscan_reorder: with a spec the keys are the strip "
+                             "itself; pass no keys_tiled")
+        return tiled
+    if keys_tiled is None:
+        raise ValueError("packed_fused_postscan_reorder: an ids strip needs keys_tiled")
+    return keys_tiled
+
+
+def _packed_m(num_buckets: Optional[int], spec) -> int:
+    if spec is not None:
+        return spec.num_buckets
+    if num_buckets is None:
+        raise ValueError("an ids strip needs num_buckets")
+    return num_buckets
+
+
+def _packed_layout(t: int, m_eff: int, bits: Optional[int],
+                   subtile: Optional[int]) -> common.PackedLayout:
+    """The guarded layout of a tile; ``None`` takes the default width and
+    the auto subtile, as in the JAX doors."""
+    return common.packed_layout(t, m_eff, PACKED_BITS if bits is None else bits, subtile)
+
+
+def _packed_launch_args(tiled: Tensor, seg_tiled: Optional[Tensor], num_buckets: Optional[int],
+                        spec, num_segments: int, bits, subtile):
+    """Check the CUDA launch of one packed wrapper and return (n_tiles, T,
+    width, subtile, keys, ids, label): ``keys``/``ids`` are the strip as
+    the key or the ids argument (the other None), ``label`` the ten label
+    arguments."""
+    m = _packed_m(num_buckets, spec)
+    if spec is None:
+        n_tiles, t = _check_ids(tiled, m)
+        keys, ids, label = None, tiled, identity_args(m)
+    else:
+        n_tiles, t = _check_keys(tiled)
+        keys, ids, label = tiled, None, label_args(spec, tiled.dtype, tiled.device)
+    _check_flat_segments(seg_tiled, num_segments)
+    width = m if seg_tiled is None else _check_segments(seg_tiled, tiled, m, num_segments)
+    layout = _packed_layout(t, width, bits, subtile)
+    if layout.bits != PACKED_BITS:
+        raise ValueError(f"the CUDA packed kernels take {PACKED_BITS}-bit counters, got bits={bits}")
+    return n_tiles, t, width, layout.subtile, keys, ids, label
+
+
+def packed_tile_histograms_plain(
+    tiled: Tensor, seg_tiled: Optional[Tensor] = None, *, num_buckets: Optional[int] = None,
+    spec=None, num_segments: int = 1, bits: Optional[int] = None, subtile: Optional[int] = None,
+) -> Tensor:
+    ids, m_eff = _packed_labels(tiled, seg_tiled, num_buckets, spec, num_segments)
+    return common.packed_counts(ids, _packed_layout(ids.shape[1], m_eff, bits, subtile))
+
+
+def packed_tile_histograms(
+    tiled: Tensor, seg_tiled: Optional[Tensor] = None, *, num_buckets: Optional[int] = None,
+    spec=None, num_segments: int = 1, bits: Optional[int] = None, subtile: Optional[int] = None,
+) -> Tensor:
+    """(L, T) keys (labels from ``spec`` in the kernel) or int32 ids (with
+    ``num_buckets``) [+ (L, T) segment ids, non-decreasing along each tile]
+    -> (L, s·m) int32 tile histograms from packed 8-bit counters (K1p)."""
+    if not _on_cuda(tiled, "packed_tile_histograms"):
+        return packed_tile_histograms_plain(
+            tiled, seg_tiled, num_buckets=num_buckets, spec=spec, num_segments=num_segments,
+            bits=bits, subtile=subtile)
+    n_tiles, t, width, sub, keys, ids, label = _packed_launch_args(
+        tiled, seg_tiled, num_buckets, spec, num_segments, bits, subtile)
+    hist = torch.empty((n_tiles, width), dtype=torch.int32, device=tiled.device)
+    if n_tiles:
+        fn = build.load("packed_tile_histograms")
+        _raise_on(fn(_ptr(keys), _ptr(ids), _ptr(seg_tiled), hist.data_ptr(), n_tiles, t,
+                     num_segments, sub, *label, _stream(tiled)), "packed_tile_histograms")
+        packed_tile_histograms.launches += 1
+    return hist
+
+
+def packed_tile_positions_plain(
+    tiled: Tensor, g: Tensor, seg_tiled: Optional[Tensor] = None, *,
+    num_buckets: Optional[int] = None, spec=None, num_segments: int = 1,
+    bits: Optional[int] = None, subtile: Optional[int] = None,
+) -> Tensor:
+    ids, m_eff = _packed_labels(tiled, seg_tiled, num_buckets, spec, num_segments)
+    return common.packed_positions_body(ids, g, _packed_layout(ids.shape[1], m_eff, bits, subtile))
+
+
+def packed_tile_positions(
+    tiled: Tensor, g: Tensor, seg_tiled: Optional[Tensor] = None, *,
+    num_buckets: Optional[int] = None, spec=None, num_segments: int = 1,
+    bits: Optional[int] = None, subtile: Optional[int] = None,
+) -> Tensor:
+    """(L, T) keys or ids [+ segment ids] and (L, s·m) int32 bases ->
+    (L, T) int32 destinations ``G[cid] + rank`` (paper eq. (2)) on the
+    two-level packed rank (K3p)."""
+    if not _on_cuda(tiled, "packed_tile_positions"):
+        return packed_tile_positions_plain(
+            tiled, g, seg_tiled, num_buckets=num_buckets, spec=spec, num_segments=num_segments,
+            bits=bits, subtile=subtile)
+    n_tiles, t, width, sub, keys, ids, label = _packed_launch_args(
+        tiled, seg_tiled, num_buckets, spec, num_segments, bits, subtile)
+    _check_bases(g, tiled, width)
+    pos = torch.empty((n_tiles, t), dtype=torch.int32, device=tiled.device)
+    if n_tiles:
+        fn = build.load("packed_tile_positions")
+        _raise_on(fn(_ptr(keys), _ptr(ids), _ptr(seg_tiled), g.data_ptr(), pos.data_ptr(),
+                     n_tiles, t, num_segments, sub, *label, _stream(tiled)),
+                  "packed_tile_positions")
+        packed_tile_positions.launches += 1
+    return pos
+
+
+def packed_fused_postscan_reorder_plain(
+    tiled: Tensor, g: Tensor, keys_tiled: Optional[Tensor] = None,
+    values_tiled: Optional[Tensor] = None, seg_tiled: Optional[Tensor] = None, *,
+    num_buckets: Optional[int] = None, spec=None, num_segments: int = 1,
+    bits: Optional[int] = None, subtile: Optional[int] = None,
+) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
+    keys = _packed_keys(tiled, keys_tiled, spec)
+    ids, m_eff = _packed_labels(tiled, seg_tiled, num_buckets, spec, num_segments)
+    return common.packed_postscan_body(ids, g, keys, values_tiled,
+                                       _packed_layout(ids.shape[1], m_eff, bits, subtile))
+
+
+def packed_fused_postscan_reorder(
+    tiled: Tensor, g: Tensor, keys_tiled: Optional[Tensor] = None,
+    values_tiled: Optional[Tensor] = None, seg_tiled: Optional[Tensor] = None, *,
+    num_buckets: Optional[int] = None, spec=None, num_segments: int = 1,
+    bits: Optional[int] = None, subtile: Optional[int] = None,
+) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
+    """The reorder contract of :func:`spec_fused_postscan_reorder` (and its
+    segmented form) on the two-level packed rank (K2p). ``tiled`` is the key
+    strip (labels from ``spec``) or an ids strip, with the words to move in
+    ``keys_tiled`` beside it."""
+    if not _on_cuda(tiled, "packed_fused_postscan_reorder"):
+        return packed_fused_postscan_reorder_plain(
+            tiled, g, keys_tiled, values_tiled, seg_tiled, num_buckets=num_buckets, spec=spec,
+            num_segments=num_segments, bits=bits, subtile=subtile)
+    n_tiles, t, width, sub, keys, ids, label = _packed_launch_args(
+        tiled, seg_tiled, num_buckets, spec, num_segments, bits, subtile)
+    _check_bases(g, tiled, width)
+    keys = _packed_keys(tiled, keys_tiled, spec)
+    _check_beside(keys, tiled, "keys")
+    if values_tiled is not None:
+        _check_beside(values_tiled, tiled, "values")
+    keys_r = torch.empty_like(keys)
+    vals_r = torch.empty_like(values_tiled) if values_tiled is not None else None
+    pos_r = torch.empty((n_tiles, t), dtype=torch.int32, device=tiled.device)
+    perm = torch.empty_like(pos_r)
+    if n_tiles:
+        fn = build.load("packed_fused_postscan_reorder")
+        _raise_on(fn(keys.data_ptr(), _ptr(ids), _ptr(seg_tiled), g.data_ptr(),
+                     _ptr(values_tiled), keys_r.data_ptr(), _ptr(vals_r), pos_r.data_ptr(),
+                     perm.data_ptr(), n_tiles, t, num_segments, sub, *label, _stream(tiled)),
+                  "packed_fused_postscan_reorder")
+        packed_fused_postscan_reorder.launches += 1
+    return keys_r, vals_r, pos_r, perm
+
+
 KERNELS = (
     spec_tile_histograms, spec_fused_postscan_reorder, spec_tile_positions,
     seg_spec_tile_histograms, seg_spec_fused_postscan_reorder, seg_spec_tile_positions,
     tile_histograms, fused_postscan_reorder, tile_positions,
     seg_tile_histograms, seg_fused_postscan_reorder, seg_tile_positions,
     spec_bucket_ids,
+    packed_tile_histograms, packed_fused_postscan_reorder, packed_tile_positions,
 )
 reset_launches()

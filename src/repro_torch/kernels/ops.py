@@ -1,5 +1,5 @@
 """The kernel doors the pipeline calls (counterpart of
-``repro/kernels/ops.py:72-79, 95-107, 129-190, 346-450``).
+``repro/kernels/ops.py:72-79, 95-107, 129-270, 346-450``).
 
 Each door takes tiled tensors and a declarative spec, or a materialised
 int32 ids strip and the number of buckets, and dispatches on the tensors'
@@ -108,6 +108,39 @@ def seg_spec_fused_postscan_reorder(
     return _mst.seg_spec_fused_postscan_reorder(
         keys_tiled, seg_tiled, g, values_tiled, spec, num_segments
     )
+
+
+# -- the packed family: one door a stage for {ids | spec} × {flat | segmented}
+
+
+def packed_tile_histograms(
+    tiled: Tensor, seg_tiled: Optional[Tensor] = None, *, num_buckets: Optional[int] = None,
+    spec=None, num_segments: int = 1, bits: Optional[int] = None, subtile: Optional[int] = None,
+) -> Tensor:
+    return _mst.packed_tile_histograms(
+        tiled, seg_tiled, num_buckets=num_buckets, spec=spec, num_segments=num_segments,
+        bits=bits, subtile=subtile)
+
+
+def packed_tile_positions(
+    tiled: Tensor, g: Tensor, seg_tiled: Optional[Tensor] = None, *,
+    num_buckets: Optional[int] = None, spec=None, num_segments: int = 1,
+    bits: Optional[int] = None, subtile: Optional[int] = None,
+) -> Tensor:
+    return _mst.packed_tile_positions(
+        tiled, g, seg_tiled, num_buckets=num_buckets, spec=spec, num_segments=num_segments,
+        bits=bits, subtile=subtile)
+
+
+def packed_fused_postscan_reorder(
+    tiled: Tensor, g: Tensor, keys_tiled: Optional[Tensor] = None,
+    values_tiled: Optional[Tensor] = None, seg_tiled: Optional[Tensor] = None, *,
+    num_buckets: Optional[int] = None, spec=None, num_segments: int = 1,
+    bits: Optional[int] = None, subtile: Optional[int] = None,
+) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
+    return _mst.packed_fused_postscan_reorder(
+        tiled, g, keys_tiled, values_tiled, seg_tiled, num_buckets=num_buckets, spec=spec,
+        num_segments=num_segments, bits=bits, subtile=subtile)
 
 
 def seg_radix_tile_histograms(

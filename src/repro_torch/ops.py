@@ -249,7 +249,7 @@ def segmented_multisplit(
     run = functools.partial(
         _multisplit.segmented_multisplit, bucket_fn=spec, segment_starts=starts,
         method=method, backend=backend, tile=tile, mode=mode, family=family,
-        build_plan=_segmented_plan,
+        build_plan=_segmented_plan, device=keys.device,
     )
     if values is None:
         return run(keys)
@@ -288,8 +288,8 @@ def radix_sort(
     """Stable LSD radix sort of integer keys (and values) from chained
     multisplit passes (paper §7.1)."""
     return _sort.radix_sort(
-        _place(keys, device), _place(values, device), radix_bits=radix_bits,
-        key_bits=key_bits, method=method, backend=backend, tile=tile, family=family,
+        keys, values, radix_bits=radix_bits, key_bits=key_bits, method=method,
+        backend=backend, tile=tile, family=family, device=device,
     )
 
 
@@ -313,6 +313,6 @@ def segmented_radix_sort(
     _check_flat(keys, "ops.segmented_radix_sort")
     return _sort.segmented_radix_sort(
         keys, _segment_starts(segment_starts, keys.shape[0], keys.device),
-        _place(values, device), radix_bits=radix_bits, key_bits=key_bits, method=method,
-        backend=backend, tile=tile, family=family,
+        values, radix_bits=radix_bits, key_bits=key_bits, method=method,
+        backend=backend, tile=tile, family=family, device=keys.device,
     )

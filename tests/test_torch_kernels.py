@@ -207,12 +207,16 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     mst.fused_postscan_reorder(ids, g, keys, None, 4)
     mst.seg_tile_positions(ids, seg, global_scan(mst.seg_tile_histograms(ids, seg, 4, 1)), 4, 1)
     mst.seg_fused_postscan_reorder(ids, seg, global_scan(h), keys, keys, 4, 1)
+    mst.packed_tile_positions(keys, global_scan(mst.packed_tile_histograms(keys, spec=spec)),
+                              spec=spec)
+    mst.packed_fused_postscan_reorder(ids, g, keys, None, seg, num_buckets=4)
     assert mst.launch_counts() == {
         "spec_tile_histograms": 0, "spec_fused_postscan_reorder": 0, "spec_tile_positions": 0,
         "seg_spec_tile_histograms": 0, "seg_spec_fused_postscan_reorder": 0,
         "seg_spec_tile_positions": 0, "tile_histograms": 0, "fused_postscan_reorder": 0,
         "tile_positions": 0, "seg_tile_histograms": 0, "seg_fused_postscan_reorder": 0,
-        "seg_tile_positions": 0, "spec_bucket_ids": 0,
+        "seg_tile_positions": 0, "spec_bucket_ids": 0, "packed_tile_histograms": 0,
+        "packed_fused_postscan_reorder": 0, "packed_tile_positions": 0,
     }
 
 
@@ -282,6 +286,12 @@ def test_label_args_refuses(spec, dtype, err):
                                "multisplit_tile.py:259)"]),
     ("seg_fused_postscan_reorder.cu", ["seg_fused_postscan_reorder_pallas\n//   (src/repro/kernels/"
                                        "multisplit_tile.py:303)"]),
+    ("packed_tile_histograms.cu", ["packed_tile_histograms_pallas\n// (src/repro/kernels/"
+                                   "multisplit_tile.py:662)"]),
+    ("packed_tile_positions.cu", ["packed_tile_positions_pallas\n// (src/repro/kernels/"
+                                  "multisplit_tile.py:706)"]),
+    ("packed_fused_postscan_reorder.cu", ["packed_fused_postscan_reorder_pallas\n// (src/repro/"
+                                          "kernels/multisplit_tile.py:772)"]),
 ])
 def test_kernel_sources_carry_their_note(source, replaces):
     """Each kernel names the Pallas function it replaces and its bound, and
@@ -321,7 +331,7 @@ def test_kernel_sources_call_no_library(source):
         assert mark not in text, (source, mark)
     includes = [line.split()[1] for line in text.splitlines() if line.startswith("#include")]
     assert set(includes) <= {"<cuda_runtime.h>", "<stdint.h>", '"multisplit_common.cuh"',
-                             '"multisplit_segmented.cuh"'}, includes
+                             '"multisplit_segmented.cuh"', '"multisplit_packed.cuh"'}, includes
 
 
 def test_build_flags_and_missing_nvcc(monkeypatch, tmp_path):
@@ -341,7 +351,7 @@ def test_kernel_modules_defer_cuda_work_to_the_launch():
     tree = ast.parse(Path(mst.__file__).read_text())
     calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
              and isinstance(n.func, ast.Attribute) and n.func.attr == "load"]
-    assert len(calls) == len(mst.KERNELS) == 13
-    assert len(build.SOURCES) == 7
+    assert len(calls) == len(mst.KERNELS) == 16
+    assert len(build.SOURCES) == 10
     assert set(build.ENTRY_POINTS) == set(build.SOURCES) | set(build.ENTRY_SOURCE)
     assert not build._FNS

@@ -259,7 +259,7 @@ def test_radix_pipeline_pads_once(monkeypatch):
     (lambda: tpipe.make_plan(8, 4, backend="pallas"), ValueError),
     (lambda: tpipe.make_plan(8, 4, mode="sorted"), ValueError),
     (lambda: tpipe.make_plan(8, 4, mode="counts_only", key_value=True), ValueError),
-    (lambda: tpipe.make_plan(8, 4, family="packed"), ValueError),
+    (lambda: tpipe.make_plan(8, 4, family="dense"), ValueError),
     (lambda: ops.multisplit(np.zeros(8, np.int64), ops.DeltaSpec(4), backend="cuda", device="cpu"),
      ValueError),
     (lambda: ops.multisplit(np.zeros((2, 4), np.int32), ops.DeltaSpec(4), device="cpu"), ValueError),

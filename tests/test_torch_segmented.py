@@ -376,7 +376,8 @@ def test_no_keys_and_no_segments(backend, mode):
                                          backend="reference", mode=mode)
         got = ops.segmented_multisplit(keys, spec, starts, backend=backend, mode=mode, device="cpu")
         _assert_result(got, jax.tree_util.tree_map(np.asarray, want))
-        got = core_segmented(torch.from_numpy(keys), spec, starts, backend=backend, mode=mode)
+        got = core_segmented(torch.from_numpy(keys), spec, starts, backend=backend, mode=mode,
+                             device="cpu")
         _assert_result(got, jax.tree_util.tree_map(np.asarray, want))
 
 
