@@ -33,6 +33,13 @@ Phases, one line or more each, every one of which must pass:
    8, 255, 256}, tiles of 128 to ``MAX_TILE`` keys, subtiles 1, 32, 128 and
    255, one-bucket tiles that drive a counter lane to the 255 cap, labels
    outside [0, m), bases above 2^24, empty and one- to eight-key segments.
+   The fused two-digit kernels K1f-K3f ({flat | segmented} x {keys |
+   key-value} x {onehot | packed stage rank}), each held bitwise against its
+   plain version: the fused paths' shapes (F1's 2^25 keys in 4096 tiles of
+   8192 with both 16-bit pairs, F2's 14-bit pair and F3's 16 segments at
+   2^22), tiles of 128 to 8192 keys and ragged ones, the pairs (16, 8), (14,
+   7) and (6, 4), stage widths 1, 3, 4 and 8, int32 and uint32 keys,
+   one-cell tiles, bases above 2^24, empty and one- to eight-key segments.
 4. main    — the port's entry points at the paper's size, n = 2^25 uniform
    random 32-bit keys on the cuda backend: ``ops.multisplit`` for
    ``DeltaSpec(m, 2^32)`` (equal widths over the whole key range, so the
@@ -61,17 +68,29 @@ Phases, one line or more each, every one of which must pass:
    callable (the hash at m = 32) and segmented callable (the hash at S1's
    shape). Every result is held bitwise against the same call on the
    default (onehot) family and against the stable-sort oracle.
+   Fused — ``fuse_digits=True``: F1 ``ops.radix_sort`` r = 8 at n = 2^25
+   (two 16-bit pairs; key-value bms, key-only dms, ``family="packed"``), F2
+   r = 7 at 2^22 (two 14-bit pairs and a 4-bit single pass), F3
+   ``ops.segmented_radix_sort`` over 16 ragged segments at 2^22 (S2's
+   shape, cut from 2^25 because a pair's H over 16 segments would be 16
+   GiB). Each is held bitwise against the unfused sort and a stable
+   ``torch.sort``, with H's size and the call's peak device memory.
 6. launches — every kernel's launch count from its own path's run alone
    (flat, segmented, flat callable, segmented callable, and the four
-   packed paths, which launch K1p-K3p and no onehot kernel); every kernel
-   is launched on one of them.
+   packed paths, which launch K1p-K3p and no onehot kernel; each fused
+   call, which launches K1f with K2f or K3f twice, F2 also K1 and K2 once);
+   every kernel is launched on one of them.
 7. times   — per kernel: ms, the plain version's ms, the bound (bytes moved
    over 3.35 TB/s, the H100 SXM data-sheet rate) and one PyTorch call as a
    yardstick; the onehot and packed kernels side by side on the same
    inputs (flat at m in {8, 32, 256}, S1, both label sources); end to end:
    ms and Gkeys/s, with the same labels as ``DeltaSpec`` and as a
    callable, and every packed path's call beside its onehot twin; stage
-   splits; peak device memory.
+   splits; peak device memory. The fused kernels at F1's shapes, K2f and K3f
+   at stage widths 4 and 8 in both families, F1-F3 fused against unfused end
+   to end in turns, F1 fused at sub_bits 4 and 8 and at tile 4096, and the
+   stages of one fused pair (prescan, the scan over H, postscan, scatter)
+   beside those of one single-digit pass.
 
 The last lines are the ``nvidia-smi`` line, one JSON line of the kernels
 and ``{"ok": true, "device": {...}}``. The script exits non-zero, printing
@@ -92,6 +111,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 N_MAIN = 1 << 25
+# F2 and F3 (the fused r = 7 sort and the fused segmented sort) run at 2^22
+# keys: F3's H is (L, s·m²) int32, 2 GiB at s = 16, m² = 65536 in tiles of
+# 8192 keys, and would be 16 GiB at 2^25 before the scan's temporaries
+N_FUSED_SMALL = 1 << 22
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 SEED = 0
 # K1-K3 at n = 2^25, m = 256 on an H100 80GB HBM3 at 700 W, as this script
@@ -587,6 +610,107 @@ def main() -> int:
                    f"all four forms): K1p-K3p all bitwise equal to their plain versions and to the "
                    f"onehot kernels ({time.perf_counter() - t0:.1f} s)")
 
+    # ---- 3e. the fused two-digit kernels K1f-K3f against their plain versions:
+    # {flat | segmented} x {keys | key-value} x {onehot | packed stage rank} x
+    # stage widths
+    fused_forms = set()
+
+    def check_fused2_case(what, keys_tiled, values_tiled, spec, split, seg=None, s=1, g_offset=0,
+                          families=("onehot", "packed"), subs=(1, 3, 4, 8)):
+        """K1f, then K3f and K2f (key-only and key-value) in each family and
+        stage width, each held bitwise against its plain version."""
+        nonlocal n_checks
+        kw = dict(spec=spec, num_segments=s)
+        e = {}
+        h_plain = mst.fused2_tile_histograms_plain(keys_tiled, seg, **kw)
+        e["fused2_tile_histograms"] = max_err(mst.fused2_tile_histograms(keys_tiled, seg, **kw),
+                                              h_plain)
+        g = st.global_scan(h_plain) + g_offset
+        del h_plain
+        e["fused2_tile_positions"] = e["fused2_fused_postscan_reorder"] = 0
+        for fam in families:
+            for sub in subs:
+                kw2 = dict(kw, split=split, family=fam, sub_bits=sub)
+                e["fused2_tile_positions"] = max(
+                    e["fused2_tile_positions"],
+                    max_err(mst.fused2_tile_positions(keys_tiled, g, seg, **kw2),
+                            mst.fused2_tile_positions_plain(keys_tiled, g, seg, **kw2)))
+                for vals in (None, values_tiled):
+                    got = mst.fused2_fused_postscan_reorder(keys_tiled, g, vals, seg, **kw2)
+                    want = mst.fused2_fused_postscan_reorder_plain(keys_tiled, g, vals, seg, **kw2)
+                    e["fused2_fused_postscan_reorder"] = max(
+                        e["fused2_fused_postscan_reorder"], *(max_err(a, b) for a, b in zip(got, want)))
+                fused_forms.add(("flat" if seg is None else "segmented", fam))
+        torch.cuda.synchronize()
+        n_checks += 1
+        for name, err in e.items():
+            errs[name] = max(errs[name], err)
+        if any(e.values()):
+            raise AssertionError(f"fused2 kernel != plain for {what}: {e}")
+
+    t0, n0 = time.perf_counter(), n_checks
+    t_fused = mst.MAX_TILE                               # the cuda backend's fused-pair tile
+    # (a) the fused paths' shapes: F1 (2^25 keys in 4096 tiles of 8192, both
+    # pairs of r = 8), F2 (2^22 keys, the 14-bit pair of r = 7), F3 (2^22 keys
+    # over 16 ragged segments, the 16-bit pair); G up to 2^25
+    kt_f1, vt_f1 = keys_main.view(-1, t_fused), vals_main.view(-1, t_fused)
+    check_fused2_case("F1 shape pair 0", kt_f1, vt_f1, ops.BitfieldSpec(0, 16), 8, subs=(None,))
+    check_fused2_case("F1 shape pair 1", kt_f1, vt_f1, ops.BitfieldSpec(16, 16), 8,
+                      families=("onehot",), subs=(4,))
+    shape_small = (N_FUSED_SMALL // t_fused, t_fused)
+    kt_small = keys_main.view(-1)[:N_FUSED_SMALL].view(shape_small)
+    vt_small = vals_main.view(-1)[:N_FUSED_SMALL].view(shape_small)
+    check_fused2_case("F2 shape", kt_small, vt_small, ops.BitfieldSpec(14, 14), 7, subs=(None,))
+    f3_starts = ragged_starts(N_FUSED_SMALL, 16, np_rng, empty=(5,))
+    check_fused2_case("F3 shape", kt_small, vt_small, ops.BitfieldSpec(0, 16), 8,
+                      seg_strip(f3_starts, shape_small), 16, subs=(None,))
+    del kt_f1, vt_f1, kt_small, vt_small
+    log("kernels", f"fused2, main shapes (F1 {N_MAIN // t_fused} x {t_fused}, both 16-bit pairs; "
+                   f"F2's 14-bit pair and F3's 16 segments over {shape_small}): K1f-K3f bitwise "
+                   f"equal to their plain versions ({time.perf_counter() - t0:.1f} s)")
+    # (b) every form: tiles of 128 to the fused tile and ragged ones, the
+    # pairs (16, 8), (14, 7) and the uneven (6, 4), every stage width, int32
+    # and uint32 keys, ragged strips with empty segments, bases past 2^24
+    for shape, s in (((16, 128), 5), ((3, 1000), 9), ((8, 4096), 37), ((3, t_fused), 5),
+                     ((7, 33), 3)):
+        for i, (shift, pbits, split) in enumerate(((0, 16, 8), (14, 14, 7), (26, 6, 4))):
+            dtype = (torch.int32, torch.uint32)[i % 2]
+            keys = keys_for(dtype, shape, *spans[dtype])
+            vals = rand_i32(shape)
+            seg = seg_strip(ragged_starts(shape[0] * shape[1], s, np_rng, empty=(1, s - 1)), shape)
+            off = (1 << 24) + 1 if i != 1 else 0
+            spec = ops.BitfieldSpec(shift, pbits)
+            check_fused2_case(f"{spec.name} {dtype} {shape}", keys, vals, spec, split, g_offset=off)
+            check_fused2_case(f"{spec.name} {dtype} {shape} s={s}", keys, vals, spec, split, seg, s,
+                              g_offset=off)
+    # (c) one-cell tiles: every key of a tile in one (segment, pair) cell
+    keys = torch.full((8, t_fused), 0x5A5A1234, dtype=torch.int32, device=dev)
+    keys[4:] ^= rand_i32(tuple(keys[4:].shape)) & 0xFFFF0000       # one pair, other high bits
+    seg = seg_strip(np.array([0, 5000, 5001, 20000], np.int32), (8, t_fused))
+    check_fused2_case("one-cell tiles", keys, rand_i32((8, t_fused)), ops.BitfieldSpec(0, 16), 8,
+                      g_offset=(1 << 24) + 1)
+    check_fused2_case("one-cell tiles seg", keys, rand_i32((8, t_fused)), ops.BitfieldSpec(0, 16), 8,
+                      seg, 4)
+    # (d) one- to eight-key segments: thousands of runs of at most 32 keys
+    for shape, (shift, pbits, split) in (((16, 4096), (8, 6, 4)), ((64, 4096), (30, 2, 1))):
+        lens = np_rng.integers(1, 9, shape[0] * shape[1])
+        starts = np.cumsum(lens) - lens
+        starts = starts[starts < shape[0] * shape[1]].astype(np.int32)
+        check_fused2_case(f"{starts.size} tiny segments pair {pbits}",
+                          keys_for(torch.uint32, shape, 0, 2**32), rand_i32(shape),
+                          ops.BitfieldSpec(shift, pbits), split, seg_strip(starts, shape),
+                          int(starts.size), subs=(1, 8))
+        log("kernels", f"{starts.size} segments of 1-8 keys over {shape}, a {pbits}-bit pair: "
+                       f"K1f-K3f bitwise equal")
+    del keys, vals, seg
+    if len(fused_forms) != 4:
+        raise AssertionError(f"fused2 forms checked: {sorted(fused_forms)}")
+    log("kernels", f"{n_checks - n0} fused2 cases (the fused paths' shapes, tiles of 128 to {t_fused}, "
+                   f"pairs (16, 8), (14, 7), (6, 4), stage widths 1, 3, 4 and 8, both families, "
+                   f"one-cell tiles, G above 2^24, empty and tiny segments; flat and segmented, "
+                   f"keys and key-value): K1f-K3f all bitwise equal to their plain versions "
+                   f"({time.perf_counter() - t0:.1f} s)")
+
     # ---- 4. main path at the paper's size, with the launch counts of that run alone
     keys = rand_i32((N_MAIN,)).view(torch.uint32)
     values = rand_i32((N_MAIN,))
@@ -1002,6 +1126,76 @@ def main() -> int:
                 {"packed_tile_histograms": 2, "packed_fused_postscan_reorder": 1,
                  "packed_tile_positions": 1}, segc_oracles)
     del segc_calls, segc_oracles, s1h_want, s1_want, sorted_kv
+
+    # ---- 5f. the fused two-digit paths (fuse_digits=True), each call with its
+    # own launch counts, each result held bitwise against the unfused sort and
+    # a stable torch.sort: F1 radix_sort r = 8 at n = 2^25 (two 16-bit pairs:
+    # key-value bms, key-only dms, the packed family), F2 r = 7 at 2^22 (two
+    # 14-bit pairs and a 4-bit single pass), F3 segmented_radix_sort over 16
+    # ragged segments at 2^22
+    def h_bytes(n_keys, s_, bits_):
+        """The size of one pair's H: L tiles of the fused tile, s·m² columns."""
+        return 4 * (-(-n_keys // t_fused)) * s_ * (1 << bits_)
+
+    def fused_call(path, fn, expect, oracles, h_size):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        mst.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = mst.launch_counts()
+        want = {name: 0 for name in counts}
+        want.update(expect)
+        if counts != want:
+            raise AssertionError(f"{path} launch counts {counts} != expected {want}")
+        for name, count in counts.items():
+            launches[name] += count
+            if count:
+                log("launches", f"{path}: {name}: {count}")
+        for what, oracle in oracles.items():
+            for a, b in zip(res, oracle):
+                if max_err(a, b):
+                    raise AssertionError(f"{path} differs from {what}")
+        log("fused", f"{path}: {secs:.2f} s (first call); H {h_size / 2**30:.2f} GiB a pair; peak "
+                     f"device memory above its inputs {(torch.cuda.max_memory_allocated() - before) / 2**30:.2f} "
+                     f"GiB; bitwise equal to {' and '.join(oracles)}")
+        return res
+
+    def stable_sort(k, v=None):
+        _, order = torch.sort(bits(k) ^ torch.iinfo(torch.int32).min, stable=True)
+        return bits(k)[order].view(k.dtype), None if v is None else v[order]
+
+    want_sort = stable_sort(keys, values)
+    unfused = ops.radix_sort(keys, values, device=dev)
+    k1f, k2f, k3f = "fused2_tile_histograms", "fused2_fused_postscan_reorder", "fused2_tile_positions"
+    h_f1 = h_bytes(N_MAIN, 1, 16)
+    fused_call("F1 radix_sort kv bms r=8, fuse_digits", lambda: ops.radix_sort(
+        keys, values, radix_bits=8, fuse_digits=True, device=dev), {k1f: 2, k2f: 2},
+        {"the unfused radix_sort": unfused, "a stable torch.sort": want_sort}, h_f1)
+    fused_call("F1 radix_sort dms r=8, fuse_digits, key-only", lambda: ops.radix_sort(
+        keys, method="dms", fuse_digits=True, device=dev), {k1f: 2, k3f: 2},
+        {"the unfused radix_sort": (unfused[0], None), "a stable torch.sort": (want_sort[0], None)},
+        h_f1)
+    fused_call("F1 radix_sort kv bms r=8, fuse_digits, family=packed", lambda: ops.radix_sort(
+        keys, values, fuse_digits=True, family="packed", device=dev), {k1f: 2, k2f: 2},
+        {"the unfused radix_sort": unfused, "a stable torch.sort": want_sort}, h_f1)
+    del unfused, want_sort
+    keys_s, values_s = keys[:N_FUSED_SMALL], values[:N_FUSED_SMALL]
+    fused_call("F2 radix_sort kv bms r=7, fuse_digits, n=2^22", lambda: ops.radix_sort(
+        keys_s, values_s, radix_bits=7, fuse_digits=True, device=dev),
+        {k1f: 2, k2f: 2, "spec_tile_histograms": 1, "spec_fused_postscan_reorder": 1},
+        {"the unfused radix_sort": ops.radix_sort(keys_s, values_s, radix_bits=7, device=dev),
+         "a stable torch.sort": stable_sort(keys_s, values_s)}, h_bytes(N_FUSED_SMALL, 1, 14))
+    fused_call("F3 segmented_radix_sort kv bms r=8 s=16, fuse_digits, n=2^22",
+               lambda: ops.segmented_radix_sort(keys_s, f3_starts, values_s, fuse_digits=True,
+                                                device=dev), {k1f: 2, k2f: 2},
+               {"the unfused segmented_radix_sort": ops.segmented_radix_sort(
+                   keys_s, f3_starts, values_s, device=dev),
+                "a stable torch.sort": seg_sort_oracle(keys_s, f3_starts, values_s)},
+               h_bytes(N_FUSED_SMALL, 16, 16))
     for name in launches:
         if launches[name] == 0:
             raise AssertionError(f"{name} was launched on none of the paths")
@@ -1221,6 +1415,68 @@ def main() -> int:
     ]) + f" [S1: n = 2^25, s = 64, m = 32, tiles 8192 x 4096; {smi}]")
     del cid1, g1, g32, ids1, seg_kw
 
+    # the fused two-digit kernels at F1's shapes: 2^25 keys in 4096 tiles of
+    # 8192, the pair (0, 16, 8), G of (4096, 65536)
+    kt8, vt8 = keys.view(-1, t_fused), values.view(-1, t_fused)
+    l8, spec16 = kt8.shape[0], ops.BitfieldSpec(0, 16)
+    hist16 = mst.fused2_tile_histograms_plain(kt8, spec=spec16)
+    g16 = st.global_scan(hist16)
+    h16_bytes = 4 * hist16.numel()
+    nnz16 = int(torch.count_nonzero(hist16))             # the G bases the keys hit
+    del hist16
+    cid16 = (torch.arange(l8, device=dev, dtype=torch.int64)[:, None] * 65536
+             + spec16.emit(kt8).long()).view(-1)
+    sort16_ms = cuda_ms(lambda: torch.sort(cid16, stable=True))
+    bincount16_ms = cuda_ms(lambda: torch.bincount(cid16, minlength=l8 * 65536))
+    del cid16
+    log("times", f"fused2 at F1's shape: H {h16_bytes / 2**30:.2f} GiB, {nnz16} of its "
+                 f"{h16_bytes // 4} bases hit by the keys")
+    fkw = dict(spec=spec16, split=8)
+    fused_rows = [
+        ("fused2_tile_histograms", "fused2_tile_histograms.cu",
+         "src/repro/kernels/multisplit_tile.py:863",
+         lambda: mst.fused2_tile_histograms(kt8, spec=spec16),
+         lambda: mst.fused2_tile_histograms_plain(kt8, spec=spec16), 4 * n + h16_bytes,
+         bincount16_ms),
+        ("fused2_fused_postscan_reorder", "fused2_fused_postscan_reorder.cu",
+         "src/repro/kernels/multisplit_tile.py:973",
+         lambda: mst.fused2_fused_postscan_reorder(kt8, g16, vt8, **fkw),
+         lambda: mst.fused2_fused_postscan_reorder_plain(kt8, g16, vt8, **fkw),
+         8 * n + 4 * nnz16 + 16 * n, sort16_ms),
+        ("fused2_tile_positions", "fused2_tile_positions.cu",
+         "src/repro/kernels/multisplit_tile.py:909",
+         lambda: mst.fused2_tile_positions(kt8, g16, **fkw),
+         lambda: mst.fused2_tile_positions_plain(kt8, g16, **fkw), 4 * n + 4 * nnz16 + 4 * n,
+         sort16_ms),
+    ]
+    for name, src, replaces, kern, plain, nbytes, lib_ms in fused_rows:
+        ms_k = cuda_ms(kern)
+        ms_p = cuda_ms(plain, reps=3, inner=1)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
+            "bitwise": errs[name] == 0, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": lib_ms,
+        })
+        log("times", f"{name}: {ms_k:.4f} ms (bound {bound:.4f} ms = {nbytes / 2**20:.0f} MiB / "
+                     f"3.35 TB/s, {bound / ms_k:.1%} of it), plain {ms_p:.2f} ms, library "
+                     f"{lib_ms:.4f} ms; {launches[name]} launches on the fused paths [F1: n = 2^25, "
+                     f"pair (0, 16, 8), sub_bits {mst.CUDA_SUB_BITS}, onehot, tiles {l8} x {t_fused}; "
+                     f"{smi}]")
+    # the stage width and the family, K2f and K3f on the same inputs
+    for fam in ("onehot", "packed"):
+        parts = []
+        for label, fn in (("K2f key-value", lambda sb: mst.fused2_fused_postscan_reorder(
+                                 kt8, g16, vt8, family=fam, sub_bits=sb, **fkw)),
+                          ("K3f", lambda sb: mst.fused2_tile_positions(
+                                 kt8, g16, family=fam, sub_bits=sb, **fkw))):
+            a, b = cuda_ms(lambda: fn(4)), cuda_ms(lambda: fn(8))
+            parts.append(f"{label} {a:.4f} / {b:.4f} ms ({b / a:.3f}x)")
+        log("times", f"fused2 sub_bits 4 / 8, {fam}: " + "; ".join(parts)
+            + f" [F1: n = 2^25, tiles {l8} x {t_fused}; {smi}]")
+    del g16
+
     top8 = ops.from_fn(lambda u: (bits(u) >> 24) & 255, 256, "top8")
     check_result("top-byte callable against DeltaSpec(256, 2^32)",
                  ops.multisplit(keys, top8, values, device=dev),
@@ -1378,6 +1634,87 @@ def main() -> int:
         f"{k} {v:.4f} ms" for k, v in stage_ms.items())
         + f"; sum {sum(stage_ms.values()):.4f} ms [{smi}]")
     del hist, g, pos, seg3
+    # fused against unfused, end to end in turns on the same inputs, and the
+    # stages of one fused pair against those of one single-digit pass
+    from repro_torch.core.pipeline import RadixPipeline
+
+    f3_t = torch.from_numpy(f3_starts).to(dev)
+    keys_s, values_s = keys[:N_FUSED_SMALL], values[:N_FUSED_SMALL]
+    pairs = [
+        ("F1 radix_sort kv bms r=8", N_MAIN,
+         lambda: ops.radix_sort(keys, values, device=dev),
+         lambda: ops.radix_sort(keys, values, fuse_digits=True, device=dev)),
+        ("F1 radix_sort dms r=8, key-only", N_MAIN,
+         lambda: ops.radix_sort(keys, method="dms", device=dev),
+         lambda: ops.radix_sort(keys, method="dms", fuse_digits=True, device=dev)),
+        ("F1 radix_sort kv bms r=8, family=packed", N_MAIN,
+         lambda: ops.radix_sort(keys, values, family="packed", device=dev),
+         lambda: ops.radix_sort(keys, values, family="packed", fuse_digits=True, device=dev)),
+        ("F2 radix_sort kv bms r=7, n=2^22", N_FUSED_SMALL,
+         lambda: ops.radix_sort(keys_s, values_s, radix_bits=7, device=dev),
+         lambda: ops.radix_sort(keys_s, values_s, radix_bits=7, fuse_digits=True, device=dev)),
+        ("F3 segmented_radix_sort kv bms r=8 s=16, n=2^22", N_FUSED_SMALL,
+         lambda: ops.segmented_radix_sort(keys_s, f3_t, values_s, device=dev),
+         lambda: ops.segmented_radix_sort(keys_s, f3_t, values_s, fuse_digits=True, device=dev)),
+    ]
+    for what, n_keys, plain_fn, fused_fn in pairs:
+        ms_u, ms_f = cuda_ms(plain_fn, reps=5, inner=1), cuda_ms(fused_fn, reps=5, inner=1)
+        ms_u2 = cuda_ms(plain_fn, reps=5, inner=1)
+        log("times", f"end to end unfused / fused, {what}: {ms_u:.3f} (again {ms_u2:.3f}) / "
+                     f"{ms_f:.3f} ms ({ms_f / ms_u:.3f}x) = {n_keys / ms_u / 1e6:.2f} / "
+                     f"{n_keys / ms_f / 1e6:.2f} Gkeys/s [{smi}]")
+    variants = {
+        "sub_bits 4": RadixPipeline(N_MAIN, key_value=True, backend="cuda", fuse_digits=True,
+                                    sub_bits=4),
+        f"sub_bits 8 (the default)": RadixPipeline(N_MAIN, key_value=True, backend="cuda",
+                                                   fuse_digits=True),
+        "tile 4096": RadixPipeline(N_MAIN, key_value=True, backend="cuda", fuse_digits=True,
+                                   tile=4096),
+    }
+    log("times", "end to end F1 radix_sort kv bms r=8, fused: " + "; ".join(
+        f"{k} {cuda_ms(lambda p=p: p(keys, values), reps=5, inner=1):.3f} ms"
+        for k, p in variants.items()) + f" [{smi}]")
+    del variants
+
+    def pair_stages(plan, kt_, vt_, seg_=None):
+        """Each stage of one sweep of ``plan`` timed alone."""
+        hist_ = plan.prescan(kt_, None, seg_)
+        g_ = st.global_scan(hist_)
+        src_k_, src_v_, pos_, _ = plan.postscan(g_, kt_, None, vt_, seg_)
+        n_ = kt_.numel()
+        out = {
+            "prescan": cuda_ms(lambda: plan.prescan(kt_, None, seg_), reps=5),
+            f"global scan ({hist_.shape[0]} x {hist_.shape[1]}, {4 * hist_.numel() / 2**30:.3f} GiB)":
+                cuda_ms(lambda: st.global_scan(hist_), reps=5),
+            "postscan": cuda_ms(lambda: plan.postscan(g_, kt_, None, vt_, seg_), reps=5),
+            "scatter (int64 index + 2 index_copy_)": cuda_ms(lambda: (
+                lambda idx: (st.scatter(src_k_, idx, n_), st.scatter(src_v_, idx, n_)))(
+                    pos_.reshape(-1).long()), reps=5),
+        }
+        del hist_, g_, src_k_, src_v_, pos_
+        return out
+
+    for what, pipe, kk, vv, seg_t in (
+        ("F1 unfused, one 8-bit pass (K1, K2)",
+         RadixPipeline(N_MAIN, key_value=True, backend="cuda"), keys, values, None),
+        ("F1 fused, one 16-bit pair (K1f, K2f)",
+         RadixPipeline(N_MAIN, key_value=True, backend="cuda", fuse_digits=True), keys, values, None),
+        ("F3 unfused, one 8-bit pass (K1s, K2s)",
+         RadixPipeline(N_FUSED_SMALL, key_value=True, backend="cuda", segments=16),
+         keys_s, values_s, f3_t),
+        ("F3 fused, one 16-bit pair (K1f, K2f)",
+         RadixPipeline(N_FUSED_SMALL, key_value=True, backend="cuda", segments=16, fuse_digits=True),
+         keys_s, values_s, f3_t),
+    ):
+        t_ = pipe.tile
+        seg_tiled = None
+        if seg_t is not None:
+            seg_tiled = st.segment_ids_from_starts(seg_t, kk.shape[0]).view(-1, t_)
+        stage_ms = pair_stages(pipe.plans[0], kk.view(-1, t_), vv.view(-1, t_), seg_tiled)
+        log("times", f"stages of {what}, tiles of {t_}: " + "; ".join(
+            f"{k} {v:.4f} ms" for k, v in stage_ms.items())
+            + f"; sum {sum(stage_ms.values()):.4f} ms, {pipe.n_sweeps} sweeps a sort [{smi}]")
+    del keys_s, values_s
     log("times", f"peak device memory of the timed runs above the inputs: "
                  f"{(torch.cuda.max_memory_allocated() - base_mem) / 2**30:.2f} GiB")
 

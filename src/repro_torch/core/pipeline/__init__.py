@@ -12,7 +12,12 @@ postscan} (paper §4.1).
 * :mod:`~repro_torch.core.pipeline.radix`    — :class:`RadixPipeline`.
 """
 
-from repro_torch.core.pipeline.radix import RadixPipeline, radix_passes
+from repro_torch.core.pipeline.radix import (
+    MAX_PAIR_BITS,
+    RadixPipeline,
+    radix_pass_pairs,
+    radix_passes,
+)
 from repro_torch.core.pipeline.registry import (
     Backend,
     KernelStages,
@@ -36,6 +41,8 @@ from repro_torch.core.pipeline.stages import (
     direct_counts,
     direct_solve_ids,
     exclusive_rows,
+    fused2_tile_counts,
+    fused2_tile_postscan,
     global_scan,
     packed_direct_solve_ids,
     packed_tile_local_offsets,
@@ -48,21 +55,26 @@ from repro_torch.core.pipeline.tiles import (
     BMS_TILE,
     CUDA_TILE,
     FAMILIES,
+    FUSED2_CUDA_TILE,
+    FUSED2_VMAP_TILE,
     WMS_TILE,
     family_decision,
     family_decisions,
     resolve_kernel_family,
+    resolve_sub_bits,
     resolve_tile,
 )
 
 __all__ = [
-    "BMS_TILE", "Backend", "CUDA_TILE", "FAMILIES", "KernelStages", "MODES",
+    "BMS_TILE", "Backend", "CUDA_TILE", "FAMILIES", "FUSED2_CUDA_TILE", "FUSED2_VMAP_TILE",
+    "KernelStages", "MAX_PAIR_BITS", "MODES",
     "MultisplitPlan", "MultisplitResult", "PipelineSpec", "RadixPipeline",
     "StageImpl", "VmapStages", "WMS_TILE", "backend_names",
     "direct_counts", "direct_solve_ids", "exclusive_rows", "family_decision",
-    "family_decisions", "get_backend", "global_scan", "make_plan", "make_radix_plan",
+    "family_decisions", "fused2_tile_counts", "fused2_tile_postscan", "get_backend",
+    "global_scan", "make_plan", "make_radix_plan",
     "make_segmented_plan", "make_segmented_radix_plan", "packed_direct_solve_ids",
-    "packed_tile_local_offsets", "pad_to_tiles", "radix_passes",
-    "register_backend", "resolve_kernel_family", "resolve_tile",
+    "packed_tile_local_offsets", "pad_to_tiles", "radix_pass_pairs", "radix_passes",
+    "register_backend", "resolve_kernel_family", "resolve_sub_bits", "resolve_tile",
     "seg_tile_local", "segment_ids_from_starts", "tile_local_offsets",
 ]

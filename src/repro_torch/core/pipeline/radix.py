@@ -13,8 +13,15 @@ flat and segmented layouts. Counterpart of
   every pass (elements never cross a segment boundary), with its pads in
   segment s−1, so the pads stay at the tail there too.
 
-The untiled reference backend iterates the direct solve per pass. Fused
-two-digit passes are ROADMAP queue A item 7; the batched layout item 5.
+The untiled reference backend iterates the direct solve per pass.
+
+``fuse_digits=True`` runs adjacent digit passes as fused pairs
+(``radix.py:50-185`` of the JAX package): :func:`radix_pass_pairs` merges
+them into ``(shift, bits, split)`` entries, each pair one sweep over the
+combined digit (K1f and K2f or K3f on the card), a trailing unpaired digit
+one single-digit sweep. Backends without ``fuses_digits`` (the untiled
+reference) keep the single-digit schedule: fusing changes the cost, never
+the result. The batched layout is ROADMAP queue A item 5.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from repro_torch.core.identifiers import is_integer
 from repro_torch.core.pipeline import stages as _st
 from repro_torch.core.pipeline.registry import get_backend
 from repro_torch.core.pipeline.spec import make_radix_plan
-from repro_torch.core.pipeline.tiles import resolve_tile
+from repro_torch.core.pipeline.tiles import resolve_kernel_family, resolve_tile
 
 Tensor = torch.Tensor
 
@@ -43,10 +50,44 @@ def radix_passes(radix_bits: int, key_bits: int) -> List[Tuple[int, int]]:
     ]
 
 
+# The widest pair of the fused schedule: a pair's combined digit is the scan
+# axis (m² = 2^bits columns of H a tile and segment), and 16 bits is where
+# the JAX package stops pairing.
+MAX_PAIR_BITS = 16
+
+
+def radix_pass_pairs(
+    radix_bits: int, key_bits: int, max_pair_bits: int = MAX_PAIR_BITS
+) -> List[Tuple[int, int, Optional[int]]]:
+    """The fused-pair schedule: adjacent passes of :func:`radix_passes`
+    merged greedily into ``(shift, bits, split)`` entries, ``split`` the
+    low digit's width in the pair, ``None`` an unpaired single pass (the
+    trailing odd digit, or a pair wider than ``max_pair_bits``). r = 8 over
+    32-bit keys gives ``[(0, 16, 8), (16, 16, 8)]``; r = 7 two 14-bit pairs
+    and a 4-bit single pass; r = 4 over 30-bit keys ends in ``(24, 6, 4)``."""
+    passes = radix_passes(radix_bits, key_bits)
+    out: List[Tuple[int, int, Optional[int]]] = []
+    i = 0
+    while i < len(passes):
+        if i + 1 < len(passes):
+            (s_a, b_a), (_, b_b) = passes[i], passes[i + 1]
+            if b_a + b_b <= max_pair_bits:
+                out.append((s_a, b_a + b_b, b_a))
+                i += 2
+                continue
+        shift, bits = passes[i]
+        out.append((shift, bits, None))
+        i += 1
+    return out
+
+
 class RadixPipeline:
     """A resolved ⌈key_bits/r⌉-pass radix sort over one shape: flat
     ``(n,)`` keys, or ragged segments over them (``segments=s`` and a
-    ``segment_starts`` call argument). Build once, call with tensors."""
+    ``segment_starts`` call argument). Build once, call with tensors. With
+    ``fuse_digits`` on a backend that fuses digits the schedule is
+    :func:`radix_pass_pairs`; ``sub_bits`` pins the pairs' in-tile stage
+    width."""
 
     def __init__(
         self,
@@ -60,26 +101,50 @@ class RadixPipeline:
         tile: Optional[int] = None,
         segments: Optional[int] = None,
         family: Optional[str] = None,
+        fuse_digits: bool = False,
+        sub_bits: Optional[int] = None,
     ):
         self.n = n
         self.key_value = key_value
         self.backend = backend
         self.segments = segments
         self.passes = radix_passes(radix_bits, key_bits)
-        # ONE tile for every pass, keyed by the widest digit (the first)
-        m_eff = (1 << self.passes[0][1]) * (segments or 1)
-        self.tile = resolve_tile(n, m_eff, method, key_value, backend, tile)
+        s = segments or 1
+        be = get_backend(backend)
+        if fuse_digits and be.tiled and be.fuses_digits:
+            # one sweep a pair; ONE tile and family for every sweep, the
+            # tile at the first pair's width, the family at its stage width,
+            # both under the digits=2 slot, never a digits=1 plan's
+            self.schedule = radix_pass_pairs(radix_bits, key_bits)
+            _, bits0, split0 = self.schedule[0]
+            stage_m = (1 << (split0 or bits0)) * s
+            self.family = resolve_kernel_family(n, stage_m, method, backend, family, digits=2)
+            self.tile = resolve_tile(n, (1 << bits0) * s, method, key_value, backend, tile,
+                                     digits=2, stage_m=stage_m)
+        else:
+            self.schedule = [(shift, bits, None) for shift, bits in self.passes]
+            # ONE tile for every pass, keyed by the widest digit (the first)
+            m_eff = (1 << self.passes[0][1]) * s
+            self.family = family
+            self.tile = resolve_tile(n, m_eff, method, key_value, backend, tile)
         self.plans = tuple(
             make_radix_plan(
                 n, shift, bits, method=method, key_value=key_value, backend=backend,
-                tile=self.tile, segments=segments, family=family,
+                tile=self.tile, segments=segments, family=self.family, digit_split=split,
+                sub_bits=sub_bits if split is not None else None,
             )
-            for shift, bits in self.passes
+            for shift, bits, split in self.schedule
         )
 
     @property
     def n_passes(self) -> int:
+        """Logical single-digit passes, ⌈key_bits/r⌉, whatever the schedule."""
         return len(self.passes)
+
+    @property
+    def n_sweeps(self) -> int:
+        """Sweeps run, one a schedule entry: a fused pair counts once."""
+        return len(self.plans)
 
     def __call__(
         self, keys: Tensor, values: Optional[Tensor] = None, segment_starts=None,

@@ -16,7 +16,11 @@ backend's prescan / postscan-positions / postscan-reorder over pre-tiled
   plain versions; on CUDA tensors they launch the kernels or raise.
 
 All three implement both kernel families, ``onehot`` and ``packed``
-(``spec.family``), which give the same bits.
+(``spec.family``), which give the same bits. ``vmap`` and ``cuda`` also
+fuse digit pairs (``fuses_digits``): a plan with a ``digit_split`` runs the
+fused two-digit stages (K1f-K3f on the card, the fused2 plain bodies on
+``vmap``) over the pair's ``BitfieldSpec``; the untiled ``reference``
+keeps the single-digit schedule.
 """
 
 from __future__ import annotations
@@ -58,8 +62,16 @@ class KernelStages(StageImpl):
     ids kernels, flat or segmented. A packed plan takes one packed door a
     stage (K1p-K3p), which covers all four forms."""
 
+    @staticmethod
+    def _fused2_kw(spec) -> dict:
+        return dict(spec=spec.bucket_fn, split=spec.digit_split, num_segments=spec.segments or 1,
+                    family=spec.family, sub_bits=spec.sub_bits)
+
     def prescan(self, spec, keys_tiled, ids_tiled, seg_tiled):
         m, s = spec.num_buckets, spec.segments
+        if spec.digit_split is not None:         # a fused two-digit pair
+            return kops.fused2_tile_histograms(keys_tiled, seg_tiled, spec=spec.bucket_fn,
+                                               num_segments=s or 1)
         if spec.family == "packed":
             fused = ids_tiled is None
             return kops.packed_tile_histograms(
@@ -75,6 +87,8 @@ class KernelStages(StageImpl):
 
     def positions(self, spec, g, keys_tiled, ids_tiled, seg_tiled):
         m, s = spec.num_buckets, spec.segments
+        if spec.digit_split is not None:
+            return kops.fused2_tile_positions(keys_tiled, g, seg_tiled, **self._fused2_kw(spec))
         if spec.family == "packed":
             fused = ids_tiled is None
             return kops.packed_tile_positions(
@@ -90,6 +104,9 @@ class KernelStages(StageImpl):
 
     def reorder(self, spec, g, keys_tiled, ids_tiled, vals_tiled, seg_tiled):
         m, s = spec.num_buckets, spec.segments
+        if spec.digit_split is not None:
+            return kops.fused2_fused_postscan_reorder(keys_tiled, g, vals_tiled, seg_tiled,
+                                                      **self._fused2_kw(spec))
         if spec.family == "packed":
             fused = ids_tiled is None
             return kops.packed_fused_postscan_reorder(
@@ -118,7 +135,10 @@ class VmapStages(StageImpl):
     plans take the two-level packed rank (:func:`~repro_torch.kernels.
     common.packed_local_offsets`, the gather form), over the combined id
     ``seg·m + b`` when segmented, as the JAX ``VmapStages`` do; a
-    ``counts_only`` prescan stays the plain scatter-add on either family."""
+    ``counts_only`` prescan stays the plain scatter-add on either family.
+    Fused-pair plans run the fused2 plain bodies over the pair's
+    ``BitfieldSpec`` (:func:`~repro_torch.kernels.common.
+    fused2_postscan_body`, in the plan's family)."""
 
     @staticmethod
     def _tile_ids(spec, keys_tiled, ids_tiled):
@@ -131,7 +151,17 @@ class VmapStages(StageImpl):
             ids = _body.combined_ids(ids, seg_tiled, spec.num_buckets)
         return ids, _body.packed_layout(ids.shape[1], spec.m_eff)
 
+    @staticmethod
+    def _fused2_kw(spec) -> dict:
+        bf = spec.bucket_fn
+        return dict(shift=bf.shift, split=spec.digit_split, bits=bf.bits,
+                    num_segments=spec.segments or 1, family=spec.family, sub_bits=spec.sub_bits)
+
     def prescan(self, spec, keys_tiled, ids_tiled, seg_tiled):
+        if spec.digit_split is not None:         # a fused two-digit pair
+            bf = spec.bucket_fn
+            return _body.fused2_counts_body(keys_tiled, bf.shift, bf.bits, seg_tiled,
+                                            spec.segments or 1)
         ids = self._tile_ids(spec, keys_tiled, ids_tiled)
         if spec.family == "packed" and spec.mode != "counts_only":
             return _body.packed_counts(*self._packed_ids(spec, ids, seg_tiled))
@@ -140,6 +170,9 @@ class VmapStages(StageImpl):
         return _body.counts_body(ids, spec.num_buckets)
 
     def positions(self, spec, g, keys_tiled, ids_tiled, seg_tiled):
+        if spec.digit_split is not None:
+            return _body.fused2_positions_body(keys_tiled, g, seg=seg_tiled,
+                                               **self._fused2_kw(spec))
         ids = self._tile_ids(spec, keys_tiled, ids_tiled)
         if spec.family == "packed":
             cid, layout = self._packed_ids(spec, ids, seg_tiled)
@@ -149,6 +182,9 @@ class VmapStages(StageImpl):
         return _body.positions_body(ids, g, spec.num_buckets)
 
     def reorder(self, spec, g, keys_tiled, ids_tiled, vals_tiled, seg_tiled):
+        if spec.digit_split is not None:
+            return _body.fused2_postscan_body(keys_tiled, g, vals_tiled, seg=seg_tiled,
+                                              **self._fused2_kw(spec))
         ids = self._tile_ids(spec, keys_tiled, ids_tiled)
         if spec.family == "packed":
             cid, layout = self._packed_ids(spec, ids, seg_tiled)
@@ -165,9 +201,10 @@ class Backend:
 
     ``tiled=False`` marks the direct-solve oracle (no tiling, no scan).
     ``fuses_labels`` advertises that fusable specs are evaluated inside the
-    tile stage; ``key_itemsize`` restricts the key width (the CUDA kernels
-    take 32-bit words); ``families`` lists the kernel families the stages
-    implement."""
+    tile stage; ``fuses_digits`` that the stages run a fused two-digit pair
+    (a plan's ``digit_split``); ``key_itemsize`` restricts the key width
+    (the CUDA kernels take 32-bit words); ``families`` lists the kernel
+    families the stages implement."""
 
     name: str
     description: str
@@ -175,6 +212,7 @@ class Backend:
     tiled: bool = True
     uses_kernels: bool = False
     fuses_labels: bool = False
+    fuses_digits: bool = False
     key_itemsize: Optional[int] = None
     families: Tuple[str, ...] = ("onehot",)
 
@@ -220,6 +258,7 @@ register_backend(Backend(
     description="tiled pure-torch stages (the plain in-tile bodies)",
     stages=VmapStages(),
     fuses_labels=True,
+    fuses_digits=True,
     families=("onehot", "packed"),
 ))
 register_backend(Backend(
@@ -228,6 +267,7 @@ register_backend(Backend(
     stages=KernelStages(),
     uses_kernels=True,
     fuses_labels=True,
+    fuses_digits=True,
     key_itemsize=4,
     families=("onehot", "packed"),
 ))

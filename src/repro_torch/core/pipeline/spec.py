@@ -21,6 +21,12 @@ in every pass), so pads land after every real element and
 its own, in one launch per stage, with the segment id riding as the high
 part of the combined id ``seg·m + b`` (width ``m_eff = s·m``). The batched
 layout is ROADMAP queue A item 5.
+
+``digit_split`` marks a fused two-digit radix plan (``spec.py:114-139`` of
+the JAX package): the bucket spec is the pair's ``BitfieldSpec`` and
+``digit_split`` the low digit's width; its stages run the fused2 bodies on
+the key strip, bitwise equal to the plain plan over the pair (the LSD
+identity: two chained stable passes equal one stable pass over the pair).
 """
 
 from __future__ import annotations
@@ -34,7 +40,11 @@ from repro_torch.core.identifiers import BitfieldSpec, BucketSpec, as_spec
 from repro_torch.core.pipeline import stages as _st
 from repro_torch.core.pipeline.registry import get_backend
 from repro_torch.core.pipeline.stages import MultisplitResult
-from repro_torch.core.pipeline.tiles import resolve_kernel_family, resolve_tile
+from repro_torch.core.pipeline.tiles import (
+    resolve_kernel_family,
+    resolve_sub_bits,
+    resolve_tile,
+)
 
 Tensor = torch.Tensor
 
@@ -47,7 +57,9 @@ class PipelineSpec:
 
     Frozen and hashable by value (``bucket_fn`` is a value-hashable spec).
     Build it with :func:`make_plan`, :func:`make_radix_plan` or their
-    segmented forms."""
+    segmented forms. ``digit_split`` is the low digit's width of a fused
+    pair (None for a single-digit plan) and ``sub_bits`` the pair's in-tile
+    stage width (None: the stage bodies' default)."""
 
     n: int
     num_buckets: int
@@ -59,6 +71,8 @@ class PipelineSpec:
     segments: Optional[int] = None  # ragged segments over (n,)
     mode: str = "reorder"
     family: str = "onehot"
+    digit_split: Optional[int] = None
+    sub_bits: Optional[int] = None
 
     @property
     def m_eff(self) -> int:
@@ -120,9 +134,24 @@ class PipelineSpec:
         mode take the materialised-label stages at call time, which the
         shape-free plan cannot show. Packed plans carry a ``-packed``
         suffix on their local-solve stages, but for the vmap
-        ``counts_only`` prescan, a plain scatter-add on either family."""
+        ``counts_only`` prescan, a plain scatter-add on either family.
+        Fused-pair plans carry the JAX package's ``fused2-pair`` tags with
+        the family spelled out."""
         be = get_backend(self.backend)
         eng = "kernel" if be.uses_kernels else "vmap"
+        if self.digit_split is not None:
+            fam = f"-{self.family}"
+            pre = f"prescan:fused2-pair-{eng}"
+            positions = f"postscan:fused2-pair-positions-{eng}{fam}"
+            post = (positions if self.method == "dms"
+                    else f"postscan:fused2-pair-reorder-{eng}{fam}")
+            if self.mode == "counts_only":
+                base = (pre, "reduce:counts")
+            elif self.mode == "positions_only":
+                base = (pre, "scan:global", positions)
+            else:
+                base = (pre, "scan:global", post, "scatter:bucket-major")
+            return base if self.segments is None else (f"layout:segmented[{self.segments}]",) + base
         fused = self.bucket_fn is not None and self.bucket_fn.fusable
         lab = "fused-label-" if fused else ""
         fam = "-packed" if be.tiled and self.family == "packed" else ""
@@ -337,6 +366,28 @@ def _validate_layout(batch: Optional[int], segments: Optional[int]) -> None:
         raise ValueError(f"segments must be >= 1, got {segments}")
 
 
+def _validate_digit_split(digit_split: Optional[int], bucket_fn, backend: str) -> None:
+    """The JAX package's rules and messages (``spec.py:727-750``)."""
+    if digit_split is None:
+        return
+    be = get_backend(backend)
+    if not be.tiled or not be.fuses_digits:
+        raise ValueError(
+            f"backend {backend!r} does not fuse digit pairs (fuses_digits="
+            f"False); run the pair as a plain combined-digit plan instead"
+        )
+    if not isinstance(bucket_fn, BitfieldSpec):
+        raise ValueError(
+            "digit_split requires the combined-pair BitfieldSpec bucket_fn "
+            f"(got {type(bucket_fn).__name__})"
+        )
+    if not 0 < digit_split < bucket_fn.bits:
+        raise ValueError(
+            f"digit_split must split the pair strictly (0 < split < bits); "
+            f"got split={digit_split}, bits={bucket_fn.bits}"
+        )
+
+
 def make_plan(
     n: int,
     num_buckets: int,
@@ -350,10 +401,16 @@ def make_plan(
     segments: Optional[int] = None,
     mode: str = "reorder",
     family: Optional[str] = None,
+    digit_split: Optional[int] = None,
+    sub_bits: Optional[int] = None,
 ) -> MultisplitPlan:
     """Resolve (n, m, method, key-value-ness, backend, mode) into a staged
     plan: flat, or segmented with ``segments=s`` (call it with an ``(s,)``
-    ``segment_starts``)."""
+    ``segment_starts``). ``digit_split=r`` makes ``bucket_fn``, a
+    BitfieldSpec, a fused two-digit pair whose low digit is r bits wide:
+    its family is decided at the stage width ``2^r·s`` and its tile at the
+    pair's width, both with a digits slot (``tiles.py``); ``sub_bits`` pins
+    its in-tile stage width."""
     _validate_layout(batch, segments)
     _validate(method, backend, mode, key_value)
     if bucket_fn is not None:
@@ -362,12 +419,19 @@ def make_plan(
             raise ValueError(
                 f"num_buckets={num_buckets} but the spec has {bucket_fn.num_buckets}"
             )
+    _validate_digit_split(digit_split, bucket_fn, backend)
     m_eff = num_buckets * (segments or 1)
+    digits, stage_m = 1, None
+    if digit_split is not None:
+        digits, stage_m = 2, (1 << digit_split) * (segments or 1)
     return MultisplitPlan(
         n=n, num_buckets=num_buckets, method=method, key_value=key_value,
-        backend=backend, tile=resolve_tile(n, m_eff, method, key_value, backend, tile),
+        backend=backend,
+        tile=resolve_tile(n, m_eff, method, key_value, backend, tile, digits, stage_m),
         bucket_fn=bucket_fn, segments=segments, mode=mode,
-        family=resolve_kernel_family(n, m_eff, method, backend, family),
+        family=resolve_kernel_family(n, stage_m or m_eff, method, backend, family, digits),
+        digit_split=digit_split,
+        sub_bits=None if digit_split is None else resolve_sub_bits(sub_bits),
     )
 
 
@@ -383,12 +447,16 @@ def make_radix_plan(
     segments: Optional[int] = None,
     mode: str = "reorder",
     family: Optional[str] = None,
+    digit_split: Optional[int] = None,
+    sub_bits: Optional[int] = None,
 ) -> MultisplitPlan:
-    """A plan whose bucket spec is the radix digit BitfieldSpec(shift, bits)."""
+    """A plan whose bucket spec is the radix digit BitfieldSpec(shift, bits);
+    ``digit_split=r`` makes it a fused two-digit pair (low digit r bits
+    wide) and ``sub_bits`` pins the pair's in-tile stage width."""
     return make_plan(
         n, 1 << bits, method=method, key_value=key_value, backend=backend,
         tile=tile, bucket_fn=BitfieldSpec(shift, bits), segments=segments, mode=mode,
-        family=family,
+        family=family, digit_split=digit_split, sub_bits=sub_bits,
     )
 
 

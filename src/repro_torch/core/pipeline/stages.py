@@ -18,6 +18,8 @@ import torch
 
 from repro_torch.core.identifiers import bits_dtype
 from repro_torch.kernels.common import (
+    fused2_counts_body,
+    fused2_postscan_body,
     packed_layout,
     packed_local_offsets,
     seg_tile_rank,
@@ -123,6 +125,27 @@ def packed_tile_local_offsets(ids: Tensor, m: int) -> Tuple[Tensor, Tensor]:
     two-level subtile scan, bitwise equal to it (the gather form)."""
     local, hist = packed_local_offsets(ids.reshape(1, -1), packed_layout(ids.shape[0], m))
     return local[0], hist[0]
+
+
+def fused2_tile_counts(keys: Tensor, shift: int, bits: int, seg: Optional[Tensor] = None,
+                       num_segments: int = 1) -> Tensor:
+    """The (s·m²,) pair histogram of one (T,) strip of keys [and segment
+    ids]: the fused two-digit prescan of one tile."""
+    seg = None if seg is None else seg.reshape(1, -1)
+    return fused2_counts_body(keys.reshape(1, -1), shift, bits, seg, num_segments)[0]
+
+
+def fused2_tile_postscan(
+    keys: Tensor, g_row: Tensor, vals: Optional[Tensor], shift: int, split: int, bits: int,
+    seg: Optional[Tensor] = None, num_segments: int = 1, family: str = "onehot",
+    sub_bits: Optional[int] = None,
+) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
+    """The fused two-digit postscan of one (T,) strip: (keys_r, vals_r,
+    pos_r, perm) over the pair, the first three stably (seg, pair)-major."""
+    row = lambda x: None if x is None else x.reshape(1, -1)
+    out = fused2_postscan_body(row(keys), row(g_row), row(vals), shift, split, bits, row(seg),
+                               num_segments, family, sub_bits)
+    return tuple(None if x is None else x[0] for x in out)
 
 
 def _direct_solve_with(

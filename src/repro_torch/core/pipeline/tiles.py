@@ -19,6 +19,14 @@ crossover (packed from ``m_eff >= 8``, ``repro/core/pipeline/tiles.py:47-57``)
 was measured on a CPU host, and no constant of the TPU or CPU era is the
 port's default. ROADMAP queue A item 8 sets the cuda backend's default
 from the H100 measurements of both families.
+
+Fused two-digit plans (``digits=2``, a ``digit_split``) key both caches
+with a digits slot, as the JAX package does (``tiles.py:59-87``): their
+family is decided at the stage width ``stage_m`` and must never collide
+with a ``digits=1`` plan of ``m == stage_m``, and their tile at the pair's
+width with ``stage_m`` beside it. Their tile is its own constant
+(:data:`FUSED2_CUDA_TILE`, :data:`FUSED2_VMAP_TILE`): a pair's histograms
+and bases H are L·s·m² words, so the pair wants few tiles.
 """
 
 from __future__ import annotations
@@ -41,14 +49,45 @@ BMS_TILE = 4096
 # measured yet: ROADMAP queue A item 8 measures the tile on the H100.
 CUDA_TILE = 4096
 _MIN_TILE = 256
+# The cuda backend's fused-pair tile: the largest the kernels take. A pair's
+# H is L·s·m² int32 words (1 GiB at n = 2^25, r = 8 in tiles of 8192; 2 GiB
+# in tiles of 4096) and the global scan reads and writes it several times,
+# so the tile is as large as the sweep's shared memory allows: 16 bytes a
+# key (two key buffers, two 16-bit index buffers, the rank's meta words)
+# and 4 more for the segment runs, 160 KB at 8192 keys with 12 KB of
+# counters, one block an SM. Measured on the H100: the fused r = 8
+# key-value sort of 2^25 keys takes 27.5 ms in tiles of 8192 and 39.1 ms in
+# tiles of 4096 (PERF.md §6, the fused-radix findings).
+FUSED2_CUDA_TILE = 8192
+# The vmap backend's: the plain bodies have no shared-memory limit, and the
+# JAX gather-form heuristic grows the pair's tile toward n for the same
+# reason (``tiles.py:146-157``); the port caps it at 2^16 keys.
+FUSED2_VMAP_TILE = 1 << 16
 
+# digits=1: (n, m_eff, method, key_value, backend); digits=2 appends
+# (2, stage_m)
 _TILE_CACHE: Dict[Tuple, int] = {}
-# (n, m_eff, method, backend) -> (family, reason)
-_FAMILY_CACHE: Dict[Tuple[int, int, str, str], Tuple[str, str]] = {}
+# digits=1: (n, m_eff, method, backend); digits=2 appends the digits slot
+# and m is the stage width. Values are (family, reason).
+_FAMILY_CACHE: Dict[Tuple, Tuple[str, str]] = {}
 
 
-def _heuristic_tile(n: int, m: int, method: str, backend: str) -> int:
-    if get_backend(backend).uses_kernels:
+def _family_key(n: int, m: int, method: str, backend: str, digits: int) -> Tuple:
+    base = (n, m, method, backend)
+    return base if digits == 1 else base + (digits,)
+
+
+def _tile_key(n: int, m: int, method: str, key_value: bool, backend: str, digits: int,
+              stage_m: Optional[int]) -> Tuple:
+    base = (n, m, method, key_value, backend)
+    return base if digits == 1 else base + (digits, stage_m)
+
+
+def _heuristic_tile(n: int, m: int, method: str, backend: str, digits: int = 1) -> int:
+    kernels = get_backend(backend).uses_kernels
+    if digits == 2:
+        tile, floor = (FUSED2_CUDA_TILE, _MIN_TILE) if kernels else (FUSED2_VMAP_TILE, 128)
+    elif kernels:
         tile, floor = CUDA_TILE, _MIN_TILE
     else:
         tile, floor = (WMS_TILE if method in ("dms", "wms") else BMS_TILE), 128
@@ -72,10 +111,12 @@ def _heuristic_family(n: int, m: int, method: str, backend: str) -> Tuple[str, s
 
 
 def resolve_kernel_family(
-    n: int, m: int, method: str, backend: str, requested: Optional[str] = None
+    n: int, m: int, method: str, backend: str, requested: Optional[str] = None,
+    digits: int = 1,
 ) -> str:
-    """The kernel family of one shape (``m`` is ``m_eff``), cached per shape
-    with the reason it was chosen (:func:`family_decision`). An explicit
+    """The kernel family of one shape (``m`` is ``m_eff``, or the stage
+    width of a fused pair with ``digits=2``), cached per shape with the
+    reason it was chosen (:func:`family_decision`). An explicit
     ``requested`` family is validated against :data:`FAMILIES` and the
     backend's ``families`` and returned as it is, never cached: a one-off
     override does not change what later plans of the shape resolve to."""
@@ -91,7 +132,7 @@ def resolve_kernel_family(
                 f"not {requested!r}"
             )
         return requested
-    key = (n, m, method, backend)
+    key = _family_key(n, m, method, backend, digits)
     hit = _FAMILY_CACHE.get(key)
     if hit is None:
         hit = _heuristic_family(n, m, method, backend)
@@ -99,32 +140,46 @@ def resolve_kernel_family(
     return hit[0]
 
 
-def family_decision(n: int, m: int, method: str, backend: str) -> Tuple[str, str]:
+def family_decision(
+    n: int, m: int, method: str, backend: str, digits: int = 1
+) -> Tuple[str, str]:
     """(family, reason) of one shape, resolved (and cached) first if need
     be."""
-    resolve_kernel_family(n, m, method, backend)
-    return _FAMILY_CACHE[(n, m, method, backend)]
+    resolve_kernel_family(n, m, method, backend, digits=digits)
+    return _FAMILY_CACHE[_family_key(n, m, method, backend, digits)]
 
 
-def family_decisions() -> Dict[Tuple[int, int, str, str], Tuple[str, str]]:
+def family_decisions() -> Dict[Tuple, Tuple[str, str]]:
     """A snapshot of every (shape -> (family, reason)) decision so far."""
     return dict(_FAMILY_CACHE)
 
 
 def resolve_tile(
     n: int, m: int, method: str, key_value: bool, backend: str,
-    requested: Optional[int] = None,
+    requested: Optional[int] = None, digits: int = 1, stage_m: Optional[int] = None,
 ) -> int:
     """Tile height for one shape, cached per shape; ``m`` is the scan width
-    ``m_eff`` (``s·m`` for segmented plans). An explicit request is returned
-    as it is and never cached."""
+    ``m_eff`` (``s·m`` for segmented plans, ``s·m²`` for a fused pair with
+    ``digits=2`` and its stage width ``stage_m``). An explicit request is
+    returned as it is and never cached."""
     if requested is not None:
         if requested < 1:
             raise ValueError(f"tile must be >= 1, got {requested}")
         return requested
-    key = (n, m, method, key_value, backend)
+    key = _tile_key(n, m, method, key_value, backend, digits, stage_m)
     tile = _TILE_CACHE.get(key)
     if tile is None:
-        tile = _heuristic_tile(n, m, method, backend)
+        tile = _heuristic_tile(n, m, method, backend, digits)
         _TILE_CACHE[key] = tile
     return tile
+
+
+def resolve_sub_bits(requested: Optional[int] = None) -> Optional[int]:
+    """The in-tile sub-digit stage width of a fused-pair plan: the request,
+    else None, which leaves the width to the stage bodies (the cuda
+    kernels' measured :data:`~repro_torch.kernels.multisplit_tile.
+    CUDA_SUB_BITS`, the plain bodies' :data:`~repro_torch.kernels.common.
+    FUSED2_SUB_BITS`). The JAX package's autotuner, which measures a width
+    for each shape (``tiles.py:308-331``), is ROADMAP queue A item 8. Every
+    width gives the same bits."""
+    return requested

@@ -38,18 +38,25 @@ def radix_sort(
     backend: str = "cuda",
     tile: Optional[int] = None,
     family: Optional[str] = None,
+    fuse_digits: bool = False,
     device="cuda",
 ) -> Tuple[Tensor, Optional[Tensor]]:
     """Stable sort of integer keys (and values) by their low ``key_bits``
     bits as unsigned integers, in ⌈key_bits/radix_bits⌉ multisplit passes.
     ``radix_bits=8`` makes each pass a 256-bucket multisplit. Inputs,
-    tensors or numpy arrays, are placed on ``device``."""
+    tensors or numpy arrays, are placed on ``device``.
+
+    ``fuse_digits=True`` sorts two digits a sweep on backends that fuse
+    digit pairs (``vmap``, ``cuda``): r = 8 runs 2 sweeps over 16-bit pairs
+    instead of 4 passes; an odd schedule ends in one single-digit pass.
+    Bitwise equal to the unfused sort on every backend."""
     keys, values = _place(keys, device), _place(values, device)
     if keys.dim() != 1:
         raise NotImplementedError("batched (b, n) radix sort is ROADMAP queue A item 5")
     pipe = RadixPipeline(
         keys.shape[0], radix_bits=radix_bits, key_bits=key_bits, method=method,
         key_value=values is not None, backend=backend, tile=tile, family=family,
+        fuse_digits=fuse_digits,
     )
     return pipe(keys, values)
 
@@ -65,6 +72,7 @@ def segmented_radix_sort(
     backend: str = "cuda",
     tile: Optional[int] = None,
     family: Optional[str] = None,
+    fuse_digits: bool = False,
     device="cuda",
 ) -> Tuple[Tensor, Optional[Tensor]]:
     """Sort every ragged segment of flat integer ``keys`` on its own, in ONE
@@ -72,13 +80,14 @@ def segmented_radix_sort(
     not one sequence a segment. ``segment_starts`` is the (s,) ascending
     start-offset vector of :func:`~repro_torch.core.multisplit.
     segmented_multisplit`. Stable; bitwise equal to sorting each segment
-    alone with :func:`radix_sort`. Inputs are placed on ``device``."""
+    alone with :func:`radix_sort`. Inputs are placed on ``device``.
+    ``fuse_digits`` as in :func:`radix_sort`."""
     keys, values = _place(keys, device), _place(values, device)
     starts = torch.as_tensor(segment_starts)
     pipe = RadixPipeline(
         keys.shape[0], radix_bits=radix_bits, key_bits=key_bits, method=method,
         key_value=values is not None, backend=backend, tile=tile,
-        segments=int(starts.shape[0]), family=family,
+        segments=int(starts.shape[0]), family=family, fuse_digits=fuse_digits,
     )
     return pipe(keys, values, segment_starts=starts)
 

@@ -32,8 +32,10 @@ SOURCES = (
     "seg_tile_histograms", "seg_tile_positions", "seg_fused_postscan_reorder",
     "spec_bucket_ids",
     "packed_tile_histograms", "packed_tile_positions", "packed_fused_postscan_reorder",
+    "fused2_tile_histograms", "fused2_tile_positions", "fused2_fused_postscan_reorder",
 )
-HEADERS = ("multisplit_common.cuh", "multisplit_segmented.cuh", "multisplit_packed.cuh")
+HEADERS = ("multisplit_common.cuh", "multisplit_segmented.cuh", "multisplit_packed.cuh",
+           "multisplit_fused2.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-lineinfo", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -72,6 +74,18 @@ ENTRY_POINTS = {
     "packed_fused_postscan_reorder": (
         "ms_packed_fused_postscan_reorder",
         [_P] * 9 + [_I, _I, _I, _I] + _LABEL_ARGTYPES + [_P],
+    ),
+    # the fused two-digit family: keys and segment strip (null when flat),
+    # n_tiles, T, s, the pair's shift and bits, then the stage width and the
+    # family (1 = packed) of the postscans; no label arguments
+    "fused2_tile_histograms": (
+        "ms_fused2_tile_histograms", [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
+    "fused2_tile_positions": (
+        "ms_fused2_tile_positions", [_P] * 4 + [_I] * 7 + [_P],
+    ),
+    "fused2_fused_postscan_reorder": (
+        "ms_fused2_fused_postscan_reorder", [_P] * 8 + [_I] * 7 + [_P],
     ),
     # the ids-plane entry points of the K2 and K2s sources: m, not a label
     "fused_postscan_reorder_ids": (

@@ -354,3 +354,122 @@ def packed_postscan_body(
 
     vals_r = reorder(vals) if vals is not None else None
     return reorder(keys), vals_r, reorder(gpos), gpos
+
+
+# ---------------------------------------------------------------------------
+# Fused two-digit radix (paper §7.1, two digit passes a tile): the fused2
+# family's plain bodies
+# ---------------------------------------------------------------------------
+
+# The in-tile sub-digit stage width of the plain bodies: the JAX package's
+# default (measured on a CPU host). Every width gives the same bits.
+FUSED2_SUB_BITS = 4
+
+
+def _digit(u: Tensor, shift: int, bits: int) -> Tensor:
+    """``(u >> shift) & (2^bits - 1)`` of int64 key words, as int32."""
+    return ((u >> shift) & ((1 << bits) - 1)).to(torch.int32)
+
+
+def _key_words(keys: Tensor) -> Tensor:
+    """The keys' 32-bit words as non-negative int64 (torch on the CPU has
+    no ``>>`` for uint32)."""
+    return keys.to(torch.int64) & 0xFFFFFFFF
+
+
+def fused2_split_digits(keys: Tensor, shift: int, bits_lo: int,
+                        bits_hi: int) -> Tuple[Tensor, Tensor]:
+    """(lo, hi) int32 digit strips of the pair bitfield at ``shift``: the
+    arithmetic of ``BitfieldSpec.emit`` on each half, so the pair agrees
+    bitwise with the two chained single-digit passes."""
+    u = _key_words(keys)
+    return _digit(u, shift, bits_lo), _digit(u, shift + bits_lo, bits_hi)
+
+
+def fused2_stage_local(ids: Tensor, m: int, family: str) -> Tuple[Tensor, Tensor]:
+    """One m-wide stage solve of the pair's sweep in the plan's kernel
+    family: (stable in-bucket rank (L, T), histogram (L, m)), from the
+    one-hot rank or the packed two-level rank (bitwise the same)."""
+    if family == "packed":
+        return packed_local_offsets(ids, packed_layout(ids.shape[1], m))
+    rank, hist, _ = tile_rank(ids, m)
+    return rank, hist
+
+
+def fused2_counts_body(keys: Tensor, shift: int, bits: int, seg: Optional[Tensor] = None,
+                       num_segments: int = 1) -> Tensor:
+    """(L, T) integer keys [+ segment ids] -> (L, s·m²) int32 histograms of
+    the cell ``cg = seg·m² + pair``, ``pair = (u >> shift) & (m² - 1)``,
+    by scatter-add (order-invariant: computed on the tile as it is)."""
+    m2 = 1 << bits
+    pair = _digit(_key_words(keys), shift, bits)
+    cg = pair if seg is None else seg * m2 + pair
+    return counts_body(cg, m2 * num_segments)
+
+
+def fused2_postscan_body(
+    keys: Tensor, g: Tensor, vals: Optional[Tensor], shift: int, split: int, bits: int,
+    seg: Optional[Tensor] = None, num_segments: int = 1, family: str = "onehot",
+    sub_bits: Optional[int] = None,
+) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
+    """The fused two-digit postscan of every tile: the contract of
+    :func:`postscan_body` (keys_r, vals_r, pos_r, perm) over the ``bits``
+    wide pair, the first three stably (seg, pair)-major within the tile.
+
+    ``split`` names the two chained passes the pair replaces; by the LSD
+    identity the result depends only on the combined stable pass, so the
+    body is free to decompose it: an LSD sweep of ``sub_bits``-wide stages
+    (a stable stage solve of the plan's family and a reorder each), then the
+    segment as the most significant stage. The segment stage is a stable
+    sort of the segment ids: s can be far wider than a one-hot plane should
+    be. After the sweep each cell is a contiguous run of the tile, so a
+    key's stable rank in its cell is its position minus the run's head (a
+    running maximum of the heads). Values never move per stage: the tracked
+    source index gathers them once.
+
+    The JAX body's oblivious matmul forms, ``_pair_hist2d_shape`` and
+    ``fused2_vmem_bytes`` are Mosaic and VMEM workarounds and no part of
+    the contract; this is its gather form (``oblivious=False``), int32
+    throughout."""
+    del split
+    if seg is None and num_segments != 1:
+        raise ValueError(f"num_segments={num_segments} needs a segment strip")
+    sb = sub_bits or FUSED2_SUB_BITS
+    n_tiles, t = keys.shape
+    dev = keys.device
+    u = _key_words(keys)
+    idx = torch.arange(t, device=dev).expand(n_tiles, t)
+    for off in range(0, bits, sb):
+        b = min(sb, bits - off)
+        d = _digit(u, shift + off, b)
+        local, hist = fused2_stage_local(d, 1 << b, family)
+        starts = torch.cumsum(hist, 1, dtype=torch.int32) - hist
+        dest = (starts.gather(1, d.long()) + local).long()
+        u = torch.empty_like(u).scatter_(1, dest, u)
+        idx = torch.empty_like(idx).scatter_(1, dest, idx)
+    if seg is not None and num_segments > 1:
+        order = torch.sort(seg.gather(1, idx), dim=1, stable=True).indices
+        u, idx = u.gather(1, order), idx.gather(1, order)
+    pair = _digit(u, shift, bits)
+    cg = pair if seg is None else seg.gather(1, idx) * (1 << bits) + pair
+    pos = torch.arange(t, device=dev).expand(n_tiles, t)
+    head = torch.ones((n_tiles, t), dtype=torch.bool, device=dev)
+    head[:, 1:] = cg[:, 1:] != cg[:, :-1]
+    cell_start = torch.cummax(torch.where(head, pos, torch.zeros_like(pos)), 1).values
+    pos_r = g.gather(1, cg.long()) + (pos - cell_start).to(torch.int32)
+    perm = torch.empty_like(pos_r).scatter_(1, idx, pos_r)
+
+    def gather(x: Tensor) -> Tensor:
+        return x.view(bits_dtype(x.dtype)).gather(1, idx).view(x.dtype)
+
+    return gather(keys), gather(vals) if vals is not None else None, pos_r, perm
+
+
+def fused2_positions_body(
+    keys: Tensor, g: Tensor, shift: int, split: int, bits: int, seg: Optional[Tensor] = None,
+    num_segments: int = 1, family: str = "onehot", sub_bits: Optional[int] = None,
+) -> Tensor:
+    """The fused two-digit DMS postscan: (L, T) global pair destinations in
+    element order, the ``perm`` of :func:`fused2_postscan_body`."""
+    return fused2_postscan_body(keys, g, None, shift, split, bits, seg=seg,
+                                num_segments=num_segments, family=family, sub_bits=sub_bits)[3]

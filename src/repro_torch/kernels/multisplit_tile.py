@@ -60,6 +60,23 @@ axis. The kernels take 8-bit counters and any subtile the guard of
 :func:`~repro_torch.kernels.common.packed_layout` accepts (1 to 255 keys);
 other ``bits`` raise ``ValueError`` on a CUDA tensor.
 
+Counterpart of the fused two-digit radix kernels (two digit passes a tile,
+the pair a ``BitfieldSpec`` of up to 16 bits; ``repro/kernels/ops.py:272-340``),
+one wrapper a stage for {flat | segmented} × {onehot | packed stage rank}:
+
+* :func:`fused2_tile_histograms` (K1f, ``csrc/fused2_tile_histograms.cu``)
+  replaces ``fused2_tile_histograms_pallas`` (``:863``);
+* :func:`fused2_tile_positions` (K3f, ``csrc/fused2_tile_positions.cu``)
+  replaces ``fused2_tile_positions_pallas`` (``:909``);
+* :func:`fused2_fused_postscan_reorder` (K2f,
+  ``csrc/fused2_fused_postscan_reorder.cu``) replaces
+  ``fused2_fused_postscan_reorder_pallas`` (``:973``).
+
+They take integer keys (int32 or uint32). Their result depends on neither
+``split``, ``family`` nor ``sub_bits`` (the LSD identity); the kernels take
+pairs of 1 to 16 bits and stages of 1 to 8 bits, and other widths raise
+``ValueError`` on a CUDA tensor.
+
 The label of an id is ``min(max(id, 0), m - 1)`` in every kernel and plain
 version: an id outside ``[0, m)`` is outside the contract, as an
 ``IdentitySpec`` key is, and the clamp only keeps it from writing out of
@@ -810,6 +827,155 @@ def packed_fused_postscan_reorder(
     return keys_r, vals_r, pos_r, perm
 
 
+# ---------------------------------------------------------------------------
+# The fused two-digit family: K1f, K3f, K2f over {flat | segmented} ×
+# {onehot | packed stage rank}
+# ---------------------------------------------------------------------------
+
+MAX_PAIR_BITS = 16        # the widest pair the kernels take (m² = 65536)
+MAX_SUB_BITS = 8          # a stage of the sweep has 2^sub <= MAX_BUCKETS buckets
+# The kernels' stage width when the plan names none: 8-bit stages (2 a
+# 16-bit pair) against the JAX default of 4 (4 stages), because the H100's
+# warp-ballot rank barely grows with the bucket count. Measured at F1's
+# shapes (2^25 keys in tiles of 8192): K2f key-value 2.5706 ms at 8 against
+# 2.9508 at 4, K3f 1.9733 against 2.3833, the packed stage rank alike
+# (PERF.md §6, the fused-radix findings). Every width gives the same bits.
+CUDA_SUB_BITS = 8
+
+
+def _fused2_check_spec(keys_tiled: Tensor, spec) -> None:
+    if not isinstance(spec, BitfieldSpec):
+        raise ValueError(f"the fused2 kernels take the pair's BitfieldSpec, got {type(spec).__name__}")
+    spec._check_integer(keys_tiled.dtype)
+
+
+def _fused2_launch_args(keys_tiled: Tensor, seg_tiled: Optional[Tensor], spec,
+                        num_segments: int, family: str = "onehot",
+                        sub_bits: Optional[int] = None) -> Tuple[int, int, int, int]:
+    """Check a CUDA launch of one fused2 wrapper and return (n_tiles, T,
+    width s·m², the stage width)."""
+    _fused2_check_spec(keys_tiled, spec)
+    n_tiles, t = _check_keys(keys_tiled, dtypes=(torch.int32, torch.uint32))
+    if not 1 <= spec.bits <= MAX_PAIR_BITS or spec.shift + spec.bits > 32:
+        raise ValueError(f"the CUDA fused2 kernels take pairs of 1..{MAX_PAIR_BITS} bits within the "
+                         f"32-bit key, got shift={spec.shift}, bits={spec.bits}")
+    sub = CUDA_SUB_BITS if sub_bits is None else sub_bits
+    if not 1 <= sub <= MAX_SUB_BITS:
+        raise ValueError(f"the CUDA fused2 kernels take stages of 1..{MAX_SUB_BITS} bits, got "
+                         f"sub_bits={sub_bits}")
+    if family not in ("onehot", "packed"):
+        raise ValueError(f"unknown kernel family {family!r}; expected one of ('onehot', 'packed')")
+    _check_flat_segments(seg_tiled, num_segments)
+    m2 = spec.num_buckets
+    width = m2 if seg_tiled is None else _check_segments(seg_tiled, keys_tiled, m2, num_segments)
+    return n_tiles, t, width, sub
+
+
+def fused2_tile_histograms_plain(keys_tiled: Tensor, seg_tiled: Optional[Tensor] = None, *, spec,
+                                 num_segments: int = 1) -> Tensor:
+    _fused2_check_spec(keys_tiled, spec)
+    _check_flat_segments(seg_tiled, num_segments)
+    return common.fused2_counts_body(keys_tiled, spec.shift, spec.bits, seg_tiled, num_segments)
+
+
+def fused2_tile_histograms(keys_tiled: Tensor, seg_tiled: Optional[Tensor] = None, *, spec,
+                           num_segments: int = 1) -> Tensor:
+    """(L, T) integer keys [+ (L, T) segment ids, non-decreasing along each
+    tile] -> (L, s·m²) int32 histograms of the cell ``seg·m² + pair``, the
+    pair the ``spec.bits`` wide BitfieldSpec digit (K1f)."""
+    if not _on_cuda(keys_tiled, "fused2_tile_histograms"):
+        return fused2_tile_histograms_plain(keys_tiled, seg_tiled, spec=spec,
+                                            num_segments=num_segments)
+    n_tiles, t, width, _ = _fused2_launch_args(keys_tiled, seg_tiled, spec, num_segments)
+    hist = torch.empty((n_tiles, width), dtype=torch.int32, device=keys_tiled.device)
+    if n_tiles:
+        fn = build.load("fused2_tile_histograms")
+        _raise_on(fn(keys_tiled.data_ptr(), _ptr(seg_tiled), hist.data_ptr(), n_tiles, t,
+                     num_segments, spec.shift, spec.bits, _stream(keys_tiled)),
+                  "fused2_tile_histograms")
+        fused2_tile_histograms.launches += 1
+    return hist
+
+
+def fused2_tile_positions_plain(
+    keys_tiled: Tensor, g: Tensor, seg_tiled: Optional[Tensor] = None, *, spec, split: int,
+    num_segments: int = 1, family: str = "onehot", sub_bits: Optional[int] = None,
+) -> Tensor:
+    _fused2_check_spec(keys_tiled, spec)
+    return common.fused2_positions_body(
+        keys_tiled, g, spec.shift, split, spec.bits, seg=seg_tiled, num_segments=num_segments,
+        family=family, sub_bits=CUDA_SUB_BITS if sub_bits is None else sub_bits)
+
+
+def fused2_tile_positions(
+    keys_tiled: Tensor, g: Tensor, seg_tiled: Optional[Tensor] = None, *, spec, split: int,
+    num_segments: int = 1, family: str = "onehot", sub_bits: Optional[int] = None,
+) -> Tensor:
+    """(L, T) integer keys [+ segment ids] and (L, s·m²) int32 bases ->
+    (L, T) int32 element-order destinations ``G[seg·m² + pair] + rank``
+    over the pair (K3f). The result depends on neither ``split``,
+    ``family`` nor ``sub_bits``."""
+    if not _on_cuda(keys_tiled, "fused2_tile_positions"):
+        return fused2_tile_positions_plain(
+            keys_tiled, g, seg_tiled, spec=spec, split=split, num_segments=num_segments,
+            family=family, sub_bits=sub_bits)
+    n_tiles, t, width, sub = _fused2_launch_args(keys_tiled, seg_tiled, spec, num_segments,
+                                                 family, sub_bits)
+    _check_bases(g, keys_tiled, width)
+    pos = torch.empty((n_tiles, t), dtype=torch.int32, device=keys_tiled.device)
+    if n_tiles:
+        fn = build.load("fused2_tile_positions")
+        _raise_on(fn(keys_tiled.data_ptr(), _ptr(seg_tiled), g.data_ptr(), pos.data_ptr(), n_tiles,
+                     t, num_segments, spec.shift, spec.bits, sub, int(family == "packed"),
+                     _stream(keys_tiled)), "fused2_tile_positions")
+        fused2_tile_positions.launches += 1
+    return pos
+
+
+def fused2_fused_postscan_reorder_plain(
+    keys_tiled: Tensor, g: Tensor, values_tiled: Optional[Tensor] = None,
+    seg_tiled: Optional[Tensor] = None, *, spec, split: int, num_segments: int = 1,
+    family: str = "onehot", sub_bits: Optional[int] = None,
+) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
+    _fused2_check_spec(keys_tiled, spec)
+    return common.fused2_postscan_body(
+        keys_tiled, g, values_tiled, spec.shift, split, spec.bits, seg=seg_tiled,
+        num_segments=num_segments, family=family,
+        sub_bits=CUDA_SUB_BITS if sub_bits is None else sub_bits)
+
+
+def fused2_fused_postscan_reorder(
+    keys_tiled: Tensor, g: Tensor, values_tiled: Optional[Tensor] = None,
+    seg_tiled: Optional[Tensor] = None, *, spec, split: int, num_segments: int = 1,
+    family: str = "onehot", sub_bits: Optional[int] = None,
+) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
+    """(L, T) integer keys, (L, s·m²) int32 bases [+ (L, T) values] [+
+    segment ids] -> (keys_r, vals_r, pos_r, perm), the reorder contract of
+    :func:`spec_fused_postscan_reorder` over the pair: two radix digits a
+    tile, the first three stably (seg, pair)-major (K2f)."""
+    if not _on_cuda(keys_tiled, "fused2_fused_postscan_reorder"):
+        return fused2_fused_postscan_reorder_plain(
+            keys_tiled, g, values_tiled, seg_tiled, spec=spec, split=split,
+            num_segments=num_segments, family=family, sub_bits=sub_bits)
+    n_tiles, t, width, sub = _fused2_launch_args(keys_tiled, seg_tiled, spec, num_segments,
+                                                 family, sub_bits)
+    _check_bases(g, keys_tiled, width)
+    if values_tiled is not None:
+        _check_beside(values_tiled, keys_tiled, "values")
+    keys_r = torch.empty_like(keys_tiled)
+    vals_r = torch.empty_like(values_tiled) if values_tiled is not None else None
+    pos_r = torch.empty((n_tiles, t), dtype=torch.int32, device=keys_tiled.device)
+    perm = torch.empty_like(pos_r)
+    if n_tiles:
+        fn = build.load("fused2_fused_postscan_reorder")
+        _raise_on(fn(keys_tiled.data_ptr(), _ptr(seg_tiled), g.data_ptr(), _ptr(values_tiled),
+                     keys_r.data_ptr(), _ptr(vals_r), pos_r.data_ptr(), perm.data_ptr(), n_tiles,
+                     t, num_segments, spec.shift, spec.bits, sub, int(family == "packed"),
+                     _stream(keys_tiled)), "fused2_fused_postscan_reorder")
+        fused2_fused_postscan_reorder.launches += 1
+    return keys_r, vals_r, pos_r, perm
+
+
 KERNELS = (
     spec_tile_histograms, spec_fused_postscan_reorder, spec_tile_positions,
     seg_spec_tile_histograms, seg_spec_fused_postscan_reorder, seg_spec_tile_positions,
@@ -817,5 +983,6 @@ KERNELS = (
     seg_tile_histograms, seg_fused_postscan_reorder, seg_tile_positions,
     spec_bucket_ids,
     packed_tile_histograms, packed_fused_postscan_reorder, packed_tile_positions,
+    fused2_tile_histograms, fused2_fused_postscan_reorder, fused2_tile_positions,
 )
 reset_launches()

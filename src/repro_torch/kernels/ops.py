@@ -1,5 +1,5 @@
 """The kernel doors the pipeline calls (counterpart of
-``repro/kernels/ops.py:72-79, 95-107, 129-270, 346-450``).
+``repro/kernels/ops.py:72-79, 95-107, 129-340, 346-450``).
 
 Each door takes tiled tensors and a declarative spec, or a materialised
 int32 ids strip and the number of buckets, and dispatches on the tensors'
@@ -141,6 +141,36 @@ def packed_fused_postscan_reorder(
     return _mst.packed_fused_postscan_reorder(
         tiled, g, keys_tiled, values_tiled, seg_tiled, num_buckets=num_buckets, spec=spec,
         num_segments=num_segments, bits=bits, subtile=subtile)
+
+
+# -- the fused two-digit family: one door a stage for {flat | segmented};
+# ``spec`` is the pair's BitfieldSpec and ``split`` the low digit's width
+
+
+def fused2_tile_histograms(
+    keys_tiled: Tensor, seg_tiled: Optional[Tensor] = None, *, spec, num_segments: int = 1,
+) -> Tensor:
+    return _mst.fused2_tile_histograms(keys_tiled, seg_tiled, spec=spec,
+                                       num_segments=num_segments)
+
+
+def fused2_tile_positions(
+    keys_tiled: Tensor, g: Tensor, seg_tiled: Optional[Tensor] = None, *, spec, split: int,
+    num_segments: int = 1, family: str = "onehot", sub_bits: Optional[int] = None,
+) -> Tensor:
+    return _mst.fused2_tile_positions(
+        keys_tiled, g, seg_tiled, spec=spec, split=split, num_segments=num_segments,
+        family=family, sub_bits=sub_bits)
+
+
+def fused2_fused_postscan_reorder(
+    keys_tiled: Tensor, g: Tensor, values_tiled: Optional[Tensor] = None,
+    seg_tiled: Optional[Tensor] = None, *, spec, split: int, num_segments: int = 1,
+    family: str = "onehot", sub_bits: Optional[int] = None,
+) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
+    return _mst.fused2_fused_postscan_reorder(
+        keys_tiled, g, values_tiled, seg_tiled, spec=spec, split=split,
+        num_segments=num_segments, family=family, sub_bits=sub_bits)
 
 
 def seg_radix_tile_histograms(

@@ -283,13 +283,15 @@ def radix_sort(
     backend: str = "cuda",
     tile: Optional[int] = None,
     family: Optional[str] = None,
+    fuse_digits: bool = False,
     device="cuda",
 ) -> Tuple[Tensor, Optional[Tensor]]:
     """Stable LSD radix sort of integer keys (and values) from chained
-    multisplit passes (paper §7.1)."""
+    multisplit passes (paper §7.1). ``fuse_digits=True`` sorts two digits a
+    sweep (the fused two-digit kernels on ``cuda``), bitwise equal."""
     return _sort.radix_sort(
         keys, values, radix_bits=radix_bits, key_bits=key_bits, method=method,
-        backend=backend, tile=tile, family=family, device=device,
+        backend=backend, tile=tile, family=family, fuse_digits=fuse_digits, device=device,
     )
 
 
@@ -304,15 +306,18 @@ def segmented_radix_sort(
     backend: str = "cuda",
     tile: Optional[int] = None,
     family: Optional[str] = None,
+    fuse_digits: bool = False,
     device="cuda",
 ) -> Tuple[Tensor, Optional[Tensor]]:
     """Stable LSD radix sort of every ragged segment of flat integer keys
     (and values) on its own, in one chained sequence of segmented passes.
-    ``segment_starts`` is checked as in :func:`segmented_multisplit`."""
+    ``segment_starts`` is checked as in :func:`segmented_multisplit`;
+    ``fuse_digits`` as in :func:`radix_sort`."""
     keys = _place(keys, device)
     _check_flat(keys, "ops.segmented_radix_sort")
     return _sort.segmented_radix_sort(
         keys, _segment_starts(segment_starts, keys.shape[0], keys.device),
         values, radix_bits=radix_bits, key_bits=key_bits, method=method,
-        backend=backend, tile=tile, family=family, device=keys.device,
+        backend=backend, tile=tile, family=family, fuse_digits=fuse_digits,
+        device=keys.device,
     )

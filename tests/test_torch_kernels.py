@@ -210,6 +210,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     mst.packed_tile_positions(keys, global_scan(mst.packed_tile_histograms(keys, spec=spec)),
                               spec=spec)
     mst.packed_fused_postscan_reorder(ids, g, keys, None, seg, num_buckets=4)
+    pair = tid.BitfieldSpec(0, 6)
+    g2 = global_scan(mst.fused2_tile_histograms(keys, seg, spec=pair))
+    mst.fused2_tile_positions(keys, g2, seg, spec=pair, split=3)
+    mst.fused2_fused_postscan_reorder(keys, g2, keys, spec=pair, split=3, family="packed")
     assert mst.launch_counts() == {
         "spec_tile_histograms": 0, "spec_fused_postscan_reorder": 0, "spec_tile_positions": 0,
         "seg_spec_tile_histograms": 0, "seg_spec_fused_postscan_reorder": 0,
@@ -217,6 +221,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
         "tile_positions": 0, "seg_tile_histograms": 0, "seg_fused_postscan_reorder": 0,
         "seg_tile_positions": 0, "spec_bucket_ids": 0, "packed_tile_histograms": 0,
         "packed_fused_postscan_reorder": 0, "packed_tile_positions": 0,
+        "fused2_tile_histograms": 0, "fused2_fused_postscan_reorder": 0,
+        "fused2_tile_positions": 0,
     }
 
 
@@ -292,6 +298,12 @@ def test_label_args_refuses(spec, dtype, err):
                                   "multisplit_tile.py:706)"]),
     ("packed_fused_postscan_reorder.cu", ["packed_fused_postscan_reorder_pallas\n// (src/repro/"
                                           "kernels/multisplit_tile.py:772)"]),
+    ("fused2_tile_histograms.cu", ["fused2_tile_histograms_pallas\n// (src/repro/kernels/"
+                                   "multisplit_tile.py:863)"]),
+    ("fused2_tile_positions.cu", ["fused2_tile_positions_pallas\n// (src/repro/kernels/"
+                                  "multisplit_tile.py:909)"]),
+    ("fused2_fused_postscan_reorder.cu", ["fused2_fused_postscan_reorder_pallas\n// (src/repro/"
+                                          "kernels/multisplit_tile.py:973)"]),
 ])
 def test_kernel_sources_carry_their_note(source, replaces):
     """Each kernel names the Pallas function it replaces and its bound, and
@@ -331,7 +343,8 @@ def test_kernel_sources_call_no_library(source):
         assert mark not in text, (source, mark)
     includes = [line.split()[1] for line in text.splitlines() if line.startswith("#include")]
     assert set(includes) <= {"<cuda_runtime.h>", "<stdint.h>", '"multisplit_common.cuh"',
-                             '"multisplit_segmented.cuh"', '"multisplit_packed.cuh"'}, includes
+                             '"multisplit_segmented.cuh"', '"multisplit_packed.cuh"',
+                             '"multisplit_fused2.cuh"'}, includes
 
 
 def test_build_flags_and_missing_nvcc(monkeypatch, tmp_path):
@@ -351,7 +364,7 @@ def test_kernel_modules_defer_cuda_work_to_the_launch():
     tree = ast.parse(Path(mst.__file__).read_text())
     calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
              and isinstance(n.func, ast.Attribute) and n.func.attr == "load"]
-    assert len(calls) == len(mst.KERNELS) == 16
-    assert len(build.SOURCES) == 10
+    assert len(calls) == len(mst.KERNELS) == 19
+    assert len(build.SOURCES) == 13
     assert set(build.ENTRY_POINTS) == set(build.SOURCES) | set(build.ENTRY_SOURCE)
     assert not build._FNS
