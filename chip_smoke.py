@@ -40,6 +40,11 @@ Phases, one line or more each, every one of which must pass:
    2^22), tiles of 128 to 8192 keys and ragged ones, the pairs (16, 8), (14,
    7) and (6, 4), stage widths 1, 3, 4 and 8, int32 and uint32 keys,
    one-cell tiles, bases above 2^24, empty and one- to eight-key segments.
+   B10, the standalone tile reorder of the unfused baseline, key-only and
+   key-value, against its plain version: the main shape (8192 tiles of
+   4096, m = 256, the destinations riding as the values too), m in {1, 2,
+   7, 32, 255, 256}, tiles of 1 to ``MAX_TILE`` keys and ragged ones,
+   int32 / uint32 / float32 keys with NaN and inf, ids outside [0, m).
 4. main    — the port's entry points at the paper's size, n = 2^25 uniform
    random 32-bit keys on the cuda backend: ``ops.multisplit`` for
    ``DeltaSpec(m, 2^32)`` (equal widths over the whole key range, so the
@@ -75,11 +80,27 @@ Phases, one line or more each, every one of which must pass:
    shape, cut from 2^25 because a pair's H over 16 segments would be 16
    GiB). Each is held bitwise against the unfused sort and a stable
    ``torch.sort``, with H's size and the call's peak device memory.
+   Batched — ``(b, n)`` rows, one launch a stage for the whole batch: B1
+   the keys as 8 rows of 2^22 (an 8-shard split's local step) at
+   ``DeltaSpec(m, 2^32)``, m in {32, 256}, through ``torch.vmap`` of
+   ``ops.multisplit_key_value``, ``ops.multisplit`` and ``ops.histogram`` and
+   through ``core.batched_multisplit`` (bms and dms, key-only and
+   key-value, counts_only, positions_only); B2 256 rows of 2^17 + 37 keys
+   at m = 32, every row with pads; B3 the batched ``radix_sort`` r = 8,
+   unfused and ``fuse_digits=True``; one packed and one callable batch.
+   Every row is held bitwise against the stable-sort oracle, and B1's
+   against the flat op on that row.
+   Unfused — ``multisplit_unfused`` at n = 2^25, m = 256 (kv bms, key-only
+   bms, kv dms: K1 and K3 on the ids, B10 for passes 2 and 3) against the
+   fused plan and the oracle; ``radix_sort_per_pass`` flat and batched
+   against ``radix_sort``.
 6. launches — every kernel's launch count from its own path's run alone
    (flat, segmented, flat callable, segmented callable, and the four
    packed paths, which launch K1p-K3p and no onehot kernel; each fused
-   call, which launches K1f with K2f or K3f twice, F2 also K1 and K2 once);
-   every kernel is launched on one of them.
+   call, which launches K1f with K2f or K3f twice, F2 also K1 and K2 once;
+   each batched call one K1 and one K2 or K3 for all rows, a batched sort
+   one of each a sweep; each unfused call K1 and K3 on the ids once and B10
+   twice, once or never); every kernel is launched on one of them.
 7. times   — per kernel: ms, the plain version's ms, the bound (bytes moved
    over 3.35 TB/s, the H100 SXM data-sheet rate) and one PyTorch call as a
    yardstick; the onehot and packed kernels side by side on the same
@@ -90,7 +111,10 @@ Phases, one line or more each, every one of which must pass:
    at stage widths 4 and 8 in both families, F1-F3 fused against unfused end
    to end in turns, F1 fused at sub_bits 4 and 8 and at tile 4096, and the
    stages of one fused pair (prescan, the scan over H, postscan, scatter)
-   beside those of one single-digit pass.
+   beside those of one single-digit pass. The batched calls against the
+   loop of flat calls and ``torch.vmap`` against ``batched_multisplit``,
+   ``multisplit_unfused`` against the fused plan with its stages,
+   ``radix_sort_per_pass`` against ``radix_sort``.
 
 The last lines are the ``nvidia-smi`` line, one JSON line of the kernels
 and ``{"ok": true, "device": {...}}``. The script exits non-zero, printing
@@ -711,6 +735,52 @@ def main() -> int:
                    f"keys and key-value): K1f-K3f all bitwise equal to their plain versions "
                    f"({time.perf_counter() - t0:.1f} s)")
 
+    # ---- 3f. B10, the standalone tile reorder of the unfused baseline, against
+    # its plain version: key-only (null values) and key-value
+    def check_reorder_case(what, ids, keys_tiled, values_tiled, m):
+        nonlocal n_checks
+        e = 0
+        for vals in (None, values_tiled):
+            got = mst.tile_reorder(ids, keys_tiled, vals, m)
+            want = mst.tile_reorder_plain(ids, keys_tiled, vals, m)
+            e = max(e, *(max_err(a, b) for a, b in zip(got, want)))
+        torch.cuda.synchronize()
+        n_checks += 1
+        errs["tile_reorder"] = max(errs["tile_reorder"], e)
+        if e:
+            raise AssertionError(f"tile_reorder != plain for {what}: {e}")
+
+    t0, n0 = time.perf_counter(), n_checks
+    # (a) the main shape: 8192 tiles of 4096, the labels of the unfused
+    # baseline's m = 256 pass; the destinations riding as the values, as
+    # pass 2 of multisplit_unfused takes them
+    ids = mst.spec_bucket_ids_plain(keys_main, main_spec(256))
+    check_reorder_case("main shape m=256", ids, keys_main, vals_main, 256)
+    check_reorder_case("main shape m=256, destinations as values", ids, keys_main,
+                       mst.tile_positions_plain(ids, st.global_scan(mst.tile_histograms_plain(ids, 256)),
+                                                256), 256)
+    del ids
+    # (b) m in (1, 2, 7, 32, 255, 256), tiles of 1 to MAX_TILE keys, ragged
+    # ones among them, int32 / uint32 / float32 keys with NaN and inf, ids
+    # outside [0, m) (both sides clamp them)
+    for shape in ((64, 4096), (3, mst.MAX_TILE), (5, 1000), (7, 33), (9, 100), (4, 1)):
+        for i, m in enumerate((1, 2, 7, 32, 255, 256)):
+            dtype = (torch.int32, torch.uint32, torch.float32)[i % 3]
+            keys = keys_for(dtype, shape, *spans[dtype])
+            if dtype == torch.float32:
+                flat = keys.view(-1)
+                edges = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0], device=dev)
+                flat[: min(4, flat.numel())] = edges[: min(4, flat.numel())]
+            lo, hi = (-3, m + 3) if i % 2 else (0, m)
+            ids = torch.randint(lo, hi, shape, dtype=torch.int32, device=dev, generator=gen)
+            check_reorder_case(f"m={m} {dtype} {shape} ids in [{lo}, {hi})", ids, keys,
+                               rand_i32(shape), m)
+    del ids, keys
+    log("kernels", f"{n_checks - n0} tile_reorder cases (the main shape at m = 256, m in (1, 2, 7, "
+                   f"32, 255, 256), tiles of 1 to {mst.MAX_TILE} keys and ragged ones, int32/uint32/"
+                   f"float32 keys with NaN and inf, ids outside [0, m), key-only and key-value): B10 "
+                   f"bitwise equal to its plain version ({time.perf_counter() - t0:.1f} s)")
+
     # ---- 4. main path at the paper's size, with the launch counts of that run alone
     keys = rand_i32((N_MAIN,)).view(torch.uint32)
     values = rand_i32((N_MAIN,))
@@ -1196,6 +1266,179 @@ def main() -> int:
                    keys_s, f3_starts, values_s, device=dev),
                 "a stable torch.sort": seg_sort_oracle(keys_s, f3_starts, values_s)},
                h_bytes(N_FUSED_SMALL, 16, 16))
+    # ---- 5g. the batched layout: (b, n) rows, each multisplit or sorted on its
+    # own in one launch a stage for the whole batch (B1 8 rows of 2^22, the
+    # local step of an 8-shard split; B2 256 short rows with ragged tails; B3
+    # the batched radix sort), torch.vmap of the ops, one packed and one
+    # callable batch; each call with its own launch counts, each row held
+    # bitwise against the stable-sort oracle and, for B1, the flat op on it
+    from repro_torch.core import multisplit as core_ms
+    from repro_torch.core import sort as core_sort
+
+    def counted(what, fn, expect):
+        """Run ``fn`` alone with the counts at 0; its launches must be
+        ``expect`` exactly. They add to the paths' counts."""
+        torch.cuda.synchronize()
+        mst.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        counts = mst.launch_counts()
+        want = {name: 0 for name in counts}
+        want.update(expect)
+        if counts != want:
+            raise AssertionError(f"{what}: launch counts {counts} != expected {want}")
+        for name, count in counts.items():
+            launches[name] += count
+        return res
+
+    def batch_oracle(kb_, spec_, vb_=None):
+        """Every row's multisplit at once: a stable torch.sort of the int64
+        key row·m + label; (b, n) data, (b, m) counts, row-local perm."""
+        b_, n_ = kb_.shape
+        m_ = spec_.num_buckets
+        row = torch.arange(b_, device=dev, dtype=torch.int64)[:, None]
+        cid = (row * m_ + spec_.emit(kb_).long()).view(-1)
+        _, order = torch.sort(cid, stable=True)
+        counts = torch.bincount(cid, minlength=b_ * m_).to(torch.int32).view(b_, m_)
+        dest = torch.empty(b_ * n_, dtype=torch.int64, device=dev)
+        dest[order] = torch.arange(b_ * n_, device=dev)
+
+        def take(x):
+            return bits(x).reshape(-1)[order].view(b_, n_).view(x.dtype)
+
+        return ops.MultisplitResult(take(kb_), None if vb_ is None else take(vb_),
+                                    st.exclusive_rows(counts), counts,
+                                    (dest.view(b_, n_) - row * n_).to(torch.int32))
+
+    def batch_sort_oracle(kb_, vb_):
+        b_, n_ = kb_.shape
+        row = torch.arange(b_, device=dev, dtype=torch.int64)[:, None]
+        _, order = torch.sort(((row << 32) | (bits(kb_).long() & 0xFFFFFFFF)).view(-1), stable=True)
+        return tuple(bits(x).reshape(-1)[order].view(b_, n_).view(x.dtype) for x in (kb_, vb_))
+
+    b1 = 8
+    kb, vb = keys.view(b1, -1), values.view(b1, -1)
+    n_b2 = (1 << 17) + 37
+    kb2, vb2 = rand_i32((256, n_b2)).view(torch.uint32), rand_i32((256, n_b2))
+    vmap_kv = torch.vmap(ops.multisplit_key_value, in_dims=(0, 0, None))
+    vmap_ms = torch.vmap(ops.multisplit, in_dims=(0, None), out_dims=ops.vmap_out_dims())
+    vmap_hist = torch.vmap(ops.histogram, in_dims=(0, None))
+    k1, k2, k3 = "spec_tile_histograms", "spec_fused_postscan_reorder", "spec_tile_positions"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    n_batched = 0
+    for m_ in (32, 256):
+        sp = main_spec(m_)
+        want = batch_oracle(kb, sp, vb)
+        for r in range(b1):
+            check_result(f"B1 m={m_} flat op on row {r}", ops.multisplit(kb[r], sp, vb[r], device=dev),
+                         ops.MultisplitResult(*(x[r] for x in want)), fields)
+        b_calls = [
+            ("torch.vmap(multisplit_key_value) bms", lambda: vmap_kv(kb, vb, sp, method="bms",
+                                                                      device=dev), {k1: 1, k2: 1}, want),
+            ("torch.vmap(multisplit) dms", lambda: vmap_ms(kb, sp, method="dms", device=dev),
+             {k1: 1, k3: 1}, want._replace(values=None)),
+            ("batched_multisplit kv bms", lambda: core_ms.batched_multisplit(
+                kb, sp, vb, method="bms", device=dev), {k1: 1, k2: 1}, want),
+            ("batched_multisplit kv dms", lambda: core_ms.batched_multisplit(
+                kb, sp, vb, method="dms", device=dev), {k1: 1, k3: 1}, want),
+            ("batched_multisplit bms", lambda: core_ms.batched_multisplit(
+                kb, sp, method="bms", device=dev), {k1: 1, k2: 1}, want._replace(values=None)),
+            ("batched_multisplit dms", lambda: core_ms.batched_multisplit(
+                kb, sp, method="dms", device=dev), {k1: 1, k3: 1}, want._replace(values=None)),
+            ("batched_multisplit counts_only", lambda: core_ms.batched_multisplit(
+                kb, sp, mode="counts_only", device=dev), {k1: 1},
+             want._replace(keys=None, values=None, permutation=None)),
+            ("batched_multisplit positions_only", lambda: core_ms.batched_multisplit(
+                kb, sp, method="dms", mode="positions_only", device=dev), {k1: 1, k3: 1},
+             want._replace(keys=None, values=None)),
+        ]
+        for what, fn, expect, want_ in b_calls:
+            check_result(f"B1 m={m_} {what}", counted(f"B1 m={m_} {what}", fn, expect), want_, fields)
+            n_batched += 1
+        hist_b = counted(f"B1 m={m_} torch.vmap(histogram)", lambda: vmap_hist(kb, sp, device=dev),
+                         {k1: 1})
+        if max_err(hist_b, want.bucket_counts):
+            raise AssertionError(f"B1 m={m_} torch.vmap(histogram) differs")
+        n_batched += 1
+        del want, hist_b
+    want = batch_oracle(kb2, main_spec(32), vb2)
+    check_result("B2 batched_multisplit kv bms", counted(
+        "B2 batched_multisplit kv bms", lambda: core_ms.batched_multisplit(
+            kb2, main_spec(32), vb2, device=dev), {k1: 1, k2: 1}), want, fields)
+    check_result("B2 torch.vmap(multisplit) dms", counted(
+        "B2 torch.vmap(multisplit) dms", lambda: vmap_ms(kb2, main_spec(32), method="dms", device=dev),
+        {k1: 1, k3: 1}), want._replace(values=None), fields)
+    del want
+    want_sort_b = batch_sort_oracle(kb, vb)
+    for what, fn, expect in (
+            ("B3 radix_sort kv r=8", lambda: ops.radix_sort(kb, vb, device=dev), {k1: 4, k2: 4}),
+            ("B3 radix_sort kv r=8, fuse_digits", lambda: ops.radix_sort(
+                kb, vb, fuse_digits=True, device=dev),
+             {"fused2_tile_histograms": 2, "fused2_fused_postscan_reorder": 2})):
+        for a, b_ in zip(counted(what, fn, expect), want_sort_b):
+            if max_err(a, b_):
+                raise AssertionError(f"{what} differs from a stable torch.sort of each row")
+    del want_sort_b
+    check_result("batched packed kv bms", counted(
+        "batched packed kv bms", lambda: core_ms.batched_multisplit(
+            kb, main_spec(32), vb, family="packed", device=dev),
+        {"packed_tile_histograms": 1, "packed_fused_postscan_reorder": 1}),
+        batch_oracle(kb, main_spec(32), vb), fields)
+    check_result("batched callable kv bms", counted(
+        "batched callable kv bms", lambda: core_ms.batched_multisplit(kb, hashes[32], vb, device=dev),
+        {"tile_histograms": 1, "fused_postscan_reorder": 1}),
+        batch_oracle(kb, hashes[32], vb), fields)
+    log("batched", f"B1 (8, 2^22) at m = 32 and 256: {n_batched} batched calls (torch.vmap of "
+                   f"multisplit_key_value, multisplit and histogram; batched_multisplit bms and dms, "
+                   f"key-only and key-value, counts_only, positions_only), each one K1 and one K2 or "
+                   f"K3 for all 8 rows, each row bitwise equal to the flat op on it and to the "
+                   f"stable-sort oracle; B2 (256, 2^17 + 37) m = 32, every row with pads; B3 batched "
+                   f"radix_sort r = 8, unfused (K1, K2 4 times) and fused (K1f, K2f twice); a packed "
+                   f"and a callable batch: all bitwise equal ({time.perf_counter() - t0:.1f} s with "
+                   f"the oracles; peak device memory above the inputs "
+                   f"{(torch.cuda.max_memory_allocated() - before) / 2**30:.2f} GiB)")
+
+    # ---- 5h. the unfused baselines: multisplit_unfused (K1 and K3 on the ids,
+    # then B10 for pass 2 and, key-value, pass 3) and radix_sort_per_pass (one
+    # plan round trip a pass), each against the fused plan or radix_sort
+    spec256 = main_spec(256)
+    u_calls = [
+        ("multisplit_unfused kv bms m=256", lambda: core_ms.multisplit_unfused(
+            keys, spec256, values, method="bms", device=dev),
+         {"tile_histograms": 1, "tile_positions": 1, "tile_reorder": 2},
+         lambda: ops.multisplit(keys, spec256, values, method="bms", device=dev)),
+        ("multisplit_unfused bms key-only m=256", lambda: core_ms.multisplit_unfused(
+            keys, spec256, method="bms", device=dev),
+         {"tile_histograms": 1, "tile_positions": 1, "tile_reorder": 1},
+         lambda: ops.multisplit(keys, spec256, method="bms", device=dev)),
+        ("multisplit_unfused kv dms m=256", lambda: core_ms.multisplit_unfused(
+            keys, spec256, values, method="dms", device=dev),
+         {"tile_histograms": 1, "tile_positions": 1},
+         lambda: ops.multisplit(keys, spec256, values, method="dms", device=dev)),
+    ]
+    want = rb_sort_multisplit(keys, spec256, values)
+    for what, fn, expect, fused_fn in u_calls:
+        got = counted(what, fn, expect)
+        check_result(f"{what} against the fused plan", got, fused_fn(), fields)
+        check_result(what, got, want if got.values is not None else want._replace(values=None), fields)
+        del got
+    del want
+    for what, fn, ref_fn in (
+            ("radix_sort_per_pass kv r=8, n=2^25", lambda: core_sort.radix_sort_per_pass(
+                keys, values, device=dev), lambda: ops.radix_sort(keys, values, device=dev)),
+            ("radix_sort_per_pass kv r=8, (8, 2^22)", lambda: core_sort.radix_sort_per_pass(
+                kb, vb, device=dev), lambda: ops.radix_sort(kb, vb, device=dev))):
+        for a, b_ in zip(counted(what, fn, {k1: 4, k2: 4}), ref_fn()):
+            if max_err(a, b_):
+                raise AssertionError(f"{what} differs from radix_sort")
+    log("unfused", "multisplit_unfused at n = 2^25, m = 256 (kv bms: K1 and K3 on the ids once, B10 "
+                   "twice; key-only bms: B10 once; kv dms: B10 never) and radix_sort_per_pass flat "
+                   "and batched: bitwise equal to the fused plan, the stable-sort oracle and "
+                   "radix_sort")
+
     for name in launches:
         if launches[name] == 0:
             raise AssertionError(f"{name} was launched on none of the paths")
@@ -1271,6 +1514,11 @@ def main() -> int:
          lambda: mst.packed_tile_positions(kt, g, spec=spec),
          lambda: mst.packed_tile_positions_plain(kt, g, spec=spec), 4 * n + gbytes + 4 * n,
          sort_cid_ms),
+        # B10 key-value: ids, keys and values read; keys_r, vals_r and dest
+        # written, 24 bytes a key; the yardstick is the postscans' sort
+        ("tile_reorder", "tile_reorder.cu", "src/repro/kernels/multisplit_tile.py:1061",
+         lambda: mst.tile_reorder(ids, kt, vt, m), lambda: mst.tile_reorder_plain(ids, kt, vt, m),
+         24 * n, sort_cid_ms),
     ]
     kernels = []
     for name, src, replaces, kern, plain, nbytes, lib_ms in rows:
@@ -1715,6 +1963,89 @@ def main() -> int:
             f"{k} {v:.4f} ms" for k, v in stage_ms.items())
             + f"; sum {sum(stage_ms.values()):.4f} ms, {pipe.n_sweeps} sweeps a sort [{smi}]")
     del keys_s, values_s
+    # the batched layout and the unfused baselines end to end, each in turns
+    # with what it is measured against (a, b, a) on the same inputs
+    turns = [
+        ("B1 batched_multisplit kv bms m=256, (8, 2^22)", N_MAIN,
+         lambda: core_ms.batched_multisplit(kb, spec, vb, device=dev),
+         "the loop of 8 flat ops.multisplit",
+         lambda: [ops.multisplit(kb[r], spec, vb[r], device=dev) for r in range(b1)]),
+        ("B1 torch.vmap(ops.multisplit_key_value) bms m=256, (8, 2^22)", N_MAIN,
+         lambda: vmap_kv(kb, vb, spec, device=dev), "batched_multisplit",
+         lambda: core_ms.batched_multisplit(kb, spec, vb, device=dev)),
+        ("B1 torch.vmap(ops.multisplit) dms m=32, (8, 2^22)", N_MAIN,
+         lambda: vmap_ms(kb, main_spec(32), method="dms", device=dev),
+         "the loop of 8 flat ops.multisplit",
+         lambda: [ops.multisplit(kb[r], main_spec(32), method="dms", device=dev) for r in range(b1)]),
+        ("B2 batched_multisplit kv bms m=32, (256, 2^17 + 37)", 256 * n_b2,
+         lambda: core_ms.batched_multisplit(kb2, main_spec(32), vb2, device=dev),
+         "the loop of 256 flat ops.multisplit",
+         lambda: [ops.multisplit(kb2[r], main_spec(32), vb2[r], device=dev) for r in range(256)]),
+        ("B3 batched radix_sort kv r=8, (8, 2^22)", N_MAIN,
+         lambda: ops.radix_sort(kb, vb, device=dev), "the loop of 8 flat ops.radix_sort",
+         lambda: [ops.radix_sort(kb[r], vb[r], device=dev) for r in range(b1)]),
+        ("multisplit_unfused kv bms m=256, n=2^25", N_MAIN,
+         lambda: core_ms.multisplit_unfused(keys, spec, values, device=dev),
+         "the fused plan (ops.multisplit)", lambda: ops.multisplit(keys, spec, values, device=dev)),
+        ("multisplit_unfused bms key-only m=256, n=2^25", N_MAIN,
+         lambda: core_ms.multisplit_unfused(keys, spec, device=dev),
+         "the fused plan (ops.multisplit)", lambda: ops.multisplit(keys, spec, device=dev)),
+        ("radix_sort_per_pass kv r=8, n=2^25", N_MAIN,
+         lambda: core_sort.radix_sort_per_pass(keys, values, device=dev), "radix_sort",
+         lambda: ops.radix_sort(keys, values, device=dev)),
+    ]
+    for what, n_keys, fn, other_what, other in turns:
+        ms_a, ms_b = cuda_ms(fn, reps=5, inner=1), cuda_ms(other, reps=5, inner=1)
+        ms_a2 = cuda_ms(fn, reps=5, inner=1)
+        log("times", f"end to end {what}: {ms_a:.3f} (again {ms_a2:.3f}) ms = "
+                     f"{n_keys / ms_a / 1e6:.2f} Gkeys/s; {other_what} {ms_b:.3f} ms "
+                     f"({ms_a / ms_b:.3f}x) [{smi}]")
+    # where the time of one B1 batched key-value bms multisplit goes (m =
+    # 256): its grid is the flat call's 8192 tiles; beside the row scan, the
+    # same scan as a cumsum along the 8 rows
+    from repro_torch.core.pipeline import make_batched_plan
+
+    bplan = make_batched_plan(b1, N_MAIN // b1, m, method="bms", key_value=True, backend="cuda",
+                              bucket_fn=spec)
+    hist_b = bplan.prescan(kt, None)
+    g_b = st.global_scan(hist_b, b1)
+    src_k, src_v, pos_b, _ = bplan.postscan(g_b, kt, None, vt)
+    h_rows = hist_b.view(b1, -1, m).transpose(1, 2).reshape(b1, -1)
+    stage_ms = {
+        "prescan K1": cuda_ms(lambda: bplan.prescan(kt, None)),
+        "row scan (one cumsum, less each row's base)": cuda_ms(lambda: st.global_scan(hist_b, b1)),
+        "beside it: torch.cumsum along the 8 rows": cuda_ms(
+            lambda: torch.cumsum(h_rows, 1, dtype=torch.int32)),
+        "postscan K2": cuda_ms(lambda: bplan.postscan(g_b, kt, None, vt)),
+        "row index + scatter": cuda_ms(lambda: (
+            lambda idx: (st.scatter(src_k, idx, n), st.scatter(src_v, idx, n)))(
+                st.row_index(pos_b, b1))),
+    }
+    log("times", "stages of B1 batched_multisplit kv bms m=256, (8, 2^22): " + "; ".join(
+        f"{k} {v:.4f} ms" for k, v in stage_ms.items()) + f" [{smi}]")
+    del hist_b, g_b, src_k, src_v, pos_b, h_rows
+    # where the time of one unfused key-value bms multisplit goes (m = 256,
+    # tiles of 4096: the bms tile)
+    ids_u = spec(keys).to(torch.int32).view(-1, 4096)
+    hist_u = mst.tile_histograms(ids_u, m)
+    g_u = st.global_scan(hist_u)
+    pos_u = mst.tile_positions(ids_u, g_u, m)
+    src_u, pos_r_u, _ = mst.tile_reorder(ids_u, kt, pos_u, m)
+    stage_ms = {
+        "labels (the spec on the keys, as int32)": cuda_ms(lambda: spec(keys).to(torch.int32)),
+        "prescan K1 on ids": cuda_ms(lambda: mst.tile_histograms(ids_u, m)),
+        "global scan": cuda_ms(lambda: st.global_scan(hist_u)),
+        "pass 1 K3 on ids": cuda_ms(lambda: mst.tile_positions(ids_u, g_u, m)),
+        "pass 2 B10 (keys, destinations as values)": cuda_ms(lambda: mst.tile_reorder(ids_u, kt, pos_u, m)),
+        "pass 3 B10 (values, key-only)": cuda_ms(lambda: mst.tile_reorder(ids_u, vt, None, m)),
+        "scatter (int64 index + 2 index_copy_)": cuda_ms(lambda: (
+            lambda idx: (st.scatter(src_u, idx, n), st.scatter(src_u, idx, n)))(
+                pos_r_u.reshape(-1).long())),
+    }
+    log("times", "stages of multisplit_unfused kv bms m=256: " + "; ".join(
+        f"{k} {v:.4f} ms" for k, v in stage_ms.items())
+        + f"; sum {sum(stage_ms.values()):.4f} ms [{smi}]")
+    del ids_u, hist_u, g_u, pos_u, src_u, pos_r_u, kb2, vb2
     log("times", f"peak device memory of the timed runs above the inputs: "
                  f"{(torch.cuda.max_memory_allocated() - base_mem) / 2**30:.2f} GiB")
 

@@ -1,16 +1,17 @@
 """The multisplit primitive's execution layer (counterpart of
-``repro/core/multisplit.py:82-180, 218-284``), flat and segmented.
+``repro/core/multisplit.py``), flat, batched and segmented.
 
 :func:`multisplit` resolves a plan for one flat problem and runs it: the
 paper's {local prescan} -> {one global scan} -> {local postscan + scatter}
 (§4.1), with methods dms / wms / bms. :func:`tile_histogram`,
 :func:`prescan`, :func:`postscan_positions` and :func:`multisplit_ref` are
 the stage helpers and the eq. (1) oracle the JAX package keeps public.
-:func:`segmented_multisplit` multisplits every ragged segment of flat keys
-on its own, in one plan launch a stage. The batched layout
-(``batched_multisplit``) and the unfused baseline (``multisplit_unfused``)
-are ROADMAP queue A item 5. ``repro_torch.ops`` is the public facade over
-this module.
+:func:`batched_multisplit` multisplits every row of ``(b, n)`` keys on its
+own and :func:`segmented_multisplit` every ragged segment of flat keys, each
+in one plan launch a stage. :func:`multisplit_unfused` is the benchmark
+baseline the fused plan replaced: three passes a tile, the reorders through
+the standalone tile reorder (B10). ``repro_torch.ops`` is the public facade
+over this module.
 """
 
 from __future__ import annotations
@@ -21,13 +22,21 @@ import torch
 
 from repro_torch.core.identifiers import BucketSpec
 from repro_torch.core.pipeline import (
+    BMS_TILE,
+    WMS_TILE,
     MultisplitPlan,
     MultisplitResult,
     direct_solve_ids,
+    exclusive_rows,
+    global_scan,
+    make_batched_plan,
     make_plan,
     make_segmented_plan,
+    pad_to_tiles,
 )
+from repro_torch.core.pipeline.stages import scatter
 from repro_torch.kernels import common as _body
+from repro_torch.kernels import ops as _kops
 
 Tensor = torch.Tensor
 
@@ -77,6 +86,35 @@ def multisplit(
     values = None if values is None else torch.as_tensor(values).to(device)
     plan = make_plan(
         keys.shape[0], bucket_fn.num_buckets, method=method, key_value=values is not None,
+        backend=backend, tile=tile, bucket_fn=bucket_fn, mode=mode, family=family,
+    )
+    return plan(keys, values)
+
+
+def batched_multisplit(
+    keys,
+    bucket_fn: BucketSpec,
+    values=None,
+    *,
+    method: str = "bms",
+    tile: Optional[int] = None,
+    backend: str = "cuda",
+    mode: str = "reorder",
+    family: Optional[str] = None,
+    device="cuda",
+) -> MultisplitResult:
+    """Multisplit every row of ``keys`` (b, n) on its own, in one plan
+    launch a stage. Bitwise equal to :func:`multisplit` on each row: (b, n)
+    keys, values and permutation, (b, m) per-row starts and counts.
+    ``mode`` selects a partial pipeline as in :func:`multisplit`. Inputs,
+    tensors or numpy arrays, are placed on ``device``."""
+    keys = torch.as_tensor(keys).to(device)
+    values = None if values is None else torch.as_tensor(values).to(device)
+    if keys.dim() != 2:
+        raise ValueError(f"batched_multisplit expects (b, n) keys, got {tuple(keys.shape)}")
+    b, n = keys.shape
+    plan = make_batched_plan(
+        b, n, bucket_fn.num_buckets, method=method, key_value=values is not None,
         backend=backend, tile=tile, bucket_fn=bucket_fn, mode=mode, family=family,
     )
     return plan(keys, values)
@@ -138,3 +176,57 @@ def segmented_multisplit(
         bucket_fn=bucket_fn, mode=mode, family=family,
     )
     return plan(keys, values, segment_starts=starts)
+
+
+def multisplit_unfused(
+    keys,
+    bucket_fn: BucketSpec,
+    values=None,
+    *,
+    method: str = "bms",
+    tile: Optional[int] = None,
+    device="cuda",
+) -> MultisplitResult:
+    """The three-pass host orchestration the fused plan replaced, kept as
+    the benchmark baseline (``repro/core/multisplit.py:294-372``): labels
+    written out; K1 on the ids for the prescan; one global scan; K3 on the
+    ids for pass 1, the destinations; for wms / bms the standalone tile
+    reorder (B10) for pass 2, the keys with the destinations riding as the
+    values, and again for pass 3, the values alone; then one scatter. The
+    stages run the kernels on a CUDA device and their plain versions on the
+    CPU. Bitwise equal to :func:`multisplit`."""
+    if method not in ("dms", "wms", "bms"):
+        raise ValueError(f"unknown multisplit method {method!r}")
+    if tile is None:
+        tile = WMS_TILE if method in ("dms", "wms") else BMS_TILE
+    keys = torch.as_tensor(keys).to(device)
+    values = None if values is None else torch.as_tensor(values).to(device)
+    m, n = bucket_fn.num_buckets, keys.shape[0]
+
+    ids_p, _ = pad_to_tiles(bucket_fn(keys).to(torch.int32).contiguous(), tile, m - 1)
+    n_total = ids_p.shape[0]
+    ids_tiled = ids_p.view(-1, tile)
+    hist = _kops.tile_histograms(ids_tiled, m)                   # prescan
+    pos_tiled = _kops.tile_positions(ids_tiled, global_scan(hist), m)   # pass 1
+    perm_full = pos_tiled.view(-1)
+
+    def tiled(x: Tensor) -> Tensor:
+        return pad_to_tiles(x.contiguous(), tile, 0)[0].view(-1, tile)
+
+    src_vals = None
+    if method in ("wms", "bms"):
+        src_keys, pos_r, _ = _kops.tile_reorder(ids_tiled, tiled(keys), pos_tiled, m)   # pass 2
+        scatter_pos = pos_r.view(-1)
+        if values is not None:
+            src_vals = _kops.tile_reorder(ids_tiled, tiled(values), None, m)[0]       # pass 3
+    else:
+        src_keys, scatter_pos = tiled(keys), perm_full
+        if values is not None:
+            src_vals = tiled(values)
+
+    idx = scatter_pos.long()
+    keys_out = scatter(src_keys, idx, n_total)[:n]
+    values_out = scatter(src_vals, idx, n_total)[:n] if values is not None else None
+    counts = hist.sum(0, dtype=torch.int32)
+    counts[m - 1] -= n_total - n                                 # drop the pad sentinels
+    return MultisplitResult(keys_out, values_out, exclusive_rows(counts), counts, perm_full[:n])

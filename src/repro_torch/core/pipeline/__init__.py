@@ -1,4 +1,4 @@
-"""The multisplit stage-graph pipeline, flat and segmented layouts (counterpart of
+"""The multisplit stage-graph pipeline, flat, batched and segmented layouts (counterpart of
 ``repro/core/pipeline``): {local prescan} → {one global scan} → {local
 postscan} (paper §4.1).
 
@@ -31,6 +31,7 @@ from repro_torch.core.pipeline.spec import (
     MODES,
     MultisplitPlan,
     PipelineSpec,
+    make_batched_plan,
     make_plan,
     make_radix_plan,
     make_segmented_plan,
@@ -46,7 +47,9 @@ from repro_torch.core.pipeline.stages import (
     global_scan,
     packed_direct_solve_ids,
     packed_tile_local_offsets,
+    pad_rows,
     pad_to_tiles,
+    row_index,
     seg_tile_local,
     segment_ids_from_starts,
     tile_local_offsets,
@@ -72,9 +75,9 @@ __all__ = [
     "StageImpl", "VmapStages", "WMS_TILE", "backend_names",
     "direct_counts", "direct_solve_ids", "exclusive_rows", "family_decision",
     "family_decisions", "fused2_tile_counts", "fused2_tile_postscan", "get_backend",
-    "global_scan", "make_plan", "make_radix_plan",
+    "global_scan", "make_batched_plan", "make_plan", "make_radix_plan",
     "make_segmented_plan", "make_segmented_radix_plan", "packed_direct_solve_ids",
-    "packed_tile_local_offsets", "pad_to_tiles", "radix_pass_pairs", "radix_passes",
+    "packed_tile_local_offsets", "pad_rows", "pad_to_tiles", "radix_pass_pairs", "radix_passes",
     "register_backend", "resolve_kernel_family", "resolve_sub_bits", "resolve_tile",
-    "seg_tile_local", "segment_ids_from_starts", "tile_local_offsets",
+    "row_index", "seg_tile_local", "segment_ids_from_starts", "tile_local_offsets",
 ]

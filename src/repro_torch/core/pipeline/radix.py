@@ -1,6 +1,6 @@
 """RadixPipeline: chained LSD digit passes on resident buffers (paper §7.1),
-flat and segmented layouts. Counterpart of
-``repro/core/pipeline/radix.py:99-266``.
+flat, batched and segmented layouts. Counterpart of
+``repro/core/pipeline/radix.py:99-301``.
 
 * the tile is resolved ONCE (by the widest digit) and every pass shares it;
 * the keys/values buffers are padded ONCE with the all-ones key, whose
@@ -11,7 +11,10 @@ flat and segmented layouts. Counterpart of
 * the pad tail is cut off once, after the last pass;
 * segmented (``segments=s``): the segment strip is built once and kept for
   every pass (elements never cross a segment boundary), with its pads in
-  segment s−1, so the pads stay at the tail there too.
+  segment s−1, so the pads stay at the tail there too;
+* batched (``batch=b``, ``(b, n)`` keys): every row is padded once to whole
+  tiles and each pass is one ``run_tiled(..., rows=b)`` sweep over all rows,
+  whose pads stay at each row's tail.
 
 The untiled reference backend iterates the direct solve per pass.
 
@@ -21,7 +24,8 @@ them into ``(shift, bits, split)`` entries, each pair one sweep over the
 combined digit (K1f and K2f or K3f on the card), a trailing unpaired digit
 one single-digit sweep. Backends without ``fuses_digits`` (the untiled
 reference) keep the single-digit schedule: fusing changes the cost, never
-the result. The batched layout is ROADMAP queue A item 5.
+the result. Every plan of the schedule, fused pairs included, takes the
+pipeline's ``batch``.
 """
 
 from __future__ import annotations
@@ -83,7 +87,8 @@ def radix_pass_pairs(
 
 class RadixPipeline:
     """A resolved ⌈key_bits/r⌉-pass radix sort over one shape: flat
-    ``(n,)`` keys, or ragged segments over them (``segments=s`` and a
+    ``(n,)`` keys, ``(b, n)`` rows sorted each on its own (``batch=b``), or
+    ragged segments over flat keys (``segments=s`` and a
     ``segment_starts`` call argument). Build once, call with tensors. With
     ``fuse_digits`` on a backend that fuses digits the schedule is
     :func:`radix_pass_pairs`; ``sub_bits`` pins the pairs' in-tile stage
@@ -99,6 +104,7 @@ class RadixPipeline:
         key_value: bool = False,
         backend: str = "vmap",
         tile: Optional[int] = None,
+        batch: Optional[int] = None,
         segments: Optional[int] = None,
         family: Optional[str] = None,
         fuse_digits: bool = False,
@@ -107,6 +113,7 @@ class RadixPipeline:
         self.n = n
         self.key_value = key_value
         self.backend = backend
+        self.batch = batch
         self.segments = segments
         self.passes = radix_passes(radix_bits, key_bits)
         s = segments or 1
@@ -130,7 +137,8 @@ class RadixPipeline:
         self.plans = tuple(
             make_radix_plan(
                 n, shift, bits, method=method, key_value=key_value, backend=backend,
-                tile=self.tile, segments=segments, family=self.family, digit_split=split,
+                tile=self.tile, batch=batch, segments=segments, family=self.family,
+                digit_split=split,
                 sub_bits=sub_bits if split is not None else None,
             )
             for shift, bits, split in self.schedule
@@ -159,6 +167,10 @@ class RadixPipeline:
                 f"radix sort requires integer keys, got {keys.dtype}; reinterpret "
                 f"the buffer (tensor.view(torch.uint32)) first"
             )
+        if self.batch is not None:
+            if segment_starts is not None:
+                raise ValueError("pipeline is not segmented; segment_starts not accepted")
+            return self._call_batched(keys, values)
         if keys.dim() != 1 or keys.shape[0] != self.n:
             raise ValueError(f"radix pipeline resolved for keys of shape ({self.n},), got {tuple(keys.shape)}")
         starts, seg_ids = self.plans[0]._segment_ids(keys, segment_starts)
@@ -192,3 +204,36 @@ class RadixPipeline:
 
         # ---- cut the pad tail off ONCE
         return keys_pad[:self.n], (vals_pad[:self.n] if values is not None else None)
+
+    def _call_batched(
+        self, keys: Tensor, values: Optional[Tensor]
+    ) -> Tuple[Tensor, Optional[Tensor]]:
+        """Every row of ``(b, n)`` keys sorted on its own: pad every row
+        once, chain the sweeps over all rows, cut the pads off once."""
+        b, n = self.batch, self.n
+        if tuple(keys.shape) != (b, n):
+            raise ValueError(
+                f"batched radix pipeline resolved for shape {(b, n)}, got {tuple(keys.shape)}"
+            )
+        if values is not None and values.shape != keys.shape:
+            raise ValueError(f"values must have shape {(b, n)}, got {tuple(values.shape)}")
+        if n == 0:
+            return keys, values
+
+        be = get_backend(self.backend)
+        if not be.tiled:
+            for plan in self.plans:
+                res = plan(keys, values)
+                keys, values = res.keys, res.values
+            return keys, values
+
+        be.check_keys(keys)
+        tile = self.tile
+        n_row = -(-n // tile) * tile
+        keys_pad = _st.pad_rows(keys, n_row, self.plans[0].pad_key(keys.dtype))
+        vals_pad = _st.pad_rows(values, n_row, 0) if values is not None else None
+        for plan in self.plans:
+            vals_tiled = vals_pad.view(-1, tile) if vals_pad is not None else None
+            keys_pad, vals_pad, _, _ = plan.run_tiled(
+                keys_pad.view(-1, tile), None, vals_tiled, rows=b)
+        return keys_pad[:, :n], (vals_pad[:, :n] if values is not None else None)

@@ -16,7 +16,10 @@ backend's prescan / postscan-positions / postscan-reorder over pre-tiled
   plain versions; on CUDA tensors they launch the kernels or raise.
 
 All three implement both kernel families, ``onehot`` and ``packed``
-(``spec.family``), which give the same bits. ``vmap`` and ``cuda`` also
+(``spec.family``), which give the same bits. The stages take any ``(L,
+tile)`` grid: a batched plan's ``b·l_b`` tiles (each inside one row) run
+through the same flat stages in one launch, so the batched layout needs
+nothing here beyond the shapes. ``vmap`` and ``cuda`` also
 fuse digit pairs (``fuses_digits``): a plan with a ``digit_split`` runs the
 fused two-digit stages (K1f-K3f on the card, the fused2 plain bodies on
 ``vmap``) over the pair's ``BitfieldSpec``; the untiled ``reference``

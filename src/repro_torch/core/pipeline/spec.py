@@ -19,8 +19,14 @@ in every pass), so pads land after every real element and
 ``segments=s`` selects the segmented layout: flat ``(n,)`` keys plus an
 ``(s,)`` ``segment_starts`` call argument; every segment is multisplit on
 its own, in one launch per stage, with the segment id riding as the high
-part of the combined id ``seg·m + b`` (width ``m_eff = s·m``). The batched
-layout is ROADMAP queue A item 5.
+part of the combined id ``seg·m + b`` (width ``m_eff = s·m``).
+
+``batch=b`` selects the batched layout (``spec.py:463-548`` of the JAX
+package): ``(b, n)`` keys, every row multisplit on its own. Each row is
+padded to ``l_b`` whole tiles, so every tile belongs to one row and one grid
+of ``b·l_b`` tiles runs the flat stages; the scan runs per row and the
+scatter adds ``row·n_row`` to the row-local destinations. Each row's pads
+ride in bucket m−1 at its tail and come out of that row's counts.
 
 ``digit_split`` marks a fused two-digit radix plan (``spec.py:114-139`` of
 the JAX package): the bucket spec is the pair's ``BitfieldSpec`` and
@@ -68,6 +74,7 @@ class PipelineSpec:
     backend: str
     tile: int
     bucket_fn: Optional[BucketSpec] = None
+    batch: Optional[int] = None     # a leading (b, n) axis
     segments: Optional[int] = None  # ragged segments over (n,)
     mode: str = "reorder"
     family: str = "onehot"
@@ -82,8 +89,17 @@ class PipelineSpec:
 
     @property
     def layout(self) -> str:
-        """flat | segmented."""
-        return "flat" if self.segments is None else "segmented"
+        """flat | batched | segmented."""
+        if self.segments is not None:
+            return "segmented"
+        return "flat" if self.batch is None else "batched"
+
+    def _with_layout(self, base: Tuple[str, ...]) -> Tuple[str, ...]:
+        if self.batch is not None:
+            return (f"layout:batched[{self.batch}]",) + base
+        if self.segments is not None:
+            return (f"layout:segmented[{self.segments}]",) + base
+        return base
 
     def ids_fn(self) -> BucketSpec:
         if self.bucket_fn is None:
@@ -151,7 +167,7 @@ class PipelineSpec:
                 base = (pre, "scan:global", positions)
             else:
                 base = (pre, "scan:global", post, "scatter:bucket-major")
-            return base if self.segments is None else (f"layout:segmented[{self.segments}]",) + base
+            return self._with_layout(base)
         fused = self.bucket_fn is not None and self.bucket_fn.fusable
         lab = "fused-label-" if fused else ""
         fam = "-packed" if be.tiled and self.family == "packed" else ""
@@ -169,9 +185,7 @@ class PipelineSpec:
             base = (pre, "scan:global", positions)
         else:
             base = (pre, "scan:global", post, "scatter:bucket-major")
-        if self.segments is None:
-            return base
-        return (f"layout:segmented[{self.segments}]",) + base
+        return self._with_layout(base)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,27 +215,36 @@ class MultisplitPlan(PipelineSpec):
     def run_tiled(
         self, keys_tiled: Tensor, ids_tiled: Optional[Tensor] = None,
         vals_tiled: Optional[Tensor] = None, seg_tiled: Optional[Tensor] = None,
+        rows: Optional[int] = None,
     ) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
         """One {prescan, scan, postscan, scatter} sweep over PRE-TILED
         buffers, at the full padded length: ``(keys_pad, vals_pad, hist,
-        perm_tiled)``. The chained radix pipeline iterates this. The
-        (segment, bucket)-major order of a segmented sweep is the
-        concatenation of every segment's bucket-major order, so the same
-        flat scatter lands each segment in its input span."""
+        perm_tiled)``, the data as ``(rows, n_row)`` rows with ``rows=b``
+        (the batched layout: a scan per row, destinations row-local, one
+        flat scatter at ``row·n_row + pos``). The chained radix pipeline
+        iterates this. The (segment, bucket)-major order of a segmented
+        sweep is the concatenation of every segment's bucket-major order,
+        so the same flat scatter lands each segment in its input span."""
         hist = self.prescan(keys_tiled, ids_tiled, seg_tiled)
-        g = _st.global_scan(hist)
+        g = _st.global_scan(hist, rows or 1)
         src_keys, src_vals, pos, perm_tiled = self.postscan(
             g, keys_tiled, ids_tiled, vals_tiled, seg_tiled)
-        n_total, idx = keys_tiled.numel(), pos.reshape(-1).long()
+        n_total = keys_tiled.numel()
+        idx = pos.reshape(-1).long() if rows is None else _st.row_index(pos, rows)
         keys_pad = _st.scatter(src_keys, idx, n_total)
         vals_pad = _st.scatter(src_vals, idx, n_total) if vals_tiled is not None else None
+        if rows is not None:
+            keys_pad = keys_pad.view(rows, -1)
+            vals_pad = vals_pad.view(rows, -1) if vals_pad is not None else None
         return keys_pad, vals_pad, hist, perm_tiled
 
     def _empty_result(self, keys: Tensor, values: Optional[Tensor]) -> MultisplitResult:
         """n == 0: every output empty or zero, in the layout's shapes."""
-        shape = (self.num_buckets,) if self.segments is None else (self.segments, self.num_buckets)
+        lead = self.batch if self.batch is not None else self.segments
+        shape = (self.num_buckets,) if lead is None else (lead, self.num_buckets)
         zeros = torch.zeros(shape, dtype=torch.int32, device=keys.device)
-        perm = torch.zeros((0,), dtype=torch.int32, device=keys.device)
+        perm_shape = (0,) if self.batch is None else (self.batch, 0)
+        perm = torch.zeros(perm_shape, dtype=torch.int32, device=keys.device)
         if self.mode == "counts_only":
             return MultisplitResult(None, None, zeros, zeros, None)
         if self.mode == "positions_only":
@@ -253,6 +276,10 @@ class MultisplitPlan(PipelineSpec):
                 f"plan resolved for key_value={self.key_value} but called with "
                 f"values={'present' if values is not None else 'absent'}"
             )
+        if self.batch is not None:
+            if segment_starts is not None:
+                raise ValueError("plan is not segmented; segment_starts not accepted")
+            return self._call_batched(keys, values)
         if keys.dim() != 1 or keys.shape[0] != self.n:
             raise ValueError(f"plan resolved for keys of shape ({self.n},), got {tuple(keys.shape)}")
         if values is not None and values.shape != keys.shape:
@@ -316,6 +343,68 @@ class MultisplitPlan(PipelineSpec):
             _st.exclusive_rows(counts), counts, local(perm_tiled.reshape(-1)[:n]),
         )
 
+    def _call_batched(self, keys: Tensor, values: Optional[Tensor]) -> MultisplitResult:
+        """Every row of ``(b, n)`` keys multisplit on its own: one grid of
+        ``b·l_b`` tiles a stage, a scan per row, one scatter. The untiled
+        reference solves row by row, as ``jax.vmap`` of the flat solve."""
+        b, n, m = self.batch, self.n, self.num_buckets
+        if tuple(keys.shape) != (b, n):
+            raise ValueError(f"batched plan resolved for shape {(b, n)}, got {tuple(keys.shape)}")
+        if values is not None and tuple(values.shape) != (b, n):
+            raise ValueError(
+                f"batched plans require values of shape {(b, n)}, got {tuple(values.shape)}"
+            )
+        if n == 0:
+            return self._empty_result(keys, values)
+        be = get_backend(self.backend)
+        if not be.tiled:
+            flat = dataclasses.replace(self, batch=None)
+            per_row = [flat(keys[r], None if values is None else values[r]) for r in range(b)]
+            return MultisplitResult(*(
+                None if field[0] is None else torch.stack(field) for field in zip(*per_row)))
+
+        self._check_key_width(keys)
+        tile = self.tile
+        l_b = -(-n // tile)                       # tiles a row
+        n_row = l_b * tile
+
+        # each tile belongs to ONE row: a grid of b·l_b tiles covers the batch
+        if self.label_fusion(keys):
+            keys_tiled = _st.pad_rows(keys, n_row, self.pad_key(keys.dtype)).view(-1, tile)
+            ids_tiled = None
+        else:
+            ids_tiled = _st.pad_rows(self._host_labels(keys), n_row, m - 1).view(-1, tile)
+            keys_tiled = None
+            if self.mode == "reorder":
+                keys_tiled = _st.pad_rows(keys, n_row, 0).view(-1, tile)
+        vals_tiled = None
+        if values is not None:
+            vals_tiled = _st.pad_rows(values, n_row, 0).view(-1, tile)
+
+        def finalize_counts(hist: Tensor) -> Tensor:
+            counts = hist.view(b, l_b, m).sum(1, dtype=torch.int32)
+            counts[:, m - 1] -= n_row - n                       # drop each row's pads
+            return counts
+
+        if self.mode == "counts_only":
+            counts = finalize_counts(self.prescan(keys_tiled, ids_tiled))
+            return MultisplitResult(None, None, _st.exclusive_rows(counts), counts, None)
+
+        if self.mode == "positions_only":
+            hist = self.prescan(keys_tiled, ids_tiled)
+            pos = be.stages.positions(self, _st.global_scan(hist, b), keys_tiled, ids_tiled, None)
+            counts = finalize_counts(hist)
+            return MultisplitResult(None, None, _st.exclusive_rows(counts), counts,
+                                    pos.view(b, n_row)[:, :n])
+
+        keys_rows, vals_rows, hist, perm_tiled = self.run_tiled(
+            keys_tiled, ids_tiled, vals_tiled, rows=b)
+        counts = finalize_counts(hist)
+        return MultisplitResult(
+            keys_rows[:, :n], vals_rows[:, :n] if values is not None else None,
+            _st.exclusive_rows(counts), counts, perm_tiled.view(b, n_row)[:, :n],
+        )
+
     def _call_direct(
         self, keys: Tensor, values: Optional[Tensor], seg_ids: Optional[Tensor],
         starts: Optional[Tensor],
@@ -360,8 +449,8 @@ def _validate(method: str, backend: str, mode: str, key_value: bool) -> None:
 def _validate_layout(batch: Optional[int], segments: Optional[int]) -> None:
     if batch is not None and segments is not None:
         raise ValueError("batch and segments are mutually exclusive plan layouts")
-    if batch is not None:
-        raise NotImplementedError("the batched layout (batch=) is ROADMAP queue A item 5")
+    if batch is not None and batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
     if segments is not None and segments < 1:
         raise ValueError(f"segments must be >= 1, got {segments}")
 
@@ -405,8 +494,9 @@ def make_plan(
     sub_bits: Optional[int] = None,
 ) -> MultisplitPlan:
     """Resolve (n, m, method, key-value-ness, backend, mode) into a staged
-    plan: flat, or segmented with ``segments=s`` (call it with an ``(s,)``
-    ``segment_starts``). ``digit_split=r`` makes ``bucket_fn``, a
+    plan: flat, batched over ``(b, n)`` keys with ``batch=b``, or segmented
+    with ``segments=s`` (call it with an ``(s,)`` ``segment_starts``); the
+    two layouts are mutually exclusive. ``digit_split=r`` makes ``bucket_fn``, a
     BitfieldSpec, a fused two-digit pair whose low digit is r bits wide:
     its family is decided at the stage width ``2^r·s`` and its tile at the
     pair's width, both with a digits slot (``tiles.py``); ``sub_bits`` pins
@@ -428,7 +518,7 @@ def make_plan(
         n=n, num_buckets=num_buckets, method=method, key_value=key_value,
         backend=backend,
         tile=resolve_tile(n, m_eff, method, key_value, backend, tile, digits, stage_m),
-        bucket_fn=bucket_fn, segments=segments, mode=mode,
+        bucket_fn=bucket_fn, batch=batch, segments=segments, mode=mode,
         family=resolve_kernel_family(n, stage_m or m_eff, method, backend, family, digits),
         digit_split=digit_split,
         sub_bits=None if digit_split is None else resolve_sub_bits(sub_bits),
@@ -444,6 +534,7 @@ def make_radix_plan(
     key_value: bool = False,
     backend: str = "vmap",
     tile: Optional[int] = None,
+    batch: Optional[int] = None,
     segments: Optional[int] = None,
     mode: str = "reorder",
     family: Optional[str] = None,
@@ -455,9 +546,15 @@ def make_radix_plan(
     wide) and ``sub_bits`` pins the pair's in-tile stage width."""
     return make_plan(
         n, 1 << bits, method=method, key_value=key_value, backend=backend,
-        tile=tile, bucket_fn=BitfieldSpec(shift, bits), segments=segments, mode=mode,
-        family=family, digit_split=digit_split, sub_bits=sub_bits,
+        tile=tile, bucket_fn=BitfieldSpec(shift, bits), batch=batch, segments=segments,
+        mode=mode, family=family, digit_split=digit_split, sub_bits=sub_bits,
     )
+
+
+def make_batched_plan(batch: int, n: int, num_buckets: int, **kw) -> MultisplitPlan:
+    """Batched plan over ``(batch, n)`` keys: one launch a stage for all
+    rows."""
+    return make_plan(n, num_buckets, batch=batch, **kw)
 
 
 def make_segmented_plan(n: int, num_segments: int, num_buckets: int, **kw) -> MultisplitPlan:

@@ -1,7 +1,7 @@
 """Stage primitives of the multisplit pipeline (paper §4.1).
 
-Counterpart of ``repro/core/pipeline/stages.py`` for the flat and
-segmented layouts: every
+Counterpart of ``repro/core/pipeline/stages.py`` for the flat, batched
+and segmented layouts: every
 multisplit variant factors into {local prescan} -> {one global scan} ->
 {local postscan (+ reorder)}. This module owns the layout and scan
 primitives and the O(n·m) direct solve, with no backend logic. The in-tile
@@ -83,13 +83,35 @@ def pad_to_tiles(x: Tensor, tile: int, fill) -> Tuple[Tensor, int]:
     return x, n_pad
 
 
-def global_scan(hist_per_tile: Tensor) -> Tensor:
+def pad_rows(x: Tensor, n_row: int, fill) -> Tensor:
+    """Pad every row of a ``(b, n)`` tensor out to ``n_row`` columns with
+    ``fill`` (a value of ``x``'s dtype), on the bit-pattern view as
+    :func:`pad_to_tiles` does."""
+    b, n = x.shape
+    if n_row == n:
+        return x.contiguous()
+    xb = as_bits(x)
+    tail = torch.full((b, n_row - n), bits_fill(fill, x.dtype), dtype=xb.dtype, device=x.device)
+    return torch.cat([xb, tail], 1).view(x.dtype)
+
+
+def global_scan(hist_per_tile: Tensor, rows: int = 1) -> Tensor:
     """Exclusive scan over the bucket-major H (paper §4.1): (L, m) int32
     tile histograms -> (L, m) int32 bases G, where G[l, b] is the global
-    start of (tile l, bucket b)."""
-    h_t = hist_per_tile.t().reshape(-1)                   # bucket-major
-    g = torch.cumsum(h_t, 0, dtype=torch.int32) - h_t
-    return g.view(hist_per_tile.shape[1], hist_per_tile.shape[0]).t().contiguous()
+    start of (tile l, bucket b). With ``rows=b`` the L tiles are b rows of
+    L/b tiles each (the batched layout) and every row is scanned on its own,
+    its bases starting at 0: the counterpart of ``jax.vmap(global_scan)``
+    over ``(b, L/b, m)``, in one cumsum."""
+    n_tiles, m = hist_per_tile.shape
+    l_b = n_tiles // rows
+    h_t = hist_per_tile.view(rows, l_b, m).transpose(1, 2).reshape(-1)  # bucket-major rows
+    g = (torch.cumsum(h_t, 0, dtype=torch.int32) - h_t).view(rows, m * l_b)
+    if rows > 1:
+        # one scan over all rows, as the flat layout's, then each row less
+        # the total of the rows before it (PERF.md: a cumsum along the rows
+        # is slower on the card)
+        g = g - g[:, :1]
+    return g.view(rows, m, l_b).transpose(1, 2).contiguous().view(n_tiles, m)
 
 
 def exclusive_rows(counts: Tensor) -> Tensor:
@@ -108,6 +130,16 @@ def seg_tile_local(ids: Tensor, segs: Tensor, m: int) -> Tensor:
     never decrease: the m-wide cumsum with a per-segment carry, O(T·m)
     whatever the number of segments."""
     return seg_tile_rank(ids.reshape(1, -1), segs.reshape(1, -1), m)[0]
+
+
+def row_index(pos: Tensor, rows: int) -> Tensor:
+    """The flat int64 scatter index of row-local destinations: ``pos`` holds
+    ``rows`` rows of destinations into their own row, and row r's land at
+    ``r·n_row + pos``, so one flat scatter serves the whole batch."""
+    n_row = pos.numel() // rows
+    offsets = torch.arange(0, rows * n_row, n_row, dtype=torch.int64, device=pos.device)
+    # int32 + int64 promotes inside the add: one pass, as the flat .long()
+    return (pos.reshape(rows, n_row) + offsets[:, None]).reshape(-1)
 
 
 def scatter(src: Tensor, idx: Tensor, n_total: int) -> Tensor:

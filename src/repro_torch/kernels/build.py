@@ -33,6 +33,7 @@ SOURCES = (
     "spec_bucket_ids",
     "packed_tile_histograms", "packed_tile_positions", "packed_fused_postscan_reorder",
     "fused2_tile_histograms", "fused2_tile_positions", "fused2_fused_postscan_reorder",
+    "tile_reorder",
 )
 HEADERS = ("multisplit_common.cuh", "multisplit_segmented.cuh", "multisplit_packed.cuh",
            "multisplit_fused2.cuh")
@@ -87,6 +88,9 @@ ENTRY_POINTS = {
     "fused2_fused_postscan_reorder": (
         "ms_fused2_fused_postscan_reorder", [_P] * 8 + [_I] * 7 + [_P],
     ),
+    # the standalone reorder: ids, keys, values (null when key-only), keys_r,
+    # vals_r, dest, then n_tiles, T and m
+    "tile_reorder": ("ms_tile_reorder", [_P] * 6 + [_I, _I, _I, _P]),
     # the ids-plane entry points of the K2 and K2s sources: m, not a label
     "fused_postscan_reorder_ids": (
         "ms_fused_postscan_reorder_ids", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -104,6 +104,25 @@ def postscan_body(
     return reorder(keys), vals_r, reorder(gpos), gpos
 
 
+def reorder_body(
+    ids: Tensor, keys: Tensor, vals: Optional[Tensor], m: int
+) -> Tuple[Tensor, Optional[Tensor], Tensor]:
+    """The standalone tile reorder (the unfused baseline's): (keys_r,
+    vals_r, dest), the first two stably bucket-major within each tile and
+    ``dest`` each element's destination inside its tile, ``starts[b] +
+    rank``. The gather form: slot j of a tile takes the element whose
+    destination is j. Keys and values move as bit patterns."""
+    rank, _, starts = tile_rank(ids, m)
+    dest = starts.gather(1, ids.long()) + rank
+    src = torch.argsort(dest, dim=1)                   # dest is a permutation of each tile
+
+    def reorder(x: Tensor) -> Tensor:
+        xb = x.view(bits_dtype(x.dtype))
+        return xb.gather(1, src).view(x.dtype)
+
+    return reorder(keys), reorder(vals) if vals is not None else None, dest
+
+
 # ---------------------------------------------------------------------------
 # Segmented bodies: the combined id cid = seg·m + b, with the segment ids of
 # each tile non-decreasing (the input is segment-contiguous).

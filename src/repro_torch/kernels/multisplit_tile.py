@@ -42,6 +42,10 @@ programmer's bucket function computed outside the kernels:
 * :func:`spec_bucket_ids` (``csrc/spec_bucket_ids.cu``) replaces
   ``spec_bucket_ids_pallas`` (``:421``): keys (L, T) -> the spec's int32
   labels (L, T), bitwise the labels K1-K3 compute in-register.
+* :func:`tile_reorder` (B10, ``csrc/tile_reorder.cu``) replaces
+  ``tile_reorder_pallas`` (``:1061``): the unfused baseline's standalone
+  reorder, ids, keys [and values] (L, T) -> keys and values stably
+  bucket-major within each tile and each element's in-tile destination.
 
 Counterpart of the packed-counter family (paper §4.3), one wrapper a
 pipeline stage for {labels in-kernel from a spec | an ids strip} × {flat |
@@ -619,6 +623,42 @@ def seg_fused_postscan_reorder(
 
 
 # ---------------------------------------------------------------------------
+# B10: the standalone tile reorder of the unfused baseline
+# ---------------------------------------------------------------------------
+
+def tile_reorder_plain(
+    ids_tiled: Tensor, keys_tiled: Tensor, values_tiled: Optional[Tensor], num_buckets: int,
+) -> Tuple[Tensor, Optional[Tensor], Tensor]:
+    return common.reorder_body(clamp_ids(ids_tiled, num_buckets), keys_tiled, values_tiled,
+                               num_buckets)
+
+
+def tile_reorder(
+    ids_tiled: Tensor, keys_tiled: Tensor, values_tiled: Optional[Tensor], num_buckets: int,
+) -> Tuple[Tensor, Optional[Tensor], Tensor]:
+    """(L, T) int32 ids, (L, T) keys [+ values] -> (keys_r, vals_r, dest):
+    keys and values stably bucket-major within each tile, and ``dest``
+    (L, T) int32, each element's destination inside its tile. No bases G,
+    no global destination (B10)."""
+    if not _on_cuda(ids_tiled, "tile_reorder"):
+        return tile_reorder_plain(ids_tiled, keys_tiled, values_tiled, num_buckets)
+    n_tiles, t = _check_ids(ids_tiled, num_buckets)
+    _check_beside(keys_tiled, ids_tiled, "keys")
+    if values_tiled is not None:
+        _check_beside(values_tiled, ids_tiled, "values")
+    keys_r = torch.empty_like(keys_tiled)
+    vals_r = torch.empty_like(values_tiled) if values_tiled is not None else None
+    dest = torch.empty((n_tiles, t), dtype=torch.int32, device=ids_tiled.device)
+    if n_tiles:
+        fn = build.load("tile_reorder")
+        _raise_on(fn(ids_tiled.data_ptr(), keys_tiled.data_ptr(), _ptr(values_tiled),
+                     keys_r.data_ptr(), _ptr(vals_r), dest.data_ptr(), n_tiles, t, num_buckets,
+                     _stream(ids_tiled)), "tile_reorder")
+        tile_reorder.launches += 1
+    return keys_r, vals_r, dest
+
+
+# ---------------------------------------------------------------------------
 # The labels of a declarative spec, written out
 # ---------------------------------------------------------------------------
 
@@ -984,5 +1024,6 @@ KERNELS = (
     spec_bucket_ids,
     packed_tile_histograms, packed_fused_postscan_reorder, packed_tile_positions,
     fused2_tile_histograms, fused2_fused_postscan_reorder, fused2_tile_positions,
+    tile_reorder,
 )
 reset_launches()

@@ -1,5 +1,5 @@
 """The kernel doors the pipeline calls (counterpart of
-``repro/kernels/ops.py:72-79, 95-107, 129-340, 346-450``).
+``repro/kernels/ops.py:72-92, 95-107, 129-340, 346-450``).
 
 Each door takes tiled tensors and a declarative spec, or a materialised
 int32 ids strip and the number of buckets, and dispatches on the tensors'
@@ -56,6 +56,15 @@ def seg_fused_postscan_reorder(
     return _mst.seg_fused_postscan_reorder(
         ids_tiled, seg_tiled, g, keys_tiled, values_tiled, num_buckets, num_segments
     )
+
+
+def tile_reorder(
+    ids_tiled: Tensor, keys_tiled: Tensor, values_tiled: Tensor, num_buckets: int
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Stable bucket-major reorder of (keys, values) within each tile and
+    the in-tile destination map (B10); the JAX door's signature, values
+    required."""
+    return _mst.tile_reorder(ids_tiled, keys_tiled, values_tiled, num_buckets)
 
 
 def device_histogram(ids_tiled: Tensor, num_buckets: int) -> Tensor:

@@ -1,5 +1,5 @@
 """repro_torch.ops — the public API of the PyTorch port (counterpart of
-``repro/ops.py:264-389``, flat and segmented layouts).
+``repro/ops.py:90-389``).
 
 Every op takes the JAX package's arguments plus ``device``: inputs (tensors
 or numpy arrays) are placed on ``device``, ``"cuda"`` by default, and run
@@ -8,10 +8,25 @@ Tests pass ``device="cpu"``, where the cuda backend's kernel wrappers run
 their plain versions. Nothing looks for a card and carries on without one:
 on a machine without CUDA the default device fails where torch does.
 
-:func:`multisplit_key_value` is a :class:`torch.autograd.Function`: the
-backward of the permutation is its inverse gather, ``d_in[i] =
-ct_out[perm[i]]``; the key-value :func:`segmented_multisplit` gathers by the
-global destination ``perm[i] + starts[seg[i]]``. Plans are cached per
+The flat ops are transform-native, as the JAX package's are:
+
+* ``torch.vmap`` — :func:`multisplit`, :func:`multisplit_key_value` and
+  :func:`histogram` run through :class:`torch.autograd.Function` s whose
+  ``vmap`` rule resolves the batched plan (``make_batched_plan``): the whole
+  batch is ONE launch a stage, bitwise equal to the per-row loop. An input
+  that is not batched is broadcast over the batch. The Functions return
+  tensors only (a ``counts_only`` call has no keys) and the
+  :class:`MultisplitResult` is rebuilt outside them. ``torch.vmap`` refuses
+  None outputs under an ``out_dims`` of 0, so a call that leaves fields
+  None takes :func:`vmap_out_dims` as its ``out_dims``.
+* ``grad`` — the key-value op's backward is the inverse gather of the
+  forward permutation, ``d_in[i] = ct_out[perm[i]]``, written with
+  ``gather`` so that ``torch.func.grad`` and ``vmap`` of it batch it; the
+  key-value :func:`segmented_multisplit` gathers by the global destination
+  ``perm[i] + starts[seg[i]]``.
+
+:func:`radix_sort` takes ``(b, n)`` keys and sorts every row. Plans are
+cached per
 (spec, shape, config); declarative specs hash by value, so the cache is
 exact. A :class:`CallableSpec` (``from_fn``: a programmer's bucket
 function) runs on the keys' device, its int32 labels go to the ids-strip
@@ -46,6 +61,7 @@ from repro_torch.core import multisplit as _multisplit
 from repro_torch.core.pipeline import (
     MultisplitPlan,
     MultisplitResult,
+    make_batched_plan,
     make_plan,
     segment_ids_from_starts,
 )
@@ -60,6 +76,7 @@ __all__ = [
     "MultisplitResult",
     "multisplit", "multisplit_key_value", "segmented_multisplit", "histogram",
     "radix_sort", "segmented_radix_sort",
+    "vmap_out_dims",
 ]
 
 
@@ -70,15 +87,15 @@ def _place(x, device) -> Optional[Tensor]:
     return torch.as_tensor(x).to(device)
 
 
-def _check_flat(keys: Tensor, what: str) -> None:
+def _check_flat(keys: Tensor, what: str, batch_with_vmap: bool = True) -> None:
     if keys.dim() != 1:
-        raise ValueError(
-            f"{what} takes rank-1 keys (got shape {tuple(keys.shape)}); the "
-            f"batched layout is ROADMAP queue A item 5"
-        )
+        hint = (f"; batch with torch.vmap({what}): it dispatches to ONE batched-plan launch"
+                if batch_with_vmap else "")
+        raise ValueError(f"{what} takes rank-1 keys (got shape {tuple(keys.shape)}){hint}")
 
 
 _plan_cached = functools.lru_cache(maxsize=512)(make_plan)
+_batched_plan_cached = functools.lru_cache(maxsize=512)(make_batched_plan)
 
 
 def _plan(spec: BucketSpec, n: int, **kw) -> MultisplitPlan:
@@ -86,6 +103,65 @@ def _plan(spec: BucketSpec, n: int, **kw) -> MultisplitPlan:
     # per-call closures and pin them for the life of the process.
     build = make_plan if isinstance(spec, CallableSpec) else _plan_cached
     return build(n, spec.num_buckets, bucket_fn=spec, **kw)
+
+
+def _batched(plan: MultisplitPlan, b: int) -> MultisplitPlan:
+    """The vmap rule's plan: ``plan`` over ``b`` rows, with its resolved
+    tile and family."""
+    build = make_batched_plan if isinstance(plan.bucket_fn, CallableSpec) else _batched_plan_cached
+    return build(b, plan.n, plan.num_buckets, method=plan.method, key_value=plan.key_value,
+                 backend=plan.backend, tile=plan.tile, bucket_fn=plan.bucket_fn,
+                 mode=plan.mode, family=plan.family)
+
+
+def _batch_first(x: Tensor, in_dim: Optional[int], b: int) -> Tensor:
+    """A vmap rule's input with its batch axis first; an unbatched input is
+    broadcast over the batch."""
+    return x.expand(b, *x.shape) if in_dim is None else x.movedim(in_dim, 0)
+
+
+def _tensors(res: MultisplitResult) -> Tuple[Tensor, ...]:
+    """The fields a plan computed, in order (a Function returns tensors)."""
+    return tuple(t for t in res if t is not None)
+
+
+def vmap_out_dims(mode: str = "reorder", key_value: bool = False) -> MultisplitResult:
+    """The ``out_dims`` of ``torch.vmap`` over :func:`multisplit` in
+    ``mode``: 0 for every field the call returns, None for the fields it
+    leaves None (the values of a key-only call, the keys of a partial
+    mode), which ``torch.vmap`` refuses under an ``out_dims`` of 0.
+    ``torch.vmap(ops.multisplit, in_dims=(0, None),
+    out_dims=ops.vmap_out_dims())(keys, spec)``; a key-value call and
+    :func:`histogram` need none."""
+    return MultisplitResult(0 if mode == "reorder" else None, 0 if key_value else None, 0, 0,
+                            None if mode == "counts_only" else 0)
+
+
+def _result(plan: MultisplitPlan, outs: Tuple[Tensor, ...]) -> MultisplitResult:
+    """The inverse of :func:`_tensors` for ``plan``'s mode."""
+    it = iter(outs)
+    return MultisplitResult(*(None if d is None else next(it)
+                              for d in vmap_out_dims(plan.mode, plan.key_value)))
+
+
+class _Multisplit(torch.autograd.Function):
+    """The key-only op: the flat plan, or under ``torch.vmap`` the batched
+    plan, one launch a stage for the whole batch. Its outputs take no
+    gradient."""
+
+    @staticmethod
+    def forward(keys, plan):
+        return _tensors(plan(keys))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(*output)
+
+    @staticmethod
+    def vmap(info, in_dims, keys, plan):
+        outs = _tensors(_batched(plan, info.batch_size)(_batch_first(keys, in_dims[0],
+                                                                     info.batch_size)))
+        return outs, (0,) * len(outs)
 
 
 def _segmented_plan(n: int, s: int, m: int, *, bucket_fn: BucketSpec, **kw) -> MultisplitPlan:
@@ -109,7 +185,10 @@ def multisplit(
     buckets of ``spec``, declarative or a ``CallableSpec`` (paper §3.1).
     ``mode`` selects a partial pipeline (``counts_only`` /
     ``positions_only``, key-only), which also takes keys that are not 32
-    bits wide on the cuda backend (their labels are materialised)."""
+    bits wide on the cuda backend (their labels are materialised).
+    ``torch.vmap(ops.multisplit)`` runs the whole batch as ONE batched-plan
+    launch a stage, bitwise equal to the per-row loop (its ``out_dims``:
+    :func:`vmap_out_dims`)."""
     spec = as_spec(spec)
     keys = _place(keys, device)
     _check_flat(keys, "ops.multisplit")
@@ -122,7 +201,7 @@ def multisplit(
         )
     plan = _plan(spec, keys.shape[0], method=method, backend=backend, tile=tile,
                  mode=mode, family=family)
-    return plan(keys)
+    return _result(plan, _Multisplit.apply(keys, plan))
 
 
 def _segment_starts(segment_starts, n: int, device) -> Tensor:
@@ -147,27 +226,38 @@ def _segment_starts(segment_starts, n: int, device) -> Tensor:
 
 
 class _KeyValueMultisplit(torch.autograd.Function):
-    """Forward: the key-value plan. Backward: the inverse gather of the
-    forward permutation (``out[perm[i]] = in[i]`` gives ``d_in[i] =
-    d_out[perm[i]]``) — one gather an operand, no scatter."""
+    """Forward: the key-value plan, or under ``torch.vmap`` the batched
+    plan. Backward: the inverse gather of the forward permutation
+    (``out[perm[i]] = in[i]`` gives ``d_in[i] = d_out[perm[i]]``) — one
+    gather an operand, no scatter, which ``vmap`` batches."""
 
     @staticmethod
-    def forward(ctx, keys, values, plan):
-        res = plan(keys, values)
-        ctx.save_for_backward(res.permutation)
+    def forward(keys, values, plan):
+        return _tensors(plan(keys, values))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        keys_out, values_out, starts, counts, perm = output
+        ctx.save_for_backward(perm)
         ctx.mark_non_differentiable(
-            *[t for t in (res.keys, res.values) if not t.is_floating_point()],
-            res.bucket_starts, res.bucket_counts, res.permutation,
+            *[t for t in (keys_out, values_out) if not t.is_floating_point()],
+            starts, counts, perm,
         )
-        return res.keys, res.values, res.bucket_starts, res.bucket_counts, res.permutation
 
     @staticmethod
     def backward(ctx, d_keys, d_values, *_):
         (perm,) = ctx.saved_tensors
         idx = perm.long()
-        d_in_keys = d_keys[idx] if ctx.needs_input_grad[0] else None
-        d_in_values = d_values[idx] if ctx.needs_input_grad[1] else None
+        d_in_keys = d_keys.gather(-1, idx) if ctx.needs_input_grad[0] else None
+        d_in_values = d_values.gather(-1, idx) if ctx.needs_input_grad[1] else None
         return d_in_keys, d_in_values, None
+
+    @staticmethod
+    def vmap(info, in_dims, keys, values, plan):
+        b = info.batch_size
+        outs = _tensors(_batched(plan, b)(_batch_first(keys, in_dims[0], b),
+                                          _batch_first(values, in_dims[1], b)))
+        return outs, (0,) * len(outs)
 
 
 def multisplit_key_value(
@@ -183,7 +273,8 @@ def multisplit_key_value(
 ) -> MultisplitResult:
     """Key-value multisplit, differentiable in ``values`` (and in ``keys``
     when they are float): the backward is the inverse gather of the forward
-    permutation."""
+    permutation. ``torch.vmap`` of this op, with or without
+    ``torch.func.grad``, runs ONE batched-plan launch a stage."""
     spec = as_spec(spec)
     keys, values = _place(keys, device), _place(values, device)
     _check_flat(keys, "ops.multisplit_key_value")
@@ -241,7 +332,7 @@ def segmented_multisplit(
     dtype (or float keys) the op is differentiable."""
     spec = as_spec(spec)
     keys = _place(keys, device)
-    _check_flat(keys, "ops.segmented_multisplit")
+    _check_flat(keys, "ops.segmented_multisplit", batch_with_vmap=False)
     if values is not None and mode != "reorder":
         raise ValueError(f"mode={mode!r} never touches values")
     values = _place(values, device)
@@ -266,7 +357,10 @@ def histogram(
     device="cuda",
 ) -> Tensor:
     """Device-wide bucket counts (paper §7.3): the ``counts_only`` partial
-    pipeline — {prescan, reduce}, no scan, no scatter."""
+    pipeline — {prescan, reduce}, no scan, no scatter. ``torch.vmap`` of it
+    counts every row in one launch."""
+    keys = _place(keys, device)
+    _check_flat(keys, "ops.histogram")
     return multisplit(
         keys, spec, backend=backend, tile=tile, mode="counts_only", family=family,
         device=device,
@@ -288,7 +382,9 @@ def radix_sort(
 ) -> Tuple[Tensor, Optional[Tensor]]:
     """Stable LSD radix sort of integer keys (and values) from chained
     multisplit passes (paper §7.1). ``fuse_digits=True`` sorts two digits a
-    sweep (the fused two-digit kernels on ``cuda``), bitwise equal."""
+    sweep (the fused two-digit kernels on ``cuda``), bitwise equal.
+    ``(b, n)`` keys sort every row on its own, one launch a stage for all
+    rows."""
     return _sort.radix_sort(
         keys, values, radix_bits=radix_bits, key_bits=key_bits, method=method,
         backend=backend, tile=tile, family=family, fuse_digits=fuse_digits, device=device,
@@ -314,7 +410,7 @@ def segmented_radix_sort(
     ``segment_starts`` is checked as in :func:`segmented_multisplit`;
     ``fuse_digits`` as in :func:`radix_sort`."""
     keys = _place(keys, device)
-    _check_flat(keys, "ops.segmented_radix_sort")
+    _check_flat(keys, "ops.segmented_radix_sort", batch_with_vmap=False)
     return _sort.segmented_radix_sort(
         keys, _segment_starts(segment_starts, keys.shape[0], keys.device),
         values, radix_bits=radix_bits, key_bits=key_bits, method=method,

@@ -214,6 +214,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     g2 = global_scan(mst.fused2_tile_histograms(keys, seg, spec=pair))
     mst.fused2_tile_positions(keys, g2, seg, spec=pair, split=3)
     mst.fused2_fused_postscan_reorder(keys, g2, keys, spec=pair, split=3, family="packed")
+    mst.tile_reorder(ids, keys, keys, 4)
+    mst.tile_reorder(ids, keys, None, 4)
     assert mst.launch_counts() == {
         "spec_tile_histograms": 0, "spec_fused_postscan_reorder": 0, "spec_tile_positions": 0,
         "seg_spec_tile_histograms": 0, "seg_spec_fused_postscan_reorder": 0,
@@ -222,7 +224,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
         "seg_tile_positions": 0, "spec_bucket_ids": 0, "packed_tile_histograms": 0,
         "packed_fused_postscan_reorder": 0, "packed_tile_positions": 0,
         "fused2_tile_histograms": 0, "fused2_fused_postscan_reorder": 0,
-        "fused2_tile_positions": 0,
+        "fused2_tile_positions": 0, "tile_reorder": 0,
     }
 
 
@@ -304,6 +306,8 @@ def test_label_args_refuses(spec, dtype, err):
                                   "multisplit_tile.py:909)"]),
     ("fused2_fused_postscan_reorder.cu", ["fused2_fused_postscan_reorder_pallas\n// (src/repro/"
                                           "kernels/multisplit_tile.py:973)"]),
+    ("tile_reorder.cu", ["tile_reorder_pallas (src/repro/kernels/multisplit_tile.py:1061)",
+                         "tile_reorder (src/repro/kernels/ref.py:37)"]),
 ])
 def test_kernel_sources_carry_their_note(source, replaces):
     """Each kernel names the Pallas function it replaces and its bound, and
@@ -364,7 +368,7 @@ def test_kernel_modules_defer_cuda_work_to_the_launch():
     tree = ast.parse(Path(mst.__file__).read_text())
     calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
              and isinstance(n.func, ast.Attribute) and n.func.attr == "load"]
-    assert len(calls) == len(mst.KERNELS) == 19
-    assert len(build.SOURCES) == 13
+    assert len(calls) == len(mst.KERNELS) == 20
+    assert len(build.SOURCES) == 14
     assert set(build.ENTRY_POINTS) == set(build.SOURCES) | set(build.ENTRY_SOURCE)
     assert not build._FNS
