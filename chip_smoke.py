@@ -45,6 +45,14 @@ Phases, one line or more each, every one of which must pass:
    4096, m = 256, the destinations riding as the values too), m in {1, 2,
    7, 32, 255, 256}, tiles of 1 to ``MAX_TILE`` keys and ragged ones,
    int32 / uint32 / float32 keys with NaN and inf, ids outside [0, m).
+   B11, flash attention, against its plain version in the working dtype:
+   2e-4 in float32 (the JAX tests'); in bfloat16 and float16 one unit in
+   the last place of each element, ``2^-p * max(|got|, |want|) + 1e-5``
+   with p = 7 or 10, and never more than the JAX tests' 5e-2; the max abs
+   error of every case and its worst share of the limit printed: the full attention
+   widths A1-A3 (below) in float32 and bfloat16, A1 not causal, the JAX
+   tests' shapes at their four block pairs in all three dtypes, and ragged
+   S (not a multiple of the kernel's 64-row tile) at hd from 8 to 256.
 4. main    — the port's entry points at the paper's size, n = 2^25 uniform
    random 32-bit keys on the cuda backend: ``ops.multisplit`` for
    ``DeltaSpec(m, 2^32)`` (equal widths over the whole key range, so the
@@ -94,13 +102,23 @@ Phases, one line or more each, every one of which must pass:
    bms, kv dms: K1 and K3 on the ids, B10 for passes 2 and 3) against the
    fused plan and the oracle; ``radix_sort_per_pass`` flat and batched
    against ``radix_sort``.
+   Attention — the kernel door ``repro_torch.kernels.ops.flash_attention``
+   (door defaults: causal, blocks of 256) at the full attention widths of
+   the repo's configs, batch and heads folded, kv heads repeated to the q
+   heads: A1 TinyLlama-1.1B (32 heads of 64, its context 2048, batch 4:
+   (128, 2048, 64)) in float32 and bfloat16, and not causal (A1n); A2
+   DBRX-132B (48 heads of 128, seq_len 4096, batch 1: (48, 4096, 128)) in
+   bfloat16 and float32; A3 h2o-danube-1.8b (32 heads of 80, S = 4096,
+   batch 2: (64, 4096, 80)) in bfloat16. Each result against the plain
+   version.
 6. launches — every kernel's launch count from its own path's run alone
    (flat, segmented, flat callable, segmented callable, and the four
    packed paths, which launch K1p-K3p and no onehot kernel; each fused
    call, which launches K1f with K2f or K3f twice, F2 also K1 and K2 once;
    each batched call one K1 and one K2 or K3 for all rows, a batched sort
    one of each a sweep; each unfused call K1 and K3 on the ids once and B10
-   twice, once or never); every kernel is launched on one of them.
+   twice, once or never; the attention path B11 once a call and no other
+   kernel); every kernel is launched on one of them.
 7. times   — per kernel: ms, the plain version's ms, the bound (bytes moved
    over 3.35 TB/s, the H100 SXM data-sheet rate) and one PyTorch call as a
    yardstick; the onehot and packed kernels side by side on the same
@@ -114,7 +132,14 @@ Phases, one line or more each, every one of which must pass:
    beside those of one single-digit pass. The batched calls against the
    loop of flat calls and ``torch.vmap`` against ``batched_multisplit``,
    ``multisplit_unfused`` against the fused plan with its stages,
-   ``radix_sort_per_pass`` against ``radix_sort``.
+   ``radix_sort_per_pass`` against ``radix_sort``. B11 at A1, A1n, A2
+   and A3: ms, the plain version's ms, the bytes bound (3.35 TB/s), the
+   operations bound (4·hd flops a (q, k) pair the mask keeps over the 67
+   TFLOP/s of the fp32 CUDA cores; for bfloat16 also the 989 TFLOP/s of the
+   tensor cores, the data sheet's target of a redesign) and
+   ``scaled_dot_product_attention`` on the (B, H, S, hd) view as the library
+   yardstick; the causal / non-causal ratio at A1, which must stay below
+   0.65 to show the diagonal skip.
 
 The last lines are the ``nvidia-smi`` line, one JSON line of the kernels
 and ``{"ok": true, "device": {...}}``. The script exits non-zero, printing
@@ -125,6 +150,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -140,11 +166,33 @@ N_MAIN = 1 << 25
 # 8192 keys, and would be 16 GiB at 2^25 before the scan's temporaries
 N_FUSED_SMALL = 1 << 22
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
+FP32_FLOPS_PER_S = 67e12             # the fp32 CUDA cores, H100 SXM data sheet
+TENSOR_FLOPS_PER_S = 989e12          # dense bf16 / fp16 tensor cores, H100 SXM data sheet
 SEED = 0
 # K1-K3 at n = 2^25, m = 256 on an H100 80GB HBM3 at 700 W, as this script
 # measured them when they were added (PERF.md's kernel table)
 FLAT_MS_BEFORE = {"spec_tile_histograms": 0.3485, "spec_fused_postscan_reorder": 0.7949,
                   "spec_tile_positions": 0.3852}
+# B11's full widths: name -> ((BH, S, hd), causal, (batch, heads), dtypes),
+# batch and heads folded, kv heads repeated to the q heads (configs in
+# src/repro/configs/)
+ATTN = {
+    "A1": ((128, 2048, 64), True, (4, 32), ("float32", "bfloat16")),   # tinyllama_1p1b.py
+    "A1n": ((128, 2048, 64), False, (4, 32), ("float32",)),
+    "A2": ((48, 4096, 128), True, (1, 48), ("bfloat16", "float32")),   # dbrx_132b.py
+    "A3": ((64, 4096, 80), True, (2, 32), ("bfloat16",)),              # h2o_danube_1p8b.py
+}
+# B11 against its plain version, element by element: |got - want| <= the
+# smaller of the JAX tests' tolerance (tests/test_kernels.py:149, 159) and
+# ATTN_ULP * max(|got|, |want|) + ATTN_ATOL. Both sides compute in fp32 from
+# the same inputs (their fp32 results differ by at most 1.2e-6 at A1-A3 on
+# the card), then round to the output dtype: in bfloat16 (7 mantissa bits)
+# and float16 (10) the two may then differ by one unit in the last place,
+# at most 2^-p of the larger value. ATTN_ATOL covers the fp32 difference
+# where that unit is smaller (values near 0, float16 subnormals).
+ATTN_TOL = {"float32": 2e-4, "bfloat16": 5e-2, "float16": 5e-2}
+ATTN_ULP = {"float32": 0.0, "bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+ATTN_ATOL = {"float32": 2e-4, "bfloat16": 1e-5, "float16": 1e-5}
 
 
 def log(phase: str, msg: str) -> None:
@@ -171,8 +219,11 @@ def main() -> int:
         from repro_torch import ops
         from repro_torch.core.pipeline import stages as st
         from repro_torch.core.sort import rb_sort_multisplit
+        import repro_torch.kernels as registry
         from repro_torch.kernels import build
+        from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import multisplit_tile as mst
+        from repro_torch.kernels import ops as kops
     except ImportError as err:
         print(f"chip_smoke: cannot import the port from {ROOT}/src: {err}", file=sys.stderr)
         return 2
@@ -222,7 +273,7 @@ def main() -> int:
         return ops.DeltaSpec(m, 1 << 32)
 
     # ---- 3. kernels against their plain versions
-    errs = {fn.__name__: 0 for fn in mst.KERNELS}
+    errs = {fn.__name__: 0 for fn in registry.KERNELS}
     n_checks = n_ids_paths = 0
 
     def check_case(what, keys_tiled, spec, values_tiled, g_offset=0):
@@ -781,13 +832,79 @@ def main() -> int:
                    f"float32 keys with NaN and inf, ids outside [0, m), key-only and key-value): B10 "
                    f"bitwise equal to its plain version ({time.perf_counter() - t0:.1f} s)")
 
+    # ---- 3h. B11, flash attention, against its plain version in the working
+    # dtype, within one unit in the last place (ATTN_TOL, ATTN_ULP, ATTN_ATOL)
+    def attn_inputs(shape, dtype):
+        return [torch.randn(shape, device=dev, generator=gen).to(dtype) for _ in range(3)]
+
+    def attn_err(what, got, q, k, v, causal, block_q=256, block_k=256):
+        """Log the max abs error of ``got`` against the plain version and
+        its worst share of the limit; raise where an element passes its limit
+        or on a wrong shape, dtype or a non-finite value."""
+        want = fa.flash_attention_plain(q, k, v, causal, block_q, block_k)
+        torch.cuda.synchronize()
+        if got.shape != q.shape or got.dtype != q.dtype or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention {what}: {got.dtype} {tuple(got.shape)} or "
+                                 f"non-finite values")
+        g, w = got.float(), want.float()
+        diff = (g - w).abs()
+        dt = str(q.dtype).split(".")[1]
+        limit = torch.clamp(ATTN_ULP[dt] * torch.maximum(g.abs(), w.abs()) + ATTN_ATOL[dt],
+                            max=ATTN_TOL[dt])
+        err = diff.max().item()
+        share = (diff / limit).max().item()
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        attn_max[dt] = max(attn_max.get(dt, 0.0), err)
+        rule = (f"{ATTN_TOL[dt]:g}" if not ATTN_ULP[dt] else
+                f"2^{round(math.log2(ATTN_ULP[dt]))}·|value| + {ATTN_ATOL[dt]:g}, at most "
+                f"{ATTN_TOL[dt]:g}")
+        log("kernels", f"flash_attention {what}: max abs err {err:.3g}, worst {share:.3f} of "
+                       f"the limit ({rule})")
+        if not share <= 1.0:
+            raise AssertionError(f"flash_attention != plain for {what}: an element differs by "
+                                 f"{share:.3f} times its limit ({rule}); max abs err {err}")
+
+    attn_max = {}                        # dtype -> max abs err over the cases
+
+    def check_attn(what, shape, dtype, causal, block_q=256, block_k=256):
+        nonlocal n_checks
+        q, k, v = attn_inputs(shape, dtype)
+        attn_err(what, fa.flash_attention(q, k, v, causal, block_q, block_k), q, k, v, causal,
+                 block_q, block_k)
+        n_checks += 1
+
+    t0, n0 = time.perf_counter(), n_checks
+    for name, (shape, causal, _, dtypes) in ATTN.items():
+        for dt in dtypes:
+            check_attn(f"{name} {shape} {dt}{'' if causal else ' not causal'}", shape,
+                       getattr(torch, dt), causal)
+    # the JAX tests' shapes and block pairs (tests/test_kernels.py:136-160) in
+    # every dtype; ragged S and other head widths: S not a multiple of the
+    # kernel's 64-row tile, one row, hd from 8 to 256
+    small = [((3, 256, 64), True, 64, 64), ((3, 512, 128), True, 128, 64),
+             ((3, 256, 64), False, 64, 128), ((3, 512, 32), True, 256, 256)]
+    for shape, causal, bq, bk in small:
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            check_attn(f"{shape} {dt} causal={causal} blocks ({bq}, {bk})", shape, dt, causal,
+                       bq, bk)
+    ragged = [((3, 200, 8), torch.float16, True, 8, 40), ((2, 72, 256), torch.float32, False, 8, 8),
+              ((1, 1, 8), torch.float32, True, 1, 1), ((3, 100, 40), torch.bfloat16, True, 20, 25),
+              ((2, 130, 256), torch.bfloat16, True, 2, 2), ((2, 96, 80), torch.float32, True, 32, 32),
+              ((2, 4100, 96), torch.float32, True, 4100, 100),
+              ((2, 320, 136), torch.float16, False, 64, 64)]
+    for shape, dt, causal, bq, bk in ragged:
+        check_attn(f"{shape} {dt} causal={causal} blocks ({bq}, {bk})", shape, dt, causal, bq, bk)
+    log("kernels", f"{n_checks - n0} flash_attention cases (A1-A3 at full width, the JAX tests' "
+                   f"shapes in float32/bfloat16/float16, ragged S, hd 8 to 256) within the limit of "
+                   f"the plain version; max abs err {attn_max} ({time.perf_counter() - t0:.1f} s)")
+
     # ---- 4. main path at the paper's size, with the launch counts of that run alone
     keys = rand_i32((N_MAIN,)).view(torch.uint32)
     values = rand_i32((N_MAIN,))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
-    mst.reset_launches()
+    registry.reset_launches()
     runs = {}
     t0 = time.perf_counter()
     for m in (2, 32, 256):
@@ -800,7 +917,7 @@ def main() -> int:
     runs["sort_kv"] = ops.radix_sort(keys, values, device=dev)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = mst.launch_counts()
+    launches = registry.launch_counts()
     peak_main = torch.cuda.max_memory_allocated() - base_mem
     log("main", f"n = {N_MAIN}: 12 multisplits, 3 histograms, 2 radix sorts in {main_s:.2f} s "
                 f"(first calls); peak device memory above the inputs {peak_main / 2**30:.2f} GiB")
@@ -875,7 +992,7 @@ def main() -> int:
     ids3_flat = torch.randint(0, 64, (n3,), dtype=torch.int32, device=dev, generator=gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mst.reset_launches()
+    registry.reset_launches()
     t0 = time.perf_counter()
     seg_runs = {}
     for method in ("bms", "dms"):
@@ -893,7 +1010,7 @@ def main() -> int:
                                               method="dms", mode="positions_only", device=dev)
     torch.cuda.synchronize()
     seg_s = time.perf_counter() - t0
-    seg_launches = mst.launch_counts()
+    seg_launches = registry.launch_counts()
     peak_seg = torch.cuda.max_memory_allocated() - base_mem
     log("segmented", f"S1 4 multisplits + positions_only + counts_only (n = 2^25, s = 64, m = 32), "
                      f"S2 2 radix sorts (s = 16), S3 routing (n = 2^20, s = 256, m = 64) in "
@@ -959,7 +1076,7 @@ def main() -> int:
     keys64 = keys.view(torch.int32).long() * 3
     spec16, spec64 = ops.DeltaSpec(16, 1 << 15), ops.DeltaSpec(256, 1 << 32)
     torch.cuda.synchronize()
-    mst.reset_launches()
+    registry.reset_launches()
     t0 = time.perf_counter()
     cruns = {}
     for method in ("wms", "bms"):
@@ -983,7 +1100,7 @@ def main() -> int:
                                                                float(1 << 32), 256), 256)
     torch.cuda.synchronize()
     callable_s = time.perf_counter() - t0
-    call_launches = mst.launch_counts()
+    call_launches = registry.launch_counts()
     log("callable", f"n = 2^25: 2 delta-stepping multisplits (m = 10, int32 distances, vertex-id "
                     f"values), 18 hash multisplits (m = 2, 32, 256), int16 and int64 keys through "
                     f"histogram and positions_only, the even-ids door: {callable_s:.2f} s "
@@ -1034,7 +1151,7 @@ def main() -> int:
     # segments, a hash into 32 buckets (m_eff = 2048)
     hash32 = hashes[32]
     torch.cuda.synchronize()
-    mst.reset_launches()
+    registry.reset_launches()
     t0 = time.perf_counter()
     sruns = {}
     for method in ("bms", "dms"):
@@ -1048,7 +1165,7 @@ def main() -> int:
                                                     device=dev)
     torch.cuda.synchronize()
     seg_call_s = time.perf_counter() - t0
-    seg_call_launches = mst.launch_counts()
+    seg_call_launches = registry.launch_counts()
     want = seg_oracle(keys, s1_starts, hash32, values)
     for (method, kv), got in [(k, v) for k, v in sruns.items() if isinstance(k, tuple)]:
         check_result(f"S1 callable {method} kv={kv}", got,
@@ -1088,12 +1205,12 @@ def main() -> int:
         family alone, check the launch counts, then every result against
         its oracle and the onehot family's result."""
         torch.cuda.synchronize()
-        mst.reset_launches()
+        registry.reset_launches()
         t0 = time.perf_counter()
         got = {what: fn("packed") for what, fn in calls.items()}
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = mst.launch_counts()
+        counts = registry.launch_counts()
         want = {name: 0 for name in counts}
         want.update(expect)
         if counts != want:
@@ -1211,12 +1328,12 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
-        mst.reset_launches()
+        registry.reset_launches()
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = mst.launch_counts()
+        counts = registry.launch_counts()
         want = {name: 0 for name in counts}
         want.update(expect)
         if counts != want:
@@ -1279,10 +1396,10 @@ def main() -> int:
         """Run ``fn`` alone with the counts at 0; its launches must be
         ``expect`` exactly. They add to the paths' counts."""
         torch.cuda.synchronize()
-        mst.reset_launches()
+        registry.reset_launches()
         res = fn()
         torch.cuda.synchronize()
-        counts = mst.launch_counts()
+        counts = registry.launch_counts()
         want = {name: 0 for name in counts}
         want.update(expect)
         if counts != want:
@@ -1439,6 +1556,35 @@ def main() -> int:
                    "and batched: bitwise equal to the fused plan, the stable-sort oracle and "
                    "radix_sort")
 
+    # ---- 5i. attention: the kernel door at the full widths A1-A3, door
+    # defaults (blocks of 256), its launches counted alone (one B11 a call, no
+    # other kernel); each result against the plain version
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    attn_runs = []
+    t0 = time.perf_counter()
+    for name, (shape, causal, _, dtypes) in ATTN.items():
+        for dt in dtypes:
+            q, k, v = attn_inputs(shape, getattr(torch, dt))
+            attn_runs.append((f"{name} {dt}", q, k, v, causal,
+                              kops.flash_attention(q, k, v, causal=causal)))
+    torch.cuda.synchronize()
+    attn_s = time.perf_counter() - t0
+    counts = registry.launch_counts()
+    launches["flash_attention"] = counts.pop("flash_attention")
+    if any(counts.values()) or launches["flash_attention"] != len(attn_runs):
+        raise AssertionError(f"attention path: flash_attention launched "
+                             f"{launches['flash_attention']} times for {len(attn_runs)} calls, "
+                             f"other kernels {counts}")
+    log("launches", f"attention path: flash_attention: {launches['flash_attention']}")
+    for what, q, k, v, causal, out in attn_runs:
+        attn_err(f"door, {what}", out, q, k, v, causal)
+    del attn_runs, q, k, v, out
+    log("attention", f"kernels.ops.flash_attention at A1 (float32, bfloat16), A1n, A2 (bfloat16, "
+                     f"float32) and A3: {len(ATTN)} shapes, {launches['flash_attention']} calls in "
+                     f"{attn_s:.2f} s (first calls), each within the limit of the plain version; "
+                     f"max abs err over phases 3h and 5i {attn_max}")
+
     for name in launches:
         if launches[name] == 0:
             raise AssertionError(f"{name} was launched on none of the paths")
@@ -1471,63 +1617,58 @@ def main() -> int:
     ids = mst.spec_bucket_ids_plain(kt, spec)
     even = ops.EvenSpec(0.0, float(1 << 32), 256)
     rows = [
-        ("spec_tile_histograms", "tile_histograms.cu", "src/repro/kernels/multisplit_tile.py:368",
+        ("spec_tile_histograms", "tile_histograms.cu",
          lambda: mst.spec_tile_histograms(kt, spec),
          lambda: mst.spec_tile_histograms_plain(kt, spec),
          4 * n + gbytes, bincount_ms),
         ("spec_fused_postscan_reorder", "fused_postscan_reorder.cu",
-         "src/repro/kernels/multisplit_tile.py:460",
          lambda: mst.spec_fused_postscan_reorder(kt, g, vt, spec),
          lambda: mst.spec_fused_postscan_reorder_plain(kt, g, vt, spec),
          8 * n + gbytes + 16 * n, sort_cid_ms),
-        ("spec_tile_positions", "tile_positions.cu", "src/repro/kernels/multisplit_tile.py:396",
+        ("spec_tile_positions", "tile_positions.cu",
          lambda: mst.spec_tile_positions(kt, g, spec),
          lambda: mst.spec_tile_positions_plain(kt, g, spec),
          4 * n + gbytes + 4 * n, sort_cid_ms),
-        ("tile_histograms", "tile_histograms.cu", "src/repro/kernels/multisplit_tile.py:94",
+        ("tile_histograms", "tile_histograms.cu",
          lambda: mst.tile_histograms(ids, m), lambda: mst.tile_histograms_plain(ids, m),
          4 * n + gbytes, bincount_ms),
         ("fused_postscan_reorder", "fused_postscan_reorder.cu",
-         "src/repro/kernels/multisplit_tile.py:168",
          lambda: mst.fused_postscan_reorder(ids, g, kt, vt, m),
          lambda: mst.fused_postscan_reorder_plain(ids, g, kt, vt, m),
          4 * n + 8 * n + gbytes + 16 * n, sort_cid_ms),
-        ("tile_positions", "tile_positions.cu", "src/repro/kernels/multisplit_tile.py:123",
+        ("tile_positions", "tile_positions.cu",
          lambda: mst.tile_positions(ids, g, m), lambda: mst.tile_positions_plain(ids, g, m),
          4 * n + gbytes + 4 * n, sort_cid_ms),
         # no single PyTorch call computes a spec's labels: library_ms is null
-        ("spec_bucket_ids", "spec_bucket_ids.cu", "src/repro/kernels/multisplit_tile.py:421",
+        ("spec_bucket_ids", "spec_bucket_ids.cu",
          lambda: mst.spec_bucket_ids(kt, even), lambda: mst.spec_bucket_ids_plain(kt, even),
          4 * n + 4 * n, None),
         # the packed family: the bytes of K1, K2 and K3 at the same shapes
         ("packed_tile_histograms", "packed_tile_histograms.cu",
-         "src/repro/kernels/multisplit_tile.py:662",
          lambda: mst.packed_tile_histograms(kt, spec=spec),
          lambda: mst.packed_tile_histograms_plain(kt, spec=spec), 4 * n + gbytes, bincount_ms),
         ("packed_fused_postscan_reorder", "packed_fused_postscan_reorder.cu",
-         "src/repro/kernels/multisplit_tile.py:772",
          lambda: mst.packed_fused_postscan_reorder(kt, g, None, vt, spec=spec),
          lambda: mst.packed_fused_postscan_reorder_plain(kt, g, None, vt, spec=spec),
          8 * n + gbytes + 16 * n, sort_cid_ms),
         ("packed_tile_positions", "packed_tile_positions.cu",
-         "src/repro/kernels/multisplit_tile.py:706",
          lambda: mst.packed_tile_positions(kt, g, spec=spec),
          lambda: mst.packed_tile_positions_plain(kt, g, spec=spec), 4 * n + gbytes + 4 * n,
          sort_cid_ms),
         # B10 key-value: ids, keys and values read; keys_r, vals_r and dest
         # written, 24 bytes a key; the yardstick is the postscans' sort
-        ("tile_reorder", "tile_reorder.cu", "src/repro/kernels/multisplit_tile.py:1061",
+        ("tile_reorder", "tile_reorder.cu",
          lambda: mst.tile_reorder(ids, kt, vt, m), lambda: mst.tile_reorder_plain(ids, kt, vt, m),
          24 * n, sort_cid_ms),
     ]
     kernels = []
-    for name, src, replaces, kern, plain, nbytes, lib_ms in rows:
+    for name, src, kern, plain, nbytes, lib_ms in rows:
         ms_k = cuda_ms(kern)
         ms_p = cuda_ms(plain, reps=3, inner=1)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
+            "replaces": registry.replaces(name), "launches": launches[name], "max_abs_err": errs[name],
             "bitwise": errs[name] == 0, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": lib_ms,
         })
@@ -1586,44 +1727,38 @@ def main() -> int:
     ids1 = mst.spec_bucket_ids_plain(kt, spec1)
     seg_rows = [
         ("seg_spec_tile_histograms", "seg_tile_histograms.cu",
-         "src/repro/kernels/multisplit_tile.py:512",
          lambda: mst.seg_spec_tile_histograms(kt, seg_main, spec1, s),
          lambda: mst.seg_spec_tile_histograms_plain(kt, seg_main, spec1, s),
          4 * n + 4 * n + hbytes, bincount1_ms),
         ("seg_spec_fused_postscan_reorder", "seg_fused_postscan_reorder.cu",
-         "src/repro/kernels/multisplit_tile.py:587",
          lambda: mst.seg_spec_fused_postscan_reorder(kt, seg_main, g1, vt, spec1, s),
          lambda: mst.seg_spec_fused_postscan_reorder_plain(kt, seg_main, g1, vt, spec1, s),
          4 * n + 4 * n + gbytes_hit + 4 * n + 16 * n, sort1_ms),
         ("seg_spec_tile_positions", "seg_tile_positions.cu",
-         "src/repro/kernels/multisplit_tile.py:544",
          lambda: mst.seg_spec_tile_positions(kt, seg_main, g1, spec1, s),
          lambda: mst.seg_spec_tile_positions_plain(kt, seg_main, g1, spec1, s),
          4 * n + 4 * n + gbytes_hit + 4 * n, sort1_ms),
         # the ids kernels on the same labels, materialised
         ("seg_tile_histograms", "seg_tile_histograms.cu",
-         "src/repro/kernels/multisplit_tile.py:227",
          lambda: mst.seg_tile_histograms(ids1, seg_main, m1, s),
          lambda: mst.seg_tile_histograms_plain(ids1, seg_main, m1, s),
          4 * n + 4 * n + hbytes, bincount1_ms),
         ("seg_fused_postscan_reorder", "seg_fused_postscan_reorder.cu",
-         "src/repro/kernels/multisplit_tile.py:303",
          lambda: mst.seg_fused_postscan_reorder(ids1, seg_main, g1, kt, vt, m1, s),
          lambda: mst.seg_fused_postscan_reorder_plain(ids1, seg_main, g1, kt, vt, m1, s),
          4 * n + 4 * n + 4 * n + gbytes_hit + 4 * n + 16 * n, sort1_ms),
         ("seg_tile_positions", "seg_tile_positions.cu",
-         "src/repro/kernels/multisplit_tile.py:259",
          lambda: mst.seg_tile_positions(ids1, seg_main, g1, m1, s),
          lambda: mst.seg_tile_positions_plain(ids1, seg_main, g1, m1, s),
          4 * n + 4 * n + gbytes_hit + 4 * n, sort1_ms),
     ]
-    for name, src, replaces, kern, plain, nbytes, lib_ms in seg_rows:
+    for name, src, kern, plain, nbytes, lib_ms in seg_rows:
         ms_k = cuda_ms(kern)
         ms_p = cuda_ms(plain, reps=3, inner=1)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
+            "replaces": registry.replaces(name), "launches": launches[name], "max_abs_err": errs[name],
             "bitwise": errs[name] == 0, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": lib_ms,
         })
@@ -1682,28 +1817,25 @@ def main() -> int:
     fkw = dict(spec=spec16, split=8)
     fused_rows = [
         ("fused2_tile_histograms", "fused2_tile_histograms.cu",
-         "src/repro/kernels/multisplit_tile.py:863",
          lambda: mst.fused2_tile_histograms(kt8, spec=spec16),
          lambda: mst.fused2_tile_histograms_plain(kt8, spec=spec16), 4 * n + h16_bytes,
          bincount16_ms),
         ("fused2_fused_postscan_reorder", "fused2_fused_postscan_reorder.cu",
-         "src/repro/kernels/multisplit_tile.py:973",
          lambda: mst.fused2_fused_postscan_reorder(kt8, g16, vt8, **fkw),
          lambda: mst.fused2_fused_postscan_reorder_plain(kt8, g16, vt8, **fkw),
          8 * n + 4 * nnz16 + 16 * n, sort16_ms),
         ("fused2_tile_positions", "fused2_tile_positions.cu",
-         "src/repro/kernels/multisplit_tile.py:909",
          lambda: mst.fused2_tile_positions(kt8, g16, **fkw),
          lambda: mst.fused2_tile_positions_plain(kt8, g16, **fkw), 4 * n + 4 * nnz16 + 4 * n,
          sort16_ms),
     ]
-    for name, src, replaces, kern, plain, nbytes, lib_ms in fused_rows:
+    for name, src, kern, plain, nbytes, lib_ms in fused_rows:
         ms_k = cuda_ms(kern)
         ms_p = cuda_ms(plain, reps=3, inner=1)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
+            "replaces": registry.replaces(name), "launches": launches[name], "max_abs_err": errs[name],
             "bitwise": errs[name] == 0, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": lib_ms,
         })
@@ -2046,9 +2178,60 @@ def main() -> int:
         f"{k} {v:.4f} ms" for k, v in stage_ms.items())
         + f"; sum {sum(stage_ms.values()):.4f} ms [{smi}]")
     del ids_u, hist_u, g_u, pos_u, src_u, pos_r_u, kb2, vb2
+
+    # B11 at A1, A1n, A2 and A3, door defaults: the kernel, its plain version
+    # and scaled_dot_product_attention on the (B, H, S, hd) view; the bounds
+    # count 4·hd flops a (q, k) pair the mask keeps and q, k, v and o moved once
+    attn_ms = {}
+    for name, dt in (("A1", "float32"), ("A1n", "float32"), ("A1", "bfloat16"),
+                     ("A2", "bfloat16"), ("A2", "float32"), ("A3", "bfloat16")):
+        (bh, s_len, hd), causal, (b_, h_), _ = ATTN[name]
+        q, k, v = attn_inputs((bh, s_len, hd), getattr(torch, dt))
+        q4, k4, v4 = (x.view(b_, h_, s_len, hd) for x in (q, k, v))
+        flops = 4 * hd * bh * (s_len * (s_len + 1) // 2 if causal else s_len * s_len)
+        nbytes = 4 * q.numel() * q.element_size()
+        ms_k = cuda_ms(lambda: kops.flash_attention(q, k, v, causal=causal))
+        ms_p = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal), reps=3, inner=1)
+        ms_lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal))
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        fp32_ms = flops / FP32_FLOPS_PER_S * 1e3
+        attn_ms[(name, dt)] = ms_k
+        target = (f"; data-sheet target of a redesign on the tensor cores: "
+                  f"{flops / TENSOR_FLOPS_PER_S * 1e3:.4f} ms at 989 TFLOP/s bf16"
+                  if dt != "float32" else "")
+        log("times", f"flash_attention {name} {dt}: {ms_k:.4f} ms; bounds: operations "
+                     f"{fp32_ms:.4f} ms ({flops / 1e9:.1f} GFLOP / 67 TFLOP/s fp32, {fp32_ms / ms_k:.1%}"
+                     f" of it), bytes {bytes_ms:.4f} ms ({nbytes / 2**20:.0f} MiB / 3.35 TB/s)"
+                     f"{target}; plain {ms_p:.2f} ms; scaled_dot_product_attention {ms_lib:.4f} ms "
+                     f"({ms_k / ms_lib:.2f}x of it) [(BH, S, hd) = {(bh, s_len, hd)}, "
+                     f"{'causal' if causal else 'not causal'}, blocks 256; {smi}]")
+        if (name, dt) == ("A1", "float32"):
+            kernels.append({
+                "name": "flash_attention", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "replaces": registry.replaces("flash_attention"),
+                "launches": launches["flash_attention"],
+                "max_abs_err": errs["flash_attention"], "bitwise": errs["flash_attention"] == 0,
+                "ms": ms_k, "plain_ms": ms_p, "bound_ms": max(fp32_ms, bytes_ms),
+                "bound_by": "operations" if fp32_ms >= bytes_ms else "bytes",
+                "library_ms": ms_lib, "shape": f"A1 {ATTN['A1'][0]} float32 causal",
+            })
+    del q, k, v, q4, k4, v4
+    ratio = attn_ms[("A1", "float32")] / attn_ms[("A1n", "float32")]
+    s_a1 = ATTN["A1"][0][1]
+    log("times", f"flash_attention causal / not causal at A1 float32: {ratio:.3f} (the causal "
+                 f"pairs are {(s_a1 + 1) / (2 * s_a1):.3f} of all; below 0.65 shows the diagonal "
+                 f"skip) [{smi}]")
+    if not ratio < 0.65:
+        raise AssertionError(f"causal / non-causal time at A1 is {ratio:.3f}, not below 0.65")
     log("times", f"peak device memory of the timed runs above the inputs: "
                  f"{(torch.cuda.max_memory_allocated() - base_mem) / 2**30:.2f} GiB")
 
+    wrappers = sorted(fn.__name__ for fn in registry.KERNELS)
+    if sorted(row["name"] for row in kernels) != wrappers:
+        raise AssertionError(f"the kernels line lists {sorted(r['name'] for r in kernels)}, "
+                             f"not the {len(wrappers)} wrappers {wrappers}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

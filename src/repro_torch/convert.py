@@ -1,17 +1,21 @@
-"""Carry bucket specs across from the JAX package.
+"""Carry bucket specs and arrays across from the JAX package.
 
 The JAX package's specs are frozen dataclasses with the same class names
 and fields as the port's. :func:`spec_from_fields` rebuilds the port's spec
 from a class name and a field dictionary, such as ``type(s).__name__`` and
 ``dataclasses.asdict(s)`` of a JAX spec, so that the tests and
-``chip_smoke.py`` hand both packages the same spec. This module imports
-nothing of the JAX package: it reads only plain values.
+``chip_smoke.py`` hand both packages the same spec. :func:`tensor_from_numpy`
+carries an array, ``np.asarray`` of a JAX array, into a tensor bit for bit.
+This module imports nothing of the JAX package: it reads only plain values.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
 
 from repro_torch.core import identifiers as _id
 
@@ -39,3 +43,15 @@ def convert_spec(spec) -> _id.BucketSpec:
     """The port's counterpart of any dataclass spec (a JAX spec included),
     read by class name and fields."""
     return spec_from_fields(type(spec).__name__, dataclasses.asdict(spec))
+
+
+def tensor_from_numpy(a: np.ndarray, device: Optional[torch.device] = None) -> torch.Tensor:
+    """A tensor with the bits of ``a``, on ``device`` (the CPU if None).
+    bfloat16, which numpy knows only through an extension type, is read by
+    its dtype's name and carried as its 16-bit words."""
+    a = np.array(a, order="C")           # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t if device is None else t.to(device)

@@ -6,10 +6,15 @@ seconds). All sources build at once, one ``nvcc`` process each, started
 together. Libraries land in ``build/repro_torch/`` at the repository root,
 named by a hash of their sources and flags, so an edited source never loads
 a stale build. A failed build raises :class:`KernelBuildError` with the
-compiler's output; nothing falls back.
+compiler's output; nothing falls back. Beside :func:`load` sit the
+helpers every wrapper launches through: :func:`on_cuda` picks the kernel or
+the plain version by the tensor's device, :func:`stream` is the current CUDA
+stream, and :func:`raise_on` turns a failed launch into
+:class:`KernelLaunchError`.
 
 The flags never include ``--use_fast_math``: EvenSpec labels need IEEE
-float32 division to match the JAX package bitwise.
+float32 division to match the JAX package bitwise, and flash attention's
+softmax takes ``expf``, not its fast approximation.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
@@ -34,6 +41,7 @@ SOURCES = (
     "packed_tile_histograms", "packed_tile_positions", "packed_fused_postscan_reorder",
     "fused2_tile_histograms", "fused2_tile_positions", "fused2_fused_postscan_reorder",
     "tile_reorder",
+    "flash_attention",
 )
 HEADERS = ("multisplit_common.cuh", "multisplit_segmented.cuh", "multisplit_packed.cuh",
            "multisplit_fused2.cuh")
@@ -91,6 +99,8 @@ ENTRY_POINTS = {
     # the standalone reorder: ids, keys, values (null when key-only), keys_r,
     # vals_r, dest, then n_tiles, T and m
     "tile_reorder": ("ms_tile_reorder", [_P] * 6 + [_I, _I, _I, _P]),
+    # attention: q, k, v and o, then BH, S, hd, causal and the dtype code
+    "flash_attention": ("ms_flash_attention", [_P] * 4 + [_I] * 5 + [_P]),
     # the ids-plane entry points of the K2 and K2s sources: m, not a label
     "fused_postscan_reorder_ids": (
         "ms_fused_postscan_reorder_ids", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -184,3 +194,27 @@ def load(name: str):
             fn.restype = ctypes.c_int
             _FNS[name] = fn
     return fn
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch returned a CUDA error."""
+
+
+def on_cuda(x: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises for any other."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"{what}: tensors must lie on the CPU or a CUDA device, got {x.device}")
+
+
+def stream(x: torch.Tensor) -> int:
+    """The handle of the current CUDA stream on ``x``'s device."""
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def raise_on(err: int, kernel: str) -> None:
+    """Raise :class:`KernelLaunchError` for a nonzero CUDA error code."""
+    if err != 0:
+        raise KernelLaunchError(f"{kernel} kernel launch failed with CUDA error {err}")

@@ -1,0 +1,118 @@
+"""Flash attention for Hopper, beside its plain version (B11).
+
+Counterpart of ``repro/kernels/flash_attention.py``: :func:`flash_attention`
+(``csrc/flash_attention.cu``) replaces ``flash_attention_pallas``
+(``flash_attention.py:76``). q, k and v are (BH, S, hd), batch and heads
+folded together, of one dtype (float32, bfloat16 or float16); the result is
+(BH, S, hd) in that dtype. Scores are fp32 (no TF32), q is scaled by
+``1/sqrt(hd)`` before the product, causal masking keeps ``q_pos >= k_pos``
+and fills -1e30, the softmax is the online one over kv blocks with fp32
+state, and the output is ``acc / max(l, 1e-30)``. There is no backward,
+as the JAX door has none.
+
+``S`` must be a multiple of ``block_q`` and of ``block_k`` (the JAX door's
+assert), on every device. The plain version walks the kv blocks of
+``block_k`` for each q block of ``block_q`` with the causal skip, as the
+Pallas kernel does; the CUDA kernel uses its own 64 x 64 tile, so on the
+card the blocks change only the order of rounding. The kernel takes head
+widths ``hd`` that are multiples of 8 up to 256; another ``hd`` raises
+``ValueError`` on a CUDA tensor.
+
+Dispatch: a CPU tensor runs :func:`flash_attention_plain`; a CUDA tensor
+launches the kernel on the current stream, counts it in
+``flash_attention.launches`` (registered with the other wrappers in
+:mod:`repro_torch.kernels`) and raises on a failed build or launch. Nothing
+falls back.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+Tensor = torch.Tensor
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+MAX_HEAD_DIM = 256
+NEG_INF = -1e30
+
+
+def _check(q: Tensor, k: Tensor, v: Tensor, block_q: int, block_k: int) -> None:
+    if q.dim() != 3:
+        raise ValueError(f"q must be (BH, S, hd), got shape {tuple(q.shape)}")
+    for x, what in ((k, "k"), (v, "v")):
+        if x.shape != q.shape:
+            raise ValueError(f"{what} has shape {tuple(x.shape)}, q {tuple(q.shape)}")
+        if x.dtype != q.dtype:
+            raise ValueError(f"{what} is {x.dtype}, q {q.dtype}")
+        if x.device != q.device:
+            raise ValueError(f"{what} lies on {x.device}, q on {q.device}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"q, k and v must be one of {tuple(DTYPES)}, got {q.dtype}")
+    s = q.shape[1]
+    if block_q < 1 or block_k < 1 or s % block_q or s % block_k:
+        raise ValueError(f"S = {s} must be a multiple of block_q = {block_q} and "
+                         f"block_k = {block_k}")
+
+
+def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
+                          block_q: int = 256, block_k: int = 256) -> Tensor:
+    """The Pallas kernel's online softmax in plain torch, fp32 throughout:
+    for each q block, the kv blocks up to the diagonal (causal) or all of
+    them. Its products are ``torch.matmul`` in float32, which on a card is
+    full fp32 while ``torch.backends.cuda.matmul.allow_tf32`` is False (the
+    default)."""
+    bh, s, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    qf, kf, vf = q.float() * scale, k.float(), v.float()
+    out = torch.empty((bh, s, hd), dtype=torch.float32, device=q.device)
+    n_kv = s // block_k
+    for qi in range(s // block_q):
+        rows = slice(qi * block_q, (qi + 1) * block_q)
+        q_blk = qf[:, rows]
+        q_pos = torch.arange(rows.start, rows.stop, device=q.device)[:, None]
+        hi = min(((qi + 1) * block_q + block_k - 1) // block_k, n_kv) if causal else n_kv
+        acc = torch.zeros((bh, block_q, hd), dtype=torch.float32, device=q.device)
+        m = torch.full((bh, block_q, 1), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((bh, block_q, 1), dtype=torch.float32, device=q.device)
+        for kj in range(hi):
+            cols = slice(kj * block_k, (kj + 1) * block_k)
+            sc = torch.matmul(q_blk, kf[:, cols].transpose(1, 2))
+            if causal:
+                k_pos = torch.arange(cols.start, cols.stop, device=q.device)[None, :]
+                sc = torch.where(q_pos >= k_pos, sc, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(dim=2, keepdim=True))
+            p = torch.exp(sc - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=2, keepdim=True)
+            acc = acc * corr + torch.matmul(p, vf[:, cols])
+            m = m_new
+        out[:, rows] = acc / torch.clamp(l, min=1e-30)
+    return out.to(q.dtype)
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
+                    block_q: int = 256, block_k: int = 256) -> Tensor:
+    """(BH, S, hd) q, k, v -> (BH, S, hd) attention output in q's dtype
+    (B11)."""
+    _check(q, k, v, block_q, block_k)
+    if not build.on_cuda(q, "flash_attention"):
+        return flash_attention_plain(q, k, v, causal, block_q, block_k)
+    bh, s, hd = q.shape
+    if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA kernel takes head widths that are multiples of 8 up to "
+                         f"{MAX_HEAD_DIM}, got hd = {hd}")
+    for x, what in ((q, "q"), (k, "k"), (v, "v")):
+        if not x.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+    o = torch.empty((bh, s, hd), dtype=q.dtype, device=q.device)
+    if o.numel():
+        fn = build.load("flash_attention")
+        build.raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, s, hd,
+                          int(bool(causal)), DTYPES[q.dtype], build.stream(q)),
+                       "flash_attention")
+        flash_attention.launches += 1
+    return o

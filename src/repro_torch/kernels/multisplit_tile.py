@@ -91,7 +91,8 @@ same function) only for a tensor on the CPU. For a CUDA tensor it launches
 the kernel on the current stream, checks the C function's return code
 (``cudaGetLastError()`` after the launch) and raises on any error; a failed
 build raises too. Nothing falls back. Each wrapper counts its launches in
-its ``launches`` attribute, incremented only where the kernel launches.
+its ``launches`` attribute, incremented only where the kernel launches;
+:mod:`repro_torch.kernels` registers the wrappers and resets the counts.
 """
 
 from __future__ import annotations
@@ -110,6 +111,7 @@ from repro_torch.core.identifiers import (
     RangeSpec,
 )
 from repro_torch.kernels import build, common
+from repro_torch.kernels.build import on_cuda, raise_on, stream
 
 Tensor = torch.Tensor
 
@@ -119,10 +121,6 @@ MAX_TILE = 8192           # K2s keeps six T-word planes in shared memory (206 KB
 KEY_KINDS = {torch.int32: 0, torch.uint32: 1, torch.float32: 2}
 _SPEC_KINDS = {DeltaSpec: 0, IdentitySpec: 1, BitfieldSpec: 2, RangeSpec: 3, EvenSpec: 4}
 _NP_PLANE = {torch.int32: np.int32, torch.uint32: np.uint32, torch.float32: np.float32}
-
-
-class KernelLaunchError(RuntimeError):
-    """A kernel launch returned a CUDA error."""
 
 
 # ---------------------------------------------------------------------------
@@ -185,15 +183,6 @@ def identity_args(m: int) -> Tuple:
     return (_SPEC_KINDS[IdentitySpec], KEY_KINDS[torch.int32], m, 0, 0, 0.0, 0.0, None, 0, 0)
 
 
-def _on_cuda(x: Tensor, what: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises for any other."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"{what}: tensors must lie on the CPU or a CUDA device, got {x.device}")
-
-
 def _check_tiles(x: Tensor, shape, what: str, dtypes=tuple(KEY_KINDS)) -> None:
     if x.dtype not in dtypes:
         raise ValueError(f"{what} must be one of {dtypes}, got {x.dtype}")
@@ -232,27 +221,8 @@ def _check_bases(g: Tensor, keys_tiled: Tensor, m: int) -> None:
         raise ValueError(f"G lies on {g.device}, keys on {keys_tiled.device}")
 
 
-def _stream(x: Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _raise_on(err: int, kernel: str) -> None:
-    if err != 0:
-        raise KernelLaunchError(f"{kernel} kernel launch failed with CUDA error {err}")
-
-
 def _ptr(x: Optional[Tensor]) -> Optional[int]:
     return None if x is None else x.data_ptr()
-
-
-def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
-    for fn in KERNELS:
-        fn.launches = 0
-
-
-def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -265,15 +235,15 @@ def spec_tile_histograms_plain(keys_tiled: Tensor, spec) -> Tensor:
 
 def spec_tile_histograms(keys_tiled: Tensor, spec) -> Tensor:
     """(L, T) keys -> (L, m) int32 per-tile histograms; labels in-kernel."""
-    if not _on_cuda(keys_tiled, "spec_tile_histograms"):
+    if not on_cuda(keys_tiled, "spec_tile_histograms"):
         return spec_tile_histograms_plain(keys_tiled, spec)
     n_tiles, t = _check_keys(keys_tiled)
     label = label_args(spec, keys_tiled.dtype, keys_tiled.device)
     hist = torch.empty((n_tiles, spec.num_buckets), dtype=torch.int32, device=keys_tiled.device)
     if n_tiles:
         fn = build.load("tile_histograms")
-        _raise_on(fn(keys_tiled.data_ptr(), hist.data_ptr(), n_tiles, t, *label,
-                     _stream(keys_tiled)), "tile_histograms")
+        raise_on(fn(keys_tiled.data_ptr(), hist.data_ptr(), n_tiles, t, *label,
+                    stream(keys_tiled)), "tile_histograms")
         spec_tile_histograms.launches += 1
     return hist
 
@@ -289,7 +259,7 @@ def spec_tile_positions_plain(keys_tiled: Tensor, g: Tensor, spec) -> Tensor:
 def spec_tile_positions(keys_tiled: Tensor, g: Tensor, spec) -> Tensor:
     """(L, T) keys + (L, m) int32 bases -> (L, T) int32 destinations
     ``G[b] + rank`` (paper eq. (2)); labels in-kernel."""
-    if not _on_cuda(keys_tiled, "spec_tile_positions"):
+    if not on_cuda(keys_tiled, "spec_tile_positions"):
         return spec_tile_positions_plain(keys_tiled, g, spec)
     n_tiles, t = _check_keys(keys_tiled)
     _check_bases(g, keys_tiled, spec.num_buckets)
@@ -297,8 +267,8 @@ def spec_tile_positions(keys_tiled: Tensor, g: Tensor, spec) -> Tensor:
     pos = torch.empty((n_tiles, t), dtype=torch.int32, device=keys_tiled.device)
     if n_tiles:
         fn = build.load("tile_positions")
-        _raise_on(fn(keys_tiled.data_ptr(), g.data_ptr(), pos.data_ptr(), n_tiles, t, *label,
-                     _stream(keys_tiled)), "tile_positions")
+        raise_on(fn(keys_tiled.data_ptr(), g.data_ptr(), pos.data_ptr(), n_tiles, t, *label,
+                    stream(keys_tiled)), "tile_positions")
         spec_tile_positions.launches += 1
     return pos
 
@@ -322,7 +292,7 @@ def spec_fused_postscan_reorder(
     vals_r, pos_r, perm): the first three stably bucket-major within each
     tile, ``pos_r`` the global destination of each reordered slot, ``perm``
     the element-order destination. Labels in-kernel."""
-    if not _on_cuda(keys_tiled, "spec_fused_postscan_reorder"):
+    if not on_cuda(keys_tiled, "spec_fused_postscan_reorder"):
         return spec_fused_postscan_reorder_plain(keys_tiled, g, values_tiled, spec)
     n_tiles, t = _check_keys(keys_tiled)
     _check_bases(g, keys_tiled, spec.num_buckets)
@@ -335,9 +305,9 @@ def spec_fused_postscan_reorder(
     perm = torch.empty_like(pos_r)
     if n_tiles:
         fn = build.load("fused_postscan_reorder")
-        _raise_on(fn(keys_tiled.data_ptr(), g.data_ptr(), _ptr(values_tiled), keys_r.data_ptr(),
-                     _ptr(vals_r), pos_r.data_ptr(), perm.data_ptr(), n_tiles, t, *label,
-                     _stream(keys_tiled)), "fused_postscan_reorder")
+        raise_on(fn(keys_tiled.data_ptr(), g.data_ptr(), _ptr(values_tiled), keys_r.data_ptr(),
+                    _ptr(vals_r), pos_r.data_ptr(), perm.data_ptr(), n_tiles, t, *label,
+                    stream(keys_tiled)), "fused_postscan_reorder")
         spec_fused_postscan_reorder.launches += 1
     return keys_r, vals_r, pos_r, perm
 
@@ -371,7 +341,7 @@ def seg_spec_tile_histograms(keys_tiled: Tensor, seg_tiled: Tensor, spec,
     """(L, T) keys + (L, T) int32 segment ids, non-decreasing along each
     tile -> (L, s·m) int32 histograms of ``cid = seg·m + b``; labels
     in-kernel."""
-    if not _on_cuda(keys_tiled, "seg_spec_tile_histograms"):
+    if not on_cuda(keys_tiled, "seg_spec_tile_histograms"):
         return seg_spec_tile_histograms_plain(keys_tiled, seg_tiled, spec, num_segments)
     n_tiles, t = _check_keys(keys_tiled)
     width = _check_segments(seg_tiled, keys_tiled, spec.num_buckets, num_segments)
@@ -379,8 +349,8 @@ def seg_spec_tile_histograms(keys_tiled: Tensor, seg_tiled: Tensor, spec,
     hist = torch.empty((n_tiles, width), dtype=torch.int32, device=keys_tiled.device)
     if n_tiles:
         fn = build.load("seg_tile_histograms")
-        _raise_on(fn(keys_tiled.data_ptr(), seg_tiled.data_ptr(), hist.data_ptr(), n_tiles, t,
-                     num_segments, *label, _stream(keys_tiled)), "seg_tile_histograms")
+        raise_on(fn(keys_tiled.data_ptr(), seg_tiled.data_ptr(), hist.data_ptr(), n_tiles, t,
+                    num_segments, *label, stream(keys_tiled)), "seg_tile_histograms")
         seg_spec_tile_histograms.launches += 1
     return hist
 
@@ -394,7 +364,7 @@ def seg_spec_tile_positions(keys_tiled: Tensor, seg_tiled: Tensor, g: Tensor, sp
                             num_segments: int) -> Tensor:
     """(L, T) keys and segment ids + (L, s·m) int32 bases -> (L, T) int32
     destinations ``G[cid] + rank`` (paper eq. (2)); labels in-kernel."""
-    if not _on_cuda(keys_tiled, "seg_spec_tile_positions"):
+    if not on_cuda(keys_tiled, "seg_spec_tile_positions"):
         return seg_spec_tile_positions_plain(keys_tiled, seg_tiled, g, spec, num_segments)
     n_tiles, t = _check_keys(keys_tiled)
     width = _check_segments(seg_tiled, keys_tiled, spec.num_buckets, num_segments)
@@ -403,8 +373,8 @@ def seg_spec_tile_positions(keys_tiled: Tensor, seg_tiled: Tensor, g: Tensor, sp
     pos = torch.empty((n_tiles, t), dtype=torch.int32, device=keys_tiled.device)
     if n_tiles:
         fn = build.load("seg_tile_positions")
-        _raise_on(fn(keys_tiled.data_ptr(), seg_tiled.data_ptr(), g.data_ptr(), pos.data_ptr(),
-                     n_tiles, t, num_segments, *label, _stream(keys_tiled)), "seg_tile_positions")
+        raise_on(fn(keys_tiled.data_ptr(), seg_tiled.data_ptr(), g.data_ptr(), pos.data_ptr(),
+                    n_tiles, t, num_segments, *label, stream(keys_tiled)), "seg_tile_positions")
         seg_spec_tile_positions.launches += 1
     return pos
 
@@ -427,7 +397,7 @@ def seg_spec_fused_postscan_reorder(
     -> (keys_r, vals_r, pos_r, perm): the contract of
     :func:`spec_fused_postscan_reorder` with the first three stably
     (segment, bucket)-major within each tile. Labels in-kernel."""
-    if not _on_cuda(keys_tiled, "seg_spec_fused_postscan_reorder"):
+    if not on_cuda(keys_tiled, "seg_spec_fused_postscan_reorder"):
         return seg_spec_fused_postscan_reorder_plain(
             keys_tiled, seg_tiled, g, values_tiled, spec, num_segments)
     n_tiles, t = _check_keys(keys_tiled)
@@ -442,10 +412,10 @@ def seg_spec_fused_postscan_reorder(
     perm = torch.empty_like(pos_r)
     if n_tiles:
         fn = build.load("seg_fused_postscan_reorder")
-        _raise_on(fn(keys_tiled.data_ptr(), seg_tiled.data_ptr(), g.data_ptr(),
-                     _ptr(values_tiled), keys_r.data_ptr(), _ptr(vals_r), pos_r.data_ptr(),
-                     perm.data_ptr(), n_tiles, t, num_segments, *label, _stream(keys_tiled)),
-                  "seg_fused_postscan_reorder")
+        raise_on(fn(keys_tiled.data_ptr(), seg_tiled.data_ptr(), g.data_ptr(),
+                    _ptr(values_tiled), keys_r.data_ptr(), _ptr(vals_r), pos_r.data_ptr(),
+                    perm.data_ptr(), n_tiles, t, num_segments, *label, stream(keys_tiled)),
+                 "seg_fused_postscan_reorder")
         seg_spec_fused_postscan_reorder.launches += 1
     return keys_r, vals_r, pos_r, perm
 
@@ -466,14 +436,14 @@ def tile_histograms_plain(ids_tiled: Tensor, num_buckets: int) -> Tensor:
 def tile_histograms(ids_tiled: Tensor, num_buckets: int) -> Tensor:
     """(L, T) int32 ids -> (L, m) int32 per-tile histograms: K1 on the ids
     strip under the identity label."""
-    if not _on_cuda(ids_tiled, "tile_histograms"):
+    if not on_cuda(ids_tiled, "tile_histograms"):
         return tile_histograms_plain(ids_tiled, num_buckets)
     n_tiles, t = _check_ids(ids_tiled, num_buckets)
     hist = torch.empty((n_tiles, num_buckets), dtype=torch.int32, device=ids_tiled.device)
     if n_tiles:
         fn = build.load("tile_histograms")
-        _raise_on(fn(ids_tiled.data_ptr(), hist.data_ptr(), n_tiles, t,
-                     *identity_args(num_buckets), _stream(ids_tiled)), "tile_histograms")
+        raise_on(fn(ids_tiled.data_ptr(), hist.data_ptr(), n_tiles, t,
+                    *identity_args(num_buckets), stream(ids_tiled)), "tile_histograms")
         tile_histograms.launches += 1
     return hist
 
@@ -485,15 +455,15 @@ def tile_positions_plain(ids_tiled: Tensor, g: Tensor, num_buckets: int) -> Tens
 def tile_positions(ids_tiled: Tensor, g: Tensor, num_buckets: int) -> Tensor:
     """(L, T) int32 ids + (L, m) int32 bases -> (L, T) int32 destinations
     ``G[b] + rank``: K3 on the ids strip."""
-    if not _on_cuda(ids_tiled, "tile_positions"):
+    if not on_cuda(ids_tiled, "tile_positions"):
         return tile_positions_plain(ids_tiled, g, num_buckets)
     n_tiles, t = _check_ids(ids_tiled, num_buckets)
     _check_bases(g, ids_tiled, num_buckets)
     pos = torch.empty((n_tiles, t), dtype=torch.int32, device=ids_tiled.device)
     if n_tiles:
         fn = build.load("tile_positions")
-        _raise_on(fn(ids_tiled.data_ptr(), g.data_ptr(), pos.data_ptr(), n_tiles, t,
-                     *identity_args(num_buckets), _stream(ids_tiled)), "tile_positions")
+        raise_on(fn(ids_tiled.data_ptr(), g.data_ptr(), pos.data_ptr(), n_tiles, t,
+                    *identity_args(num_buckets), stream(ids_tiled)), "tile_positions")
         tile_positions.launches += 1
     return pos
 
@@ -514,7 +484,7 @@ def fused_postscan_reorder(
     (keys_r, vals_r, pos_r, perm), the contract of
     :func:`spec_fused_postscan_reorder` with the labels read from the ids
     strip: K2's ids entry point."""
-    if not _on_cuda(ids_tiled, "fused_postscan_reorder"):
+    if not on_cuda(ids_tiled, "fused_postscan_reorder"):
         return fused_postscan_reorder_plain(ids_tiled, g, keys_tiled, values_tiled, num_buckets)
     n_tiles, t = _check_ids(ids_tiled, num_buckets)
     _check_bases(g, ids_tiled, num_buckets)
@@ -527,9 +497,9 @@ def fused_postscan_reorder(
     perm = torch.empty_like(pos_r)
     if n_tiles:
         fn = build.load("fused_postscan_reorder_ids")
-        _raise_on(fn(ids_tiled.data_ptr(), g.data_ptr(), keys_tiled.data_ptr(), _ptr(values_tiled),
-                     keys_r.data_ptr(), _ptr(vals_r), pos_r.data_ptr(), perm.data_ptr(), n_tiles,
-                     t, num_buckets, _stream(ids_tiled)), "fused_postscan_reorder (ids)")
+        raise_on(fn(ids_tiled.data_ptr(), g.data_ptr(), keys_tiled.data_ptr(), _ptr(values_tiled),
+                    keys_r.data_ptr(), _ptr(vals_r), pos_r.data_ptr(), perm.data_ptr(), n_tiles,
+                    t, num_buckets, stream(ids_tiled)), "fused_postscan_reorder (ids)")
         fused_postscan_reorder.launches += 1
     return keys_r, vals_r, pos_r, perm
 
@@ -545,16 +515,16 @@ def seg_tile_histograms(ids_tiled: Tensor, seg_tiled: Tensor, num_buckets: int,
     """(L, T) int32 ids + (L, T) int32 segment ids, non-decreasing along
     each tile -> (L, s·m) int32 histograms of ``cid = seg·m + id``: K1s on
     the ids strip."""
-    if not _on_cuda(ids_tiled, "seg_tile_histograms"):
+    if not on_cuda(ids_tiled, "seg_tile_histograms"):
         return seg_tile_histograms_plain(ids_tiled, seg_tiled, num_buckets, num_segments)
     n_tiles, t = _check_ids(ids_tiled, num_buckets)
     width = _check_segments(seg_tiled, ids_tiled, num_buckets, num_segments)
     hist = torch.empty((n_tiles, width), dtype=torch.int32, device=ids_tiled.device)
     if n_tiles:
         fn = build.load("seg_tile_histograms")
-        _raise_on(fn(ids_tiled.data_ptr(), seg_tiled.data_ptr(), hist.data_ptr(), n_tiles, t,
-                     num_segments, *identity_args(num_buckets), _stream(ids_tiled)),
-                  "seg_tile_histograms")
+        raise_on(fn(ids_tiled.data_ptr(), seg_tiled.data_ptr(), hist.data_ptr(), n_tiles, t,
+                    num_segments, *identity_args(num_buckets), stream(ids_tiled)),
+                 "seg_tile_histograms")
         seg_tile_histograms.launches += 1
     return hist
 
@@ -569,7 +539,7 @@ def seg_tile_positions(ids_tiled: Tensor, seg_tiled: Tensor, g: Tensor, num_buck
                        num_segments: int) -> Tensor:
     """(L, T) int32 ids and segment ids + (L, s·m) int32 bases -> (L, T)
     int32 destinations ``G[cid] + rank``: K3s on the ids strip."""
-    if not _on_cuda(ids_tiled, "seg_tile_positions"):
+    if not on_cuda(ids_tiled, "seg_tile_positions"):
         return seg_tile_positions_plain(ids_tiled, seg_tiled, g, num_buckets, num_segments)
     n_tiles, t = _check_ids(ids_tiled, num_buckets)
     width = _check_segments(seg_tiled, ids_tiled, num_buckets, num_segments)
@@ -577,9 +547,9 @@ def seg_tile_positions(ids_tiled: Tensor, seg_tiled: Tensor, g: Tensor, num_buck
     pos = torch.empty((n_tiles, t), dtype=torch.int32, device=ids_tiled.device)
     if n_tiles:
         fn = build.load("seg_tile_positions")
-        _raise_on(fn(ids_tiled.data_ptr(), seg_tiled.data_ptr(), g.data_ptr(), pos.data_ptr(),
-                     n_tiles, t, num_segments, *identity_args(num_buckets), _stream(ids_tiled)),
-                  "seg_tile_positions")
+        raise_on(fn(ids_tiled.data_ptr(), seg_tiled.data_ptr(), g.data_ptr(), pos.data_ptr(),
+                    n_tiles, t, num_segments, *identity_args(num_buckets), stream(ids_tiled)),
+                 "seg_tile_positions")
         seg_tile_positions.launches += 1
     return pos
 
@@ -599,7 +569,7 @@ def seg_fused_postscan_reorder(
     """(L, T) int32 ids and segment ids, (L, s·m) int32 bases, (L, T) keys
     [+ values] -> the contract of :func:`seg_spec_fused_postscan_reorder`
     with the labels read from the ids strip: K2s's ids entry point."""
-    if not _on_cuda(ids_tiled, "seg_fused_postscan_reorder"):
+    if not on_cuda(ids_tiled, "seg_fused_postscan_reorder"):
         return seg_fused_postscan_reorder_plain(ids_tiled, seg_tiled, g, keys_tiled, values_tiled,
                                                 num_buckets, num_segments)
     n_tiles, t = _check_ids(ids_tiled, num_buckets)
@@ -614,10 +584,10 @@ def seg_fused_postscan_reorder(
     perm = torch.empty_like(pos_r)
     if n_tiles:
         fn = build.load("seg_fused_postscan_reorder_ids")
-        _raise_on(fn(ids_tiled.data_ptr(), seg_tiled.data_ptr(), g.data_ptr(),
-                     keys_tiled.data_ptr(), _ptr(values_tiled), keys_r.data_ptr(), _ptr(vals_r),
-                     pos_r.data_ptr(), perm.data_ptr(), n_tiles, t, num_segments, num_buckets,
-                     _stream(ids_tiled)), "seg_fused_postscan_reorder (ids)")
+        raise_on(fn(ids_tiled.data_ptr(), seg_tiled.data_ptr(), g.data_ptr(),
+                    keys_tiled.data_ptr(), _ptr(values_tiled), keys_r.data_ptr(), _ptr(vals_r),
+                    pos_r.data_ptr(), perm.data_ptr(), n_tiles, t, num_segments, num_buckets,
+                    stream(ids_tiled)), "seg_fused_postscan_reorder (ids)")
         seg_fused_postscan_reorder.launches += 1
     return keys_r, vals_r, pos_r, perm
 
@@ -640,7 +610,7 @@ def tile_reorder(
     keys and values stably bucket-major within each tile, and ``dest``
     (L, T) int32, each element's destination inside its tile. No bases G,
     no global destination (B10)."""
-    if not _on_cuda(ids_tiled, "tile_reorder"):
+    if not on_cuda(ids_tiled, "tile_reorder"):
         return tile_reorder_plain(ids_tiled, keys_tiled, values_tiled, num_buckets)
     n_tiles, t = _check_ids(ids_tiled, num_buckets)
     _check_beside(keys_tiled, ids_tiled, "keys")
@@ -651,9 +621,9 @@ def tile_reorder(
     dest = torch.empty((n_tiles, t), dtype=torch.int32, device=ids_tiled.device)
     if n_tiles:
         fn = build.load("tile_reorder")
-        _raise_on(fn(ids_tiled.data_ptr(), keys_tiled.data_ptr(), _ptr(values_tiled),
-                     keys_r.data_ptr(), _ptr(vals_r), dest.data_ptr(), n_tiles, t, num_buckets,
-                     _stream(ids_tiled)), "tile_reorder")
+        raise_on(fn(ids_tiled.data_ptr(), keys_tiled.data_ptr(), _ptr(values_tiled),
+                    keys_r.data_ptr(), _ptr(vals_r), dest.data_ptr(), n_tiles, t, num_buckets,
+                    stream(ids_tiled)), "tile_reorder")
         tile_reorder.launches += 1
     return keys_r, vals_r, dest
 
@@ -669,15 +639,15 @@ def spec_bucket_ids_plain(keys_tiled: Tensor, spec) -> Tensor:
 def spec_bucket_ids(keys_tiled: Tensor, spec) -> Tensor:
     """(L, T) keys -> (L, T) int32 labels of a declarative spec, bitwise
     the labels K1-K3 compute in-register."""
-    if not _on_cuda(keys_tiled, "spec_bucket_ids"):
+    if not on_cuda(keys_tiled, "spec_bucket_ids"):
         return spec_bucket_ids_plain(keys_tiled, spec)
     n_tiles, t = _check_keys(keys_tiled)
     label = label_args(spec, keys_tiled.dtype, keys_tiled.device)
     ids = torch.empty((n_tiles, t), dtype=torch.int32, device=keys_tiled.device)
     if n_tiles:
         fn = build.load("spec_bucket_ids")
-        _raise_on(fn(keys_tiled.data_ptr(), ids.data_ptr(), n_tiles, t, *label,
-                     _stream(keys_tiled)), "spec_bucket_ids")
+        raise_on(fn(keys_tiled.data_ptr(), ids.data_ptr(), n_tiles, t, *label,
+                    stream(keys_tiled)), "spec_bucket_ids")
         spec_bucket_ids.launches += 1
     return ids
 
@@ -771,7 +741,7 @@ def packed_tile_histograms(
     """(L, T) keys (labels from ``spec`` in the kernel) or int32 ids (with
     ``num_buckets``) [+ (L, T) segment ids, non-decreasing along each tile]
     -> (L, s·m) int32 tile histograms from packed 8-bit counters (K1p)."""
-    if not _on_cuda(tiled, "packed_tile_histograms"):
+    if not on_cuda(tiled, "packed_tile_histograms"):
         return packed_tile_histograms_plain(
             tiled, seg_tiled, num_buckets=num_buckets, spec=spec, num_segments=num_segments,
             bits=bits, subtile=subtile)
@@ -780,8 +750,8 @@ def packed_tile_histograms(
     hist = torch.empty((n_tiles, width), dtype=torch.int32, device=tiled.device)
     if n_tiles:
         fn = build.load("packed_tile_histograms")
-        _raise_on(fn(_ptr(keys), _ptr(ids), _ptr(seg_tiled), hist.data_ptr(), n_tiles, t,
-                     num_segments, sub, *label, _stream(tiled)), "packed_tile_histograms")
+        raise_on(fn(_ptr(keys), _ptr(ids), _ptr(seg_tiled), hist.data_ptr(), n_tiles, t,
+                    num_segments, sub, *label, stream(tiled)), "packed_tile_histograms")
         packed_tile_histograms.launches += 1
     return hist
 
@@ -803,7 +773,7 @@ def packed_tile_positions(
     """(L, T) keys or ids [+ segment ids] and (L, s·m) int32 bases ->
     (L, T) int32 destinations ``G[cid] + rank`` (paper eq. (2)) on the
     two-level packed rank (K3p)."""
-    if not _on_cuda(tiled, "packed_tile_positions"):
+    if not on_cuda(tiled, "packed_tile_positions"):
         return packed_tile_positions_plain(
             tiled, g, seg_tiled, num_buckets=num_buckets, spec=spec, num_segments=num_segments,
             bits=bits, subtile=subtile)
@@ -813,9 +783,9 @@ def packed_tile_positions(
     pos = torch.empty((n_tiles, t), dtype=torch.int32, device=tiled.device)
     if n_tiles:
         fn = build.load("packed_tile_positions")
-        _raise_on(fn(_ptr(keys), _ptr(ids), _ptr(seg_tiled), g.data_ptr(), pos.data_ptr(),
-                     n_tiles, t, num_segments, sub, *label, _stream(tiled)),
-                  "packed_tile_positions")
+        raise_on(fn(_ptr(keys), _ptr(ids), _ptr(seg_tiled), g.data_ptr(), pos.data_ptr(),
+                    n_tiles, t, num_segments, sub, *label, stream(tiled)),
+                 "packed_tile_positions")
         packed_tile_positions.launches += 1
     return pos
 
@@ -842,7 +812,7 @@ def packed_fused_postscan_reorder(
     segmented form) on the two-level packed rank (K2p). ``tiled`` is the key
     strip (labels from ``spec``) or an ids strip, with the words to move in
     ``keys_tiled`` beside it."""
-    if not _on_cuda(tiled, "packed_fused_postscan_reorder"):
+    if not on_cuda(tiled, "packed_fused_postscan_reorder"):
         return packed_fused_postscan_reorder_plain(
             tiled, g, keys_tiled, values_tiled, seg_tiled, num_buckets=num_buckets, spec=spec,
             num_segments=num_segments, bits=bits, subtile=subtile)
@@ -859,10 +829,10 @@ def packed_fused_postscan_reorder(
     perm = torch.empty_like(pos_r)
     if n_tiles:
         fn = build.load("packed_fused_postscan_reorder")
-        _raise_on(fn(keys.data_ptr(), _ptr(ids), _ptr(seg_tiled), g.data_ptr(),
-                     _ptr(values_tiled), keys_r.data_ptr(), _ptr(vals_r), pos_r.data_ptr(),
-                     perm.data_ptr(), n_tiles, t, num_segments, sub, *label, _stream(tiled)),
-                  "packed_fused_postscan_reorder")
+        raise_on(fn(keys.data_ptr(), _ptr(ids), _ptr(seg_tiled), g.data_ptr(),
+                    _ptr(values_tiled), keys_r.data_ptr(), _ptr(vals_r), pos_r.data_ptr(),
+                    perm.data_ptr(), n_tiles, t, num_segments, sub, *label, stream(tiled)),
+                 "packed_fused_postscan_reorder")
         packed_fused_postscan_reorder.launches += 1
     return keys_r, vals_r, pos_r, perm
 
@@ -923,16 +893,16 @@ def fused2_tile_histograms(keys_tiled: Tensor, seg_tiled: Optional[Tensor] = Non
     """(L, T) integer keys [+ (L, T) segment ids, non-decreasing along each
     tile] -> (L, s·m²) int32 histograms of the cell ``seg·m² + pair``, the
     pair the ``spec.bits`` wide BitfieldSpec digit (K1f)."""
-    if not _on_cuda(keys_tiled, "fused2_tile_histograms"):
+    if not on_cuda(keys_tiled, "fused2_tile_histograms"):
         return fused2_tile_histograms_plain(keys_tiled, seg_tiled, spec=spec,
                                             num_segments=num_segments)
     n_tiles, t, width, _ = _fused2_launch_args(keys_tiled, seg_tiled, spec, num_segments)
     hist = torch.empty((n_tiles, width), dtype=torch.int32, device=keys_tiled.device)
     if n_tiles:
         fn = build.load("fused2_tile_histograms")
-        _raise_on(fn(keys_tiled.data_ptr(), _ptr(seg_tiled), hist.data_ptr(), n_tiles, t,
-                     num_segments, spec.shift, spec.bits, _stream(keys_tiled)),
-                  "fused2_tile_histograms")
+        raise_on(fn(keys_tiled.data_ptr(), _ptr(seg_tiled), hist.data_ptr(), n_tiles, t,
+                    num_segments, spec.shift, spec.bits, stream(keys_tiled)),
+                 "fused2_tile_histograms")
         fused2_tile_histograms.launches += 1
     return hist
 
@@ -955,7 +925,7 @@ def fused2_tile_positions(
     (L, T) int32 element-order destinations ``G[seg·m² + pair] + rank``
     over the pair (K3f). The result depends on neither ``split``,
     ``family`` nor ``sub_bits``."""
-    if not _on_cuda(keys_tiled, "fused2_tile_positions"):
+    if not on_cuda(keys_tiled, "fused2_tile_positions"):
         return fused2_tile_positions_plain(
             keys_tiled, g, seg_tiled, spec=spec, split=split, num_segments=num_segments,
             family=family, sub_bits=sub_bits)
@@ -965,9 +935,9 @@ def fused2_tile_positions(
     pos = torch.empty((n_tiles, t), dtype=torch.int32, device=keys_tiled.device)
     if n_tiles:
         fn = build.load("fused2_tile_positions")
-        _raise_on(fn(keys_tiled.data_ptr(), _ptr(seg_tiled), g.data_ptr(), pos.data_ptr(), n_tiles,
-                     t, num_segments, spec.shift, spec.bits, sub, int(family == "packed"),
-                     _stream(keys_tiled)), "fused2_tile_positions")
+        raise_on(fn(keys_tiled.data_ptr(), _ptr(seg_tiled), g.data_ptr(), pos.data_ptr(), n_tiles,
+                    t, num_segments, spec.shift, spec.bits, sub, int(family == "packed"),
+                    stream(keys_tiled)), "fused2_tile_positions")
         fused2_tile_positions.launches += 1
     return pos
 
@@ -993,7 +963,7 @@ def fused2_fused_postscan_reorder(
     segment ids] -> (keys_r, vals_r, pos_r, perm), the reorder contract of
     :func:`spec_fused_postscan_reorder` over the pair: two radix digits a
     tile, the first three stably (seg, pair)-major (K2f)."""
-    if not _on_cuda(keys_tiled, "fused2_fused_postscan_reorder"):
+    if not on_cuda(keys_tiled, "fused2_fused_postscan_reorder"):
         return fused2_fused_postscan_reorder_plain(
             keys_tiled, g, values_tiled, seg_tiled, spec=spec, split=split,
             num_segments=num_segments, family=family, sub_bits=sub_bits)
@@ -1008,22 +978,9 @@ def fused2_fused_postscan_reorder(
     perm = torch.empty_like(pos_r)
     if n_tiles:
         fn = build.load("fused2_fused_postscan_reorder")
-        _raise_on(fn(keys_tiled.data_ptr(), _ptr(seg_tiled), g.data_ptr(), _ptr(values_tiled),
-                     keys_r.data_ptr(), _ptr(vals_r), pos_r.data_ptr(), perm.data_ptr(), n_tiles,
-                     t, num_segments, spec.shift, spec.bits, sub, int(family == "packed"),
-                     _stream(keys_tiled)), "fused2_fused_postscan_reorder")
+        raise_on(fn(keys_tiled.data_ptr(), _ptr(seg_tiled), g.data_ptr(), _ptr(values_tiled),
+                    keys_r.data_ptr(), _ptr(vals_r), pos_r.data_ptr(), perm.data_ptr(), n_tiles,
+                    t, num_segments, spec.shift, spec.bits, sub, int(family == "packed"),
+                    stream(keys_tiled)), "fused2_fused_postscan_reorder")
         fused2_fused_postscan_reorder.launches += 1
     return keys_r, vals_r, pos_r, perm
-
-
-KERNELS = (
-    spec_tile_histograms, spec_fused_postscan_reorder, spec_tile_positions,
-    seg_spec_tile_histograms, seg_spec_fused_postscan_reorder, seg_spec_tile_positions,
-    tile_histograms, fused_postscan_reorder, tile_positions,
-    seg_tile_histograms, seg_fused_postscan_reorder, seg_tile_positions,
-    spec_bucket_ids,
-    packed_tile_histograms, packed_fused_postscan_reorder, packed_tile_positions,
-    fused2_tile_histograms, fused2_fused_postscan_reorder, fused2_tile_positions,
-    tile_reorder,
-)
-reset_launches()

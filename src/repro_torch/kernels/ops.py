@@ -1,10 +1,14 @@
-"""The kernel doors the pipeline calls (counterpart of
-``repro/kernels/ops.py:72-92, 95-107, 129-340, 346-450``).
+"""The kernel doors (counterpart of ``repro/kernels/ops.py``), one for
+each public function there, with its parameters less ``interpret`` and
+``oblivious``, which choose how a TPU runs a kernel body and not what it
+computes.
 
-Each door takes tiled tensors and a declarative spec, or a materialised
-int32 ids strip and the number of buckets, and dispatches on the tensors'
-device through the wrappers of :mod:`repro_torch.kernels.multisplit_tile`:
-the CUDA kernel for a CUDA tensor, the plain version for a CPU one.
+Each multisplit door takes tiled tensors and a declarative spec, or a
+materialised int32 ids strip and the number of buckets, and dispatches on
+the tensors' device through the wrappers of
+:mod:`repro_torch.kernels.multisplit_tile`; :func:`flash_attention` does
+the same through :mod:`repro_torch.kernels.flash_attention`: the CUDA
+kernel for a CUDA tensor, the plain version for a CPU one.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.identifiers import EvenSpec
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import multisplit_tile as _mst
 from repro_torch.kernels import radix_pass as _radix
 
@@ -182,6 +187,23 @@ def fused2_fused_postscan_reorder(
         num_segments=num_segments, family=family, sub_bits=sub_bits)
 
 
+# -- one radix pass: the digit ``(u >> shift) & (2^bits - 1)`` as the label
+
+
+def radix_tile_histograms(keys_tiled: Tensor, shift: int, bits: int) -> Tensor:
+    return _radix.radix_tile_histograms(keys_tiled, shift, bits)
+
+
+def radix_tile_positions(keys_tiled: Tensor, g: Tensor, shift: int, bits: int) -> Tensor:
+    return _radix.radix_tile_positions(keys_tiled, g, shift, bits)
+
+
+def radix_fused_postscan_reorder(
+    keys_tiled: Tensor, g: Tensor, values_tiled: Optional[Tensor], shift: int, bits: int,
+) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
+    return _radix.radix_fused_postscan_reorder(keys_tiled, g, values_tiled, shift, bits)
+
+
 def seg_radix_tile_histograms(
     keys_tiled: Tensor, seg_tiled: Tensor, shift: int, bits: int, num_segments: int
 ) -> Tensor:
@@ -201,3 +223,13 @@ def seg_radix_fused_postscan_reorder(
     return _radix.seg_radix_fused_postscan_reorder(
         keys_tiled, seg_tiled, g, values_tiled, shift, bits, num_segments
     )
+
+
+# -- attention
+
+
+def flash_attention(
+    q: Tensor, k: Tensor, v: Tensor, causal: bool = True, block_q: int = 256, block_k: int = 256,
+) -> Tensor:
+    """(BH, S, hd) q, k, v -> (BH, S, hd) online-softmax attention (B11)."""
+    return _fa.flash_attention(q, k, v, causal=causal, block_q=block_q, block_k=block_k)

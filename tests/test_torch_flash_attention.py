@@ -1,0 +1,183 @@
+"""Flash attention (B11): the port's door against the JAX door.
+
+On the CPU the door ``repro_torch.kernels.ops.flash_attention`` runs the
+plain version, so these tests hold it against
+``repro.kernels.ops.flash_attention`` in Pallas interpret mode (as
+``tests/test_kernels.py`` runs it) and against the JAX oracle, on the same
+numpy inputs, at the JAX tests' tolerances: 2e-4 in float32, 5e-2 in
+bfloat16. Both sides compute in float32 from the same inputs, so a bfloat16
+or float16 result is held within one unit in its last place as well. The
+CUDA kernel is held against the plain version on the card by
+``chip_smoke.py``."""
+
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jkops
+from repro.kernels import ref as jref
+import repro_torch.kernels as kernels
+from repro_torch.convert import tensor_from_numpy
+from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops as tkops
+from repro_torch.kernels import ref as tref
+
+CSRC = Path(fa.__file__).resolve().parent / "csrc"
+
+
+def _qkv(bh, s, hd, seed, bf16=False):
+    """q, k, v float32 arrays; for bf16 the float32 values of bf16-rounded
+    ones, so that both sides start from the same numbers."""
+    rng = np.random.RandomState(seed)
+    arrs = [rng.randn(bh, s, hd).astype(np.float32) for _ in range(3)]
+    if bf16:
+        arrs = [np.array(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32)) for a in arrs]
+    return arrs
+
+
+# mantissa bits of the half-precision outputs
+MANTISSA = {torch.bfloat16: 7, torch.float16: 10}
+
+
+def _assert_within_one_ulp(got: torch.Tensor, want: np.ndarray):
+    """``got`` (bfloat16 or float16) within the JAX tests' 5e-2 and within
+    one unit in the last place of the larger of each pair, plus 1e-5 for the
+    float32 rounding the two sides may differ by."""
+    g = got.float().numpy()
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(g, want, atol=5e-2)
+    limit = 2.0 ** -MANTISSA[got.dtype] * np.maximum(np.abs(g), np.abs(want)) + 1e-5
+    assert (np.abs(g - want) <= limit).all(), np.abs(g - want).max()
+
+
+# the four parametrisations of tests/test_kernels.py, and one non-causal
+# case at danube's head width with block_k > block_q
+@pytest.mark.parametrize("s,hd,causal,bq,bk", [
+    (256, 64, True, 64, 64),
+    (512, 128, True, 128, 64),
+    (256, 64, False, 64, 128),
+    (512, 32, True, 256, 256),
+    (256, 80, False, 64, 256),
+])
+def test_door_vs_pallas_float32(s, hd, causal, bq, bk):
+    q, k, v = _qkv(3, s, hd, s + hd)
+    want = jkops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                                 block_q=bq, block_k=bk)
+    got = tkops.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                causal=causal, block_q=bq, block_k=bk)
+    assert got.dtype == torch.float32 and got.shape == (3, s, hd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
+
+
+def test_door_vs_pallas_bfloat16():
+    q, k, v = _qkv(2, 256, 64, 0, bf16=True)
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    want = jkops.flash_attention(jq, jk, jv, causal=True, block_q=64, block_k=64)
+    got = tkops.flash_attention(*(tensor_from_numpy(np.asarray(a)) for a in (jq, jk, jv)),
+                                causal=True, block_q=64, block_k=64)
+    assert got.dtype == torch.bfloat16
+    _assert_within_one_ulp(got, want)
+    _assert_within_one_ulp(got, jref.flash_attention_ref(jq, jk, jv, causal=True))
+
+
+def test_bfloat16_output_crosses_bitwise():
+    """``tensor_from_numpy`` carries a bf16 JAX result into the port with its
+    bits, so the port's ops can start from the JAX package's state."""
+    q, k, v = _qkv(2, 128, 32, 1, bf16=True)
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    out = np.asarray(jref.flash_attention_ref(jq, jk, jv, causal=False))
+    t = tensor_from_numpy(out)
+    assert t.dtype == torch.bfloat16 and t.shape == out.shape
+    np.testing.assert_array_equal(t.view(torch.int16).numpy(), out.view(np.int16))
+    f = tensor_from_numpy(np.asarray(jnp.asarray(q)), device="cpu")
+    assert f.dtype == torch.float32 and torch.equal(f, torch.from_numpy(q))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,hd", [(128, 64), (96, 80)])
+def test_ref_vs_jax_ref(s, hd, causal):
+    q, k, v = _qkv(2, s, hd, s * hd)
+    want = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
+    got = tref.flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                   causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,hd,blocks", [
+    (256, 64, ((64, 64), (128, 64), (64, 128), (256, 256))),
+    (96, 40, ((24, 24), (32, 96), (96, 16))),
+])
+def test_plain_vs_ref_any_blocks(s, hd, blocks, causal):
+    """The plain version equals the naive oracle, and its blocks change only
+    the fp32 rounding."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(3, s, hd, 7))
+    want = tref.flash_attention_ref(q, k, v, causal=causal)
+    outs = [fa.flash_attention_plain(q, k, v, causal, bq, bk) for bq, bk in blocks]
+    for out in outs:
+        torch.testing.assert_close(out, want, atol=2e-4, rtol=0)
+        torch.testing.assert_close(out, outs[0], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_plain_low_precision_in_and_out(dtype):
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(2, 64, 32, 3))
+    out = tkops.flash_attention(q, k, v, block_q=32, block_k=16)
+    assert out.dtype == dtype
+    _assert_within_one_ulp(out, tref.flash_attention_ref(q, k, v).float().numpy())
+
+
+def _t(shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("args,kw,match", [
+    ((_t((2, 100, 8)),) * 3, dict(block_q=64, block_k=50), "multiple of block_q"),
+    ((_t((2, 128, 8)),) * 3, dict(block_q=64, block_k=96), "multiple of block_q"),
+    ((_t((2, 128, 8)),) * 3, dict(block_q=0), "multiple of block_q"),
+    ((_t((2, 64, 8)), _t((2, 32, 8)), _t((2, 64, 8))), {}, "k has shape"),
+    ((_t((2, 64, 8)), _t((2, 64, 8)), _t((1, 64, 8))), {}, "v has shape"),
+    ((_t((2, 64, 8)), _t((2, 64, 8), torch.bfloat16), _t((2, 64, 8))), {}, "k is torch.bfloat16"),
+    ((_t((2, 64, 8), torch.int32),) * 3, {}, "must be one of"),
+    ((_t((64, 8)),) * 3, {}, r"\(BH, S, hd\)"),
+], ids=["s-not-block_k", "s-not-block_k-larger", "zero-block", "k-shape", "v-shape", "k-dtype",
+        "int-dtype", "two-dims"])
+def test_door_rejects(args, kw, match):
+    with pytest.raises(ValueError, match=match):
+        tkops.flash_attention(*args, **kw)
+
+
+def test_cpu_takes_the_plain_version_and_counts_no_launch():
+    kernels.reset_launches()
+    q = torch.randn(1, 16, 8)
+    assert torch.equal(fa.flash_attention(q, q, q, block_q=8, block_k=8),
+                       fa.flash_attention_plain(q, q, q, True, 8, 8))
+    assert fa.flash_attention.launches == 0
+    assert fa.flash_attention in kernels.KERNELS
+    assert kernels.replaces("flash_attention") == "src/repro/kernels/flash_attention.py:76"
+
+
+def test_other_devices_raise():
+    q = torch.empty((1, 16, 8), device="meta")
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        fa.flash_attention(q, q, q, block_q=8, block_k=8)
+
+
+def test_kernel_source_carries_its_note():
+    """The source names the Pallas function it replaces and its bound, uses
+    the accurate ``expf``, and declares its ctypes entry point."""
+    text = (CSRC / "flash_attention.cu").read_text()
+    for name in ("flash_attention_pallas (src/repro/kernels/flash_attention.py:76)",
+                 "flash_attention_ref (src/repro/kernels/ref.py:110)",
+                 "Bound: operations", "TFLOP/s", "3.35 TB/s"):
+        assert name in text
+    assert "__expf" not in text and re.search(r"\bexpf\(", text)
+    symbol, argtypes = build.ENTRY_POINTS["flash_attention"]
+    assert f'extern "C" int {symbol}(' in text and len(argtypes) == 10
+    assert "flash_attention" in build.SOURCES
+    assert "--use_fast_math" not in build.NVCC_FLAGS

@@ -20,7 +20,9 @@ from repro.kernels import ops as jkops
 from repro_torch.convert import convert_spec
 from repro_torch.core import identifiers as tid
 from repro_torch.core.pipeline.stages import global_scan
-from repro_torch.kernels import build, common, multisplit_tile as mst, ops as tkops, radix_pass
+import repro_torch.kernels as kernels
+from repro_torch.kernels import build, common, flash_attention, multisplit_tile as mst, ops as tkops
+from repro_torch.kernels import radix_pass
 
 CSRC = Path(mst.__file__).resolve().parent / "csrc"
 
@@ -192,7 +194,7 @@ def test_radix_doors_are_bitfield_instances():
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
-    mst.reset_launches()
+    kernels.reset_launches()
     keys = torch.arange(512, dtype=torch.int32).view(2, 256)
     spec = tid.DeltaSpec(4, 512)
     g = global_scan(mst.spec_tile_histograms(keys, spec))
@@ -216,7 +218,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     mst.fused2_fused_postscan_reorder(keys, g2, keys, spec=pair, split=3, family="packed")
     mst.tile_reorder(ids, keys, keys, 4)
     mst.tile_reorder(ids, keys, None, 4)
-    assert mst.launch_counts() == {
+    assert kernels.launch_counts() == {
         "spec_tile_histograms": 0, "spec_fused_postscan_reorder": 0, "spec_tile_positions": 0,
         "seg_spec_tile_histograms": 0, "seg_spec_fused_postscan_reorder": 0,
         "seg_spec_tile_positions": 0, "tile_histograms": 0, "fused_postscan_reorder": 0,
@@ -224,7 +226,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
         "seg_tile_positions": 0, "spec_bucket_ids": 0, "packed_tile_histograms": 0,
         "packed_fused_postscan_reorder": 0, "packed_tile_positions": 0,
         "fused2_tile_histograms": 0, "fused2_fused_postscan_reorder": 0,
-        "fused2_tile_positions": 0, "tile_reorder": 0,
+        "fused2_tile_positions": 0, "tile_reorder": 0, "flash_attention": 0,
     }
 
 
@@ -365,10 +367,11 @@ def test_build_flags_and_missing_nvcc(monkeypatch, tmp_path):
 def test_kernel_modules_defer_cuda_work_to_the_launch():
     """Importing the kernel modules builds nothing: nvcc and ctypes loading
     happen inside ``build.load``, called only where a kernel launches."""
-    tree = ast.parse(Path(mst.__file__).read_text())
-    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
-             and isinstance(n.func, ast.Attribute) and n.func.attr == "load"]
-    assert len(calls) == len(mst.KERNELS) == 20
-    assert len(build.SOURCES) == 14
+    calls = [n for mod in (mst, flash_attention)
+             for n in ast.walk(ast.parse(Path(mod.__file__).read_text()))
+             if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+             and n.func.attr == "load"]
+    assert len(calls) == len(kernels.KERNELS) == 21
+    assert len(build.SOURCES) == 15
     assert set(build.ENTRY_POINTS) == set(build.SOURCES) | set(build.ENTRY_SOURCE)
     assert not build._FNS
