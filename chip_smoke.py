@@ -45,14 +45,22 @@ Phases, one line or more each, every one of which must pass:
    4096, m = 256, the destinations riding as the values too), m in {1, 2,
    7, 32, 255, 256}, tiles of 1 to ``MAX_TILE`` keys and ragged ones,
    int32 / uint32 / float32 keys with NaN and inf, ids outside [0, m).
-   B11, flash attention, against its plain version in the working dtype:
+   B11, flash attention, against its plain version in the working dtype,
+   both routes (float32 on the CUDA cores, ``flash_attention.cu``;
+   bfloat16 and float16 on the tensor cores, ``flash_attention_sm90.cu``):
    2e-4 in float32 (the JAX tests'); in bfloat16 and float16 one unit in
    the last place of each element, ``2^-p * max(|got|, |want|) + 1e-5``
    with p = 7 or 10, and never more than the JAX tests' 5e-2; the max abs
    error of every case and its worst share of the limit printed: the full attention
    widths A1-A3 (below) in float32 and bfloat16, A1 not causal, the JAX
-   tests' shapes at their four block pairs in all three dtypes, and ragged
-   S (not a multiple of the kernel's 64-row tile) at hd from 8 to 256.
+   tests' shapes at their four block pairs in all three dtypes, ragged
+   S (not a multiple of the kernels' 64-row tiles) at hd from 8 to 256,
+   and the tensor-core route's edges in both 16-bit dtypes: hd 8, 16, 72,
+   136 and 256 (one to four 64-column chunks, zero-filled past hd), S 1,
+   63, 65 and 4100 (rows past S read as TMA's zero fill), not causal, and
+   q, k, v views at an odd element offset (not 16-byte aligned: the
+   wrapper copies them), whose result must equal the aligned call's
+   bitwise.
 4. main    — the port's entry points at the paper's size, n = 2^25 uniform
    random 32-bit keys on the cuda backend: ``ops.multisplit`` for
    ``DeltaSpec(m, 2^32)`` (equal widths over the whole key range, so the
@@ -133,10 +141,11 @@ Phases, one line or more each, every one of which must pass:
    loop of flat calls and ``torch.vmap`` against ``batched_multisplit``,
    ``multisplit_unfused`` against the fused plan with its stages,
    ``radix_sort_per_pass`` against ``radix_sort``. B11 at A1, A1n, A2
-   and A3: ms, the plain version's ms, the bytes bound (3.35 TB/s), the
-   operations bound (4·hd flops a (q, k) pair the mask keeps over the 67
-   TFLOP/s of the fp32 CUDA cores; for bfloat16 also the 989 TFLOP/s of the
-   tensor cores, the data sheet's target of a redesign) and
+   and A3 (float32, bfloat16, A1 also float16): ms beside PR 17's, the
+   plain version's ms, the bytes bound (3.35 TB/s), the operations bound
+   (4·hd flops a (q, k) pair the mask keeps over the 67 TFLOP/s of the fp32
+   CUDA cores for float32, the 989 TFLOP/s of the bf16 / fp16 tensor cores
+   for the 16-bit route) and its share, and
    ``scaled_dot_product_attention`` on the (B, H, S, hd) view as the library
    yardstick; the causal / non-causal ratio at A1, which must stay below
    0.65 to show the diagonal skip.
@@ -193,6 +202,11 @@ ATTN = {
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 5e-2, "float16": 5e-2}
 ATTN_ULP = {"float32": 0.0, "bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 ATTN_ATOL = {"float32": 2e-4, "bfloat16": 1e-5, "float16": 1e-5}
+# B11 before the tensor-core route, one CUDA-core kernel for every dtype, on
+# an H100 80GB HBM3 at 700 W (PERF.md's kernel table, run 3 of PR 17)
+ATTN_MS_BEFORE = {("A1", "float32"): 3.3920, ("A1n", "float32"): 6.0301,
+                  ("A1", "bfloat16"): 3.3993, ("A2", "bfloat16"): 11.7347,
+                  ("A2", "float32"): 11.6604, ("A3", "bfloat16"): 9.5229}
 
 
 def log(phase: str, msg: str) -> None:
@@ -245,10 +259,9 @@ def main() -> int:
     paths = build.build_all()
     log("build", f"{len(paths)} libraries in {time.perf_counter() - t0:.1f} s "
                  f"(nvcc seconds each: { {k: round(v, 1) for k, v in build.BUILD_SECONDS.items()} })")
-    for name, text in build.PTXAS_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "smem" in line:
-                log("build", f"{name}: {line.strip()}")
+    for name in build.PTXAS_LOG:
+        for line in build.ptxas_summary(name):
+            log("build", f"{name}: {line}")
 
     # ---- helpers
     def rand_i32(shape):
@@ -894,9 +907,41 @@ def main() -> int:
               ((2, 320, 136), torch.float16, False, 64, 64)]
     for shape, dt, causal, bq, bk in ragged:
         check_attn(f"{shape} {dt} causal={causal} blocks ({bq}, {bk})", shape, dt, causal, bq, bk)
+    # the tensor-core route's edges in both 16-bit dtypes: hd of one to four
+    # 64-column chunks with zero fill past hd, S of one row, one tile less or
+    # more than a row and a ragged long one, causal and not
+    edges = [((4, 1, 8), True, 1, 1), ((3, 63, 8), False, 63, 63), ((2, 65, 16), True, 65, 13),
+             ((2, 256, 16), False, 256, 256), ((2, 130, 72), True, 130, 130),
+             ((2, 65, 72), False, 65, 65), ((2, 63, 136), True, 63, 63),
+             ((2, 320, 136), False, 64, 64), ((2, 65, 256), True, 65, 13),
+             ((4, 1, 256), False, 1, 1), ((2, 4100, 72), True, 4100, 100),
+             ((1, 4100, 136), False, 100, 4100)]
+    for shape, causal, bq, bk in edges:
+        for dt in (torch.bfloat16, torch.float16):
+            check_attn(f"{shape} {dt} causal={causal} blocks ({bq}, {bk})", shape, dt, causal,
+                       bq, bk)
+    # q, k and v as contiguous views at an odd element offset: not 16-byte
+    # aligned, which TMA refuses, so the 16-bit route copies them; the result
+    # must equal the aligned call's bitwise
+    shape = (3, 200, 72)
+    n_el = math.prod(shape)
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        buf = torch.randn(3 * n_el + 1, device=dev, generator=gen).to(dt)
+        q, k, v = (buf[1 + i * n_el:1 + (i + 1) * n_el].view(shape) for i in range(3))
+        if not all(x.is_contiguous() and x.data_ptr() % 16 for x in (q, k, v)):
+            raise AssertionError("the offset views are not contiguous and misaligned")
+        got = fa.flash_attention(q, k, v, True, 200, 200)
+        if not torch.equal(got, fa.flash_attention(q.clone(), k.clone(), v.clone(), True, 200, 200)):
+            raise AssertionError(f"flash_attention of misaligned {dt} views differs from the "
+                                 f"aligned call")
+        attn_err(f"{shape} {dt} causal=True, views at element offset 1 (data_ptr % 16 = "
+                 f"{q.data_ptr() % 16})", got, q, k, v, True, 200, 200)
+        n_checks += 1
+    del buf, q, k, v, got
     log("kernels", f"{n_checks - n0} flash_attention cases (A1-A3 at full width, the JAX tests' "
-                   f"shapes in float32/bfloat16/float16, ragged S, hd 8 to 256) within the limit of "
-                   f"the plain version; max abs err {attn_max} ({time.perf_counter() - t0:.1f} s)")
+                   f"shapes in float32/bfloat16/float16, ragged S, hd 8 to 256, the tensor-core "
+                   f"route's edges, misaligned views) within the limit of the plain version; max "
+                   f"abs err {attn_max} ({time.perf_counter() - t0:.1f} s)")
 
     # ---- 4. main path at the paper's size, with the launch counts of that run alone
     keys = rand_i32((N_MAIN,)).view(torch.uint32)
@@ -2179,12 +2224,15 @@ def main() -> int:
         + f"; sum {sum(stage_ms.values()):.4f} ms [{smi}]")
     del ids_u, hist_u, g_u, pos_u, src_u, pos_r_u, kb2, vb2
 
-    # B11 at A1, A1n, A2 and A3, door defaults: the kernel, its plain version
-    # and scaled_dot_product_attention on the (B, H, S, hd) view; the bounds
-    # count 4·hd flops a (q, k) pair the mask keeps and q, k, v and o moved once
-    attn_ms = {}
+    # B11 at A1, A1n, A2 and A3, door defaults: the kernel of each route, its
+    # plain version and scaled_dot_product_attention on the (B, H, S, hd)
+    # view; the bounds count 4·hd flops a (q, k) pair the mask keeps (over the
+    # fp32 CUDA cores for float32, the bf16 / fp16 tensor cores for the 16-bit
+    # route) and q, k, v and o moved once
+    attn_ms, attn_routes = {}, []
     for name, dt in (("A1", "float32"), ("A1n", "float32"), ("A1", "bfloat16"),
-                     ("A2", "bfloat16"), ("A2", "float32"), ("A3", "bfloat16")):
+                     ("A1", "float16"), ("A2", "bfloat16"), ("A2", "float32"),
+                     ("A3", "bfloat16")):
         (bh, s_len, hd), causal, (b_, h_), _ = ATTN[name]
         q, k, v = attn_inputs((bh, s_len, hd), getattr(torch, dt))
         q4, k4, v4 = (x.view(b_, h_, s_len, hd) for x in (q, k, v))
@@ -2195,28 +2243,38 @@ def main() -> int:
         ms_lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q4, k4, v4, is_causal=causal))
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        fp32_ms = flops / FP32_FLOPS_PER_S * 1e3
+        rate, unit = ((FP32_FLOPS_PER_S, "67 TFLOP/s fp32 CUDA cores") if dt == "float32" else
+                      (TENSOR_FLOPS_PER_S, "989 TFLOP/s bf16/fp16 tensor cores"))
+        ops_ms = flops / rate * 1e3
         attn_ms[(name, dt)] = ms_k
-        target = (f"; data-sheet target of a redesign on the tensor cores: "
-                  f"{flops / TENSOR_FLOPS_PER_S * 1e3:.4f} ms at 989 TFLOP/s bf16"
-                  if dt != "float32" else "")
-        log("times", f"flash_attention {name} {dt}: {ms_k:.4f} ms; bounds: operations "
-                     f"{fp32_ms:.4f} ms ({flops / 1e9:.1f} GFLOP / 67 TFLOP/s fp32, {fp32_ms / ms_k:.1%}"
-                     f" of it), bytes {bytes_ms:.4f} ms ({nbytes / 2**20:.0f} MiB / 3.35 TB/s)"
-                     f"{target}; plain {ms_p:.2f} ms; scaled_dot_product_attention {ms_lib:.4f} ms "
-                     f"({ms_k / ms_lib:.2f}x of it) [(BH, S, hd) = {(bh, s_len, hd)}, "
-                     f"{'causal' if causal else 'not causal'}, blocks 256; {smi}]")
-        if (name, dt) == ("A1", "float32"):
-            kernels.append({
-                "name": "flash_attention", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-                "replaces": registry.replaces("flash_attention"),
-                "launches": launches["flash_attention"],
-                "max_abs_err": errs["flash_attention"], "bitwise": errs["flash_attention"] == 0,
-                "ms": ms_k, "plain_ms": ms_p, "bound_ms": max(fp32_ms, bytes_ms),
-                "bound_by": "operations" if fp32_ms >= bytes_ms else "bytes",
-                "library_ms": ms_lib, "shape": f"A1 {ATTN['A1'][0]} float32 causal",
-            })
+        before = ATTN_MS_BEFORE.get((name, dt))
+        was = f"; PR 17 {before:.4f} ms ({ms_k / before:.3f}x of it)" if before else ""
+        source = ("flash_attention.cu" if dt == "float32" else "flash_attention_sm90.cu")
+        log("times", f"flash_attention {name} {dt} ({source}): {ms_k:.4f} ms{was}; bounds: "
+                     f"operations {ops_ms:.4f} ms ({flops / 1e9:.1f} GFLOP / {unit}, "
+                     f"{ops_ms / ms_k:.1%} of it), bytes {bytes_ms:.4f} ms ({nbytes / 2**20:.0f} MiB "
+                     f"/ 3.35 TB/s); plain {ms_p:.2f} ms; scaled_dot_product_attention "
+                     f"{ms_lib:.4f} ms ({ms_k / ms_lib:.2f}x of it) [(BH, S, hd) = "
+                     f"{(bh, s_len, hd)}, {'causal' if causal else 'not causal'}, blocks 256; {smi}]")
+        if name == "A1" and causal:
+            attn_routes.append({
+                "dtype": dt, "source": f"src/repro_torch/kernels/csrc/{source}",
+                "max_abs_err": attn_max[dt], "ms": ms_k, "plain_ms": ms_p,
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "library_ms": ms_lib, "shape": f"A1 {ATTN['A1'][0]} {dt} causal"})
+    # one entry for the wrapper: its A1 float32 route at the top level, every
+    # route at A1 under "routes"
+    top = attn_routes[0]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": top["source"],
+        "replaces": registry.replaces("flash_attention"),
+        "launches": launches["flash_attention"],
+        "max_abs_err": errs["flash_attention"], "bitwise": errs["flash_attention"] == 0,
+        **{key: top[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                     "shape")},
+        "routes": attn_routes,
+    })
     del q, k, v, q4, k4, v4
     ratio = attn_ms[("A1", "float32")] / attn_ms[("A1n", "float32")]
     s_a1 = ATTN["A1"][0][1]

@@ -22,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,7 +42,7 @@ SOURCES = (
     "packed_tile_histograms", "packed_tile_positions", "packed_fused_postscan_reorder",
     "fused2_tile_histograms", "fused2_tile_positions", "fused2_fused_postscan_reorder",
     "tile_reorder",
-    "flash_attention",
+    "flash_attention", "flash_attention_sm90",
 )
 HEADERS = ("multisplit_common.cuh", "multisplit_segmented.cuh", "multisplit_packed.cuh",
            "multisplit_fused2.cuh")
@@ -99,8 +100,10 @@ ENTRY_POINTS = {
     # the standalone reorder: ids, keys, values (null when key-only), keys_r,
     # vals_r, dest, then n_tiles, T and m
     "tile_reorder": ("ms_tile_reorder", [_P] * 6 + [_I, _I, _I, _P]),
-    # attention: q, k, v and o, then BH, S, hd, causal and the dtype code
-    "flash_attention": ("ms_flash_attention", [_P] * 4 + [_I] * 5 + [_P]),
+    # attention: q, k, v and o, then BH, S, hd and causal; float32 on the
+    # CUDA cores, and bfloat16 / float16 (the dtype code) on the tensor cores
+    "flash_attention": ("ms_flash_attention", [_P] * 4 + [_I] * 4 + [_P]),
+    "flash_attention_sm90": ("ms_flash_attention_sm90", [_P] * 4 + [_I] * 5 + [_P]),
     # the ids-plane entry points of the K2 and K2s sources: m, not a label
     "fused_postscan_reorder_ids": (
         "ms_fused_postscan_reorder_ids", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -179,6 +182,24 @@ def build_all() -> Dict[str, Path]:
     if failures:
         raise KernelBuildError("CUDA kernel build failed:\n" + "\n".join(failures))
     return paths
+
+
+def ptxas_summary(name: str) -> list:
+    """One line a kernel of ``name``'s last build: its (mangled) function,
+    its registers and shared memory, spill stores and loads, from ``-Xptxas
+    -v``; then every ptxas warning (a serialized wgmma among them)."""
+    lines, func, spill = [], None, ""
+    for line in PTXAS_LOG.get(name, "").splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            func = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        elif (m := re.search(r"Used (\d+ registers.*)", line)) and func:
+            lines.append(f"{func}: {m.group(1)}; {spill}")
+            func, spill = None, ""
+        elif "warning" in line:
+            lines.append(line.strip())
+    return lines
 
 
 def load(name: str):

@@ -1,45 +1,43 @@
-// B11: flash attention, forward only.
-// Replaces flash_attention_pallas (src/repro/kernels/flash_attention.py:76),
-// whose oracle is flash_attention_ref (src/repro/kernels/ref.py:110).
+// B11, the float32 route: flash attention, forward only, on the CUDA cores.
+// Replaces flash_attention_pallas (src/repro/kernels/flash_attention.py:76)
+// for float32 inputs; its oracle is
+// flash_attention_ref (src/repro/kernels/ref.py:110). bfloat16 and float16
+// inputs take flash_attention_sm90.cu (wgmma and TMA).
 //
-// q, k, v (BH, S, hd), contiguous, of one dtype (float32, bfloat16 or
-// float16) -> o (BH, S, hd) in that dtype:
+// q, k, v (BH, S, hd), contiguous float32 -> o (BH, S, hd) float32:
 //   o = softmax(q·kᵀ / sqrt(hd), causal: k_pos <= q_pos) · v
 // q is scaled by 1/sqrt(hd) (computed in double, applied in float32) before
 // the product, as the Pallas kernel scales it. Scores are fp32 FMA on the
-// CUDA cores (no TF32); masked scores are -1e30; the online softmax runs
-// over kv tiles, m_new = max(m, rowmax), p = expf(s - m_new),
-// corr = expf(m - m_new), l = l·corr + rowsum(p), acc = acc·corr + p·v, all
-// in fp32; o = acc / max(l, 1e-30), rounded to the dtype at the store.
+// CUDA cores (no TF32: the Pallas kernel's HIGHEST precision); masked scores
+// are -1e30; the online softmax runs over kv tiles, m_new = max(m, rowmax),
+// p = expf(s - m_new), corr = expf(m - m_new), l = l·corr + rowsum(p), acc =
+// acc·corr + p·v, all in fp32; o = acc / max(l, 1e-30).
 //
 // Design: one block of 128 threads a (bh, q tile of 64 rows); blocks of
 // one head run the longest causal rows first. The q tile, scaled, stays in
-// shared memory as fp32. K and V pass through shared memory in tiles of 64
-// rows, converted to fp32 on load; a causal loop stops at the tile that
-// holds the q tile's last row. Thread (ty, tx) = (t / 8, t % 8) owns the q
-// rows ty + 16i (i < 4): it computes their scores at the kv columns tx + 8j
-// (j < 8) of a tile, a 4x8 register tile read from shared memory as float4
-// along hd; the row max and sum are reduced over the row's 8 lanes with
-// shuffles; p goes through shared memory, over the K tile once the scores
-// are taken; p·V accumulates into the rows' output columns tx·4 + 32c
-// (c < HD / 32), in registers. Shared rows of q and K are padded to hd + 4
-// floats, so the lanes of a warp read distinct banks; at hd = 128 a block
-// takes 100 KB of shared memory, so two fit on an SM. The 64 x 64 tile is
-// the kernel's own: S need not be a multiple of it (q rows past S are not
-// stored, kv rows past S are masked), and the JAX door's block_q and
-// block_k, which the wrapper checks, change only the order of rounding.
-// hd: any multiple of 8 up to 256, through templates for hd up to 64, 128
-// and 256.
+// shared memory. K and V pass through shared memory in tiles of 64 rows; a
+// causal loop stops at the tile that holds the q tile's last row. Thread
+// (ty, tx) = (t / 8, t % 8) owns the q rows ty + 16i (i < 4): it computes
+// their scores at the kv columns tx + 8j (j < 8) of a tile, a 4x8 register
+// tile read from shared memory as float4 along hd; the row max and sum are
+// reduced over the row's 8 lanes with shuffles; p goes through shared
+// memory, over the K tile once the scores are taken; p·V accumulates into
+// the rows' output columns tx·4 + 32c (c < HD / 32), in registers. Shared
+// rows of q and K are padded to hd + 4 floats, so the lanes of a warp read
+// distinct banks; at hd = 128 a block takes 100 KB of shared memory, so two
+// fit on an SM. The 64 x 64 tile is the kernel's own: S need not be a
+// multiple of it (q rows past S are not stored, kv rows past S are masked),
+// and the JAX door's block_q and block_k, which the wrapper checks, change
+// only the order of rounding. hd: any multiple of 8 up to 256, through
+// templates for hd up to 64, 128 and 256.
 //
 // Bound: operations. 4·hd flops a (q, k) pair that the mask keeps
 // (BH·S·(S+1)/2 pairs causal, BH·S² not), on the fp32 CUDA cores at 67
 // TFLOP/s (H100 SXM data sheet). The bytes, q, k and v read once and o
-// written once, 16·BH·S·hd in float32 over 3.35 TB/s, take about a
-// thirteenth of that at S = 2048 and hd = 64, causal. For bfloat16 and
-// float16 the data sheet's 989 TFLOP/s of the tensor cores is the target
-// of a redesign (wgmma, TMA); this kernel uses neither.
+// written once, 16·BH·S·hd over 3.35 TB/s, take about a thirteenth of that
+// at S = 2048 and hd = 64, causal. The tensor cores' float32 route (3xTF32
+// products) is the target of a redesign; this kernel does not use them.
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace {
 
@@ -51,46 +49,6 @@ constexpr int kCols = 8;                 // kv columns a thread scores: tx + 8 j
 constexpr int kPStride = kTileK + 4;
 constexpr float kMasked = -1e30f;        // the Pallas kernel's mask value
 constexpr unsigned kFull = 0xffffffffu;
-
-enum Dtype { kF32 = 0, kBF16 = 1, kF16 = 2 };
-
-template <int D>
-struct Elem;
-
-template <>
-struct Elem<kF32> {
-  using T = float;
-  __device__ static float load(const float* p) { return *p; }
-  __device__ static void store(float* p, float x) { *p = x; }
-};
-
-template <>
-struct Elem<kBF16> {
-  using T = uint16_t;
-  __device__ static float load(const uint16_t* p) {
-    return __uint_as_float(static_cast<uint32_t>(*p) << 16);
-  }
-  __device__ static void store(uint16_t* p, float x) {
-    uint16_t r;
-    asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(r) : "f"(x));
-    *p = r;
-  }
-};
-
-template <>
-struct Elem<kF16> {
-  using T = uint16_t;
-  __device__ static float load(const uint16_t* p) {
-    float f;
-    asm("cvt.f32.f16 %0, %1;" : "=f"(f) : "h"(*p));
-    return f;
-  }
-  __device__ static void store(uint16_t* p, float x) {
-    uint16_t r;
-    asm("cvt.rn.f16.f32 %0, %1;" : "=h"(r) : "f"(x));
-    *p = r;
-  }
-};
 
 __device__ __forceinline__ float row_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(kFull, x, 4));
@@ -104,13 +62,11 @@ __device__ __forceinline__ float row_sum(float x) {
   return x + __shfl_xor_sync(kFull, x, 1);
 }
 
-template <int D, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-    flash_kernel(const typename Elem<D>::T* __restrict__ q,
-                 const typename Elem<D>::T* __restrict__ k,
-                 const typename Elem<D>::T* __restrict__ v, typename Elem<D>::T* __restrict__ o,
-                 int S, int hd, int n_qt, int causal, float scale) {
-  using E = Elem<D>;
+    flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int S, int hd, int n_qt,
+                 int causal, float scale) {
   constexpr int kChunks = HD / 32;       // float4 output chunks a thread owns
   extern __shared__ float4 smem4[];
   const int ld = hd + 4;
@@ -126,10 +82,10 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
   const size_t head = static_cast<size_t>(bh) * S * hd;
 
-  const typename E::T* qg = q + head + static_cast<size_t>(q0) * hd;
+  const float* qg = q + head + static_cast<size_t>(q0) * hd;
   for (int e = tid; e < kTileQ * hd; e += kThreads) {
     const int r = e / hd;
-    qs[r * ld + e - r * hd] = r < q_rows ? E::load(qg + e) * scale : 0.f;
+    qs[r * ld + e - r * hd] = r < q_rows ? qg[e] * scale : 0.f;
   }
 
   float acc[kRows][kChunks][4];
@@ -154,8 +110,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = tid; e < kTileK * hd; e += kThreads) {
       const int r = e / hd;
       const bool in = r < k_rows;
-      ks[r * ld + e - r * hd] = in ? E::load(k + off + e) : 0.f;
-      vs[e] = in ? E::load(v + off + e) : 0.f;
+      ks[r * ld + e - r * hd] = in ? k[off + e] : 0.f;
+      vs[e] = in ? v[off + e] : 0.f;
     }
     __syncthreads();
 
@@ -252,61 +208,51 @@ __global__ void __launch_bounds__(kThreads)
     const int r = ty + 16 * i;
     if (r >= q_rows) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    typename E::T* og = o + head + static_cast<size_t>(q0 + r) * hd;
+    float* og = o + head + static_cast<size_t>(q0 + r) * hd;
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
       const int col = tx * 4 + 32 * c;
       if (col < hd) {
 #pragma unroll
-        for (int x = 0; x < 4; ++x) E::store(og + col + x, acc[i][c][x] / denom);
+        for (int x = 0; x < 4; ++x) og[col + x] = acc[i][c][x] / denom;
       }
     }
   }
 }
 
-template <int D, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int BH, int S, int hd,
+template <int HD>
+int launch(const float* q, const float* k, const float* v, float* o, int BH, int S, int hd,
            int causal, float scale, cudaStream_t stream) {
-  using T = typename Elem<D>::T;
   const int n_qt = (S + kTileQ - 1) / kTileQ;
   const long long blocks = static_cast<long long>(BH) * n_qt;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   const int kp = kTileK * (hd + 4) > kTileQ * kPStride ? kTileK * (hd + 4) : kTileQ * kPStride;
   const size_t smem = sizeof(float) * (static_cast<size_t>(kTileQ) * (hd + 4) + kp +
                                        static_cast<size_t>(kTileK) * hd);
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<D, HD>,
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_kernel<D, HD><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, hd, n_qt, causal, scale);
+  flash_kernel<HD><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      q, k, v, o, S, hd, n_qt, causal, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int launch_width(const void* q, const void* k, const void* v, void* o, int BH, int S, int hd,
-                 int causal, float scale, cudaStream_t stream) {
-  if (hd <= 64) return launch<D, 64>(q, k, v, o, BH, S, hd, causal, scale, stream);
-  if (hd <= 128) return launch<D, 128>(q, k, v, o, BH, S, hd, causal, scale, stream);
-  return launch<D, 256>(q, k, v, o, BH, S, hd, causal, scale, stream);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16, 2 float16; causal: 0 or 1. hd must be a
-// multiple of 8 in [8, 256]. Returns cudaGetLastError() after the launch (0
-// on success), cudaErrorInvalidValue for arguments the kernel does not take.
+// float32 q, k, v and o; causal: 0 or 1. hd must be a multiple of 8 in [8,
+// 256]. Returns cudaGetLastError() after the launch (0 on success),
+// cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int ms_flash_attention(const void* q, const void* k, const void* v, void* o, int BH,
-                                  int S, int hd, int causal, int dtype, void* stream) {
+                                  int S, int hd, int causal, void* stream) {
   if (BH <= 0 || S <= 0) return 0;
   if (hd < 8 || hd > 256 || hd % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32: return launch_width<kF32>(q, k, v, o, BH, S, hd, causal, scale, st);
-    case kBF16: return launch_width<kBF16>(q, k, v, o, BH, S, hd, causal, scale, st);
-    case kF16: return launch_width<kF16>(q, k, v, o, BH, S, hd, causal, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(o);
+  if (hd <= 64) return launch<64>(qf, kf, vf, of, BH, S, hd, causal, scale, st);
+  if (hd <= 128) return launch<128>(qf, kf, vf, of, BH, S, hd, causal, scale, st);
+  return launch<256>(qf, kf, vf, of, BH, S, hd, causal, scale, st);
 }

@@ -1,25 +1,37 @@
 """Flash attention for Hopper, beside its plain version (B11).
 
 Counterpart of ``repro/kernels/flash_attention.py``: :func:`flash_attention`
-(``csrc/flash_attention.cu``) replaces ``flash_attention_pallas``
-(``flash_attention.py:76``). q, k and v are (BH, S, hd), batch and heads
-folded together, of one dtype (float32, bfloat16 or float16); the result is
-(BH, S, hd) in that dtype. Scores are fp32 (no TF32), q is scaled by
-``1/sqrt(hd)`` before the product, causal masking keeps ``q_pos >= k_pos``
-and fills -1e30, the softmax is the online one over kv blocks with fp32
-state, and the output is ``acc / max(l, 1e-30)``. There is no backward,
-as the JAX door has none.
+replaces ``flash_attention_pallas`` (``flash_attention.py:76``). q, k and v
+are (BH, S, hd), batch and heads folded together, of one dtype (float32,
+bfloat16 or float16); the result is (BH, S, hd) in that dtype. Causal
+masking keeps ``q_pos >= k_pos`` and fills -1e30, the softmax is the online
+one over kv blocks with fp32 state, and the output is ``acc / max(l,
+1e-30)``. There is no backward, as the JAX door has none.
+
+Two routes on the card, by dtype:
+
+- float32: ``csrc/flash_attention.cu``, fp32 FMA on the CUDA cores (no
+  TF32), q scaled by ``1/sqrt(hd)`` before the product as the Pallas kernel
+  scales it.
+- bfloat16 and float16: ``csrc/flash_attention_sm90.cu``, both products on
+  the tensor cores (``wgmma``) with q, K and V brought in by TMA. The scores
+  are the fp32 sums of the exact 16-bit products, scaled after the product;
+  p stays fp32 for the softmax and goes into p·v split in two 16-bit halves
+  (``p_hi + p_lo``), so that the result keeps the fp32 p of the Pallas
+  kernel to within one unit in the last place of the output. TMA needs
+  16-byte aligned data: a q, k or v whose data pointer is not (a view at an
+  odd offset) is copied to an aligned buffer first.
 
 ``S`` must be a multiple of ``block_q`` and of ``block_k`` (the JAX door's
 assert), on every device. The plain version walks the kv blocks of
 ``block_k`` for each q block of ``block_q`` with the causal skip, as the
-Pallas kernel does; the CUDA kernel uses its own 64 x 64 tile, so on the
-card the blocks change only the order of rounding. The kernel takes head
-widths ``hd`` that are multiples of 8 up to 256; another ``hd`` raises
+Pallas kernel does; the CUDA kernels use their own tiles, so on the card the
+blocks change only the order of rounding. The kernels take head widths
+``hd`` that are multiples of 8 up to 256; another ``hd`` raises
 ``ValueError`` on a CUDA tensor.
 
 Dispatch: a CPU tensor runs :func:`flash_attention_plain`; a CUDA tensor
-launches the kernel on the current stream, counts it in
+launches the kernel of its dtype on the current stream, counts it in
 ``flash_attention.launches`` (registered with the other wrappers in
 :mod:`repro_torch.kernels`) and raises on a failed build or launch. Nothing
 falls back.
@@ -36,6 +48,7 @@ from repro_torch.kernels import build
 Tensor = torch.Tensor
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+TMA_ALIGN = 16                       # bytes: TMA's rule for a tensor's address
 MAX_HEAD_DIM = 256
 NEG_INF = -1e30
 
@@ -109,10 +122,16 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
         if not x.is_contiguous():
             raise ValueError(f"{what} must be contiguous")
     o = torch.empty((bh, s, hd), dtype=q.dtype, device=q.device)
-    if o.numel():
-        fn = build.load("flash_attention")
-        build.raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, s, hd,
-                          int(bool(causal)), DTYPES[q.dtype], build.stream(q)),
-                       "flash_attention")
-        flash_attention.launches += 1
+    if not o.numel():
+        return o
+    if q.dtype == torch.float32:
+        build.raise_on(build.load("flash_attention")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, s, hd, int(bool(causal)),
+            build.stream(q)), "flash_attention")
+    else:
+        q, k, v = (x if x.data_ptr() % TMA_ALIGN == 0 else x.clone() for x in (q, k, v))
+        build.raise_on(build.load("flash_attention_sm90")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, s, hd, int(bool(causal)),
+            DTYPES[q.dtype], build.stream(q)), "flash_attention_sm90")
+    flash_attention.launches += 1
     return o

@@ -10,6 +10,9 @@ or float16 result is held within one unit in its last place as well. The
 CUDA kernel is held against the plain version on the card by
 ``chip_smoke.py``."""
 
+import ctypes
+import importlib.util
+import math
 import re
 from pathlib import Path
 
@@ -28,6 +31,10 @@ from repro_torch.kernels import ops as tkops
 from repro_torch.kernels import ref as tref
 
 CSRC = Path(fa.__file__).resolve().parent / "csrc"
+_SMOKE = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_SMOKE)
+_SMOKE.loader.exec_module(chip_smoke)
 
 
 def _qkv(bh, s, hd, seed, bf16=False):
@@ -178,6 +185,107 @@ def test_kernel_source_carries_its_note():
         assert name in text
     assert "__expf" not in text and re.search(r"\bexpf\(", text)
     symbol, argtypes = build.ENTRY_POINTS["flash_attention"]
-    assert f'extern "C" int {symbol}(' in text and len(argtypes) == 10
+    assert f'extern "C" int {symbol}(' in text and len(argtypes) == 9
     assert "flash_attention" in build.SOURCES
     assert "--use_fast_math" not in build.NVCC_FLAGS
+
+
+def test_sm90_source_carries_its_note():
+    """The tensor-core route's source names the Pallas function it replaces
+    and its bound, uses the accurate ``exp2f``, splits p, and declares the
+    entry point ``build`` binds with its ten arguments."""
+    text = (CSRC / "flash_attention_sm90.cu").read_text()
+    for name in ("flash_attention_pallas (src/repro/kernels/flash_attention.py:76)",
+                 "flash_attention_ref (src/repro/kernels/ref.py:110)",
+                 "Bound: operations", "989 TFLOP/s", "3.35 TB/s", "p_hi", "p_lo",
+                 "wgmma.mma_async", "cp.async.bulk.tensor.3d", "mbarrier"):
+        assert name in text
+    assert "__expf" not in text and "__exp2f" not in text and re.search(r"\bexp2f\(", text)
+    symbol, argtypes = build.ENTRY_POINTS["flash_attention_sm90"]
+    params = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', text).group(1).split(",")
+    assert len(params) == len(argtypes) == 10
+    pointer = [("*" in a) for a in params]
+    assert pointer == [t is ctypes.c_void_p for t in argtypes]
+    assert "flash_attention_sm90" in build.SOURCES
+
+
+def _route_arithmetic(q, k, v, split, tile_q=128, tile_k=64):
+    """The tensor-core route's arithmetic in plain torch, causal: q·kᵀ of the
+    16-bit values with fp32 sums (their products are exact in fp32), scaled
+    after the product by log2(e)/sqrt(hd), the online softmax in fp32 with
+    exp2 over kv tiles up to the diagonal, l from the fp32 p, and p·v from
+    p split in two 16-bit halves (``split``) or rounded once to 16 bits."""
+    dt = q.dtype
+    bh, s, hd = q.shape
+    scale = torch.tensor(math.log2(math.e) / math.sqrt(hd), dtype=torch.float32)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.empty((bh, s, hd), dtype=torch.float32)
+    for q0 in range(0, s, tile_q):
+        rows = slice(q0, min(q0 + tile_q, s))
+        q_pos = torch.arange(rows.start, rows.stop)[:, None]
+        m = torch.full((bh, rows.stop - q0, 1), fa.NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((bh, rows.stop - q0, hd))
+        for k0 in range(0, rows.stop, tile_k):
+            cols = slice(k0, min(k0 + tile_k, s))
+            sc = torch.matmul(qf[:, rows], kf[:, cols].transpose(1, 2)) * scale
+            sc = torch.where(q_pos >= torch.arange(cols.start, cols.stop)[None, :], sc, fa.NEG_INF)
+            m_new = torch.maximum(m, sc.amax(dim=2, keepdim=True))
+            p = torch.exp2(sc - m_new)
+            corr = torch.exp2(m - m_new)
+            l = l * corr + p.sum(dim=2, keepdim=True)
+            hi = p.to(dt).float()
+            pv = torch.matmul(hi, vf[:, cols])
+            if split:
+                pv = pv + torch.matmul((p - hi).to(dt).float(), vf[:, cols])
+            acc = acc * corr + pv
+            m = m_new
+        out[:, rows] = acc / torch.clamp(l, min=1e-30)
+    return out.to(dt)
+
+
+def _worst_share(got, want):
+    """The worst share of chip_smoke.py's one-ulp limit over the elements."""
+    dt = str(got.dtype).split(".")[1]
+    g, w = got.float(), want.float()
+    limit = torch.clamp(chip_smoke.ATTN_ULP[dt] * torch.maximum(g.abs(), w.abs())
+                        + chip_smoke.ATTN_ATOL[dt], max=chip_smoke.ATTN_TOL[dt])
+    return ((g - w).abs() / limit).max().item()
+
+
+_ROUTE_CASES = [((2, 512, 64), torch.bfloat16), ((2, 512, 64), torch.float16),
+                ((1, 1024, 128), torch.bfloat16), ((1, 1024, 128), torch.float16)]
+
+
+def _route_inputs(shape, dtype):
+    return [torch.from_numpy(a).to(dtype) for a in _qkv(*shape, seed=shape[1] + shape[2])]
+
+
+@pytest.mark.parametrize("shape,dtype", _ROUTE_CASES)
+def test_route_arithmetic_with_p_split_is_within_one_ulp(shape, dtype):
+    """p split in hi + lo keeps the route within one unit in the last place
+    of the fp32 plain version, the limit chip_smoke.py holds the kernel to."""
+    q, k, v = _route_inputs(shape, dtype)
+    want = fa.flash_attention_plain(q, k, v, True, 128, 128)
+    assert _worst_share(_route_arithmetic(q, k, v, split=True), want) <= 1.0
+
+
+@pytest.mark.parametrize("shape,dtype", _ROUTE_CASES)
+def test_route_arithmetic_with_p_rounded_once_is_not(shape, dtype):
+    """The same inputs with p rounded once to 16 bits pass the limit: the
+    reason the kernel takes two p·v products."""
+    q, k, v = _route_inputs(shape, dtype)
+    want = fa.flash_attention_plain(q, k, v, True, 128, 128)
+    assert _worst_share(_route_arithmetic(q, k, v, split=False), want) > 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cpu_half_precision_takes_the_plain_version(dtype):
+    """On the CPU a 16-bit call runs the plain version, never the tensor-core
+    route, and counts no launch."""
+    kernels.reset_launches()
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(2, 64, 16, 5))
+    got = fa.flash_attention(q, k, v, block_q=32, block_k=32)
+    assert got.dtype == dtype
+    assert torch.equal(got, fa.flash_attention_plain(q, k, v, True, 32, 32))
+    assert fa.flash_attention.launches == 0
