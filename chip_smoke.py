@@ -39,15 +39,19 @@ Phases, one line or more each, every one of which must pass:
    8192 with both 16-bit pairs, F2's 14-bit pair and F3's 16 segments at
    2^22), tiles of 128 to 8192 keys and ragged ones, the pairs (16, 8), (14,
    7) and (6, 4), stage widths 1, 3, 4 and 8, int32 and uint32 keys,
-   one-cell tiles, bases above 2^24, empty and one- to eight-key segments.
+   one-cell tiles, bases above 2^24, empty and one- to eight-key segments;
+   and the cases K1f's 16-bit counters (two cells to a word) make new:
+   every key of a full tile in one odd cell, and half of them in each cell
+   of one word, flat and segmented.
    B10, the standalone tile reorder of the unfused baseline, key-only and
    key-value, against its plain version: the main shape (8192 tiles of
    4096, m = 256, the destinations riding as the values too), m in {1, 2,
    7, 32, 255, 256}, tiles of 1 to ``MAX_TILE`` keys and ragged ones,
    int32 / uint32 / float32 keys with NaN and inf, ids outside [0, m).
    B11, flash attention, against its plain version in the working dtype,
-   both routes (float32 on the CUDA cores, ``flash_attention.cu``;
-   bfloat16 and float16 on the tensor cores, ``flash_attention_sm90.cu``):
+   both routes on the tensor cores (float32 as three TF32 products,
+   ``flash_attention_f32_sm90.cu``; bfloat16 and float16,
+   ``flash_attention_sm90.cu``):
    2e-4 in float32 (the JAX tests'); in bfloat16 and float16 one unit in
    the last place of each element, ``2^-p * max(|got|, |want|) + 1e-5``
    with p = 7 or 10, and never more than the JAX tests' 5e-2; the max abs
@@ -55,10 +59,11 @@ Phases, one line or more each, every one of which must pass:
    widths A1-A3 (below) in float32 and bfloat16, A1 not causal, the JAX
    tests' shapes at their four block pairs in all three dtypes, ragged
    S (not a multiple of the kernels' 64-row tiles) at hd from 8 to 256,
-   and the tensor-core route's edges in both 16-bit dtypes: hd 8, 16, 72,
-   136 and 256 (one to four 64-column chunks, zero-filled past hd), S 1,
-   63, 65 and 4100 (rows past S read as TMA's zero fill), not causal, and
-   q, k, v views at an odd element offset (not 16-byte aligned: the
+   and the tensor-core routes' edges in all three dtypes: hd 8, 16, 40,
+   72, 128, 136, 176, 224 and 256 (one to eight 32-column chunks in
+   float32, one to four 64-column chunks in 16 bits, zero-filled past hd),
+   S 1, 63, 65 and 4100 (rows past S read as TMA's zero fill), not causal,
+   and q, k, v views at an odd element offset (not 16-byte aligned: the
    wrapper copies them), whose result must equal the aligned call's
    bitwise.
 4. main    — the port's entry points at the paper's size, n = 2^25 uniform
@@ -117,8 +122,8 @@ Phases, one line or more each, every one of which must pass:
    (128, 2048, 64)) in float32 and bfloat16, and not causal (A1n); A2
    DBRX-132B (48 heads of 128, seq_len 4096, batch 1: (48, 4096, 128)) in
    bfloat16 and float32; A3 h2o-danube-1.8b (32 heads of 80, S = 4096,
-   batch 2: (64, 4096, 80)) in bfloat16. Each result against the plain
-   version.
+   batch 2: (64, 4096, 80)) in bfloat16 and float32. Each result against
+   the plain version.
 6. launches — every kernel's launch count from its own path's run alone
    (flat, segmented, flat callable, segmented callable, and the four
    packed paths, which launch K1p-K3p and no onehot kernel; each fused
@@ -140,15 +145,19 @@ Phases, one line or more each, every one of which must pass:
    beside those of one single-digit pass. The batched calls against the
    loop of flat calls and ``torch.vmap`` against ``batched_multisplit``,
    ``multisplit_unfused`` against the fused plan with its stages,
-   ``radix_sort_per_pass`` against ``radix_sort``. B11 at A1, A1n, A2
-   and A3 (float32, bfloat16, A1 also float16): ms beside PR 17's, the
-   plain version's ms, the bytes bound (3.35 TB/s), the operations bound
-   (4·hd flops a (q, k) pair the mask keeps over the 67 TFLOP/s of the fp32
-   CUDA cores for float32, the 989 TFLOP/s of the bf16 / fp16 tensor cores
-   for the 16-bit route) and its share, and
+   ``radix_sort_per_pass`` against ``radix_sort``. K1f at F1 and, segmented,
+   at F3. B11 at A1, A1n, A2 and A3 (float32, bfloat16, A1 also float16):
+   ms beside the time before (``ATTN_MS_BEFORE``), the plain version's ms,
+   the bytes bound (3.35 TB/s),
+   the operations bound and its share (4·hd flops a (q, k) pair the mask
+   keeps, the function's work, over the tensor cores' peak for the input
+   type: 495 TFLOP/s for float32 inputs, 989 for bf16 / fp16; for float32
+   beside it the share of the three TF32 products' 12·hd flops at 495 and
+   of 4·hd at the 67 TFLOP/s of the fp32 CUDA cores), and
    ``scaled_dot_product_attention`` on the (B, H, S, hd) view as the library
-   yardstick; the causal / non-causal ratio at A1, which must stay below
-   0.65 to show the diagonal skip.
+   yardstick, with the name of the CUDA kernel it runs for float32 at A1
+   (read once with ``torch.profiler``); the causal / non-causal ratio at A1,
+   which must stay below 0.65 to show the diagonal skip.
 
 The last lines are the ``nvidia-smi`` line, one JSON line of the kernels
 and ``{"ok": true, "device": {...}}``. The script exits non-zero, printing
@@ -176,12 +185,17 @@ N_MAIN = 1 << 25
 N_FUSED_SMALL = 1 << 22
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12             # the fp32 CUDA cores, H100 SXM data sheet
+TF32_FLOPS_PER_S = 495e12            # dense TF32 tensor cores, H100 SXM data sheet
 TENSOR_FLOPS_PER_S = 989e12          # dense bf16 / fp16 tensor cores, H100 SXM data sheet
 SEED = 0
 # K1-K3 at n = 2^25, m = 256 on an H100 80GB HBM3 at 700 W, as this script
 # measured them when they were added (PERF.md's kernel table)
 FLAT_MS_BEFORE = {"spec_tile_histograms": 0.3485, "spec_fused_postscan_reorder": 0.7949,
                   "spec_tile_positions": 0.3852}
+# K1f at F1 and, segmented, at F3 when it added its counts into a zeroed H
+# in device memory with global atomics, on an H100 80GB HBM3 at 700 W
+# (PERF.md's kernel table and its F3 stage line)
+K1F_MS_BEFORE = {"F1": 2.6857, "F3": 1.0089}
 # B11's full widths: name -> ((BH, S, hd), causal, (batch, heads), dtypes),
 # batch and heads folded, kv heads repeated to the q heads (configs in
 # src/repro/configs/)
@@ -189,7 +203,7 @@ ATTN = {
     "A1": ((128, 2048, 64), True, (4, 32), ("float32", "bfloat16")),   # tinyllama_1p1b.py
     "A1n": ((128, 2048, 64), False, (4, 32), ("float32",)),
     "A2": ((48, 4096, 128), True, (1, 48), ("bfloat16", "float32")),   # dbrx_132b.py
-    "A3": ((64, 4096, 80), True, (2, 32), ("bfloat16",)),              # h2o_danube_1p8b.py
+    "A3": ((64, 4096, 80), True, (2, 32), ("bfloat16", "float32")),    # h2o_danube_1p8b.py
 }
 # B11 against its plain version, element by element: |got - want| <= the
 # smaller of the JAX tests' tolerance (tests/test_kernels.py:149, 159) and
@@ -202,11 +216,13 @@ ATTN = {
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 5e-2, "float16": 5e-2}
 ATTN_ULP = {"float32": 0.0, "bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 ATTN_ATOL = {"float32": 2e-4, "bfloat16": 1e-5, "float16": 1e-5}
-# B11 before the tensor-core route, one CUDA-core kernel for every dtype, on
-# an H100 80GB HBM3 at 700 W (PERF.md's kernel table, run 3 of PR 17)
-ATTN_MS_BEFORE = {("A1", "float32"): 3.3920, ("A1n", "float32"): 6.0301,
-                  ("A1", "bfloat16"): 3.3993, ("A2", "bfloat16"): 11.7347,
-                  ("A2", "float32"): 11.6604, ("A3", "bfloat16"): 9.5229}
+# B11 before the float32 route moved to the tensor cores: float32 on the
+# CUDA cores (fp32 FMA), the 16-bit route as it stands, on an H100 80GB
+# HBM3 at 700 W (PERF.md's kernel table)
+ATTN_MS_BEFORE = {("A1", "float32"): 3.2722, ("A1n", "float32"): 5.8919,
+                  ("A2", "float32"): 11.6388, ("A1", "bfloat16"): 0.3443,
+                  ("A1", "float16"): 0.3322, ("A2", "bfloat16"): 0.6819,
+                  ("A3", "bfloat16"): 0.8089}
 
 
 def log(phase: str, msg: str) -> None:
@@ -779,6 +795,17 @@ def main() -> int:
                       g_offset=(1 << 24) + 1)
     check_fused2_case("one-cell tiles seg", keys, rand_i32((8, t_fused)), ops.BitfieldSpec(0, 16), 8,
                       seg, 4)
+    # (c') what K1f's 16-bit counters, two cells to a word, make new: every
+    # key of a full tile in one odd cell (a count of 8192 in a word's high
+    # half), and half of a tile's keys in each cell of one word
+    keys = torch.full((4, t_fused), 0x5A5A1235, dtype=torch.int32, device=dev)
+    for r in (2, 3):
+        keys[r, torch.randperm(t_fused, device=dev, generator=gen)[: t_fused // 2]] -= 1
+    seg = seg_strip(np.array([0, t_fused, 2 * t_fused + 1], np.int32), (4, t_fused))
+    for what, seg_, s_ in (("flat", None, 1), ("segmented", seg, 3)):
+        check_fused2_case(f"a full tile in one odd cell, 4096 keys in each cell of a word, {what}",
+                          keys, rand_i32((4, t_fused)), ops.BitfieldSpec(0, 16), 8, seg_, s_,
+                          families=("onehot",), subs=(None,))
     # (d) one- to eight-key segments: thousands of runs of at most 32 keys
     for shape, (shift, pbits, split) in (((16, 4096), (8, 6, 4)), ((64, 4096), (30, 2, 1))):
         lens = np_rng.integers(1, 9, shape[0] * shape[1])
@@ -795,7 +822,8 @@ def main() -> int:
         raise AssertionError(f"fused2 forms checked: {sorted(fused_forms)}")
     log("kernels", f"{n_checks - n0} fused2 cases (the fused paths' shapes, tiles of 128 to {t_fused}, "
                    f"pairs (16, 8), (14, 7), (6, 4), stage widths 1, 3, 4 and 8, both families, "
-                   f"one-cell tiles, G above 2^24, empty and tiny segments; flat and segmented, "
+                   f"one-cell tiles, a full tile in one odd cell, half a tile in each cell of a "
+                   f"word, G above 2^24, empty and tiny segments; flat and segmented, "
                    f"keys and key-value): K1f-K3f all bitwise equal to their plain versions "
                    f"({time.perf_counter() - t0:.1f} s)")
 
@@ -868,6 +896,7 @@ def main() -> int:
         share = (diff / limit).max().item()
         errs["flash_attention"] = max(errs["flash_attention"], err)
         attn_max[dt] = max(attn_max.get(dt, 0.0), err)
+        attn_share[dt] = round(max(attn_share.get(dt, 0.0), share), 4)
         rule = (f"{ATTN_TOL[dt]:g}" if not ATTN_ULP[dt] else
                 f"2^{round(math.log2(ATTN_ULP[dt]))}·|value| + {ATTN_ATOL[dt]:g}, at most "
                 f"{ATTN_TOL[dt]:g}")
@@ -878,6 +907,7 @@ def main() -> int:
                                  f"{share:.3f} times its limit ({rule}); max abs err {err}")
 
     attn_max = {}                        # dtype -> max abs err over the cases
+    attn_share = {}                      # dtype -> worst share of the limit over the cases
 
     def check_attn(what, shape, dtype, causal, block_q=256, block_k=256):
         nonlocal n_checks
@@ -907,22 +937,25 @@ def main() -> int:
               ((2, 320, 136), torch.float16, False, 64, 64)]
     for shape, dt, causal, bq, bk in ragged:
         check_attn(f"{shape} {dt} causal={causal} blocks ({bq}, {bk})", shape, dt, causal, bq, bk)
-    # the tensor-core route's edges in both 16-bit dtypes: hd of one to four
-    # 64-column chunks with zero fill past hd, S of one row, one tile less or
-    # more than a row and a ragged long one, causal and not
+    # the tensor-core routes' edges in all three dtypes: hd of one to eight
+    # 32-column chunks (float32) and one to four 64-column chunks (16 bits)
+    # with zero fill past hd, S of one row, one tile less or more than a row
+    # and a ragged long one, causal and not
     edges = [((4, 1, 8), True, 1, 1), ((3, 63, 8), False, 63, 63), ((2, 65, 16), True, 65, 13),
-             ((2, 256, 16), False, 256, 256), ((2, 130, 72), True, 130, 130),
-             ((2, 65, 72), False, 65, 65), ((2, 63, 136), True, 63, 63),
-             ((2, 320, 136), False, 64, 64), ((2, 65, 256), True, 65, 13),
+             ((2, 256, 16), False, 256, 256), ((2, 65, 40), True, 65, 65),
+             ((2, 130, 72), True, 130, 130), ((2, 65, 72), False, 65, 65),
+             ((2, 130, 128), False, 130, 130), ((2, 63, 136), True, 63, 63),
+             ((2, 320, 136), False, 64, 64), ((2, 63, 176), True, 63, 63),
+             ((1, 130, 224), False, 130, 130), ((2, 65, 256), True, 65, 13),
              ((4, 1, 256), False, 1, 1), ((2, 4100, 72), True, 4100, 100),
              ((1, 4100, 136), False, 100, 4100)]
     for shape, causal, bq, bk in edges:
-        for dt in (torch.bfloat16, torch.float16):
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
             check_attn(f"{shape} {dt} causal={causal} blocks ({bq}, {bk})", shape, dt, causal,
                        bq, bk)
     # q, k and v as contiguous views at an odd element offset: not 16-byte
-    # aligned, which TMA refuses, so the 16-bit route copies them; the result
-    # must equal the aligned call's bitwise
+    # aligned, which TMA refuses, so the wrapper copies them in every dtype;
+    # the result must equal the aligned call's bitwise
     shape = (3, 200, 72)
     n_el = math.prod(shape)
     for dt in (torch.bfloat16, torch.float16, torch.float32):
@@ -940,8 +973,9 @@ def main() -> int:
     del buf, q, k, v, got
     log("kernels", f"{n_checks - n0} flash_attention cases (A1-A3 at full width, the JAX tests' "
                    f"shapes in float32/bfloat16/float16, ragged S, hd 8 to 256, the tensor-core "
-                   f"route's edges, misaligned views) within the limit of the plain version; max "
-                   f"abs err {attn_max} ({time.perf_counter() - t0:.1f} s)")
+                   f"routes' edges in all three dtypes, misaligned views) within the limit of the "
+                   f"plain version; max abs err {attn_max}, worst share of the limit {attn_share} "
+                   f"({time.perf_counter() - t0:.1f} s)")
 
     # ---- 4. main path at the paper's size, with the launch counts of that run alone
     keys = rand_i32((N_MAIN,)).view(torch.uint32)
@@ -1626,9 +1660,10 @@ def main() -> int:
         attn_err(f"door, {what}", out, q, k, v, causal)
     del attn_runs, q, k, v, out
     log("attention", f"kernels.ops.flash_attention at A1 (float32, bfloat16), A1n, A2 (bfloat16, "
-                     f"float32) and A3: {len(ATTN)} shapes, {launches['flash_attention']} calls in "
-                     f"{attn_s:.2f} s (first calls), each within the limit of the plain version; "
-                     f"max abs err over phases 3h and 5i {attn_max}")
+                     f"float32) and A3 (bfloat16, float32): {len(ATTN)} shapes, "
+                     f"{launches['flash_attention']} calls in {attn_s:.2f} s (first calls), each "
+                     f"within the limit of the plain version; max abs err over phases 3h and 5i "
+                     f"{attn_max}, worst share of the limit {attn_share}")
 
     for name in launches:
         if launches[name] == 0:
@@ -1860,6 +1895,13 @@ def main() -> int:
     log("times", f"fused2 at F1's shape: H {h16_bytes / 2**30:.2f} GiB, {nnz16} of its "
                  f"{h16_bytes // 4} bases hit by the keys")
     fkw = dict(spec=spec16, split=8)
+    # K1f segmented at F3's shape too: 2^22 keys over 16 ragged segments,
+    # the keys, their segment ids and the (512, 16·65536) H moved once
+    kt_f3, seg_f3 = keys.view(-1)[:N_FUSED_SMALL].view(shape_small), seg_strip(f3_starts, shape_small)
+    k1f_f3_ms = cuda_ms(lambda: mst.fused2_tile_histograms(kt_f3, seg_f3, spec=spec16,
+                                                           num_segments=16))
+    k1f_f3_bound = (8 * N_FUSED_SMALL + 4 * shape_small[0] * 16 * 65536) / HBM_BYTES_PER_S * 1e3
+    del kt_f3, seg_f3
     fused_rows = [
         ("fused2_tile_histograms", "fused2_tile_histograms.cu",
          lambda: mst.fused2_tile_histograms(kt8, spec=spec16),
@@ -1884,11 +1926,18 @@ def main() -> int:
             "bitwise": errs[name] == 0, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": lib_ms,
         })
-        log("times", f"{name}: {ms_k:.4f} ms (bound {bound:.4f} ms = {nbytes / 2**20:.0f} MiB / "
-                     f"3.35 TB/s, {bound / ms_k:.1%} of it), plain {ms_p:.2f} ms, library "
-                     f"{lib_ms:.4f} ms; {launches[name]} launches on the fused paths [F1: n = 2^25, "
-                     f"pair (0, 16, 8), sub_bits {mst.CUDA_SUB_BITS}, onehot, tiles {l8} x {t_fused}; "
-                     f"{smi}]")
+        log("times", f"{name}: {ms_k:.4f} ms (bound {bound:.4f} ms = {nbytes / 2**20:.0f} MiB "
+                     f"/ 3.35 TB/s, {bound / ms_k:.1%} of it), plain {ms_p:.2f} ms, library "
+                     f"{lib_ms:.4f} ms ({ms_k / lib_ms:.3f}x of it); {launches[name]} launches on "
+                     f"the fused paths [F1: n = 2^25, pair (0, 16, 8), sub_bits {mst.CUDA_SUB_BITS}, "
+                     f"onehot, tiles {l8} x {t_fused}; {smi}]")
+    k1f_f1_ms = next(row["ms"] for row in kernels if row["name"] == "fused2_tile_histograms")
+    log("times", f"fused2_tile_histograms against before (global atomics): F1 {k1f_f1_ms:.4f} ms "
+                 f"(before {K1F_MS_BEFORE['F1']:.4f} ms, {k1f_f1_ms / K1F_MS_BEFORE['F1']:.3f}x of "
+                 f"it); segmented at F3 (2^22 keys, 16 segments, tiles {shape_small[0]} x {t_fused}) "
+                 f"{k1f_f3_ms:.4f} ms (before {K1F_MS_BEFORE['F3']:.4f} ms, "
+                 f"{k1f_f3_ms / K1F_MS_BEFORE['F3']:.3f}x of it; bound {k1f_f3_bound:.4f} ms, "
+                 f"{k1f_f3_bound / k1f_f3_ms:.1%} of it) [{smi}]")
     # the stage width and the family, K2f and K3f on the same inputs
     for fam in ("onehot", "packed"):
         parts = []
@@ -2224,38 +2273,74 @@ def main() -> int:
         + f"; sum {sum(stage_ms.values()):.4f} ms [{smi}]")
     del ids_u, hist_u, g_u, pos_u, src_u, pos_r_u, kb2, vb2
 
+    # the CUDA kernels SDPA runs for float32 at A1, read once with
+    # torch.profiler: the yardstick the float32 route is held against
+    def library_kernels(fn):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels_ = [e.key for e in events if e.device_type == DeviceType.CUDA]
+        ops_ = [e.key for e in events if "attention" in e.key and e.key.startswith("aten::")]
+        return kernels_, ops_
+
     # B11 at A1, A1n, A2 and A3, door defaults: the kernel of each route, its
     # plain version and scaled_dot_product_attention on the (B, H, S, hd)
-    # view; the bounds count 4·hd flops a (q, k) pair the mask keeps (over the
-    # fp32 CUDA cores for float32, the bf16 / fp16 tensor cores for the 16-bit
-    # route) and q, k, v and o moved once
+    # view; the operations bound counts the function's 4·hd flops a (q, k)
+    # pair the mask keeps at the tensor cores' peak for the input type (495
+    # TFLOP/s TF32 for float32, 989 bf16 / fp16), for float32 with the share
+    # of the three TF32 products' 12·hd flops at 495 and of 4·hd on the fp32
+    # CUDA cores beside it; the bytes bound q, k, v and o moved once
     attn_ms, attn_routes = {}, []
     for name, dt in (("A1", "float32"), ("A1n", "float32"), ("A1", "bfloat16"),
                      ("A1", "float16"), ("A2", "bfloat16"), ("A2", "float32"),
-                     ("A3", "bfloat16")):
+                     ("A3", "bfloat16"), ("A3", "float32")):
         (bh, s_len, hd), causal, (b_, h_), _ = ATTN[name]
         q, k, v = attn_inputs((bh, s_len, hd), getattr(torch, dt))
         q4, k4, v4 = (x.view(b_, h_, s_len, hd) for x in (q, k, v))
-        flops = 4 * hd * bh * (s_len * (s_len + 1) // 2 if causal else s_len * s_len)
+        pairs = bh * (s_len * (s_len + 1) // 2 if causal else s_len * s_len)
         nbytes = 4 * q.numel() * q.element_size()
         ms_k = cuda_ms(lambda: kops.flash_attention(q, k, v, causal=causal))
         ms_p = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal), reps=3, inner=1)
-        ms_lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=causal))
+        sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, q4, k4, v4,
+                                 is_causal=causal)
+        ms_lib = cuda_ms(sdpa)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        rate, unit = ((FP32_FLOPS_PER_S, "67 TFLOP/s fp32 CUDA cores") if dt == "float32" else
-                      (TENSOR_FLOPS_PER_S, "989 TFLOP/s bf16/fp16 tensor cores"))
+        if dt == "float32":
+            flops, rate, unit = 4 * hd * pairs, TF32_FLOPS_PER_S, "495 TFLOP/s TF32 tensor cores"
+            tf32x3_ms = 3 * flops / TF32_FLOPS_PER_S * 1e3
+            cores_ms = flops / FP32_FLOPS_PER_S * 1e3
+            cores = (f"; {tf32x3_ms / ms_k:.1%} of the three TF32 products' time {tf32x3_ms:.4f} "
+                     f"ms ({3 * flops / 1e9:.1f} GFLOP / 495 TFLOP/s); {cores_ms / ms_k:.1%} of "
+                     f"the fp32 CUDA cores' bound {cores_ms:.4f} ms ({flops / 1e9:.1f} GFLOP / "
+                     f"67 TFLOP/s)")
+            source = "flash_attention_f32_sm90.cu"
+        else:
+            flops, rate, unit = 4 * hd * pairs, TENSOR_FLOPS_PER_S, "989 TFLOP/s bf16/fp16 tensor cores"
+            cores, source = "", "flash_attention_sm90.cu"
         ops_ms = flops / rate * 1e3
         attn_ms[(name, dt)] = ms_k
         before = ATTN_MS_BEFORE.get((name, dt))
-        was = f"; PR 17 {before:.4f} ms ({ms_k / before:.3f}x of it)" if before else ""
-        source = ("flash_attention.cu" if dt == "float32" else "flash_attention_sm90.cu")
+        was = (f"; before {before:.4f} ms ({ms_k / before:.3f}x of it)" if before
+               else "; before: not measured")
         log("times", f"flash_attention {name} {dt} ({source}): {ms_k:.4f} ms{was}; bounds: "
                      f"operations {ops_ms:.4f} ms ({flops / 1e9:.1f} GFLOP / {unit}, "
-                     f"{ops_ms / ms_k:.1%} of it), bytes {bytes_ms:.4f} ms ({nbytes / 2**20:.0f} MiB "
-                     f"/ 3.35 TB/s); plain {ms_p:.2f} ms; scaled_dot_product_attention "
-                     f"{ms_lib:.4f} ms ({ms_k / ms_lib:.2f}x of it) [(BH, S, hd) = "
-                     f"{(bh, s_len, hd)}, {'causal' if causal else 'not causal'}, blocks 256; {smi}]")
+                     f"{ops_ms / ms_k:.1%} of it){cores}, bytes {bytes_ms:.4f} ms "
+                     f"({nbytes / 2**20:.0f} MiB / 3.35 TB/s); plain {ms_p:.2f} ms; "
+                     f"scaled_dot_product_attention {ms_lib:.4f} ms ({ms_k / ms_lib:.2f}x of it) "
+                     f"[(BH, S, hd) = {(bh, s_len, hd)}, {'causal' if causal else 'not causal'}, "
+                     f"blocks 256; {smi}]")
+        if name == "A1" and dt == "float32":
+            sdpa_f32 = library_kernels(sdpa)
+            if not sdpa_f32[0]:
+                raise AssertionError("torch.profiler read no CUDA kernel of "
+                                     "scaled_dot_product_attention")
+            log("times", f"scaled_dot_product_attention float32 at A1 runs the CUDA kernels "
+                         f"{sdpa_f32[0]} (aten ops {sdpa_f32[1]}) [torch.profiler; {smi}]")
         if name == "A1" and causal:
             attn_routes.append({
                 "dtype": dt, "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -2263,6 +2348,8 @@ def main() -> int:
                 "bound_ms": max(ops_ms, bytes_ms),
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                 "library_ms": ms_lib, "shape": f"A1 {ATTN['A1'][0]} {dt} causal"})
+            if dt == "float32":
+                attn_routes[-1]["library_kernels"] = sdpa_f32[0]
     # one entry for the wrapper: its A1 float32 route at the top level, every
     # route at A1 under "routes"
     top = attn_routes[0]

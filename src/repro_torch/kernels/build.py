@@ -14,7 +14,7 @@ stream, and :func:`raise_on` turns a failed launch into
 
 The flags never include ``--use_fast_math``: EvenSpec labels need IEEE
 float32 division to match the JAX package bitwise, and flash attention's
-softmax takes ``expf``, not its fast approximation.
+softmax takes ``exp2f``, not its fast approximation.
 """
 
 from __future__ import annotations
@@ -42,10 +42,10 @@ SOURCES = (
     "packed_tile_histograms", "packed_tile_positions", "packed_fused_postscan_reorder",
     "fused2_tile_histograms", "fused2_tile_positions", "fused2_fused_postscan_reorder",
     "tile_reorder",
-    "flash_attention", "flash_attention_sm90",
+    "flash_attention_f32_sm90", "flash_attention_sm90",
 )
 HEADERS = ("multisplit_common.cuh", "multisplit_segmented.cuh", "multisplit_packed.cuh",
-           "multisplit_fused2.cuh")
+           "multisplit_fused2.cuh", "flash_attention_sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-lineinfo", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -100,9 +100,10 @@ ENTRY_POINTS = {
     # the standalone reorder: ids, keys, values (null when key-only), keys_r,
     # vals_r, dest, then n_tiles, T and m
     "tile_reorder": ("ms_tile_reorder", [_P] * 6 + [_I, _I, _I, _P]),
-    # attention: q, k, v and o, then BH, S, hd and causal; float32 on the
-    # CUDA cores, and bfloat16 / float16 (the dtype code) on the tensor cores
-    "flash_attention": ("ms_flash_attention", [_P] * 4 + [_I] * 4 + [_P]),
+    # attention: q, k, v and o, then BH, S, hd and causal; float32 as three
+    # TF32 products and bfloat16 / float16 (the dtype code), both on the
+    # tensor cores
+    "flash_attention_f32_sm90": ("ms_flash_attention_f32_sm90", [_P] * 4 + [_I] * 4 + [_P]),
     "flash_attention_sm90": ("ms_flash_attention_sm90", [_P] * 4 + [_I] * 5 + [_P]),
     # the ids-plane entry points of the K2 and K2s sources: m, not a label
     "fused_postscan_reorder_ids": (

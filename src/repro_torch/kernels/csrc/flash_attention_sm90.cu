@@ -3,7 +3,8 @@
 // Replaces flash_attention_pallas (src/repro/kernels/flash_attention.py:76)
 // for 16-bit inputs; its oracle is
 // flash_attention_ref (src/repro/kernels/ref.py:110). float32 inputs take
-// flash_attention.cu.
+// flash_attention_f32_sm90.cu; the mbarrier, TMA, descriptor and tensor-map
+// helpers both routes share are in flash_attention_sm90.cuh.
 //
 // q, k, v (BH, S, hd), contiguous, all bfloat16 or all float16, their data
 // 16-byte aligned -> o (BH, S, hd) in that dtype:
@@ -56,99 +57,22 @@
 // = 64, causal. The exponentials (one exp2f a pair) run on the special
 // function units, which this simple kernel does not overlap with the
 // products.
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_attention_sm90.cuh"
 
 namespace {
+
+using namespace fa90;
 
 constexpr int kWarpgroups = 2;
 constexpr int kThreads = 128 * kWarpgroups;
 constexpr int kTileQ = 64 * kWarpgroups;     // q rows a block, 64 a warpgroup
 constexpr int kTileK = 64;                   // kv rows a tile
 constexpr int kAtom = 64;                    // columns of one 128-byte swizzled row
-constexpr int kRowBytes = 128;
 constexpr int kStages = 2;
 constexpr uint32_t kQChunk = kTileQ * kRowBytes;     // one 64-column chunk of the q tile
 constexpr uint32_t kKVChunk = kTileK * kRowBytes;    // one of a K or V tile
-constexpr float kMasked = -1e30f;            // the Pallas kernel's mask value
-constexpr unsigned kFull = 0xffffffffu;
 
 enum Dtype { kBF16 = 1, kF16 = 2 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers and TMA
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box of the 3-D tensor map at (column, row, head) into shared memory,
-// reported to the mbarrier as bytes
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int col, int row, int head) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(head)
-      : "memory");
-}
-
-// ---- wgmma
-
-// Shared-memory matrix descriptor of a tile stored as 128-byte rows, 128-byte
-// swizzled, 8-row groups 1024 bytes apart: the start address, the leading and
-// the stride byte offsets (both 1024 bytes: the stride of 8-row groups, which
-// a K-major operand takes from the stride field and an MN-major one of 64
-// columns from either) and the 128-byte swizzle mode.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// keeps the compiler from moving reads or writes of the registers across a
-// wgmma that is in flight
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i])::"memory");
-}
 
 #define FA_D32                                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
@@ -217,16 +141,6 @@ __device__ __forceinline__ void unpack2(uint32_t r, float& lo, float& hi) {
         : "=f"(lo), "=f"(hi)
         : "r"(r));
   }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(kFull, x, 1);
-  return x + __shfl_xor_sync(kFull, x, 2);
 }
 
 // Accumulator layout of m64n64 (fp32), thread t of a warpgroup, warp w =
@@ -402,47 +316,6 @@ __global__ void __launch_bounds__(kThreads, kChunks <= 2 ? 2 : 1)
   }
 }
 
-// cuTensorMapEncodeTiled, fetched from the driver at first use (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (hd, S, BH) over a contiguous (BH, S, hd) tensor; boxes of 64 columns and
-// `rows` rows of one head, 128-byte swizzled, zero fill past each edge
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int dtype, int BH, int S, int hd,
-            int rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(BH)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * 2,
-                                 static_cast<cuuint64_t>(S) * hd * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kAtom), static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-            3, const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D, int kChunks>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, void* o, int BH,
            int S, int hd, int causal, float scale_log2, cudaStream_t stream) {
@@ -488,10 +361,13 @@ extern "C" int ms_flash_attention_sm90(const void* q, const void* k, const void*
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const EncodeTiled fn = encode_tiled();
+  const fa90::EncodeTiled fn = fa90::encode_tiled();
+  const CUtensorMapDataType type =
+      dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
   CUtensorMap tq, tk, tv;
-  if (fn == nullptr || !encode(fn, &tq, q, dtype, BH, S, hd, kTileQ) ||
-      !encode(fn, &tk, k, dtype, BH, S, hd, kTileK) || !encode(fn, &tv, v, dtype, BH, S, hd, kTileK))
+  if (fn == nullptr || !fa90::encode_3d(fn, &tq, q, type, 2, BH, S, hd, kTileQ) ||
+      !fa90::encode_3d(fn, &tk, k, type, 2, BH, S, hd, kTileK) ||
+      !fa90::encode_3d(fn, &tv, v, type, 2, BH, S, hd, kTileK))
     return static_cast<int>(cudaErrorNotSupported);
   const float scale_log2 = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(hd)));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

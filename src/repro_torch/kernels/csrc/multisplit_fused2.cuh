@@ -7,13 +7,14 @@
 // stable pass over the pair (the LSD identity), and the same identity
 // decomposes the pair inside the tile into sub-digit stages of `sub` bits.
 // The pair's rows (histogram, G) are m² = 65536 words wide at r = 8, 256 KB
-// a row, more than a block's 227 KB of shared memory, so nothing m²-wide
-// lives in shared memory:
+// a row of int32, more than a block's 227 KB of shared memory:
 //
-// * K1f zeroes its tile's (s·m²) histogram row in device memory and adds
-//   each warp's keys of one cell with one global atomicAdd a group of
-//   equal cells (__match_any_sync): the counts are exact integers whatever
-//   the order of the adds.
+// * K1f counts in 16-bit halves instead, two cells to a word: a tile of at
+//   most 8192 keys never fills one, and m² = 65536 of them take 128 KB of
+//   shared memory. Each warp adds its keys of one cell with one shared
+//   atomicAdd a group of equal cells (__match_any_sync), and the block
+//   writes its row once, widened to int32, a window of whole segments at a
+//   time (fused2_tile_histograms.cu).
 // * K2f and K3f sort the tile in shared memory by the pair, stably, in an
 //   LSD sweep of sub-digit stages: each stage is the flat K2 machinery (the
 //   warp-ballot rank, or the packed two-level rank of the packed family,
@@ -24,7 +25,8 @@
 //   the tile, so a key's stable rank in its cell is its position minus the
 //   run's head, found with warp ballots and a max-carry over the warps; the
 //   key's base G[tile, seg·m² + pair] is read from device memory, once a
-//   key.
+//   key: G stays int32-wide, so nothing m²-wide of K2f / K3f lives in
+//   shared memory.
 // * Segmented tiles never sort by segment: segment ids never decrease
 //   along a tile, so sorting each segment run by its pair is the (seg,
 //   pair)-major order. A run of at most 32 keys is sorted by one warp with

@@ -8,19 +8,27 @@ masking keeps ``q_pos >= k_pos`` and fills -1e30, the softmax is the online
 one over kv blocks with fp32 state, and the output is ``acc / max(l,
 1e-30)``. There is no backward, as the JAX door has none.
 
-Two routes on the card, by dtype:
+Two routes on the card, by dtype, both on the tensor cores (``wgmma``) with
+q, K and V brought in by TMA (their shared helpers in
+``csrc/flash_attention_sm90.cuh``):
 
-- float32: ``csrc/flash_attention.cu``, fp32 FMA on the CUDA cores (no
-  TF32), q scaled by ``1/sqrt(hd)`` before the product as the Pallas kernel
-  scales it.
-- bfloat16 and float16: ``csrc/flash_attention_sm90.cu``, both products on
-  the tensor cores (``wgmma``) with q, K and V brought in by TMA. The scores
-  are the fp32 sums of the exact 16-bit products, scaled after the product;
-  p stays fp32 for the softmax and goes into p·v split in two 16-bit halves
+- float32: ``csrc/flash_attention_f32_sm90.cu``, both products as three
+  TF32 products (3xTF32): each operand split explicitly into ``hi`` (its
+  low 13 mantissa bits cleared) and ``lo = x - hi``, and ``a·b ~ a_hi·b_hi
+  + a_hi·b_lo + a_lo·b_hi`` accumulated in fp32, about 2^-21 of each
+  product off the fp32 one. q is scaled by ``1/sqrt(hd)`` before the
+  product as the Pallas kernel scales it; V is written transposed into
+  shared memory by the same pass that splits it (TF32 ``wgmma`` reads its
+  operands K-major only).
+- bfloat16 and float16: ``csrc/flash_attention_sm90.cu``. The scores are
+  the fp32 sums of the exact 16-bit products, scaled after the product; p
+  stays fp32 for the softmax and goes into p·v split in two 16-bit halves
   (``p_hi + p_lo``), so that the result keeps the fp32 p of the Pallas
-  kernel to within one unit in the last place of the output. TMA needs
-  16-byte aligned data: a q, k or v whose data pointer is not (a view at an
-  odd offset) is copied to an aligned buffer first.
+  kernel to within one unit in the last place of the output.
+
+TMA needs 16-byte aligned data: a q, k or v whose data pointer is not (a
+view at an odd offset) is copied to an aligned buffer first, in every
+dtype.
 
 ``S`` must be a multiple of ``block_q`` and of ``block_k`` (the JAX door's
 assert), on every device. The plain version walks the kv blocks of
@@ -124,12 +132,12 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
     o = torch.empty((bh, s, hd), dtype=q.dtype, device=q.device)
     if not o.numel():
         return o
+    q, k, v = (x if x.data_ptr() % TMA_ALIGN == 0 else x.clone() for x in (q, k, v))
     if q.dtype == torch.float32:
-        build.raise_on(build.load("flash_attention")(
+        build.raise_on(build.load("flash_attention_f32_sm90")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, s, hd, int(bool(causal)),
-            build.stream(q)), "flash_attention")
+            build.stream(q)), "flash_attention_f32_sm90")
     else:
-        q, k, v = (x if x.data_ptr() % TMA_ALIGN == 0 else x.clone() for x in (q, k, v))
         build.raise_on(build.load("flash_attention_sm90")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, s, hd, int(bool(causal)),
             DTYPES[q.dtype], build.stream(q)), "flash_attention_sm90")

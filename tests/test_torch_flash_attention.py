@@ -11,6 +11,7 @@ CUDA kernel is held against the plain version on the card by
 ``chip_smoke.py``."""
 
 import ctypes
+import functools
 import importlib.util
 import math
 import re
@@ -176,17 +177,24 @@ def test_other_devices_raise():
 
 
 def test_kernel_source_carries_its_note():
-    """The source names the Pallas function it replaces and its bound, uses
-    the accurate ``expf``, and declares its ctypes entry point."""
-    text = (CSRC / "flash_attention.cu").read_text()
+    """The float32 route's source names the Pallas function it replaces and
+    its 495 TFLOP/s bound, takes both products as TF32 ``wgmma`` with the
+    explicit hi / lo split, uses the accurate ``exp2f``, and declares the
+    entry point ``build`` binds with its nine arguments."""
+    text = (CSRC / "flash_attention_f32_sm90.cu").read_text()
     for name in ("flash_attention_pallas (src/repro/kernels/flash_attention.py:76)",
                  "flash_attention_ref (src/repro/kernels/ref.py:110)",
-                 "Bound: operations", "TFLOP/s", "3.35 TB/s"):
-        assert name in text
-    assert "__expf" not in text and re.search(r"\bexpf\(", text)
-    symbol, argtypes = build.ENTRY_POINTS["flash_attention"]
-    assert f'extern "C" int {symbol}(' in text and len(argtypes) == 9
-    assert "flash_attention" in build.SOURCES
+                 "Bound: operations", "495 TFLOP/s", "3.35 TB/s", "wgmma.mma_async",
+                 ".tf32.tf32", "0xffffe000", "a_hi·b_hi + a_hi·b_lo + a_lo·b_hi",
+                 "(0, 2, 4, 6,\n//   1, 3, 5, 7)", '#include "flash_attention_sm90.cuh"'):
+        assert name in text, name
+    assert "__expf" not in text and "__exp2f" not in text and re.search(r"\bexp2f\(", text)
+    symbol, argtypes = build.ENTRY_POINTS["flash_attention_f32_sm90"]
+    params = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', text).group(1).split(",")
+    assert len(params) == len(argtypes) == 9
+    assert [("*" in a) for a in params] == [t is ctypes.c_void_p for t in argtypes]
+    assert "flash_attention_f32_sm90" in build.SOURCES and "flash_attention" not in build.SOURCES
+    assert not (CSRC / "flash_attention.cu").exists()
     assert "--use_fast_math" not in build.NVCC_FLAGS
 
 
@@ -195,6 +203,9 @@ def test_sm90_source_carries_its_note():
     and its bound, uses the accurate ``exp2f``, splits p, and declares the
     entry point ``build`` binds with its ten arguments."""
     text = (CSRC / "flash_attention_sm90.cu").read_text()
+    assert '#include "flash_attention_sm90.cuh"' in text
+    text += (CSRC / "flash_attention_sm90.cuh").read_text()     # the helpers both routes share
+    assert "flash_attention_sm90.cuh" in build.HEADERS
     for name in ("flash_attention_pallas (src/repro/kernels/flash_attention.py:76)",
                  "flash_attention_ref (src/repro/kernels/ref.py:110)",
                  "Bound: operations", "989 TFLOP/s", "3.35 TB/s", "p_hi", "p_lo",
@@ -277,6 +288,103 @@ def test_route_arithmetic_with_p_rounded_once_is_not(shape, dtype):
     q, k, v = _route_inputs(shape, dtype)
     want = fa.flash_attention_plain(q, k, v, True, 128, 128)
     assert _worst_share(_route_arithmetic(q, k, v, split=False), want) > 1.0
+
+
+_TF32_HI = -(1 << 13)       # 0xffffe000 as an int32: sign, exponent, 10 mantissa bits
+_KV_ORDER = [0, 2, 4, 6, 1, 3, 5, 7]       # Vᵀ's columns in each group of 8 kv rows
+
+
+def _tf32_split(x):
+    """x split as the float32 route splits it: hi = x with its low 13
+    mantissa bits cleared, lo = x - hi (exact in fp32), and lo truncated to
+    TF32 as well (the worse of the ways a tensor core may read it)."""
+    hi = (x.view(torch.int32) & _TF32_HI).view(torch.float32)
+    return hi, ((x - hi).view(torch.int32) & _TF32_HI).view(torch.float32)
+
+
+def _f32_route_arithmetic(q, k, v, causal, products=3, tile_q=64, tile_k=32):
+    """The float32 route's arithmetic in plain torch: q scaled in fp32 and
+    split, K, p and V split; each product ``a_hi·b_lo + a_lo·b_hi +
+    a_hi·b_hi`` (``products=3``) or ``a_hi·b_hi`` alone (``products=1``),
+    summed in fp32 (a product of two TF32 values is exact in fp32); the
+    kernel's 64 x 32 tiles with the causal stop at the diagonal tile; the
+    online softmax in fp32 with exp2 of the scores times log2(e); p·v over
+    each tile's kv in the kernel's order, (0, 2, 4, 6, 1, 3, 5, 7) in every
+    group of 8, on both sides; l from the fp32 p."""
+    bh, s, hd = q.shape
+    qs = q * torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+    log2e = torch.tensor(math.log2(math.e), dtype=torch.float32)
+    (qh, ql), (kh, kl) = _tf32_split(qs), _tf32_split(k)
+    order = torch.tensor([8 * (j // 8) + _KV_ORDER[j % 8] for j in range(tile_k)])
+
+    def prod(ah, al, bh_, bl):
+        out = torch.matmul(ah, bh_)
+        return out if products == 1 else torch.matmul(ah, bl) + torch.matmul(al, bh_) + out
+
+    n_kt = -(-s // tile_k)
+    out = torch.empty((bh, s, hd), dtype=torch.float32)
+    for q0 in range(0, s, tile_q):
+        rows = slice(q0, min(q0 + tile_q, s))
+        q_pos = torch.arange(rows.start, rows.stop)[:, None]
+        kt_end = min(n_kt, (rows.stop - 1) // tile_k + 1) if causal else n_kt
+        m = torch.full((bh, rows.stop - q0, 1), fa.NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((bh, rows.stop - q0, hd))
+        for kt in range(kt_end):
+            cols = slice(kt * tile_k, min((kt + 1) * tile_k, s))
+            sc = prod(qh[:, rows], ql[:, rows], kh[:, cols].transpose(1, 2),
+                      kl[:, cols].transpose(1, 2)) * log2e
+            if causal:
+                sc = torch.where(q_pos >= torch.arange(cols.start, cols.stop)[None, :], sc,
+                                 fa.NEG_INF)
+            m_new = torch.maximum(m, sc.amax(dim=2, keepdim=True))
+            p = torch.exp2(sc - m_new)
+            corr = torch.exp2(m - m_new)
+            l = l * corr + p.sum(dim=2, keepdim=True)
+            # the tile's kv rows past S are zeros in the kernel, as p there is 0
+            pad = tile_k - p.shape[2]
+            p_t = torch.nn.functional.pad(p, (0, pad))[:, :, order]
+            v_t = torch.nn.functional.pad(v[:, cols], (0, 0, 0, pad))[:, order]
+            acc = acc * corr + prod(*_tf32_split(p_t), *_tf32_split(v_t))
+            m = m_new
+        out[:, rows] = acc / torch.clamp(l, min=1e-30)
+    return out
+
+
+# the JAX tests' float32 shapes and block pairs (tests/test_kernels.py), on
+# the inputs of test_door_vs_pallas_float32
+_F32_ROUTE_CASES = [((3, 256, 64), True, 64, 64), ((3, 512, 128), True, 128, 64),
+                    ((3, 256, 64), False, 64, 128), ((3, 512, 32), True, 256, 256)]
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_route_case(i):
+    """(q, k, v), causal and flash_attention_pallas's result in interpret
+    mode for case i."""
+    (bh, s, hd), causal, bq, bk = _F32_ROUTE_CASES[i]
+    q, k, v = _qkv(bh, s, hd, s + hd)
+    want = np.asarray(jkops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                            causal=causal, block_q=bq, block_k=bk))
+    return tuple(torch.from_numpy(a) for a in (q, k, v)), causal, want
+
+
+def _f32_route_err(i, products):
+    (q, k, v), causal, want = _f32_route_case(i)
+    return float(np.abs(_f32_route_arithmetic(q, k, v, causal, products).numpy() - want).max())
+
+
+@pytest.mark.parametrize("case", range(len(_F32_ROUTE_CASES)))
+def test_f32_route_arithmetic_is_within_2e4_with_tenfold_headroom(case):
+    """Three TF32 products of explicitly split operands keep the route within
+    a tenth of the 2e-4 float32 limit of the Pallas kernel (interpret mode)."""
+    assert _f32_route_err(case, products=3) <= 2e-5
+
+
+@pytest.mark.parametrize("case", range(len(_F32_ROUTE_CASES)))
+def test_f32_route_single_tf32_product_is_ten_times_further_off(case):
+    """``hi·hi`` alone is at least ten times further off the Pallas kernel
+    than the three products: the reason the route takes three."""
+    assert _f32_route_err(case, products=1) >= 10 * _f32_route_err(case, products=3)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])

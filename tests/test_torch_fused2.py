@@ -229,6 +229,62 @@ def test_fused2_histograms_vs_pallas(form):
     _eq(tkops.fused2_tile_histograms(_t(keys), _t(seg), spec=tspec, num_segments=s), want)
 
 
+K1F_WINDOW_CELLS = 1 << mst.MAX_PAIR_BITS     # the 16-bit counters K1f keeps in shared memory
+
+
+def _k1f_packed_counts(keys, seg, shift, bits, s):
+    """K1f's counting (csrc/fused2_tile_histograms.cu) in torch: for each
+    tile, the windows of whole segments between its lowest and highest one,
+    each counted into 16-bit halves of int32 words (``cell >> 1`` gets ``1
+    << 16·(cell & 1)`` a key) and unpacked to int32; zeros elsewhere. A half
+    that passed 2^16 would carry into its neighbour and show."""
+    n_tiles, t = keys.shape
+    m2 = 1 << bits
+    win = min(s, max(1, K1F_WINDOW_CELLS // m2))
+    pair = (torch.from_numpy(keys.astype(np.int64)) >> shift) & (m2 - 1)
+    segs = torch.zeros((n_tiles, t), dtype=torch.int64) if seg is None else torch.from_numpy(
+        seg.astype(np.int64))
+    out = torch.zeros((n_tiles, s * m2), dtype=torch.int32)
+    for tile in range(n_tiles):
+        lo, hi = int(segs[tile].min()), int(segs[tile].max())
+        for a in range(0, s, win):
+            wn = min(win, s - a)
+            if a > hi or a + wn <= lo:
+                continue
+            inside = (segs[tile] >= a) & (segs[tile] < a + wn)
+            cell = (segs[tile][inside] - a) * m2 + pair[tile][inside]
+            words = torch.zeros(wn * m2 // 2, dtype=torch.int32)
+            words.index_add_(0, cell >> 1, (1 << (16 * (cell & 1))).to(torch.int32))
+            out[tile, a * m2:(a + wn) * m2] = torch.stack([words & 0xFFFF, words >> 16], 1).view(-1)
+    return out
+
+
+@pytest.mark.parametrize("segmented", [False, True], ids=["flat", "segmented"])
+@pytest.mark.parametrize("fill", ["even-cell", "odd-cell", "both-halves"])
+def test_k1f_packed_counting_vs_jax_at_full_tiles(fill, segmented):
+    """The design of K1f's 16-bit counters, emulated in torch, against the JAX
+    fused2_tile_histograms on tiles of MAX_TILE = 8192 keys at the 16-bit
+    pair: every key in the even cell of one word, every key in its odd cell,
+    and 4096 keys in each cell of it. The emulation runs none of the
+    kernel's code, and the wrapper on CPU tensors takes the plain version;
+    the kernel itself is held bitwise against its plain version on these
+    cases on the card, in phase 3e of chip_smoke.py."""
+    t = mst.MAX_TILE
+    keys = np.full((2, t), 0x5A5A1234, np.uint32)
+    if fill == "odd-cell":
+        keys += 1
+    elif fill == "both-halves":
+        keys[:, np.random.default_rng(t).permutation(t)[: t // 2]] += 1
+    seg, s = (np.array([[1] * t, [2] * t], np.int32), 3) if segmented else (None, 1)
+    want = jkops.fused2_tile_histograms(_j(keys), _j(seg), spec=jid.BitfieldSpec(0, 16),
+                                        num_segments=s, oblivious=False)
+    got = _k1f_packed_counts(keys, seg, 0, 16, s)
+    _eq(got, want)
+    assert int(got.max()) == (t if fill != "both-halves" else t // 2)
+    _eq(mst.fused2_tile_histograms(_t(keys), _t(seg), spec=ops.BitfieldSpec(0, 16),
+                                   num_segments=s), want)
+
+
 @pytest.mark.parametrize("form,offset", [("flat-packed", BIG)])
 def test_fused2_positions_vs_pallas(form, offset):
     keys, seg, _, jspec, tspec, kw = _form(form)
