@@ -26,6 +26,12 @@ Phases, one line or more each, every one of which must pass:
    7, 32, 255, 256}, tails and tiles up to ``MAX_TILE``, labels outside
    [0, m) (both sides clamp them), bases above 2^24, empty and one- to
    eight-key segments.
+   K1 and K2 in their Hopper designs (persistent blocks, staged rows,
+   order-free counts), with labels in the kernel and through the ids
+   entries: every key of a full tile in one bucket at m = 1, 2 and 256,
+   tile counts of 1, 3 and 997 (below and off a multiple of the persistent
+   grid), rows of 4095, 37 and ``MAX_TILE`` - 1 keys and planes that start
+   off 16 bytes (the kernels' scalar path), ``MAX_TILE`` key-value.
    The packed kernels K1p-K3p in their four forms ({labels in the kernel |
    ids strip} x {flat | segmented}), each held bitwise against its plain
    version and against the onehot kernel of the same form: the main shapes
@@ -134,10 +140,13 @@ Phases, one line or more each, every one of which must pass:
    kernel); every kernel is launched on one of them.
 7. times   — per kernel: ms, the plain version's ms, the bound (bytes moved
    over 3.35 TB/s, the H100 SXM data-sheet rate) and one PyTorch call as a
-   yardstick; the onehot and packed kernels side by side on the same
-   inputs (flat at m in {8, 32, 256}, S1, both label sources); end to end:
-   ms and Gkeys/s, with the same labels as ``DeltaSpec`` and as a
-   callable, and every packed path's call beside its onehot twin; stage
+   yardstick, K1, K2 and both on the ids strip beside their first design's
+   times (``K1K2_MS_BEFORE``); K1 and K2 key-value with uniform keys at m
+   in {2, 32, 256} and every key in one bucket at m = 256; the onehot and
+   packed kernels side by side on the same inputs (flat at m in {8, 32,
+   256}, S1, both label sources); end to end: ms and Gkeys/s, with the
+   same labels as ``DeltaSpec`` and as a callable, and every packed
+   path's call beside its onehot twin; stage
    splits; peak device memory. The fused kernels at F1's shapes, K2f and K3f
    at stage widths 4 and 8 in both families, F1-F3 fused against unfused end
    to end in turns, F1 fused at sub_bits 4 and 8 and at tile 4096, and the
@@ -192,6 +201,11 @@ SEED = 0
 # measured them when they were added (PERF.md's kernel table)
 FLAT_MS_BEFORE = {"spec_tile_histograms": 0.3485, "spec_fused_postscan_reorder": 0.7949,
                   "spec_tile_positions": 0.3852}
+# K1 and K2 (and both on the ids strip) at n = 2^25, m = 256, key-value, in
+# their first design (one block a tile, the rank walk from device memory),
+# run 3 of this script on an H100 80GB HBM3 at 700 W (PERF.md's kernel table)
+K1K2_MS_BEFORE = {"spec_tile_histograms": 0.3411, "spec_fused_postscan_reorder": 0.8239,
+                  "tile_histograms": 0.3372, "fused_postscan_reorder": 0.8026}
 # K1f at F1 and, segmented, at F3 when it added its counts into a zeroed H
 # in device memory with global atomics, on an H100 80GB HBM3 at 700 W
 # (PERF.md's kernel table and its F3 stage line)
@@ -576,6 +590,42 @@ def main() -> int:
                    f"32, 255, 256), tiles up to {mst.MAX_TILE}, labels outside [0, m), G above "
                    f"2^24, empty and tiny segments): the six ids kernels all bitwise equal to "
                    f"their plain versions ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- 3c'. the cases the Hopper designs of K1 and K2 (persistent blocks,
+    # staged rows, order-free counts) make new, each through K1-K3 with
+    # labels in the kernel and through the ids kernels, against the plain
+    # versions: every key of a full tile in one bucket, tile counts below and
+    # off a multiple of the persistent grid (a few blocks an SM on the
+    # card's SMs), rows of T % 4 != 0 and planes off 16 bytes (the scalar
+    # path), MAX_TILE key-value with the ids entry
+    def check_k1k2_case(what, keys_tiled, spec, values_tiled, g_offset=(1 << 24) + 1):
+        check_case(what, keys_tiled, spec, values_tiled, g_offset)
+        check_ids_case(f"{what}, ids", mst.spec_bucket_ids_plain(keys_tiled, spec), keys_tiled,
+                       values_tiled, spec.num_buckets, g_offset=g_offset)
+
+    t0, n0 = time.perf_counter(), n_checks
+    for shape in ((64, 4096), (3, mst.MAX_TILE)):
+        # bucket 0 of 1, 1 of 2 (the all-ones key), 127 of 256
+        for spec, word in ((ops.DeltaSpec(1), 0x12345678), (main_spec(2), -1),
+                           (main_spec(256), 0x7F000000)):
+            keys = torch.full(shape, word, dtype=torch.int32, device=dev).view(torch.uint32)
+            check_k1k2_case(f"one bucket {spec.name} {shape}", keys, spec, rand_i32(shape))
+    for shape in ((1, 4096), (3, 4096), (997, 4096), (4, 4095), (7, 37), (1, 37),
+                  (3, mst.MAX_TILE), (3, mst.MAX_TILE - 1)):
+        for spec in (main_spec(2), main_spec(256), ops.DeltaSpec(7), ops.BitfieldSpec(24, 8)):
+            check_k1k2_case(f"{spec.name} {shape}", rand_i32(shape).view(torch.uint32), spec,
+                            rand_i32(shape))
+    for shape in ((5, 4096), (3, mst.MAX_TILE)):
+        n_ = shape[0] * shape[1]
+        keys = rand_i32((n_ + 1,))[1:].view(shape).view(torch.uint32)    # 4 bytes past 16
+        vals = rand_i32((n_ + 3,))[3:].view(shape)                       # 12 bytes past 16
+        check_k1k2_case(f"planes off 16 bytes {shape}", keys, main_spec(256), vals)
+    del keys, vals
+    log("kernels", f"{n_checks - n0} K1 / K2 design cases (one-bucket full tiles at m = 1, 2 "
+                   f"and 256, L = 1, 3 and 997, T = 4095, 37 and {mst.MAX_TILE - 1}, planes "
+                   f"off 16 bytes, {mst.MAX_TILE} key-value, labels in the kernel and from "
+                   f"the ids entry): all bitwise equal to the plain versions "
+                   f"({time.perf_counter() - t0:.1f} s)")
 
     # ---- 3d. the packed kernels K1p-K3p against their plain versions and the
     # onehot kernels, in their four forms ({spec labels | ids strip} x {flat |
@@ -1753,12 +1803,31 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": lib_ms,
         })
         before = f"when added: {FLAT_MS_BEFORE[name]:.4f} ms; " if name in FLAT_MS_BEFORE else ""
+        if name in K1K2_MS_BEFORE:
+            before += (f"first design: {K1K2_MS_BEFORE[name]:.4f} ms, now "
+                       f"{ms_k / K1K2_MS_BEFORE[name]:.3f}x of it; ")
         library = f"{lib_ms:.4f} ms" if lib_ms is not None else "none (no single PyTorch call)"
         label = even if name == "spec_bucket_ids" else spec
         log("times", f"{name}: {ms_k:.4f} ms ({before}bound {bound:.4f} ms = {nbytes / 2**20:.0f} "
                      f"MiB / 3.35 TB/s, {bound / ms_k:.1%} of it), plain {ms_p:.2f} ms, library "
                      f"{library}; {launches[name]} launches on the main paths [n = 2^25, {label}, "
                      f"tiles 8192 x 4096; {smi}]")
+
+    # K1 and K2 key-value where buckets collide: uniform keys at small m,
+    # and every key of every tile in one bucket (K1's atomics on one
+    # counter a copy, K2's rank all in one run)
+    one_bucket = torch.full(kt.shape, 0x7F000000, dtype=torch.int32, device=dev).view(kt.dtype)
+    parts = []
+    for what, keys_, m_ in (("uniform", kt, 2), ("uniform", kt, 32), ("uniform", kt, 256),
+                            ("one bucket", one_bucket, 256)):
+        spec_ = main_spec(m_)
+        g_ = st.global_scan(mst.spec_tile_histograms(keys_, spec_))
+        a = cuda_ms(lambda: mst.spec_tile_histograms(keys_, spec_))
+        b = cuda_ms(lambda: mst.spec_fused_postscan_reorder(keys_, g_, vt, spec_))
+        parts.append(f"{what} m = {m_}: K1 {a:.4f}, K2 {b:.4f}")
+    del one_bucket, g_
+    log("times", "K1 / K2 key-value by key spread: " + "; ".join(parts) +
+        f" ms [n = 2^25, DeltaSpec(m, 2^32), tiles 8192 x 4096; {smi}]")
 
     # the two families side by side, kernel by kernel, on the same inputs
     def family_pair(label, onehot_fn, packed_fn) -> str:

@@ -42,10 +42,12 @@ WMS_TILE = 1024
 BMS_TILE = 4096
 
 # The cuda backend's tile, for every method and layout: 4096 keys give
-# L = 8192 tiles (62 blocks an SM) at n = 2^25 and keep K2's shared memory
-# (about 92 KB key-value at m = 256; K2s about 109 KB) within two blocks an
-# SM. The segmented kernels keep m-wide state, so their shared memory does
-# not grow with s and the tile stays the same at any m_eff = s·m. Not
+# L = 8192 tiles (62 an SM) at n = 2^25. K1 and K2 run persistent blocks
+# that walk the tiles: K2 stages two tiles of keys and values (79 KiB a
+# block key-value at m = 256, 111 KiB with the ids plane), two blocks an
+# SM; K2s keeps about 109 KB a block, one tile, within two blocks an SM.
+# The segmented kernels keep m-wide state, so their shared memory does not
+# grow with s and the tile stays the same at any m_eff = s·m. Not
 # measured yet: ROADMAP queue A item 8 measures the tile on the H100.
 CUDA_TILE = 4096
 _MIN_TILE = 256

@@ -1,0 +1,81 @@
+"""The kernel build's lists of sources and headers against ``csrc/``.
+
+``build.library_path`` names each library by a hash of its source, the
+headers in ``build.HEADERS`` and the flags, so a header that a source
+includes but the list leaves out could load a stale library after an edit.
+These tests hold the lists to the files: every ``#include "..."`` of a
+source or header names a listed header, every listed header exists, and the
+sources are exactly the ``csrc/*.cu`` files."""
+
+import re
+from pathlib import Path
+
+import pytest
+
+from repro_torch.kernels import build
+
+CSRC = Path(build.__file__).resolve().parent / "csrc"
+LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _local_includes(path: Path) -> list:
+    return LOCAL_INCLUDE.findall(path.read_text())
+
+
+@pytest.mark.parametrize("name", sorted(p.name for p in CSRC.iterdir()
+                                        if p.suffix in (".cu", ".cuh")))
+def test_every_local_include_is_a_listed_header(name):
+    for header in _local_includes(CSRC / name):
+        assert header in build.HEADERS, (name, header)
+
+
+def test_sources_are_the_cu_files():
+    assert len(build.SOURCES) == len(set(build.SOURCES))
+    assert set(build.SOURCES) == {p.stem for p in CSRC.glob("*.cu")}
+
+
+def test_listed_headers_are_the_cuh_files():
+    assert len(build.HEADERS) == len(set(build.HEADERS))
+    assert set(build.HEADERS) == {p.name for p in CSRC.glob("*.cuh")}
+
+
+def _includes_transitively(name: str) -> set:
+    seen, todo = set(), [name]
+    while todo:
+        for header in _local_includes(CSRC / todo.pop()):
+            if header not in seen:
+                seen.add(header)
+                todo.append(header)
+    return seen
+
+
+@pytest.mark.parametrize("header", build.HEADERS)
+def test_an_edited_header_renames_every_library_that_includes_it(header, tmp_path, monkeypatch):
+    """Editing a header changes the library name of every source that
+    includes it, directly or through another header, so no stale build is
+    loaded."""
+    for f in CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    users = [s for s in build.SOURCES if header in _includes_transitively(f"{s}.cu")]
+    assert users, f"no source includes {header}"
+    before = {s: build.library_path(s) for s in build.SOURCES}
+    (tmp_path / header).write_text((tmp_path / header).read_text() + "\n// edited\n")
+    for s in users:
+        assert build.library_path(s) != before[s], (header, s)
+
+
+def test_k1_and_k2_share_the_hopper_header():
+    """K1 and K2 in their Hopper designs: persistent blocks over tiles, rows
+    loaded ahead, K1 counting without the rank walk, K2 ranking from its
+    staged tile; both through ``multisplit_sm90.cuh``, which is listed."""
+    k1 = (CSRC / "tile_histograms.cu").read_text()
+    k2 = (CSRC / "fused_postscan_reorder.cu").read_text()
+    for text in (k1, k2):
+        assert '#include "multisplit_sm90.cuh"' in text
+        assert "tile += gridDim.x" in text and "persistent_grid" in text
+    assert "rank_tile" not in k1 and "__match_any_sync" not in k1 and "atomicAdd" in k1
+    assert "uint4" in k1
+    assert "stage_row" in k2 and "copy_wait_all" in k2
+    assert "cp.async.cg.shared.global" in k2 and "cp.async.ca.shared.global" in k2
+    assert "multisplit_sm90.cuh" in build.HEADERS

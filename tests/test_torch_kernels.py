@@ -350,9 +350,7 @@ def test_kernel_sources_call_no_library(source):
         assert mark not in text, (source, mark)
     includes = [line.split()[1] for line in text.splitlines() if line.startswith("#include")]
     assert set(includes) <= {"<cuda.h>", "<cuda_runtime.h>", "<stdint.h>",
-                             '"multisplit_common.cuh"',
-                             '"multisplit_segmented.cuh"', '"multisplit_packed.cuh"',
-                             '"multisplit_fused2.cuh"', '"flash_attention_sm90.cuh"'}, includes
+                             *(f'"{header}"' for header in build.HEADERS)}, includes
 
 
 def test_build_flags_and_missing_nvcc(monkeypatch, tmp_path):
