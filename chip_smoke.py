@@ -9,7 +9,8 @@ built from ``src/repro_torch/kernels/csrc`` into ``build/repro_torch/``.
 Phases, one line or more each, every one of which must pass:
 
 1. device  — ``nvidia-smi`` name and power limit, the torch device.
-2. build   — nvcc of every kernel source, in parallel; seconds and ptxas use.
+2. build   — nvcc of every kernel source, in parallel; seconds and ptxas use;
+   no K3 or K2s instance may spill.
 3. kernels — K1-K3 held bitwise against their plain PyTorch versions on the
    card: the main path's shapes (n = 2^25 keys in 8192 tiles of 4096), every
    spec kind, m in {2, 32, 256}, key-only and key-value, int32 / uint32 /
@@ -31,7 +32,17 @@ Phases, one line or more each, every one of which must pass:
    entries: every key of a full tile in one bucket at m = 1, 2 and 256,
    tile counts of 1, 3 and 997 (below and off a multiple of the persistent
    grid), rows of 4095, 37 and ``MAX_TILE`` - 1 keys and planes that start
-   off 16 bytes (the kernels' scalar path), ``MAX_TILE`` key-value.
+   off 16 bytes (the kernels' scalar path), ``MAX_TILE`` key-value; the
+   same cases run K3 and K3 on ids, persistent and staged too.
+   K2s in its Hopper design (persistent staged tiles, K2's path for a tile
+   of one run, chunk flags, one warp a short run, long runs listed), through
+   K1s-K3s with labels in the kernel and through the ids entries, bases
+   above 2^24: one-bucket tiles at m = 1, 2 and 256, tile counts 1, 3 and
+   997, rows of 4095, 37 and ``MAX_TILE`` - 1 keys, planes that start off
+   16 bytes, ``MAX_TILE`` key-value, tiles of one run, two runs a tile with
+   the boundary inside a 32-key round and on one, runs of exactly 32 and 33
+   keys, empty segments and s up to 256, each in the shift, general and
+   clamp label forms.
    The packed kernels K1p-K3p in their four forms ({labels in the kernel |
    ids strip} x {flat | segmented}), each held bitwise against its plain
    version and against the onehot kernel of the same form: the main shapes
@@ -141,12 +152,16 @@ Phases, one line or more each, every one of which must pass:
 7. times   — per kernel: ms, the plain version's ms, the bound (bytes moved
    over 3.35 TB/s, the H100 SXM data-sheet rate) and one PyTorch call as a
    yardstick, K1, K2 and both on the ids strip beside their first design's
-   times (``K1K2_MS_BEFORE``); K1 and K2 key-value with uniform keys at m
+   times (``K1K2_MS_BEFORE``), K3, K3 on ids, K2s and K2s on ids beside
+   theirs (``K3K2S_MS_BEFORE``), K2 beside its time when it had its own copy
+   of the rank (``K2_MS_OWN_RANK``), K2s over about 50,000 one- to eight-key
+   segments; K1 and K2 key-value with uniform keys at m
    in {2, 32, 256} and every key in one bucket at m = 256; the onehot and
    packed kernels side by side on the same inputs (flat at m in {8, 32,
    256}, S1, both label sources); end to end: ms and Gkeys/s, with the
    same labels as ``DeltaSpec`` and as a callable, and every packed
-   path's call beside its onehot twin; stage
+   path's call beside its onehot twin, the flat key-value dms and
+   positions_only calls at m = 256; stage
    splits; peak device memory. The fused kernels at F1's shapes, K2f and K3f
    at stage widths 4 and 8 in both families, F1-F3 fused against unfused end
    to end in turns, F1 fused at sub_bits 4 and 8 and at tile 4096, and the
@@ -206,6 +221,16 @@ FLAT_MS_BEFORE = {"spec_tile_histograms": 0.3485, "spec_fused_postscan_reorder":
 # run 3 of this script on an H100 80GB HBM3 at 700 W (PERF.md's kernel table)
 K1K2_MS_BEFORE = {"spec_tile_histograms": 0.3411, "spec_fused_postscan_reorder": 0.8239,
                   "tile_histograms": 0.3372, "fused_postscan_reorder": 0.8026}
+# K3, K2s and both on the ids strip in their first design (one block a tile,
+# the rank walk from device memory through a meta plane) at the main shapes
+# (K3: n = 2^25, m = 256; K2s: S1, key-value), on an H100 80GB HBM3 at 700 W
+# (PERF.md's kernel table)
+K3K2S_MS_BEFORE = {"spec_tile_positions": 0.3611, "tile_positions": 0.3762,
+                   "seg_spec_fused_postscan_reorder": 1.1822, "seg_fused_postscan_reorder": 1.1546}
+# K2 key-value at the main shape when it kept its own copy of the rank that
+# it now shares with K3 and K2s (PERF.md's kernel table); within 5 % of it
+# shows the shared rank cost K2 nothing
+K2_MS_OWN_RANK = 0.3821
 # K1f at F1 and, segmented, at F3 when it added its counts into a zeroed H
 # in device memory with global atomics, on an H100 80GB HBM3 at 700 W
 # (PERF.md's kernel table and its F3 stage line)
@@ -292,6 +317,15 @@ def main() -> int:
     for name in build.PTXAS_LOG:
         for line in build.ptxas_summary(name):
             log("build", f"{name}: {line}")
+    # K3 and K2s hold their rank in registers: no instance may spill
+    redesigned = [(name, line) for name in ("tile_positions", "seg_fused_postscan_reorder")
+                  for line in build.ptxas_summary(name) if "spill stores" in line]
+    spilled = [f"{name}: {line}" for name, line in redesigned
+               if "spill stores 0 B, loads 0 B" not in line]
+    if spilled:
+        raise AssertionError("K3 / K2s instances spill:\n" + "\n".join(spilled))
+    log("build", f"K3 and K2s: {len(redesigned)} instances, none spills" if redesigned else
+                 "K3 and K2s: libraries current, not rebuilt, so no ptxas lines")
 
     # ---- helpers
     def rand_i32(shape):
@@ -626,6 +660,93 @@ def main() -> int:
                    f"off 16 bytes, {mst.MAX_TILE} key-value, labels in the kernel and from "
                    f"the ids entry): all bitwise equal to the plain versions "
                    f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- 3c''. the cases the Hopper design of K2s (persistent staged tiles,
+    # K2's path for a tile of one run, chunk flags, one warp a short run,
+    # long runs listed) makes new, through K1s-K3s with labels in the kernel
+    # and through the ids kernels, against the plain versions, bases above
+    # 2^24; each in the shift (DeltaSpec over 2^k), general (DeltaSpec(7))
+    # and clamp (IdentitySpec) label forms. K3's cases are 3c''s, which run
+    # K3 and K3 on ids too.
+    def off16(x, k):
+        """x copied to a view k words past a 16-byte boundary."""
+        buf = torch.empty((x.numel() + k,), dtype=x.dtype, device=dev)
+        view = buf[k:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    def check_k2s_case(what, keys_tiled, starts, spec, values_tiled, shift=0):
+        starts = np.asarray(starts, np.int32)
+        seg = seg_strip(starts, tuple(keys_tiled.shape))
+        if shift:                                    # the strip off 16 bytes too
+            seg = off16(seg, shift)
+        check_seg_case(what, keys_tiled, seg, starts.size, spec, values_tiled,
+                       g_offset=(1 << 24) + 1)
+        check_ids_case(f"{what}, ids", mst.spec_bucket_ids_plain(keys_tiled, spec), keys_tiled,
+                       values_tiled, spec.num_buckets, seg, starts.size, g_offset=(1 << 24) + 1)
+
+    def one_run_a_tile(shape):
+        return np.arange(0, shape[0] * shape[1], shape[1])
+
+    def k2s_specs(shape):
+        """A spec of each label form with keys for it."""
+        return ((main_spec(256), rand_i32(shape).view(torch.uint32)),
+                (ops.DeltaSpec(7), rand_i32(shape).view(torch.uint32)),
+                (ops.IdentitySpec(32), keys_for(torch.int32, shape, 0, 32)))
+
+    t0, n0 = time.perf_counter(), n_checks
+    for shape in ((64, 4096), (3, mst.MAX_TILE)):
+        # bucket 0 of 1, 1 of 2 (the all-ones key), 127 of 256; one run a tile
+        # and ragged runs
+        n_ = shape[0] * shape[1]
+        for spec, word in ((ops.DeltaSpec(1), 0x12345678), (main_spec(2), -1),
+                           (main_spec(256), 0x7F000000)):
+            keys = torch.full(shape, word, dtype=torch.int32, device=dev).view(torch.uint32)
+            for starts in (one_run_a_tile(shape), ragged_starts(n_, 9, np_rng, empty=(1,))):
+                check_k2s_case(f"K2s one bucket {spec.name} {shape} s={starts.size}", keys, starts,
+                               spec, rand_i32(shape))
+    for shape in ((1, 4096), (3, 4096), (997, 4096), (4, 4095), (7, 37), (3, mst.MAX_TILE - 1),
+                  (3, mst.MAX_TILE)):
+        n_ = shape[0] * shape[1]
+        for i, (spec, keys) in enumerate(k2s_specs(shape)):
+            starts = (one_run_a_tile(shape), ragged_starts(n_, 5, np_rng, empty=(2,)),
+                      ragged_starts(n_, 256, np_rng, empty=tuple(range(0, 256, 37))))[i]
+            check_k2s_case(f"K2s {spec.name} {shape} s={starts.size}", keys, starts, spec,
+                           rand_i32(shape))
+    # planes off 16 bytes: keys 4 bytes past, values 12, the segment strip 8
+    for shape in ((5, 4096), (3, mst.MAX_TILE)):
+        n_ = shape[0] * shape[1]
+        keys = off16(rand_i32(shape), 1).view(torch.uint32)
+        vals = off16(rand_i32(shape), 3)
+        for starts in (one_run_a_tile(shape), ragged_starts(n_, 6, np_rng, empty=(3,))):
+            check_k2s_case(f"K2s planes off 16 bytes {shape} s={starts.size}", keys, starts,
+                           main_spec(256), vals, shift=2)
+    # two runs a tile, the boundary inside a 32-key round (45) or on one
+    # (64, 2048); runs of exactly 32 and 33 keys (one warp alone and the
+    # block), between long ones; empty segments among them
+    shape = (8, 4096)
+    n_ = shape[0] * shape[1]
+    inside = [0] + [l * 4096 + 45 for l in range(0, 8, 2)] + [l * 4096 + 2048 for l in range(1, 8, 2)]
+    on_round = [0] + [l * 4096 + 64 for l in range(8)]
+    lens = np.tile([32, 33, 32, 33, 1000, 33, 32], n_ // 1195 + 1)
+    runs_32_33 = (np.cumsum(lens) - lens)
+    runs_32_33 = runs_32_33[runs_32_33 < n_]
+    empties = np.sort(np.concatenate([[0, 0], ragged_starts(n_, 40, np_rng), [n_ - 1, n_, n_]]))
+    for what, starts in (("boundary inside a round", sorted(set(inside))),
+                         ("boundary on a round", sorted(set(on_round))),
+                         ("runs of 32 and 33", runs_32_33), ("empty segments", empties)):
+        for spec, keys in k2s_specs(shape):
+            check_k2s_case(f"K2s {what} {spec.name} s={len(starts)}", keys, starts, spec,
+                           rand_i32(shape))
+    del keys, vals
+    log("kernels", f"{(n_checks - n0) // 2} K2s design cases (one-bucket tiles at m = 1, 2 and 256, "
+                   f"L = 1, 3 and 997, T = 4095, 37 and {mst.MAX_TILE - 1}, planes off 16 "
+                   f"bytes, {mst.MAX_TILE} key-value, tiles of one run, boundaries inside a "
+                   f"round and on one, runs of 32 and 33 keys, empty segments, s up to 256; "
+                   f"shift, general and clamp label forms; labels in the kernel and from the "
+                   f"ids entry; G above 2^24): K1s-K3s and the ids kernels all bitwise equal "
+                   f"to the plain versions ({time.perf_counter() - t0:.1f} s); the strip of "
+                   f"one- to eight-key segments is 3b (d)'s and 3c's")
 
     # ---- 3d. the packed kernels K1p-K3p against their plain versions and the
     # onehot kernels, in their four forms ({spec labels | ids strip} x {flat |
@@ -1803,15 +1924,21 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": lib_ms,
         })
         before = f"when added: {FLAT_MS_BEFORE[name]:.4f} ms; " if name in FLAT_MS_BEFORE else ""
-        if name in K1K2_MS_BEFORE:
-            before += (f"first design: {K1K2_MS_BEFORE[name]:.4f} ms, now "
-                       f"{ms_k / K1K2_MS_BEFORE[name]:.3f}x of it; ")
+        first = {**K1K2_MS_BEFORE, **K3K2S_MS_BEFORE}
+        if name in first:
+            before += f"first design: {first[name]:.4f} ms, now {ms_k / first[name]:.3f}x of it; "
         library = f"{lib_ms:.4f} ms" if lib_ms is not None else "none (no single PyTorch call)"
         label = even if name == "spec_bucket_ids" else spec
         log("times", f"{name}: {ms_k:.4f} ms ({before}bound {bound:.4f} ms = {nbytes / 2**20:.0f} "
                      f"MiB / 3.35 TB/s, {bound / ms_k:.1%} of it), plain {ms_p:.2f} ms, library "
                      f"{library}; {launches[name]} launches on the main paths [n = 2^25, {label}, "
                      f"tiles 8192 x 4096; {smi}]")
+
+    k2_ms = next(row["ms"] for row in kernels if row["name"] == "spec_fused_postscan_reorder")
+    log("times", f"spec_fused_postscan_reorder with the rank it shares with K3 and K2s "
+                 f"(sm90::warp_rank): {k2_ms:.4f} ms, {k2_ms / K2_MS_OWN_RANK:.3f}x its "
+                 f"{K2_MS_OWN_RANK:.4f} ms with its own copy (within 5 %: "
+                 f"{abs(k2_ms / K2_MS_OWN_RANK - 1) <= 0.05}) [n = 2^25, {spec}, key-value; {smi}]")
 
     # K1 and K2 key-value where buckets collide: uniform keys at small m,
     # and every key of every tile in one bucket (K1's atomics on one
@@ -1911,10 +2038,31 @@ def main() -> int:
             "bitwise": errs[name] == 0, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": lib_ms,
         })
-        log("times", f"{name}: {ms_k:.4f} ms (bound {bound:.4f} ms = {nbytes / 2**20:.0f} MiB / "
-                     f"3.35 TB/s, {bound / ms_k:.1%} of it), plain {ms_p:.2f} ms, library "
+        before = (f"first design: {K3K2S_MS_BEFORE[name]:.4f} ms, now "
+                  f"{ms_k / K3K2S_MS_BEFORE[name]:.3f}x of it; " if name in K3K2S_MS_BEFORE else "")
+        log("times", f"{name}: {ms_k:.4f} ms ({before}bound {bound:.4f} ms = {nbytes / 2**20:.0f} "
+                     f"MiB / 3.35 TB/s, {bound / ms_k:.1%} of it), plain {ms_p:.2f} ms, library "
                      f"{lib_ms:.4f} ms; {launches[name]} launches on the segmented paths "
                      f"[S1: n = 2^25, s = 64, {spec1}, m_eff = 2048, tiles 8192 x 4096; {smi}]")
+    # K2s where a tile holds hundreds of runs: one- to eight-key segments, one
+    # warp a run
+    tshape = (64, 4096)
+    tlens = np_rng.integers(1, 9, tshape[0] * tshape[1])
+    tstarts = np.cumsum(tlens) - tlens
+    tstarts = tstarts[tstarts < tshape[0] * tshape[1]].astype(np.int32)
+    tseg, tk, tv = seg_strip(tstarts, tshape), kt[: tshape[0]], vt[: tshape[0]]
+    tspec = main_spec(256)
+    thist = mst.seg_spec_tile_histograms_plain(tk, tseg, tspec, tstarts.size)
+    tg = st.global_scan(thist)
+    tiny_ms = cuda_ms(lambda: mst.seg_spec_fused_postscan_reorder(tk, tseg, tg, tv, tspec,
+                                                                  tstarts.size))
+    # the bytes of S1's row: 28 a key-value pair and the G bases the keys hit
+    tiny_bound = (28 * tk.numel() + 4 * int(torch.count_nonzero(thist))) / HBM_BYTES_PER_S * 1e3
+    log("times", f"seg_spec_fused_postscan_reorder key-value over {tstarts.size} one- to "
+                 f"eight-key segments ({tshape[0]} x {tshape[1]}, {tspec}, about "
+                 f"{tstarts.size // tshape[0]} runs a tile): {tiny_ms:.4f} ms (bound "
+                 f"{tiny_bound:.4f} ms, {tiny_bound / tiny_ms:.1%} of it) [{smi}]")
+    del thist, tseg, tg
     # the flat kernels at S1's m and keys: what the segment layer adds
     g32 = st.global_scan(mst.spec_tile_histograms_plain(kt, spec1))
     same_m = {
@@ -2031,6 +2179,11 @@ def main() -> int:
                                  lambda: rb_sort_multisplit(keys, spec)),
         "multisplit dms m=32": (lambda: ops.multisplit(keys, main_spec(32), method="dms", device=dev),
                                 lambda: rb_sort_multisplit(keys, main_spec(32))),
+        "multisplit kv dms m=256": (lambda: ops.multisplit(keys, spec, values, method="dms", device=dev),
+                                    lambda: rb_sort_multisplit(keys, spec, values)),
+        "multisplit positions_only m=256": (
+            lambda: ops.multisplit(keys, spec, mode="positions_only", device=dev),
+            lambda: rb_sort_multisplit(keys, spec)),
         "histogram m=256": (lambda: ops.histogram(keys, spec, device=dev),
                             lambda: torch.bincount(spec.emit(keys).long(), minlength=m)),
         "radix_sort r=8": (lambda: ops.radix_sort(keys, device=dev),

@@ -57,7 +57,8 @@
 //   every round's labels and peer masks ahead of the carry took 2-5 %
 //   longer, and __match_any_sync peer masks took 3-15 % less at m <= 32 or
 //   one bucket but 7 % more at m = 256, the main shape, so the ballots
-//   stay.
+//   stay. The rank (sm90::warp_rank), the cp.async staging and the choice
+//   of stages are shared with K3 and K2s in multisplit_sm90.cuh.
 // * Cross-warp offsets and eq. (2): one thread a bucket turns the warp
 //   counters into exclusive offsets over the warps, a block scan gives the
 //   tile's bucket starts, and the counters become start[b] + warp offset;
@@ -83,36 +84,6 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxTile = 8192;                       // MAX_TILE of multisplit_tile.py
 static_assert(kWarps == ms::kWarps, "the block scan of multisplit_common.cuh");
-
-// cp.async: 16 bytes (both addresses 16-byte aligned) or 4 bytes, global ->
-// shared, completed by wait_all and a barrier.
-__device__ __forceinline__ void copy16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void copy4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void copy_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// One (T) row of 32-bit words into shared memory: 16-byte copies where
-// `vec` (T % 4 == 0 and both rows 16-byte aligned), else one word a copy.
-__device__ __forceinline__ void stage_row(uint32_t* dst, const uint32_t* __restrict__ src, int T,
-                                          bool vec) {
-  if (vec) {
-    for (int v = threadIdx.x; v < (T >> 2); v += kThreads) copy16(dst + 4 * v, src + 4 * v);
-  } else {
-    for (int j = threadIdx.x; j < T; j += kThreads) copy4(dst + j, src + j);
-  }
-}
-
-// Bits that tell m buckets apart: b < 2^label_bits(m).
-__device__ __forceinline__ int label_bits(int m) { return m > 1 ? 32 - __clz(m - 1) : 0; }
 
 struct Layout {
   int pitch;          // words a plane of one stage: T rounded up to 16 bytes
@@ -141,20 +112,19 @@ __global__ void __launch_bounds__(kThreads, kR <= 16 ? 2 : 1)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nr = (T + 31) >> 5, R = (nr + kWarps - 1) / kWarps;
   const int r0 = warp * R, r1 = min(r0 + R, nr);
-  const unsigned lanemask_lt = (1u << lane) - 1u;
-  const int nbits = label_bits(m);
+  const int nbits = sm90::label_bits(m);
   int* const mine = cnt + warp * m;
 
   // the stage's planes: keys, values (if any), ids (if kIds), G's row
   auto plane = [&](int s, int p) { return smem + s * Y.stage_words + p * Y.pitch; };
   auto stage = [&](int tile, int s) {
     const size_t off = static_cast<size_t>(tile) * T;
-    stage_row(plane(s, 0), keys + off, T, vec);
-    if (has_vals) stage_row(plane(s, 1), vals + off, T, vec);
-    if (kIds) stage_row(plane(s, Y.planes - 1), ids + off, T, vec);
+    sm90::stage_row<kThreads>(plane(s, 0), keys + off, T, vec);
+    if (has_vals) sm90::stage_row<kThreads>(plane(s, 1), vals + off, T, vec);
+    if (kIds) sm90::stage_row<kThreads>(plane(s, Y.planes - 1), ids + off, T, vec);
     uint32_t* gs = plane(s, Y.planes);
     const uint32_t* grow = reinterpret_cast<const uint32_t*>(g) + static_cast<size_t>(tile) * m;
-    for (int b = tid; b < m; b += kThreads) copy4(gs + b, grow + b);
+    for (int b = tid; b < m; b += kThreads) sm90::copy4(gs + b, grow + b);
   };
 
   ms::load_splitters(F.L, sp);
@@ -168,7 +138,7 @@ __global__ void __launch_bounds__(kThreads, kR <= 16 ? 2 : 1)
       __syncthreads();                               // the previous tile's write-out is done
       stage(tile, 0);
     }
-    copy_wait_all();
+    sm90::copy_wait_all();
     __syncthreads();                                 // stage s has landed; stage s ^ 1 is free
     const int next = tile + static_cast<int>(gridDim.x);
     if (Y.stages == 2 && next < n_tiles) stage(next, s ^ 1);
@@ -182,25 +152,7 @@ __global__ void __launch_bounds__(kThreads, kR <= 16 ? 2 : 1)
     // 1. the warp's rounds in order: a round's peer mask from ballots over
     // the label's bits, the carry through the warp's counters
     int meta[kR];
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      if (r0 + r < r1) {
-        const int i = ((r0 + r) << 5) + lane;
-        const bool valid = i < T;
-        const int b = valid ? sm90::label_of(src[i], F, sp) : 0;
-        unsigned peers = __ballot_sync(ms::kFull, valid);
-        for (int bit = 0; bit < nbits; ++bit) {
-          const bool on = (b >> bit) & 1;
-          const unsigned bal = __ballot_sync(ms::kFull, on);
-          peers &= on ? bal : ~bal;
-        }
-        const int before = valid ? mine[b] : 0;      // the same value for all peers
-        __syncwarp();
-        if (valid && lane == __ffs(peers) - 1) mine[b] = before + __popc(peers);
-        __syncwarp();
-        meta[r] = ((before + __popc(peers & lanemask_lt)) << ms::kLabelBits) | b;
-      }
-    }
+    sm90::warp_rank<kR, sm90::kAnySpec>(src, T, F, sp, mine, r0, r1, nbits, meta);
     __syncthreads();
 
     // 2. warp offsets, the tile's bucket starts, start + warp offset in cnt
@@ -296,29 +248,14 @@ int launch_kernel(const void* keys, const void* ids, const void* g, const void* 
   Y.pitch = (T + 3) & ~3;
   Y.planes = 1 + (vals != nullptr) + kIds;
   Y.stage_words = Y.planes * Y.pitch + ((L.m + 3) & ~3);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t static_bytes = sizeof(uint32_t) * ms::kMaxBuckets + sizeof(int) * kWarps;
   Y.stages = 2;
   const size_t two = smem_bytes(Y, L.m);
   Y.stages = 1;
   const size_t one = smem_bytes(Y, L.m);
-  const bool two_fit = two + static_bytes <= static_cast<size_t>(optin);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(two_fit ? two : one));
-  // two stages where they fit and cost no block an SM
-  int per_sm1 = 0, per_sm2 = 0, blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm1, kernel, kThreads, one);
-  if (err == cudaSuccess && two_fit)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm2, kernel, kThreads, two);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Y.stages = two_fit && per_sm2 >= 1 && (per_sm2 >= 2 || per_sm2 >= per_sm1) ? 2 : 1;
-  const size_t smem = Y.stages == 2 ? two : one;
-  err = sm90::persistent_grid(kernel, kThreads, smem, n_tiles, &blocks);
+  size_t smem = 0;
+  int blocks = 0;
+  cudaError_t err = sm90::pick_stages(kernel, kThreads, one, two, &Y.stages, &smem);
+  if (err == cudaSuccess) err = sm90::persistent_grid(kernel, kThreads, smem, n_tiles, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool vec = sm90::rows_aligned(T, keys) && sm90::rows_aligned(T, ids) &&
                    sm90::rows_aligned(T, vals) && sm90::rows_aligned(T, keys_r) &&

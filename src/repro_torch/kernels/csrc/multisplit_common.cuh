@@ -124,14 +124,14 @@ __device__ __forceinline__ int label_at(const uint32_t* __restrict__ ids, int i,
 
 // Phase 1: each warp walks its run of the tile in order and counts its keys
 // per bucket in its private row cnt[warp * m + b]. With kMeta, it stores
-// each key's (rank within the warp's run, bucket) in meta[i]; with kKeys,
-// the key word in ks[i]. With kIds the labels come from `ids` (label_at);
-// `ids` is unused otherwise. cnt must be zeroed and the splitters loaded,
-// and the caller synchronises the block afterwards.
-template <bool kMeta, bool kKeys, bool kIds = false>
+// each key's (rank within the warp's run, bucket) in meta[i]. With kIds the
+// labels come from `ids` (label_at) and `keys` is unused; else `ids` is.
+// cnt must be zeroed and the splitters loaded, and the caller synchronises
+// the block afterwards.
+template <bool kMeta, bool kIds = false>
 __device__ __forceinline__ void rank_tile(const uint32_t* __restrict__ keys,
                                           const uint32_t* __restrict__ ids, int T, const Label& L,
-                                          const uint32_t* sp, int* cnt, int* meta, uint32_t* ks) {
+                                          const uint32_t* sp, int* cnt, int* meta) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nr = (T + 31) >> 5, R = rounds_per_warp(T);
   const int r1 = min((warp + 1) * R, nr);
@@ -140,17 +140,14 @@ __device__ __forceinline__ void rank_tile(const uint32_t* __restrict__ keys,
   for (int rd = warp * R; rd < r1; ++rd) {
     const int i = (rd << 5) + lane;
     const bool valid = i < T;
-    const uint32_t w = valid && (kKeys || !kIds) ? keys[i] : 0u;
+    const uint32_t w = valid && !kIds ? keys[i] : 0u;
     const int b = valid ? label_at<kIds>(ids, i, w, L, sp) : -1;
     const unsigned peers = __match_any_sync(kFull, b);
     const int before = valid ? mine[b] : 0;     // the same value for all peers
     __syncwarp();
     if (valid && lane == __ffs(peers) - 1) mine[b] = before + __popc(peers);
     __syncwarp();
-    if (valid) {
-      if (kMeta) meta[i] = ((before + __popc(peers & lanemask_lt)) << kLabelBits) | b;
-      if (kKeys) ks[i] = w;
-    }
+    if (valid && kMeta) meta[i] = ((before + __popc(peers & lanemask_lt)) << kLabelBits) | b;
   }
 }
 

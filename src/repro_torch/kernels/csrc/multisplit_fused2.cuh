@@ -90,7 +90,7 @@ __device__ __forceinline__ void stage_sort(const uint32_t* sk, const uint16_t* s
     packed_rank_range<true, false, false>(sk, nullptr, len, kStageSubtile, L, nullptr, S.cnt,
                                           S.words, S.meta, nullptr);
   else
-    rank_tile<true, false, false>(sk, nullptr, len, L, nullptr, S.cnt, S.meta, nullptr);
+    rank_tile<true, false>(sk, nullptr, len, L, nullptr, S.cnt, S.meta);
   __syncthreads();
   const int count = warp_offsets(S.cnt, m);          // thread b: the range's count of bucket b
   const int first = block_exclusive_scan(count, S.wsum);

@@ -1,7 +1,9 @@
-// Shared code of the Hopper designs of K1 (tile_histograms.cu) and K2
-// (fused_postscan_reorder.cu): labels in a few cheap forms beside the
-// general one, the rows' alignment, and the persistent grid from the
-// occupancy the kernel gets.
+// Shared code of the Hopper designs of K1 (tile_histograms.cu), K2
+// (fused_postscan_reorder.cu), K3 (tile_positions.cu) and K2s
+// (seg_fused_postscan_reorder.cu): labels in a few cheap forms beside the
+// general one, the rows' alignment, the persistent grid from the occupancy
+// the kernel gets, the cp.async staging of rows into shared memory with the
+// choice of one or two stages, and the stable warp rank of a staged run.
 //
 // The labels are ms::bucket_of's (multisplit_common.cuh) bit for bit: a
 // DeltaSpec over delta = 2^k computes q = u >> k where bucket_of computes
@@ -87,6 +89,101 @@ inline cudaError_t persistent_grid(K kernel, int threads, size_t smem, int n_til
   if (err != cudaSuccess) return err;
   const long long resident = static_cast<long long>(fit > 1 ? fit : 1) * sms;
   *blocks = n_tiles < resident ? n_tiles : static_cast<int>(resident);
+  return cudaSuccess;
+}
+
+// cp.async: 16 bytes (both addresses 16-byte aligned) or 4 bytes, global ->
+// shared, completed by copy_wait_all and a barrier.
+__device__ __forceinline__ void copy16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void copy4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void copy_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One (T) row of 32-bit words into shared memory by a block of kThreads:
+// 16-byte copies where `vec` (T % 4 == 0 and both rows 16-byte aligned),
+// else one word a copy.
+template <int kThreads>
+__device__ __forceinline__ void stage_row(uint32_t* dst, const uint32_t* __restrict__ src, int T,
+                                          bool vec) {
+  if (vec) {
+    for (int v = threadIdx.x; v < (T >> 2); v += kThreads) copy16(dst + 4 * v, src + 4 * v);
+  } else {
+    for (int j = threadIdx.x; j < T; j += kThreads) copy4(dst + j, src + j);
+  }
+}
+
+// Bits that tell m buckets apart: b < 2^label_bits(m).
+__device__ __forceinline__ int label_bits(int m) { return m > 1 ? 32 - __clz(m - 1) : 0; }
+
+// The stable rank of a warp's rounds of a staged run: the run's label words
+// are src[0, len), and the warp owns the 32-key rounds [r0, r1) of it, in
+// order. A round's lanes of one bucket are found with ballots over the
+// label's nbits bits (the peer mask) and ranked by popc(peers &
+// lanemask_lt); the warp's private counters `mine` (zeroed before its first
+// round) carry the rank from round to round. Round r0 + r leaves (rank
+// within the warp's rounds) << ms::kLabelBits | bucket in meta[r], in a
+// register.
+template <int kR, int kForm>
+__device__ __forceinline__ void warp_rank(const uint32_t* src, int len, const Label& F,
+                                          const uint32_t* sp, int* mine, int r0, int r1,
+                                          int nbits, int (&meta)[kR]) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lanemask_lt = (1u << lane) - 1u;
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    if (r0 + r < r1) {
+      const int i = ((r0 + r) << 5) + lane;
+      const bool valid = i < len;
+      const int b = valid ? label_of<kForm>(src[i], F, sp) : 0;
+      unsigned peers = __ballot_sync(ms::kFull, valid);
+      for (int bit = 0; bit < nbits; ++bit) {
+        const bool on = (b >> bit) & 1;
+        const unsigned bal = __ballot_sync(ms::kFull, on);
+        peers &= on ? bal : ~bal;
+      }
+      const int before = valid ? mine[b] : 0;        // the same value for all peers
+      __syncwarp();
+      if (valid && lane == __ffs(peers) - 1) mine[b] = before + __popc(peers);
+      __syncwarp();
+      meta[r] = ((before + __popc(peers & lanemask_lt)) << ms::kLabelBits) | b;
+    }
+  }
+}
+
+// One or two stages of staged tiles: two where both fit in the card's
+// shared memory beside the kernel's static arrays and cost no block an SM,
+// else one. `one` and `two` are the dynamic bytes of each; the kernel is
+// opted in to the larger one it may take. Returns the stages and their
+// dynamic bytes.
+template <typename K>
+inline cudaError_t pick_stages(K kernel, int threads, size_t one, size_t two, int* stages,
+                               size_t* smem) {
+  int dev = 0, optin = 0, per_sm1 = 0, per_sm2 = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  const bool two_fit = two + attr.sharedSizeBytes <= static_cast<size_t>(optin);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(two_fit ? two : one));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm1, kernel, threads, one);
+  if (err == cudaSuccess && two_fit)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm2, kernel, threads, two);
+  if (err != cudaSuccess) return err;
+  *stages = two_fit && per_sm2 >= 1 && per_sm2 >= per_sm1 ? 2 : 1;
+  *smem = *stages == 2 ? two : one;
   return cudaSuccess;
 }
 

@@ -54,7 +54,7 @@ __global__ void __launch_bounds__(ms::kThreads)
     if (len <= ms::kShortRun) continue;
     ms::zero(cnt, ms::kWarps * m);
     __syncthreads();
-    ms::rank_tile<false, false>(k + a, nullptr, len, L, sp, cnt, nullptr, nullptr);
+    ms::rank_tile<false>(k + a, nullptr, len, L, sp, cnt, nullptr);
     __syncthreads();
     int* out = row + static_cast<size_t>(ms::seg_at(sg, a, s)) * m;
     for (int b = threadIdx.x; b < m; b += blockDim.x) {

@@ -62,7 +62,7 @@ __global__ void __launch_bounds__(ms::kThreads)
     ms::zero(cnt, ms::kWarps * m);
     for (int b = threadIdx.x; b < m; b += blockDim.x) sg[b] = gseg[b];
     __syncthreads();
-    ms::rank_tile<true, false>(k + a, nullptr, len, L, sp, cnt, meta + a, nullptr);
+    ms::rank_tile<true>(k + a, nullptr, len, L, sp, cnt, meta + a);
     __syncthreads();
     ms::warp_offsets(cnt, m);
     __syncthreads();

@@ -43,7 +43,7 @@ __global__ void __launch_bounds__(ms::kThreads)
   ms::zero(cnt, ms::kWarps * m);
   __syncthreads();
   // the identity label reads no splitters and, with kIds, no keys
-  ms::rank_tile<true, false, true>(nullptr, ids + base, T, L, nullptr, cnt, meta, nullptr);
+  ms::rank_tile<true, true>(nullptr, ids + base, T, L, nullptr, cnt, meta);
   __syncthreads();
   const int count = ms::warp_offsets(cnt, m);        // thread b: tile count of bucket b
   const int first = ms::block_exclusive_scan(count, wsum);

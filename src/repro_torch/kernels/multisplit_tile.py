@@ -116,7 +116,7 @@ from repro_torch.kernels.build import on_cuda, raise_on, stream
 Tensor = torch.Tensor
 
 MAX_BUCKETS = 256         # one thread per bucket in the kernels' scans
-MAX_TILE = 8192           # K2s keeps six T-word planes in shared memory (206 KB)
+MAX_TILE = 8192           # the kernels' rank holds at most 32 keys a lane (8 warps)
 
 KEY_KINDS = {torch.int32: 0, torch.uint32: 1, torch.float32: 2}
 _SPEC_KINDS = {DeltaSpec: 0, IdentitySpec: 1, BitfieldSpec: 2, RangeSpec: 3, EvenSpec: 4}

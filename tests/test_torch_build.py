@@ -68,14 +68,34 @@ def test_an_edited_header_renames_every_library_that_includes_it(header, tmp_pat
 def test_k1_and_k2_share_the_hopper_header():
     """K1 and K2 in their Hopper designs: persistent blocks over tiles, rows
     loaded ahead, K1 counting without the rank walk, K2 ranking from its
-    staged tile; both through ``multisplit_sm90.cuh``, which is listed."""
+    staged tile; both through ``multisplit_sm90.cuh``, which is listed and
+    holds the cp.async staging that K2 calls."""
     k1 = (CSRC / "tile_histograms.cu").read_text()
     k2 = (CSRC / "fused_postscan_reorder.cu").read_text()
+    sm90 = (CSRC / "multisplit_sm90.cuh").read_text()
     for text in (k1, k2):
         assert '#include "multisplit_sm90.cuh"' in text
         assert "tile += gridDim.x" in text and "persistent_grid" in text
     assert "rank_tile" not in k1 and "__match_any_sync" not in k1 and "atomicAdd" in k1
     assert "uint4" in k1
     assert "stage_row" in k2 and "copy_wait_all" in k2
-    assert "cp.async.cg.shared.global" in k2 and "cp.async.ca.shared.global" in k2
+    assert "cp.async.cg.shared.global" in sm90 and "cp.async.ca.shared.global" in sm90
     assert "multisplit_sm90.cuh" in build.HEADERS
+
+
+@pytest.mark.parametrize("name", ["tile_positions", "seg_fused_postscan_reorder"])
+def test_k3_and_k2s_share_the_hopper_header(name):
+    """K3 and K2s in their Hopper designs: persistent blocks over staged
+    tiles, the labels' cheap forms, and K2's register-held rank
+    (``sm90::warp_rank``) in place of ``ms::rank_tile``'s meta plane, all
+    through ``multisplit_sm90.cuh``, which is listed."""
+    text = (CSRC / f"{name}.cu").read_text()
+    assert '#include "multisplit_sm90.cuh"' in text
+    assert "tile += gridDim.x" in text and "persistent_grid" in text
+    assert "stage_row" in text and "copy_wait_all" in text and "pick_stages" in text
+    assert "sm90::warp_rank<kR, kForm>" in text and "sm90::kShiftMask" in text
+    assert "rank_tile" not in text and "meta[i]" not in text
+    assert "int4" in text
+    assert "multisplit_sm90.cuh" in build.HEADERS
+    k2 = (CSRC / "fused_postscan_reorder.cu").read_text()
+    assert "sm90::warp_rank<kR, sm90::kAnySpec>" in k2      # one rank for K2, K3 and K2s

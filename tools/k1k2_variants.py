@@ -31,6 +31,7 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HEADER = "multisplit_sm90.cuh"
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 K1_COUNT = "      if (e < T) atomicAdd(mine + set * set_words + sm90::label_of<kForm>(cur[j], F, sp), 1);"
@@ -40,53 +41,53 @@ K1_SHORTCUT = """      const int b = e < T ? sm90::label_of<kForm>(cur[j], F, sp
       } else if (b >= 0) {
         atomicAdd(mine + set * set_words + b, 1);
       }"""
-K2_PEERS = """        unsigned peers = __ballot_sync(ms::kFull, valid);
-        for (int bit = 0; bit < nbits; ++bit) {
-          const bool on = (b >> bit) & 1;
-          const unsigned bal = __ballot_sync(ms::kFull, on);
-          peers &= on ? bal : ~bal;
-        }"""
-K2_WALK = """    int meta[kR];
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      if (r0 + r < r1) {
-        const int i = ((r0 + r) << 5) + lane;
-        const bool valid = i < T;
-        const int b = valid ? sm90::label_of(src[i], F, sp) : 0;
+# K2's rank is sm90::warp_rank in the header (shared with K3 and K2s); an
+# edit of it applies to the header copy that the K2 variant is built with
+K2_PEERS = """      unsigned peers = __ballot_sync(ms::kFull, valid);
+      for (int bit = 0; bit < nbits; ++bit) {
+        const bool on = (b >> bit) & 1;
+        const unsigned bal = __ballot_sync(ms::kFull, on);
+        peers &= on ? bal : ~bal;
+      }"""
+K2_WALK = """#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    if (r0 + r < r1) {
+      const int i = ((r0 + r) << 5) + lane;
+      const bool valid = i < len;
+      const int b = valid ? label_of<kForm>(src[i], F, sp) : 0;
 """ + K2_PEERS + """
-        const int before = valid ? mine[b] : 0;      // the same value for all peers
-        __syncwarp();
-        if (valid && lane == __ffs(peers) - 1) mine[b] = before + __popc(peers);
-        __syncwarp();
-        meta[r] = ((before + __popc(peers & lanemask_lt)) << ms::kLabelBits) | b;
-      }
-    }"""
-K2_WALK_AHEAD = """    int meta[kR];
-    unsigned peer_masks[kR];
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      if (r0 + r < r1) {
-        const int i = ((r0 + r) << 5) + lane;
-        const bool valid = i < T;
-        const int b = valid ? sm90::label_of(src[i], F, sp) : 0;
-""" + K2_PEERS + """
-        meta[r] = b;
-        peer_masks[r] = peers;
-      }
+      const int before = valid ? mine[b] : 0;        // the same value for all peers
+      __syncwarp();
+      if (valid && lane == __ffs(peers) - 1) mine[b] = before + __popc(peers);
+      __syncwarp();
+      meta[r] = ((before + __popc(peers & lanemask_lt)) << ms::kLabelBits) | b;
     }
+  }"""
+K2_WALK_AHEAD = """  unsigned peer_masks[kR];
 #pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      if (r0 + r < r1) {
-        const bool valid = ((r0 + r) << 5) + lane < T;
-        const int b = meta[r];
-        const unsigned peers = peer_masks[r];
-        const int before = valid ? mine[b] : 0;
-        __syncwarp();
-        if (valid && lane == __ffs(peers) - 1) mine[b] = before + __popc(peers);
-        __syncwarp();
-        meta[r] = ((before + __popc(peers & lanemask_lt)) << ms::kLabelBits) | b;
-      }
-    }"""
+  for (int r = 0; r < kR; ++r) {
+    if (r0 + r < r1) {
+      const int i = ((r0 + r) << 5) + lane;
+      const bool valid = i < len;
+      const int b = valid ? label_of<kForm>(src[i], F, sp) : 0;
+""" + K2_PEERS + """
+      meta[r] = b;
+      peer_masks[r] = peers;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    if (r0 + r < r1) {
+      const bool valid = ((r0 + r) << 5) + lane < len;
+      const int b = meta[r];
+      const unsigned peers = peer_masks[r];
+      const int before = valid ? mine[b] : 0;
+      __syncwarp();
+      if (valid && lane == __ffs(peers) - 1) mine[b] = before + __popc(peers);
+      __syncwarp();
+      meta[r] = ((before + __popc(peers & lanemask_lt)) << ms::kLabelBits) | b;
+    }
+  }"""
 K2_WRITE_VEC = """      for (int v = tid; v < nv; v += kThreads) {
         ko[v] = reinterpret_cast<const uint4*>(ks)[v];
         if (has_vals) vo[v] = reinterpret_cast<const uint4*>(vs)[v];
@@ -160,8 +161,9 @@ VARIANTS = {
     "K1 three blocks an SM": ("tile_histograms", [("kVec <= 2 ? 4 : 2", "kVec <= 2 ? 3 : 2")], True),
     "K2": ("fused_postscan_reorder", [], True),
     "K2 one stage": ("fused_postscan_reorder", [(
-        "  Y.stages = two_fit && per_sm2 >= 1 && (per_sm2 >= 2 || per_sm2 >= per_sm1) ? 2 : 1;",
-        "  Y.stages = 1;")], True),
+        "  cudaError_t err = sm90::pick_stages(kernel, kThreads, one, two, &Y.stages, &smem);\n",
+        "  cudaError_t err = sm90::pick_stages(kernel, kThreads, one, two, &Y.stages, &smem);\n"
+        "  Y.stages = 1;\n  smem = one;\n")], True),
     "K2 16 warps, 64 registers": ("fused_postscan_reorder", [
         ("constexpr int kWarps = 8;", "constexpr int kWarps = 16;"),
         ("static_assert(kWarps == ms::kWarps, \"the block scan of multisplit_common.cuh\");",
@@ -173,7 +175,7 @@ VARIANTS = {
         ("launch_kernel<kIds, 32>(", "launch_kernel<kIds, 16>(")], True),
     "K2 rounds' labels ahead": ("fused_postscan_reorder", [(K2_WALK, K2_WALK_AHEAD)], True),
     "K2 match_any peers": ("fused_postscan_reorder", [
-        (K2_PEERS, "        const unsigned peers = __match_any_sync(ms::kFull, valid ? b : -1);")],
+        (K2_PEERS, "      const unsigned peers = __match_any_sync(ms::kFull, valid ? b : -1);")],
         True),
     "K2 TMA bulk store of rows": ("fused_postscan_reorder", [
         (K2_WRITE_VEC, K2_TMA_WRITE),
@@ -205,23 +207,32 @@ def cuda_ms(fn, reps=7, inner=3) -> float:
     return statistics.median(times)
 
 
-def build_variants(build):
-    out_dir = os.path.join(ROOT, "build", "variants")
-    os.makedirs(out_dir, exist_ok=True)
+def build_variants(build, variants=None, out_name="variants"):
+    """Build each variant (VARIANTS unless given) into build/<out_name>/,
+    all in parallel; returns name -> (source, C entry point)."""
+    out_dir = os.path.join(ROOT, "build", out_name)
     procs = {}
-    for i, (name, (source, edits, _)) in enumerate(VARIANTS.items()):
-        text = (build.CSRC / f"{source}.cu").read_text()
-        missing = [old for old, _ in edits if old not in text]
+    for i, (name, (source, edits, _)) in enumerate((variants or VARIANTS).items()):
+        # an edit applies to the source or, failing that, to the Hopper
+        # header, whose edited copy sits beside the variant's source and is
+        # found there first by its quoted include
+        texts = {f"{source}.cu": (build.CSRC / f"{source}.cu").read_text(),
+                 HEADER: (build.CSRC / HEADER).read_text()}
+        missing = [old for old, _ in edits if not any(old in x for x in texts.values())]
         if missing:
             print(f"[variants] {name}: edit no longer applies ({missing[0][:60]!r}); skipped",
                   flush=True)
             continue
         for old, new in edits:
-            text = text.replace(old, new)
-        path = os.path.join(out_dir, f"v{i}_{source}.cu")
-        with open(path, "w") as f:
-            f.write(text)
-        lib = os.path.join(out_dir, f"libv{i}_{source}.so")
+            where = f"{source}.cu" if old in texts[f"{source}.cu"] else HEADER
+            texts[where] = texts[where].replace(old, new)
+        var_dir = os.path.join(out_dir, f"v{i}")
+        os.makedirs(var_dir, exist_ok=True)
+        for fname, text in texts.items():
+            with open(os.path.join(var_dir, fname), "w") as f:
+                f.write(text)
+        path = os.path.join(var_dir, f"{source}.cu")
+        lib = os.path.join(var_dir, f"lib{source}.so")
         procs[name] = (source, lib, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", lib, path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
