@@ -10,7 +10,7 @@ Phases, one line or more each, every one of which must pass:
 
 1. device  — ``nvidia-smi`` name and power limit, the torch device.
 2. build   — nvcc of every kernel source, in parallel; seconds and ptxas use;
-   no K3 or K2s instance may spill.
+   no K3, K2s, K1s or K3s instance may spill.
 3. kernels — K1-K3 held bitwise against their plain PyTorch versions on the
    card: the main path's shapes (n = 2^25 keys in 8192 tiles of 4096), every
    spec kind, m in {2, 32, 256}, key-only and key-value, int32 / uint32 /
@@ -43,6 +43,18 @@ Phases, one line or more each, every one of which must pass:
    the boundary inside a 32-key round and on one, runs of exactly 32 and 33
    keys, empty segments and s up to 256, each in the shift, general and
    clamp label forms.
+   K1s and K3s in their Hopper designs (K1s: persistent 512-thread blocks,
+   order-free counts over the tile's window of segments, a one-run tile's
+   strip read at its two ends only; K3s: persistent staged tiles, K3's
+   path on a one-run tile, K2s's run split on any other), through both
+   entries, bases above 2^24: full tiles of one run in the shift, general
+   and clamp label forms, one-bucket tiles at m = 1, 2 and 256, tile counts
+   1, 3 and 997, rows of 4095, 37, ``MAX_TILE`` - 1 and ``MAX_TILE`` keys,
+   the strip and the key plane off 16 bytes, s·m rows not a multiple of 4,
+   tiles whose segments fill K1s's shared-memory window exactly and one
+   segment past it (and tiles of hundreds of runs, many windows a tile),
+   runs of 32 and 33 keys, boundaries inside a round and on one, empty
+   segments.
    The packed kernels K1p-K3p in their four forms ({labels in the kernel |
    ids strip} x {flat | segmented}), each held bitwise against its plain
    version and against the onehot kernel of the same form: the main shapes
@@ -153,7 +165,10 @@ Phases, one line or more each, every one of which must pass:
    over 3.35 TB/s, the H100 SXM data-sheet rate) and one PyTorch call as a
    yardstick, K1, K2 and both on the ids strip beside their first design's
    times (``K1K2_MS_BEFORE``), K3, K3 on ids, K2s and K2s on ids beside
-   theirs (``K3K2S_MS_BEFORE``), K2 beside its time when it had its own copy
+   theirs (``K3K2S_MS_BEFORE``), K1s, K3s and both on ids beside theirs
+   (``K1SK3S_MS_BEFORE``) with the bound their contract forces (a one-run
+   tile's strip read at its two ends) beside the whole strip's bound,
+   K2 beside its time when it had its own copy
    of the rank (``K2_MS_OWN_RANK``), K2s over about 50,000 one- to eight-key
    segments; K1 and K2 key-value with uniform keys at m
    in {2, 32, 256} and every key in one bucket at m = 256; the onehot and
@@ -162,7 +177,8 @@ Phases, one line or more each, every one of which must pass:
    same labels as ``DeltaSpec`` and as a callable, and every packed
    path's call beside its onehot twin, the flat key-value dms and
    positions_only calls at m = 256; stage
-   splits; peak device memory. The fused kernels at F1's shapes, K2f and K3f
+   splits (S1 key-value bms with K2s and dms with K3s); peak device memory.
+   The fused kernels at F1's shapes, K2f and K3f
    at stage widths 4 and 8 in both families, F1-F3 fused against unfused end
    to end in turns, F1 fused at sub_bits 4 and 8 and at tile 4096, and the
    stages of one fused pair (prescan, the scan over H, postscan, scatter)
@@ -194,6 +210,7 @@ import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -227,6 +244,13 @@ K1K2_MS_BEFORE = {"spec_tile_histograms": 0.3411, "spec_fused_postscan_reorder":
 # (PERF.md's kernel table)
 K3K2S_MS_BEFORE = {"spec_tile_positions": 0.3611, "tile_positions": 0.3762,
                    "seg_spec_fused_postscan_reorder": 1.1822, "seg_fused_postscan_reorder": 1.1546}
+# K1s, K3s and both on the ids strip in their first design (one block a
+# tile, the run list of ms::find_runs, the rank walk; K3s through a meta
+# plane) at S1 (K3s key-only positions), on an H100 80GB HBM3 at 700 W
+# (PERF.md's kernel table), and the bound they were held to then: the whole
+# strip read (K1s 320 MiB, K3s 385 MiB over 3.35 TB/s)
+K1SK3S_MS_BEFORE = {"seg_spec_tile_histograms": 0.2711, "seg_tile_histograms": 0.2863,
+                    "seg_spec_tile_positions": 0.3659, "seg_tile_positions": 0.3671}
 # K2 key-value at the main shape when it kept its own copy of the rank that
 # it now shares with K3 and K2s (PERF.md's kernel table); within 5 % of it
 # shows the shared rank cost K2 nothing
@@ -317,15 +341,17 @@ def main() -> int:
     for name in build.PTXAS_LOG:
         for line in build.ptxas_summary(name):
             log("build", f"{name}: {line}")
-    # K3 and K2s hold their rank in registers: no instance may spill
-    redesigned = [(name, line) for name in ("tile_positions", "seg_fused_postscan_reorder")
+    # K3, K2s, K1s and K3s hold their keys or ranks in registers: no
+    # instance may spill
+    redesigned = [(name, line) for name in ("tile_positions", "seg_fused_postscan_reorder",
+                                            "seg_tile_histograms", "seg_tile_positions")
                   for line in build.ptxas_summary(name) if "spill stores" in line]
     spilled = [f"{name}: {line}" for name, line in redesigned
                if "spill stores 0 B, loads 0 B" not in line]
     if spilled:
-        raise AssertionError("K3 / K2s instances spill:\n" + "\n".join(spilled))
-    log("build", f"K3 and K2s: {len(redesigned)} instances, none spills" if redesigned else
-                 "K3 and K2s: libraries current, not rebuilt, so no ptxas lines")
+        raise AssertionError("K3 / K2s / K1s / K3s instances spill:\n" + "\n".join(spilled))
+    log("build", f"K3, K2s, K1s and K3s: {len(redesigned)} instances, none spills" if redesigned
+                 else "K3, K2s, K1s and K3s: libraries current, not rebuilt, so no ptxas lines")
 
     # ---- helpers
     def rand_i32(shape):
@@ -747,6 +773,111 @@ def main() -> int:
                    f"ids entry; G above 2^24): K1s-K3s and the ids kernels all bitwise equal "
                    f"to the plain versions ({time.perf_counter() - t0:.1f} s); the strip of "
                    f"one- to eight-key segments is 3b (d)'s and 3c's")
+
+    # ---- 3c'''. the cases the Hopper designs of K1s and K3s make new (K1s:
+    # order-free counts over the tile's window of segments, the strip read at
+    # a one-run tile's two ends only; K3s: K3's path on a one-run tile, the
+    # staged strip and K2s's run split on any other), through K1s-K3s with
+    # labels in the kernel and through the ids kernels, against the plain
+    # versions, bases above 2^24
+    window = int(re.search(r"kSetWords = (\d+);",
+                           (build.CSRC / "seg_tile_histograms.cu").read_text()).group(1))
+
+    def tile_strip(shape, per_tile):
+        """Starts that give tile l of ``shape`` per_tile[l] segment ids (its
+        first key starts one; repeated starts make empty segments)."""
+        n_tiles_, t_ = shape
+        starts = []
+        for l, k in enumerate(per_tile):
+            inner = np.sort(np_rng.integers(1, t_, k - 1)) if k > 1 else np.zeros(0, np.int64)
+            starts.extend([l * t_] + (l * t_ + inner).tolist())
+        return np.asarray(starts, np.int64)
+
+    def two_runs_a_tile(shape):
+        return tile_strip(shape, [2] * shape[0])
+
+    t0, n0 = time.perf_counter(), n_checks
+    # full tiles of one run and of two runs, each label form, tile counts
+    # below and off a multiple of the persistent grid, ragged and full rows
+    for shape in ((1, 4096), (3, 4096), (997, 4096), (4, 4095), (7, 37), (3, mst.MAX_TILE - 1),
+                  (3, mst.MAX_TILE)):
+        for spec, keys in k2s_specs(shape):
+            for starts in (one_run_a_tile(shape), two_runs_a_tile(shape)):
+                check_k2s_case(f"K1s/K3s {spec.name} {shape} s={starts.size}", keys, starts, spec,
+                               rand_i32(shape))
+    # one-bucket tiles of one run: bucket 0 of 1, 1 of 2, 127 of 256
+    shape = (997, 4096)
+    for spec, word in ((ops.DeltaSpec(1), 0x12345678), (main_spec(2), -1),
+                       (main_spec(256), 0x7F000000)):
+        keys = torch.full(shape, word, dtype=torch.int32, device=dev).view(torch.uint32)
+        check_k2s_case(f"K1s/K3s one bucket {spec.name} {shape}", keys, one_run_a_tile(shape),
+                       spec, rand_i32(shape))
+    # the key plane 12 bytes past 16 and the strip 4 bytes past
+    for shape in ((5, 4096), (3, mst.MAX_TILE)):
+        n_ = shape[0] * shape[1]
+        keys = off16(rand_i32(shape), 3).view(torch.uint32)
+        for starts in (one_run_a_tile(shape), ragged_starts(n_, 7, np_rng, empty=(2,))):
+            check_k2s_case(f"K1s/K3s planes off 16 bytes {shape} s={starts.size}", keys, starts,
+                           main_spec(32), rand_i32(shape), shift=1)
+    # rows of s·m % 4 != 0 in each label form: 5·7, 7·2, 3·5
+    shape = (64, 4096)
+    n_ = shape[0] * shape[1]
+    for spec, keys, s_ in ((ops.DeltaSpec(7), rand_i32(shape).view(torch.uint32), 5),
+                           (main_spec(2), rand_i32(shape).view(torch.uint32), 7),
+                           (ops.IdentitySpec(5), keys_for(torch.int32, shape, 0, 5), 3)):
+        for starts in (ragged_starts(n_, s_, np_rng, empty=(1,)), np.arange(s_) * (n_ // s_)):
+            check_k2s_case(f"K1s/K3s s·m = {starts.size * spec.num_buckets} {spec.name}", keys,
+                           starts, spec, rand_i32(shape))
+    # K1s's window: a tile of exactly (window - 1) // m segment ids, one of
+    # one id more (two windows), one of two windows and one more, and a tile
+    # of one run; at m = 256 (16 a window), 32, 7 and, in tiles of MAX_TILE,
+    # 1 (4111 a window)
+    for spec, shape in ((main_spec(256), (4, 4096)), (main_spec(32), (4, 4096)),
+                        (ops.IdentitySpec(32), (4, 4096)), (ops.DeltaSpec(7), (4, 4096)),
+                        (ops.DeltaSpec(1), (3, mst.MAX_TILE))):
+        per = (window - 1) // spec.num_buckets
+        counts = [per, per + 1, 2 * per + 1, 1][: shape[0]]
+        starts = tile_strip(shape, counts)
+        keys = (keys_for(torch.int32, shape, 0, 32) if isinstance(spec, ops.IdentitySpec) else
+                rand_i32(shape).view(torch.uint32))
+        check_k2s_case(f"K1s window {spec.name}: {counts} segment ids a tile", keys, starts, spec,
+                       rand_i32(shape))
+    # tiles of hundreds of runs: one- to eight-key segments, many windows a
+    # tile (28 at m = 64 in tiles of MAX_TILE) and one (m = 2)
+    for spec, shape in ((ops.IdentitySpec(64), (8, mst.MAX_TILE)), (ops.DeltaSpec(7), (8, 4096)),
+                        (main_spec(2), (8, 4096))):
+        lens = np_rng.integers(1, 9, shape[0] * shape[1])
+        starts = np.cumsum(lens) - lens
+        starts = starts[starts < shape[0] * shape[1]]
+        keys = (keys_for(torch.int32, shape, 0, 64) if isinstance(spec, ops.IdentitySpec) else
+                rand_i32(shape).view(torch.uint32))
+        check_k2s_case(f"K1s/K3s {starts.size} tiny segments {spec.name} {shape}", keys, starts,
+                       spec, rand_i32(shape))
+    # runs of 32 and 33 keys, boundaries inside a round and on one, empty
+    # segments, in tiles of MAX_TILE (K3s's 32 rounds a warp)
+    shape = (4, mst.MAX_TILE)
+    n_ = shape[0] * shape[1]
+    lens = np.tile([32, 33, 2000, 33, 32], n_ // 2130 + 1)
+    runs_32_33 = (np.cumsum(lens) - lens)
+    runs_32_33 = runs_32_33[runs_32_33 < n_]
+    rounds = sorted({0, 45, 64, mst.MAX_TILE + 4000, mst.MAX_TILE + 4096, 2 * mst.MAX_TILE + 31,
+                     3 * mst.MAX_TILE + 32})
+    empties = np.sort(np.concatenate([[0, 0], ragged_starts(n_, 30, np_rng), [n_ - 1, n_, n_]]))
+    for what, starts in (("runs of 32 and 33", runs_32_33), ("round boundaries", rounds),
+                         ("empty segments", empties)):
+        for spec, keys in k2s_specs(shape):
+            check_k2s_case(f"K1s/K3s {what} {spec.name} s={len(starts)}", keys, starts, spec,
+                           rand_i32(shape))
+    del keys
+    log("kernels", f"{(n_checks - n0) // 2} K1s / K3s design cases (full tiles of one run and of "
+                   f"two in the shift, general and clamp label forms, one-bucket tiles at m = 1, "
+                   f"2 and 256, L = 1, 3 and 997, T = 4095, 37, {mst.MAX_TILE - 1} and "
+                   f"{mst.MAX_TILE}, the strip and the key plane off 16 bytes, s·m rows not a "
+                   f"multiple of 4, tiles at K1s's window of {window} words and one segment past "
+                   f"it, tiles of hundreds of runs, runs of 32 and 33 keys, boundaries inside a "
+                   f"round and on one, empty segments; labels in the kernel and from the ids "
+                   f"entry; G above 2^24): K1s-K3s and the ids kernels all bitwise equal to the "
+                   f"plain versions ({time.perf_counter() - t0:.1f} s)")
 
     # ---- 3d. the packed kernels K1p-K3p against their plain versions and the
     # onehot kernels, in their four forms ({spec labels | ids strip} x {flat |
@@ -1990,10 +2121,16 @@ def main() -> int:
     hist1 = mst.seg_spec_tile_histograms_plain(kt, seg_main, spec1, s)
     g1 = st.global_scan(hist1)
     # K1s writes its whole (L, s·m) row; K2s and K3s need only the bases
-    # their keys hit, one for each distinct (tile, cid): the nonzeros of H
+    # their keys hit, one for each distinct (tile, cid): the nonzeros of H.
+    # K1s and K3s need a tile's whole strip only where it holds more than one
+    # segment run, else its two end ids; K2s stages every strip
     hbytes = 4 * l_main * s * m1
     gbytes_hit = 4 * int(torch.count_nonzero(hist1))
     del hist1
+    multi_run = int((seg_main[:, 0] != seg_main[:, -1]).sum())
+    strip_bytes = 4 * t_main * multi_run + 8 * (l_main - multi_run)
+    log("times", f"S1 strip: {multi_run} of {l_main} tiles hold more than one segment run; "
+                 f"K1s and K3s need {strip_bytes / 2**20:.2f} MiB of its {4 * n / 2**20:.0f} MiB")
     cid1 = (torch.arange(l_main, device=dev, dtype=torch.int32)[:, None] * (s * m1)
             + seg_main * m1 + spec1.emit(kt)).view(-1)
     sort1_ms = cuda_ms(lambda: torch.sort(cid1, stable=True))
@@ -2005,7 +2142,7 @@ def main() -> int:
         ("seg_spec_tile_histograms", "seg_tile_histograms.cu",
          lambda: mst.seg_spec_tile_histograms(kt, seg_main, spec1, s),
          lambda: mst.seg_spec_tile_histograms_plain(kt, seg_main, spec1, s),
-         4 * n + 4 * n + hbytes, bincount1_ms),
+         4 * n + strip_bytes + hbytes, bincount1_ms),
         ("seg_spec_fused_postscan_reorder", "seg_fused_postscan_reorder.cu",
          lambda: mst.seg_spec_fused_postscan_reorder(kt, seg_main, g1, vt, spec1, s),
          lambda: mst.seg_spec_fused_postscan_reorder_plain(kt, seg_main, g1, vt, spec1, s),
@@ -2013,12 +2150,12 @@ def main() -> int:
         ("seg_spec_tile_positions", "seg_tile_positions.cu",
          lambda: mst.seg_spec_tile_positions(kt, seg_main, g1, spec1, s),
          lambda: mst.seg_spec_tile_positions_plain(kt, seg_main, g1, spec1, s),
-         4 * n + 4 * n + gbytes_hit + 4 * n, sort1_ms),
+         4 * n + strip_bytes + gbytes_hit + 4 * n, sort1_ms),
         # the ids kernels on the same labels, materialised
         ("seg_tile_histograms", "seg_tile_histograms.cu",
          lambda: mst.seg_tile_histograms(ids1, seg_main, m1, s),
          lambda: mst.seg_tile_histograms_plain(ids1, seg_main, m1, s),
-         4 * n + 4 * n + hbytes, bincount1_ms),
+         4 * n + strip_bytes + hbytes, bincount1_ms),
         ("seg_fused_postscan_reorder", "seg_fused_postscan_reorder.cu",
          lambda: mst.seg_fused_postscan_reorder(ids1, seg_main, g1, kt, vt, m1, s),
          lambda: mst.seg_fused_postscan_reorder_plain(ids1, seg_main, g1, kt, vt, m1, s),
@@ -2026,7 +2163,7 @@ def main() -> int:
         ("seg_tile_positions", "seg_tile_positions.cu",
          lambda: mst.seg_tile_positions(ids1, seg_main, g1, m1, s),
          lambda: mst.seg_tile_positions_plain(ids1, seg_main, g1, m1, s),
-         4 * n + 4 * n + gbytes_hit + 4 * n, sort1_ms),
+         4 * n + strip_bytes + gbytes_hit + 4 * n, sort1_ms),
     ]
     for name, src, kern, plain, nbytes, lib_ms in seg_rows:
         ms_k = cuda_ms(kern)
@@ -2038,8 +2175,14 @@ def main() -> int:
             "bitwise": errs[name] == 0, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": lib_ms,
         })
-        before = (f"first design: {K3K2S_MS_BEFORE[name]:.4f} ms, now "
-                  f"{ms_k / K3K2S_MS_BEFORE[name]:.3f}x of it; " if name in K3K2S_MS_BEFORE else "")
+        first = {**K3K2S_MS_BEFORE, **K1SK3S_MS_BEFORE}
+        before = (f"first design: {first[name]:.4f} ms, now {ms_k / first[name]:.3f}x of it; "
+                  if name in first else "")
+        if name in K1SK3S_MS_BEFORE:
+            # the bound of the first design's table: the whole strip read
+            whole = (nbytes - strip_bytes + 4 * n) / HBM_BYTES_PER_S * 1e3
+            before += (f"with the whole strip read the bound would be {whole:.4f} ms, "
+                       f"{whole / ms_k:.1%} of it; ")
         log("times", f"{name}: {ms_k:.4f} ms ({before}bound {bound:.4f} ms = {nbytes / 2**20:.0f} "
                      f"MiB / 3.35 TB/s, {bound / ms_k:.1%} of it), plain {ms_p:.2f} ms, library "
                      f"{lib_ms:.4f} ms; {launches[name]} launches on the segmented paths "
@@ -2220,6 +2363,9 @@ def main() -> int:
         "S1 segmented_multisplit kv bms s=64 m=32": (
             lambda: ops.segmented_multisplit(keys, spec1, s1_t, values, method="bms", device=dev),
             lambda: combined_sort(keys, s1_t, spec1)),
+        "S1 segmented_multisplit kv dms s=64 m=32": (
+            lambda: ops.segmented_multisplit(keys, spec1, s1_t, values, method="dms", device=dev),
+            lambda: combined_sort(keys, s1_t, spec1)),
         "S1 segmented_multisplit kv bms s=64 m=32, hash callable": (
             lambda: ops.segmented_multisplit(keys, hash32, s1_t, values, method="bms", device=dev),
             lambda: combined_sort(keys, s1_t, hash32)),
@@ -2305,6 +2451,23 @@ def main() -> int:
             lambda idx: (st.scatter(src_k, idx, n), st.scatter(src_v, idx, n)))(pos.reshape(-1).long())),
     }
     log("times", "stages of S1 segmented multisplit kv bms s=64 m=32: " + "; ".join(
+        f"{k} {v:.4f} ms" for k, v in stage_ms.items()) + f" [{smi}]")
+    # the same call in dms: K3s writes element-order destinations, which the
+    # scatter takes with the keys and values as they are
+    plan = make_plan(n, m1, method="dms", key_value=True, backend="cuda", bucket_fn=spec1,
+                     segments=s)
+    hist = plan.prescan(kt, None, seg_main)
+    g = st.global_scan(hist)
+    src_k, src_v, pos, _ = plan.postscan(g, kt, None, vt, seg_main)
+    stage_ms = {
+        "segment ids (prefix sum of start marks)": cuda_ms(lambda: st.segment_ids_from_starts(s1_t, n)),
+        "prescan K1s": cuda_ms(lambda: plan.prescan(kt, None, seg_main)),
+        "global scan (8192 x 2048)": cuda_ms(lambda: st.global_scan(hist)),
+        "postscan K3s": cuda_ms(lambda: plan.postscan(g, kt, None, vt, seg_main)),
+        "scatter (int64 index + 2 index_copy_)": cuda_ms(lambda: (
+            lambda idx: (st.scatter(src_k, idx, n), st.scatter(src_v, idx, n)))(pos.reshape(-1).long())),
+    }
+    log("times", "stages of S1 segmented multisplit kv dms s=64 m=32: " + "; ".join(
         f"{k} {v:.4f} ms" for k, v in stage_ms.items()) + f" [{smi}]")
     del hist, g, src_k, src_v, pos, seg_main
     # the device stages of one S3 routing launch, each timed alone: their

@@ -20,6 +20,11 @@
 // Each segment owns exactly one run of a tile, so the runs write disjoint
 // columns of the tile's (s·m) histogram row and disjoint slots of the tile.
 // Nothing here uses atomics: ranks are stable by construction.
+//
+// The Hopper designs of K2s and K3s (seg_fused_postscan_reorder.cu,
+// seg_tile_positions.cu) keep no list of T + 1 starts: split_runs flags the
+// starts of each 32-key chunk with one ballot (1 KiB a tile), hands each
+// short run to one warp as it meets it, and lists only the long runs.
 #pragma once
 
 #include "multisplit_common.cuh"
@@ -27,7 +32,8 @@
 namespace ms {
 
 constexpr int kShortRun = 32;
-constexpr int kMaxChunks = 8192 / 32 + 1;           // find_runs' chunk counts at T <= 8192
+constexpr int kMaxChunks = 8192 / 32 + 1;           // chunks a tile at T <= 8192 (+1: find_runs)
+constexpr int kMaxLong = 8192 / (kShortRun + 1) + 1;   // split_runs' long runs at T <= 8192
 
 // Segment id of one strip entry, kept inside [0, s) so that a strip outside
 // the contract can never index out of bounds.
@@ -77,6 +83,56 @@ __device__ inline int find_runs(const int* __restrict__ seg, int T, int* runs, i
   if (threadIdx.x == 0) runs[n] = T;
   __syncthreads();
   return n;
+}
+
+// The run split of a tile of several segment runs, its strip `seg` in
+// shared memory. A ballot a 32-key chunk flags the run starts (flags holds
+// (T + 31) / 32 words); then each warp walks the starts of its chunks in
+// order, a run's end the next flag, calls short_run(a, len) with every lane
+// for a run of at most kShortRun keys, and lists a longer one [a, e) in
+// longs (kMaxLong entries, in no set order). Returns the number of long
+// runs, the same in every thread. Every thread of the block must call it;
+// it synchronises the block twice, the last time after every short run.
+template <typename Short>
+__device__ __forceinline__ int split_runs(const int* seg, int T, unsigned* flags, int2* longs,
+                                          int* n_long, Short&& short_run) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nch = (T + 31) >> 5;
+  for (int c = warp; c < nch; c += kWarps) {
+    const int i = (c << 5) + lane;
+    const unsigned f = __ballot_sync(kFull, i < T && (i == 0 || seg[i] != seg[i - 1]));
+    if (lane == 0) flags[c] = f;
+  }
+  if (threadIdx.x == 0) *n_long = 0;
+  __syncthreads();
+  for (int c = warp; c < nch; c += kWarps) {
+    unsigned f = flags[c];
+    while (f) {
+      const int a = (c << 5) + __ffs(f) - 1;
+      f &= f - 1;
+      int e = T;                                     // the next start, or the tile's end
+      if (f) {
+        e = (c << 5) + __ffs(f) - 1;
+      } else {
+        for (int cc = c + 1; cc < nch; cc += 32) {
+          const unsigned x = cc + lane < nch ? flags[cc + lane] : 0u;
+          const unsigned nz = __ballot_sync(kFull, x != 0u);
+          if (nz) {
+            const int first = cc + __ffs(nz) - 1;
+            e = (first << 5) + __ffs(flags[first]) - 1;
+            break;
+          }
+        }
+      }
+      if (e - a > kShortRun) {
+        if (lane == 0) longs[atomicAdd(n_long, 1)] = make_int2(a, e);
+        continue;
+      }
+      short_run(a, e - a);
+    }
+  }
+  __syncthreads();
+  return *n_long;
 }
 
 // One short run [a, a + len), len <= 32, in one warp: lane l takes key a + l

@@ -1,9 +1,12 @@
 // Shared code of the Hopper designs of K1 (tile_histograms.cu), K2
-// (fused_postscan_reorder.cu), K3 (tile_positions.cu) and K2s
-// (seg_fused_postscan_reorder.cu): labels in a few cheap forms beside the
-// general one, the rows' alignment, the persistent grid from the occupancy
-// the kernel gets, the cp.async staging of rows into shared memory with the
-// choice of one or two stages, and the stable warp rank of a staged run.
+// (fused_postscan_reorder.cu), K3 (tile_positions.cu), K1s
+// (seg_tile_histograms.cu), K2s (seg_fused_postscan_reorder.cu) and K3s
+// (seg_tile_positions.cu): labels in a few cheap forms beside the general
+// one, the rows' alignment, the persistent grid from the occupancy the
+// kernel gets, a tile's keys in registers and their order-free count into
+// copies of the counters (K1, K1s), the cp.async staging of rows into
+// shared memory with the choice of one or two stages, and the stable warp
+// rank of a staged run.
 //
 // The labels are ms::bucket_of's (multisplit_common.cuh) bit for bit: a
 // DeltaSpec over delta = 2^k computes q = u >> k where bucket_of computes
@@ -90,6 +93,59 @@ inline cudaError_t persistent_grid(K kernel, int threads, size_t smem, int n_til
   const long long resident = static_cast<long long>(fit > 1 ? fit : 1) * sms;
   *blocks = n_tiles < resident ? n_tiles : static_cast<int>(resident);
   return cudaSuccess;
+}
+
+// A tile's keys in registers, as K1 and K1s hold them: key j of a thread is
+// element key_at<kThreads>(j) of the row, kVec 16-byte vectors of four keys
+// (one 4-byte load a key where `vec` is false); slots past T are left as
+// they are.
+template <int kThreads>
+__device__ __forceinline__ int key_at(int j) {
+  return ((j >> 2) * kThreads + static_cast<int>(threadIdx.x)) * 4 + (j & 3);
+}
+
+template <int kVec, int kThreads>
+__device__ __forceinline__ void load_keys(uint32_t (&buf)[4 * kVec],
+                                          const uint32_t* __restrict__ row, int T, bool vec) {
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    const int e = key_at<kThreads>(4 * v);           // the vector's first key
+    if (vec) {
+      if (e < T) {
+        const uint4 x = __ldg(reinterpret_cast<const uint4*>(row + e));
+        buf[4 * v] = x.x;
+        buf[4 * v + 1] = x.y;
+        buf[4 * v + 2] = x.z;
+        buf[4 * v + 3] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (e + c < T) buf[4 * v + c] = __ldg(row + e + c);
+    }
+  }
+}
+
+// The order-free count of a tile's register-held keys: add(e, b) for each
+// key inside the row, e its element and b its label. The caller's add does
+// the shared-memory atomicAdd into its copy of the counters.
+template <int kVec, int kThreads, int kForm, typename Add>
+__device__ __forceinline__ void count_keys(const uint32_t (&buf)[4 * kVec], int T, const Label& F,
+                                           const uint32_t* sp, Add add) {
+#pragma unroll
+  for (int j = 0; j < 4 * kVec; ++j) {
+    const int e = key_at<kThreads>(j);
+    if (e < T) add(e, label_of<kForm>(buf[j], F, sp));
+  }
+}
+
+// Copies of `words` counters (a power of two, at most 32) that fit in
+// `budget` words at the odd stride words | 1; lane l counts into copy
+// l % copies.
+__host__ __device__ inline int counter_copies(int words, int budget) {
+  int copies = 32;
+  while (copies > 1 && copies * (words | 1) > budget) copies >>= 1;
+  return copies;
 }
 
 // cp.async: 16 bytes (both addresses 16-byte aligned) or 4 bytes, global ->

@@ -49,10 +49,11 @@
 //   32-key chunk flags the run starts (chunk flags, 1 KiB: ms::find_runs'
 //   list of T + 1 starts would take the 16 KiB that the second stage
 //   needs), and each warp walks the starts of its chunks in order, a run's
-//   end the next flag. A short run (<= ms::kShortRun keys) is solved there
-//   by that warp alone (ms::short_run_rank: __match_any_sync peers and a
-//   shuffle count of the smaller buckets, G read directly); a long one is
-//   listed and then taken by the whole block, one after another.
+//   end the next flag (ms::split_runs, shared with K3s). A short run (<=
+//   ms::kShortRun keys) is solved there by that warp alone
+//   (ms::short_run_rank: __match_any_sync peers and a shuffle count of the
+//   smaller buckets, G read directly); a long one is listed and then taken
+//   by the whole block, one after another.
 // * K2's path over a run [a, e): the warps' contiguous rounds of the run,
 //   peers from ballots over the label's bits, warp counters in shared
 //   memory, (rank, bucket) in registers (sm90::warp_rank, labels in the
@@ -85,8 +86,6 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxTile = 8192;                       // MAX_TILE of multisplit_tile.py
-constexpr int kMaxChunks = kMaxTile / 32;            // 32-key chunks a tile
-constexpr int kMaxLong = kMaxTile / (ms::kShortRun + 1) + 1;   // long runs a tile
 static_assert(kWarps == ms::kWarps, "the block scan of multisplit_common.cuh");
 
 struct Layout {
@@ -108,8 +107,8 @@ __global__ void __launch_bounds__(kThreads, kR <= 16 ? 2 : 1)
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ uint32_t sp[ms::kMaxBuckets];
   __shared__ int wsum[kWarps];
-  __shared__ unsigned flags[kMaxChunks];             // run starts, one ballot a chunk
-  __shared__ int2 longs[kMaxLong];                   // the tile's long runs [a, e)
+  __shared__ unsigned flags[ms::kMaxChunks];         // run starts, one ballot a chunk
+  __shared__ int2 longs[ms::kMaxLong];               // the tile's long runs [a, e)
   __shared__ int n_long;
   const int m = F.L.m;
   const bool has_vals = vals != nullptr;
@@ -118,7 +117,6 @@ __global__ void __launch_bounds__(kThreads, kR <= 16 ? 2 : 1)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nbits = sm90::label_bits(m);
-  const int nch = (T + 31) >> 5;
   int* const mine = cnt + warp * m;
   const int p_ids = 1 + has_vals, p_seg = Y.planes - 1;
 
@@ -162,58 +160,24 @@ __global__ void __launch_bounds__(kThreads, kR <= 16 ? 2 : 1)
     const bool one_run = sg[0] == sg[T - 1];
     int nl = 1;
     if (!one_run) {
-      // A. the run starts of each 32-key chunk
-      for (int c = warp; c < nch; c += kWarps) {
-        const int i = (c << 5) + lane;
-        const unsigned f = __ballot_sync(ms::kFull, i < T && (i == 0 || sg[i] != sg[i - 1]));
-        if (lane == 0) flags[c] = f;
-      }
-      if (tid == 0) n_long = 0;
-      __syncthreads();
-      // B. each warp walks the starts of its chunks: short runs solved by
-      // the warp, long ones listed for the block
-      for (int c = warp; c < nch; c += kWarps) {
-        unsigned f = flags[c];
-        while (f) {
-          const int a = (c << 5) + __ffs(f) - 1;
-          f &= f - 1;
-          int e = T;                                 // the next start, or the tile's end
-          if (f) {
-            e = (c << 5) + __ffs(f) - 1;
-          } else {
-            for (int cc = c + 1; cc < nch; cc += 32) {
-              const unsigned x = cc + lane < nch ? flags[cc + lane] : 0u;
-              const unsigned nz = __ballot_sync(ms::kFull, x != 0u);
-              if (nz) {
-                const int first = cc + __ffs(nz) - 1;
-                e = (first << 5) + __ffs(flags[first]) - 1;
-                break;
-              }
-            }
-          }
-          const int len = e - a;
-          if (len > ms::kShortRun) {
-            if (lane == 0) longs[atomicAdd(&n_long, 1)] = make_int2(a, e);
-            continue;
-          }
-          const ms::ShortRank x = ms::short_run_rank<kIds>(
-              ks, kIds ? plane(st, p_ids) : nullptr, a, len, F.L, sp);
-          const int seg = ms::seg_at(sg, a, s);
-          const uint32_t v = has_vals && lane < len ? vs[a + lane] : 0u;
-          const int gpos = lane < len ? grow[static_cast<size_t>(seg) * m + x.b] + x.rank : 0;
-          __syncwarp();                              // the run's words are read
-          if (lane < len) {
-            const int dest = a + x.before + x.rank;
-            perm[base + a + lane] = gpos;
-            kr[dest] = x.w;
-            ks[dest] = static_cast<uint32_t>(gpos);
-            if (has_vals) vr[dest] = v;
-          }
-          __syncwarp();
+      // A, B. the run starts of each 32-key chunk; short runs solved by the
+      // warp that meets them, long ones listed for the block
+      nl = ms::split_runs(sg, T, flags, longs, &n_long, [&](int a, int len) {
+        const ms::ShortRank x = ms::short_run_rank<kIds>(
+            ks, kIds ? plane(st, p_ids) : nullptr, a, len, F.L, sp);
+        const int seg = ms::seg_at(sg, a, s);
+        const uint32_t v = has_vals && lane < len ? vs[a + lane] : 0u;
+        const int gpos = lane < len ? grow[static_cast<size_t>(seg) * m + x.b] + x.rank : 0;
+        __syncwarp();                                // the run's words are read
+        if (lane < len) {
+          const int dest = a + x.before + x.rank;
+          perm[base + a + lane] = gpos;
+          kr[dest] = x.w;
+          ks[dest] = static_cast<uint32_t>(gpos);
+          if (has_vals) vr[dest] = v;
         }
-      }
-      __syncthreads();
-      nl = n_long;
+        __syncwarp();
+      });
     }
 
     // C. K2's path over a run [a, e): the tile when it is one run, else each

@@ -67,24 +67,7 @@ __global__ void __launch_bounds__(kThreads, kVec <= 2 ? 4 : 2)
 
   uint32_t cur[4 * kVec];
   auto load = [&](uint32_t (&buf)[4 * kVec], int tile) {
-    const uint32_t* row = keys + static_cast<size_t>(tile) * T;
-#pragma unroll
-    for (int v = 0; v < kVec; ++v) {
-      const int e = (v * kThreads + tid) * 4;        // the vector's first key
-      if (vec) {
-        if (e < T) {
-          const uint4 x = __ldg(reinterpret_cast<const uint4*>(row + e));
-          buf[4 * v] = x.x;
-          buf[4 * v + 1] = x.y;
-          buf[4 * v + 2] = x.z;
-          buf[4 * v + 3] = x.w;
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (e + c < T) buf[4 * v + c] = __ldg(row + e + c);
-      }
-    }
+    sm90::load_keys<kVec, kThreads>(buf, keys + static_cast<size_t>(tile) * T, T, vec);
   };
   if (static_cast<int>(blockIdx.x) < n_tiles) load(cur, blockIdx.x);
   __syncthreads();                                   // counters zero, splitters loaded
@@ -92,11 +75,8 @@ __global__ void __launch_bounds__(kThreads, kVec <= 2 ? 4 : 2)
   int set = 0;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, set ^= 1) {
     int* const base = cnt + set * set_words;
-#pragma unroll
-    for (int j = 0; j < 4 * kVec; ++j) {
-      const int e = ((j >> 2) * kThreads + tid) * 4 + (j & 3);
-      if (e < T) atomicAdd(mine + set * set_words + sm90::label_of<kForm>(cur[j], F, sp), 1);
-    }
+    sm90::count_keys<kVec, kThreads, kForm>(
+        cur, T, F, sp, [&](int, int b) { atomicAdd(mine + set * set_words + b, 1); });
     __syncthreads();                                 // this tile's counts are whole
     if (tid < m) {
       int s = 0;
@@ -148,8 +128,7 @@ extern "C" int ms_tile_histograms(const void* keys, void* hist, int n_tiles, int
     return static_cast<int>(cudaErrorInvalidValue);
   const sm90::Label F = sm90::make_label(ms::make_label(MS_LABEL_ARGS));
   const int stride = m | 1;
-  int copies = 32;
-  while (copies > 1 && copies * stride > kCopyWords) copies >>= 1;
+  const int copies = sm90::counter_copies(m, kCopyWords);
   const bool vec = sm90::rows_aligned(T, keys);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (T <= 4 * kThreads) return launch_form<1>(keys, hist, n_tiles, T, F, copies, stride, vec, s);

@@ -69,7 +69,8 @@ def test_k1_and_k2_share_the_hopper_header():
     """K1 and K2 in their Hopper designs: persistent blocks over tiles, rows
     loaded ahead, K1 counting without the rank walk, K2 ranking from its
     staged tile; both through ``multisplit_sm90.cuh``, which is listed and
-    holds the cp.async staging that K2 calls."""
+    holds K1's 16-byte register loads (shared with K1s) and the
+    cp.async staging that K2 calls."""
     k1 = (CSRC / "tile_histograms.cu").read_text()
     k2 = (CSRC / "fused_postscan_reorder.cu").read_text()
     sm90 = (CSRC / "multisplit_sm90.cuh").read_text()
@@ -77,7 +78,8 @@ def test_k1_and_k2_share_the_hopper_header():
         assert '#include "multisplit_sm90.cuh"' in text
         assert "tile += gridDim.x" in text and "persistent_grid" in text
     assert "rank_tile" not in k1 and "__match_any_sync" not in k1 and "atomicAdd" in k1
-    assert "uint4" in k1
+    assert "sm90::load_keys" in k1 and "sm90::count_keys" in k1
+    assert "__ldg(reinterpret_cast<const uint4*>" in sm90
     assert "stage_row" in k2 and "copy_wait_all" in k2
     assert "cp.async.cg.shared.global" in sm90 and "cp.async.ca.shared.global" in sm90
     assert "multisplit_sm90.cuh" in build.HEADERS
@@ -99,3 +101,27 @@ def test_k3_and_k2s_share_the_hopper_header(name):
     assert "multisplit_sm90.cuh" in build.HEADERS
     k2 = (CSRC / "fused_postscan_reorder.cu").read_text()
     assert "sm90::warp_rank<kR, sm90::kAnySpec>" in k2      # one rank for K2, K3 and K2s
+
+
+def test_k1s_and_k3s_share_the_hopper_headers():
+    """K1s and K3s in their Hopper designs: persistent blocks over tiles,
+    no run list (``ms::find_runs``) and no meta-plane rank
+    (``ms::rank_tile``). K1s counts order-free with K1's register loads and
+    count (``multisplit_sm90.cuh``) and reads a tile's strip only past a
+    one-run test of its two end ids; K3s stages its tiles, ranks with K3's
+    ``sm90::warp_rank`` and splits a tile of several runs with the
+    ``ms::split_runs`` it shares with K2s (``multisplit_segmented.cuh``)."""
+    k1s = (CSRC / "seg_tile_histograms.cu").read_text()
+    k3s = (CSRC / "seg_tile_positions.cu").read_text()
+    k2s = (CSRC / "seg_fused_postscan_reorder.cu").read_text()
+    for text in (k1s, k3s):
+        assert '#include "multisplit_sm90.cuh"' in text
+        assert "tile += gridDim.x" in text and "persistent_grid" in text
+        assert "find_runs" not in text and "rank_tile" not in text
+    assert "sm90::load_keys" in k1s and "sm90::count_keys" in k1s and "atomicAdd" in k1s
+    assert "if (lo == hi)" in k1s and "kSetWords" in k1s and "int4" in k1s
+    assert "stage_row" in k3s and "copy_wait_all" in k3s and "pick_stages" in k3s
+    assert "sm90::warp_rank<kR, kForm>" in k3s and "int4" in k3s
+    for text in (k3s, k2s):
+        assert '#include "multisplit_segmented.cuh"' in text and "ms::split_runs(" in text
+    assert "multisplit_segmented.cuh" in build.HEADERS and "multisplit_sm90.cuh" in build.HEADERS

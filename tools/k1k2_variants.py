@@ -29,18 +29,24 @@ import re
 import statistics
 import subprocess
 import sys
+from pathlib import Path
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEADER = "multisplit_sm90.cuh"
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-K1_COUNT = "      if (e < T) atomicAdd(mine + set * set_words + sm90::label_of<kForm>(cur[j], F, sp), 1);"
-K1_SHORTCUT = """      const int b = e < T ? sm90::label_of<kForm>(cur[j], F, sp) : -1;
+K1_COUNT = """    sm90::count_keys<kVec, kThreads, kForm>(
+        cur, T, F, sp, [&](int, int b) { atomicAdd(mine + set * set_words + b, 1); });"""
+K1_SHORTCUT = """#pragma unroll
+    for (int j = 0; j < 4 * kVec; ++j) {
+      const int e = sm90::key_at<kThreads>(j);
+      const int b = e < T ? sm90::label_of<kForm>(cur[j], F, sp) : -1;
       if (__all_sync(ms::kFull, b == __shfl_sync(ms::kFull, b, 0))) {
         if (lane == 0 && b >= 0) atomicAdd(base + b, 32);
       } else if (b >= 0) {
         atomicAdd(mine + set * set_words + b, 1);
-      }"""
+      }
+    }"""
 # K2's rank is sm90::warp_rank in the header (shared with K3 and K2s); an
 # edit of it applies to the header copy that the K2 variant is built with
 K2_PEERS = """      unsigned peers = __ballot_sync(ms::kFull, valid);
@@ -209,15 +215,19 @@ def cuda_ms(fn, reps=7, inner=3) -> float:
 
 def build_variants(build, variants=None, out_name="variants"):
     """Build each variant (VARIANTS unless given) into build/<out_name>/,
-    all in parallel; returns name -> (source, C entry point)."""
+    all in parallel; returns name -> (source, C entry point). A variant is
+    (source, edits, right) or (source, edits, right, csrc): the sources of
+    another tree's ``csrc`` directory, a parent commit's say, in place of
+    this one's."""
     out_dir = os.path.join(ROOT, "build", out_name)
     procs = {}
-    for i, (name, (source, edits, _)) in enumerate((variants or VARIANTS).items()):
+    for i, (name, (source, edits, _, *other)) in enumerate((variants or VARIANTS).items()):
+        csrc = Path(other[0]) if other else build.CSRC
         # an edit applies to the source or, failing that, to the Hopper
         # header, whose edited copy sits beside the variant's source and is
         # found there first by its quoted include
-        texts = {f"{source}.cu": (build.CSRC / f"{source}.cu").read_text(),
-                 HEADER: (build.CSRC / HEADER).read_text()}
+        texts = {f"{source}.cu": (csrc / f"{source}.cu").read_text(),
+                 HEADER: (csrc / HEADER).read_text()}
         missing = [old for old, _ in edits if not any(old in x for x in texts.values())]
         if missing:
             print(f"[variants] {name}: edit no longer applies ({missing[0][:60]!r}); skipped",
@@ -234,7 +244,7 @@ def build_variants(build, variants=None, out_name="variants"):
         path = os.path.join(var_dir, f"{source}.cu")
         lib = os.path.join(var_dir, f"lib{source}.so")
         procs[name] = (source, lib, subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", lib, path],
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(csrc), "-o", lib, path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     fns = {}
     for name, (source, lib, proc) in procs.items():
