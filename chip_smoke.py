@@ -10,7 +10,7 @@ Phases, one line or more each, every one of which must pass:
 
 1. device  — ``nvidia-smi`` name and power limit, the torch device.
 2. build   — nvcc of every kernel source, in parallel; seconds and ptxas use;
-   no K3, K2s, K1s or K3s instance may spill.
+   no K3, K2s, K1s, K3s, K2p or K2f instance may spill.
 3. kernels — K1-K3 held bitwise against their plain PyTorch versions on the
    card: the main path's shapes (n = 2^25 keys in 8192 tiles of 4096), every
    spec kind, m in {2, 32, 256}, key-only and key-value, int32 / uint32 /
@@ -72,6 +72,15 @@ Phases, one line or more each, every one of which must pass:
    and the cases K1f's 16-bit counters (two cells to a word) make new:
    every key of a full tile in one odd cell, and half of them in each cell
    of one word, flat and segmented.
+   K2p and K2f in their Hopper designs (K2p: persistent staged tiles, the
+   packed rank with its 8-bit lanes in registers and shared words, K2s's run
+   split; K2f: persistent, two blocks an SM, the sweep on the shared ranks,
+   G read once a cell run), each in its four forms, key-only and key-value,
+   against its plain version, bases above 2^24: tile counts 1, 3 and 997,
+   rows of 37, 4095 and ``MAX_TILE`` - 1 keys, ``MAX_TILE`` key-value,
+   planes off 16 bytes, one-bucket full tiles (a lane at the 255 cap) and
+   one-cell full tiles, segmented tiles of one run, ragged ones and runs of
+   32 and 33 keys.
    B10, the standalone tile reorder of the unfused baseline, key-only and
    key-value, against its plain version: the main shape (8192 tiles of
    4096, m = 256, the destinations riding as the values too), m in {1, 2,
@@ -168,6 +177,9 @@ Phases, one line or more each, every one of which must pass:
    theirs (``K3K2S_MS_BEFORE``), K1s, K3s and both on ids beside theirs
    (``K1SK3S_MS_BEFORE``) with the bound their contract forces (a one-run
    tile's strip read at its two ends) beside the whole strip's bound,
+   K2p and K2f beside their first design's times (``K2FK2P_MS_BEFORE``),
+   K2f's bound also at sector grain (the 32-byte sectors of G's rows its
+   keys hit, counted from F1's data),
    K2 beside its time when it had its own copy
    of the rank (``K2_MS_OWN_RANK``), K2s over about 50,000 one- to eight-key
    segments; K1 and K2 key-value with uniform keys at m
@@ -251,6 +263,12 @@ K3K2S_MS_BEFORE = {"spec_tile_positions": 0.3611, "tile_positions": 0.3762,
 # strip read (K1s 320 MiB, K3s 385 MiB over 3.35 TB/s)
 K1SK3S_MS_BEFORE = {"seg_spec_tile_histograms": 0.2711, "seg_tile_histograms": 0.2863,
                     "seg_spec_tile_positions": 0.3659, "seg_tile_positions": 0.3671}
+# K2p (flat m = 256, n = 2^25, key-value) and K2f (F1 key-value) in their
+# first design (one block a tile; K2p's rank walk from device memory with
+# __match_any_sync peers, K2f's sweep through a meta plane at one block an
+# SM and a G read a key), on an H100 80GB HBM3 at 700 W (PERF.md's kernel
+# table)
+K2FK2P_MS_BEFORE = {"packed_fused_postscan_reorder": 0.8779, "fused2_fused_postscan_reorder": 2.5914}
 # K2 key-value at the main shape when it kept its own copy of the rank that
 # it now shares with K3 and K2s (PERF.md's kernel table); within 5 % of it
 # shows the shared rank cost K2 nothing
@@ -341,17 +359,21 @@ def main() -> int:
     for name in build.PTXAS_LOG:
         for line in build.ptxas_summary(name):
             log("build", f"{name}: {line}")
-    # K3, K2s, K1s and K3s hold their keys or ranks in registers: no
-    # instance may spill
+    # K3, K2s, K1s, K3s, K2p and K2f hold their keys or ranks in registers:
+    # no instance may spill
     redesigned = [(name, line) for name in ("tile_positions", "seg_fused_postscan_reorder",
-                                            "seg_tile_histograms", "seg_tile_positions")
+                                            "seg_tile_histograms", "seg_tile_positions",
+                                            "packed_fused_postscan_reorder",
+                                            "fused2_fused_postscan_reorder")
                   for line in build.ptxas_summary(name) if "spill stores" in line]
     spilled = [f"{name}: {line}" for name, line in redesigned
                if "spill stores 0 B, loads 0 B" not in line]
     if spilled:
-        raise AssertionError("K3 / K2s / K1s / K3s instances spill:\n" + "\n".join(spilled))
-    log("build", f"K3, K2s, K1s and K3s: {len(redesigned)} instances, none spills" if redesigned
-                 else "K3, K2s, K1s and K3s: libraries current, not rebuilt, so no ptxas lines")
+        raise AssertionError("K3 / K2s / K1s / K3s / K2p / K2f instances spill:\n" +
+                             "\n".join(spilled))
+    log("build", f"K3, K2s, K1s, K3s, K2p and K2f: {len(redesigned)} instances, none spills"
+                 if redesigned else "K3, K2s, K1s, K3s, K2p and K2f: libraries current, not "
+                                    "rebuilt, so no ptxas lines")
 
     # ---- helpers
     def rand_i32(shape):
@@ -1128,6 +1150,118 @@ def main() -> int:
                    f"word, G above 2^24, empty and tiny segments; flat and segmented, "
                    f"keys and key-value): K1f-K3f all bitwise equal to their plain versions "
                    f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- 3e'. the cases the Hopper designs of K2p (persistent staged tiles,
+    # the packed rank in registers, K2s's run split) and K2f (persistent, two
+    # blocks an SM, the sweep on the shared ranks, G once a cell run) make
+    # new, each held bitwise against its plain version in all four forms,
+    # key-only and key-value, bases above 2^24
+    def check_k2p_case(what, tiled, values_tiled, spec=None, m=None, keys_tiled=None, seg=None,
+                       s=1, subtile=None):
+        nonlocal n_checks
+        kw = dict(seg_tiled=seg, num_segments=s, subtile=subtile)
+        kw.update(spec=spec) if spec is not None else kw.update(num_buckets=m)
+        g = st.global_scan(mst.packed_tile_histograms_plain(tiled, **kw)) + (1 << 24) + 1
+        e = 0
+        for vals in (None, values_tiled):
+            got = mst.packed_fused_postscan_reorder(tiled, g, keys_tiled, vals, **kw)
+            want = mst.packed_fused_postscan_reorder_plain(tiled, g, keys_tiled, vals, **kw)
+            e = max(e, *(max_err(a, b) for a, b in zip(got, want)))
+        torch.cuda.synchronize()
+        n_checks += 1
+        packed_forms.add(("spec" if spec is not None else "ids", "flat" if seg is None else "segmented"))
+        errs["packed_fused_postscan_reorder"] = max(errs["packed_fused_postscan_reorder"], e)
+        if e:
+            raise AssertionError(f"packed_fused_postscan_reorder != plain for {what}: {e}")
+
+    def check_k2f_case(what, keys_tiled, values_tiled, spec, seg=None, s=1, subs=(None,)):
+        nonlocal n_checks
+        kw = dict(spec=spec, num_segments=s)
+        g = st.global_scan(mst.fused2_tile_histograms_plain(keys_tiled, seg, **kw)) + (1 << 24) + 1
+        e = 0
+        for fam in ("onehot", "packed"):
+            for sub in subs:
+                kw2 = dict(kw, split=spec.bits // 2, family=fam, sub_bits=sub)
+                for vals in (None, values_tiled):
+                    got = mst.fused2_fused_postscan_reorder(keys_tiled, g, vals, seg, **kw2)
+                    want = mst.fused2_fused_postscan_reorder_plain(keys_tiled, g, vals, seg, **kw2)
+                    e = max(e, *(max_err(a, b) for a, b in zip(got, want)))
+                fused_forms.add(("flat" if seg is None else "segmented", fam))
+        torch.cuda.synchronize()
+        n_checks += 1
+        errs["fused2_fused_postscan_reorder"] = max(errs["fused2_fused_postscan_reorder"], e)
+        if e:
+            raise AssertionError(f"fused2_fused_postscan_reorder != plain for {what}: {e}")
+
+    def k2fk2p_strips(shape):
+        """A one-run-a-tile strip, a ragged one with an empty segment, and
+        one of runs of 32 and 33 keys between long ones."""
+        n_ = shape[0] * shape[1]
+        lens = np.tile([32, 33, 700, 33, 32], n_ // 830 + 1)
+        runs = np.cumsum(lens) - lens
+        return (("one run a tile", one_run_a_tile(shape)),
+                ("ragged", ragged_starts(n_, 7, np_rng, empty=(2,))),
+                ("runs of 32 and 33", runs[runs < n_]))
+
+    t0, n0 = time.perf_counter(), n_checks
+    pair16 = ops.BitfieldSpec(0, 16)
+    # tile counts below and off a multiple of the persistent grid, rows of 37,
+    # 4095 and MAX_TILE - 1 keys (the scalar path), MAX_TILE key-value; every
+    # strip kind in the segmented forms
+    for shape in ((1, 4096), (3, 4096), (997, 4096), (4, 4095), (7, 37), (3, mst.MAX_TILE - 1),
+                  (3, mst.MAX_TILE)):
+        keys = rand_i32(shape).view(torch.uint32)
+        vals = rand_i32(shape)
+        ids = torch.randint(0, 256, shape, dtype=torch.int32, device=dev, generator=gen)
+        check_k2p_case(f"K2p m=256 {shape}", keys, vals, spec=main_spec(256))
+        check_k2p_case(f"K2p general m=7 {shape}", keys, vals, spec=ops.DeltaSpec(7), subtile=255)
+        check_k2p_case(f"K2p ids m=256 {shape}", ids, vals, m=256, keys_tiled=keys, subtile=32)
+        subs = (1, 8) if shape[0] < 100 else (None,)
+        check_k2f_case(f"K2f pair 16 {shape}", keys, vals, pair16, subs=subs)
+        for kind, starts in k2fk2p_strips(shape):
+            # the segmented rows grow with s: K2f's G is (L, s·m²) int32 and
+            # K2p's plain version builds s·m-wide planes a tile, so at L =
+            # 997 (s = 997 for one run a tile, about 24,000 for runs of 32
+            # and 33) only the ragged strip of 7 segments fits the card
+            if shape[0] >= 100 and kind != "ragged":
+                continue
+            seg = seg_strip(starts, shape)
+            check_k2p_case(f"K2p seg {kind} {shape}", keys, vals, spec=main_spec(32), seg=seg,
+                           s=len(starts))
+            check_k2p_case(f"K2p seg ids {kind} {shape}", ids, vals, m=256, keys_tiled=keys,
+                           seg=seg, s=len(starts))
+            check_k2f_case(f"K2f seg {kind} {shape}", keys, vals, pair16, seg, len(starts))
+    # planes off 16 bytes: keys 4 bytes past, values 12, the strips 8
+    for shape in ((5, 4096), (3, mst.MAX_TILE)):
+        keys = off16(rand_i32(shape), 1).view(torch.uint32)
+        vals = off16(rand_i32(shape), 3)
+        ids = off16(torch.randint(0, 32, shape, dtype=torch.int32, device=dev, generator=gen), 2)
+        seg = off16(seg_strip(ragged_starts(shape[0] * shape[1], 6, np_rng, empty=(3,)), shape), 2)
+        check_k2p_case(f"K2p planes off 16 bytes {shape}", keys, vals, spec=main_spec(256))
+        check_k2p_case(f"K2p ids seg planes off 16 bytes {shape}", ids, vals, m=32,
+                       keys_tiled=keys, seg=seg, s=6)
+        check_k2f_case(f"K2f planes off 16 bytes {shape}", keys, vals, pair16)
+        check_k2f_case(f"K2f seg planes off 16 bytes {shape}", keys, vals, pair16, seg, 6)
+    # one-bucket full tiles (a K2p lane at the 255 cap) and one-cell full tiles
+    shape = (8, mst.MAX_TILE)
+    for word in (7, 0x5A5A1234):
+        keys = torch.full(shape, word, dtype=torch.int32, device=dev)
+        seg = seg_strip(np.array([0, 5000, 5001, 20000], np.int32), shape)
+        for sub in (255, None):
+            check_k2p_case(f"K2p one bucket {word:#x} subtile={sub}", keys, rand_i32(shape),
+                           spec=ops.IdentitySpec(8) if word == 7 else main_spec(256), subtile=sub)
+            check_k2p_case(f"K2p one bucket seg {word:#x} subtile={sub}", keys, rand_i32(shape),
+                           spec=ops.IdentitySpec(8) if word == 7 else main_spec(256), seg=seg, s=4,
+                           subtile=sub)
+        check_k2f_case(f"K2f one cell {word:#x}", keys, rand_i32(shape), pair16, subs=(4, None))
+        check_k2f_case(f"K2f one cell seg {word:#x}", keys, rand_i32(shape), pair16, seg, 4)
+    del keys, vals, ids, seg
+    log("kernels", f"{n_checks - n0} K2p / K2f design cases (L = 1, 3 and 997, T = 37, 4095, "
+                   f"{mst.MAX_TILE - 1} and {mst.MAX_TILE} key-value, planes off 16 bytes, "
+                   f"one-bucket and one-cell full tiles, subtiles 32, 255 and the auto one, stage "
+                   f"widths 1, 4 and 8 in both families, segmented tiles of one run, ragged and "
+                   f"of runs of 32 and 33 keys, G above 2^24; all four forms of each): K2p and "
+                   f"K2f bitwise equal to their plain versions ({time.perf_counter() - t0:.1f} s)")
 
     # ---- 3f. B10, the standalone tile reorder of the unfused baseline, against
     # its plain version: key-only (null values) and key-value
@@ -2055,7 +2189,7 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": lib_ms,
         })
         before = f"when added: {FLAT_MS_BEFORE[name]:.4f} ms; " if name in FLAT_MS_BEFORE else ""
-        first = {**K1K2_MS_BEFORE, **K3K2S_MS_BEFORE}
+        first = {**K1K2_MS_BEFORE, **K3K2S_MS_BEFORE, **K2FK2P_MS_BEFORE}
         if name in first:
             before += f"first design: {first[name]:.4f} ms, now {ms_k / first[name]:.3f}x of it; "
         library = f"{lib_ms:.4f} ms" if lib_ms is not None else "none (no single PyTorch call)"
@@ -2249,11 +2383,15 @@ def main() -> int:
     del hist16
     cid16 = (torch.arange(l8, device=dev, dtype=torch.int64)[:, None] * 65536
              + spec16.emit(kt8).long()).view(-1)
+    # at sector grain: the 32-byte sectors of the G rows (8 bases each, rows
+    # of 65536 bases) that the keys hit
+    sectors16 = int(torch.unique(cid16 >> 3).numel())
     sort16_ms = cuda_ms(lambda: torch.sort(cid16, stable=True))
     bincount16_ms = cuda_ms(lambda: torch.bincount(cid16, minlength=l8 * 65536))
     del cid16
     log("times", f"fused2 at F1's shape: H {h16_bytes / 2**30:.2f} GiB, {nnz16} of its "
-                 f"{h16_bytes // 4} bases hit by the keys")
+                 f"{h16_bytes // 4} bases hit by the keys, in {sectors16} of its "
+                 f"{h16_bytes // 32} 32-byte sectors ({sectors16 / l8:.1f} of a row's 8192)")
     fkw = dict(spec=spec16, split=8)
     # K1f segmented at F3's shape too: 2^22 keys over 16 ragged segments,
     # the keys, their segment ids and the (512, 16·65536) H moved once
@@ -2286,8 +2424,18 @@ def main() -> int:
             "bitwise": errs[name] == 0, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": lib_ms,
         })
+        extra = ""
+        if name == "fused2_fused_postscan_reorder":
+            # the G reads at sector grain: 32 bytes a sector the keys hit
+            sector_bytes = 8 * n + 16 * n + 32 * sectors16
+            kernels[-1]["sector_bound_ms"] = sector_bytes / HBM_BYTES_PER_S * 1e3
+            before = K2FK2P_MS_BEFORE[name]
+            extra = (f"; first design {before:.4f} ms, now {ms_k / before:.3f}x of it; bound at "
+                     f"sector grain {kernels[-1]['sector_bound_ms']:.4f} ms = "
+                     f"{sector_bytes / 2**20:.0f} MiB / 3.35 TB/s, "
+                     f"{kernels[-1]['sector_bound_ms'] / ms_k:.1%} of it")
         log("times", f"{name}: {ms_k:.4f} ms (bound {bound:.4f} ms = {nbytes / 2**20:.0f} MiB "
-                     f"/ 3.35 TB/s, {bound / ms_k:.1%} of it), plain {ms_p:.2f} ms, library "
+                     f"/ 3.35 TB/s, {bound / ms_k:.1%} of it{extra}), plain {ms_p:.2f} ms, library "
                      f"{lib_ms:.4f} ms ({ms_k / lib_ms:.3f}x of it); {launches[name]} launches on "
                      f"the fused paths [F1: n = 2^25, pair (0, 16, 8), sub_bits {mst.CUDA_SUB_BITS}, "
                      f"onehot, tiles {l8} x {t_fused}; {smi}]")

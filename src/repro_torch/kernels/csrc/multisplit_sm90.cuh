@@ -1,12 +1,14 @@
 // Shared code of the Hopper designs of K1 (tile_histograms.cu), K2
 // (fused_postscan_reorder.cu), K3 (tile_positions.cu), K1s
 // (seg_tile_histograms.cu), K2s (seg_fused_postscan_reorder.cu) and K3s
-// (seg_tile_positions.cu): labels in a few cheap forms beside the general
-// one, the rows' alignment, the persistent grid from the occupancy the
-// kernel gets, a tile's keys in registers and their order-free count into
-// copies of the counters (K1, K1s), the cp.async staging of rows into
-// shared memory with the choice of one or two stages, and the stable warp
-// rank of a staged run.
+// (seg_tile_positions.cu), and of K2p (packed_fused_postscan_reorder.cu) and
+// K2f (fused2_fused_postscan_reorder.cu): labels in a few cheap forms beside
+// the general one, the rows' alignment, the persistent grid from the
+// occupancy the kernel gets, a tile's keys in registers and their
+// order-free count into copies of the counters (K1, K1s), the cp.async
+// staging of rows into shared memory with the choice of one or two stages,
+// and the stable warp rank of a staged run, in the onehot family's form
+// and in the packed family's.
 //
 // The labels are ms::bucket_of's (multisplit_common.cuh) bit for bit: a
 // DeltaSpec over delta = 2^k computes q = u >> k where bucket_of computes
@@ -211,6 +213,74 @@ __device__ __forceinline__ void warp_rank(const uint32_t* src, int len, const La
       if (valid && lane == __ffs(peers) - 1) mine[b] = before + __popc(peers);
       __syncwarp();
       meta[r] = ((before + __popc(peers & lanemask_lt)) << ms::kLabelBits) | b;
+    }
+  }
+}
+
+// The packed family's stable rank of a warp's rounds of a staged run (paper
+// §4.3; the two-level packed rank of the JAX package's packed bodies), in
+// the shape of warp_rank: the warp owns the 32-key rounds [r0, r1) of the
+// run src[0, len), in order; a round's peers come from __match_any_sync
+// (ballots over the label's nbits bits took longer here on an H100,
+// tools/k2fk2p_variants.py; nbits serves that variant). The counting
+// is two-level:
+// * level 1, inside a subtile: the warp's counters are 8-bit lanes, four
+//   to a word, ⌈m/4⌉ words at pw; a round's group adds popc(peers) <<
+//   8·(b mod 4) to word b / 4 (a shared atomicAdd: two groups can share a
+//   word). A subtile is max(1, ⌊sub/32⌋) whole rounds, counted from the
+//   run's start: at most sub keys for sub >= 32, one round of 32 below;
+// * level 2: after the last round of each subtile, and after the warp's
+//   last round, the warp unpacks its words into its int32 carry `mine` (m
+//   ints) and zeroes them. No lane can carry into the next: it counts at
+//   most max(32, sub) <= 255 keys between two unpacks.
+// A key's rank within the warp's rounds is carry + its lane before its
+// round + popc(peers & lanemask_lt), whatever the subtile, and round r0 + r
+// leaves rank << ms::kLabelBits | bucket in meta[r], in a register. `mine`
+// is zeroed by the caller before the first round; pw is zero on entry and
+// on exit. kUnrolledUnpack writes the unpack as its two words a lane
+// unrolled rather than as a loop: the same work, but ptxas allocates the two
+// forms differently (the unrolled one ran faster in K2f's packed stages, the
+// loop kept K2p's segmented ids instance from spilling).
+template <int kR, int kForm, bool kUnrolledUnpack = true>
+__device__ __forceinline__ void packed_warp_rank(const uint32_t* src, int len, const Label& F,
+                                                 const uint32_t* sp, int* mine, uint32_t* pw,
+                                                 int r0, int r1, int nbits, int sub,
+                                                 int (&meta)[kR]) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lanemask_lt = (1u << lane) - 1u;
+  const int m = F.L.m;
+  const int rounds = max(1, sub >> 5);               // a subtile's rounds
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    if (r0 + r < r1) {
+      const int i = ((r0 + r) << 5) + lane;
+      const bool valid = i < len;
+      const int b = valid ? label_of<kForm>(src[i], F, sp) : 0;
+      const unsigned peers = __match_any_sync(ms::kFull, valid ? b : -1);
+      const int q = b >> 2, sh = (b & 3) << 3;
+      const int before = valid ? mine[b] + static_cast<int>((pw[q] >> sh) & 0xffu) : 0;
+      meta[r] = ((before + __popc(peers & lanemask_lt)) << ms::kLabelBits) | b;
+      __syncwarp();                                  // every lane has read its lane
+      if (valid && lane == __ffs(peers) - 1)
+        atomicAdd(pw + q, static_cast<uint32_t>(__popc(peers)) << sh);
+      __syncwarp();
+      if ((r0 + r + 1) % rounds == 0 || r0 + r + 1 == r1) {   // level 2: unpack into the carry
+        auto unpack = [&](int w) {
+          const uint32_t x = pw[w];
+          pw[w] = 0u;
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+            if (4 * w + t < m) mine[4 * w + t] += static_cast<int>((x >> (8 * t)) & 0xffu);
+        };
+        if (kUnrolledUnpack) {
+#pragma unroll
+          for (int w0 = 0; w0 < ms::kMaxBuckets / 4; w0 += 32)
+            if (w0 + lane < (m + 3) >> 2) unpack(w0 + lane);
+        } else {
+          for (int w = lane; w < (m + 3) >> 2; w += 32) unpack(w);
+        }
+        __syncwarp();
+      }
     }
   }
 }
