@@ -10,7 +10,7 @@ Phases, one line or more each, every one of which must pass:
 
 1. device  — ``nvidia-smi`` name and power limit, the torch device.
 2. build   — nvcc of every kernel source, in parallel; seconds and ptxas use;
-   no K3, K2s, K1s, K3s, K2p or K2f instance may spill.
+   no K3, K2s, K1s, K3s, K2p, K2f, K1p or K3f instance may spill.
 3. kernels — K1-K3 held bitwise against their plain PyTorch versions on the
    card: the main path's shapes (n = 2^25 keys in 8192 tiles of 4096), every
    spec kind, m in {2, 32, 256}, key-only and key-value, int32 / uint32 /
@@ -81,6 +81,17 @@ Phases, one line or more each, every one of which must pass:
    planes off 16 bytes, one-bucket full tiles (a lane at the 255 cap) and
    one-cell full tiles, segmented tiles of one run, ragged ones and runs of
    32 and 33 keys.
+   K1p and K3f in their Hopper designs (K1p: persistent 512-thread blocks,
+   order-free counts into packed 8-bit copies, two copies a lane at T >
+   4096 so no lane passes 255, K1s's window of segments; K3f: K2f's body in
+   its positions-only form), each in its four forms against its plain
+   version, K2f beside K3f, bases above 2^24: tile counts 1, 3 and 997,
+   rows of 37, 4095, ``MAX_TILE`` - 1 and ``MAX_TILE`` keys, planes off 16
+   bytes, every key of a full tile in one bucket at m = 1, 2 and 256 at T =
+   4096 and ``MAX_TILE`` (the lane cap), one-cell full tiles, segmented
+   tiles of one run, ragged, of runs of 32 and 33 keys and of more segments
+   than K1p's window, one- to eight-key segments, s·m rows not a multiple
+   of 4, stage widths 1, 3, 4 and 8 in both families.
    B10, the standalone tile reorder of the unfused baseline, key-only and
    key-value, against its plain version: the main shape (8192 tiles of
    4096, m = 256, the destinations riding as the values too), m in {1, 2,
@@ -178,8 +189,9 @@ Phases, one line or more each, every one of which must pass:
    (``K1SK3S_MS_BEFORE``) with the bound their contract forces (a one-run
    tile's strip read at its two ends) beside the whole strip's bound,
    K2p and K2f beside their first design's times (``K2FK2P_MS_BEFORE``),
-   K2f's bound also at sector grain (the 32-byte sectors of G's rows its
-   keys hit, counted from F1's data),
+   K1p and K3f beside theirs (``K1PK3F_MS_BEFORE``), K2f's and K3f's bounds
+   also at sector grain (the 32-byte sectors of G's rows their keys hit,
+   counted from F1's data),
    K2 beside its time when it had its own copy
    of the rank (``K2_MS_OWN_RANK``), K2s over about 50,000 one- to eight-key
    segments; K1 and K2 key-value with uniform keys at m
@@ -269,6 +281,11 @@ K1SK3S_MS_BEFORE = {"seg_spec_tile_histograms": 0.2711, "seg_tile_histograms": 0
 # SM and a G read a key), on an H100 80GB HBM3 at 700 W (PERF.md's kernel
 # table)
 K2FK2P_MS_BEFORE = {"packed_fused_postscan_reorder": 0.8779, "fused2_fused_postscan_reorder": 2.5914}
+# K1p (flat m = 256, n = 2^25) and K3f (F1) in their first design (one
+# block a tile; K1p's two-level packed rank walk from device memory, K3f's
+# sweep through a meta plane at one block an SM and a G read a key), on an
+# H100 80GB HBM3 at 700 W (PERF.md's kernel table)
+K1PK3F_MS_BEFORE = {"packed_tile_histograms": 0.3713, "fused2_tile_positions": 2.0480}
 # K2 key-value at the main shape when it kept its own copy of the rank that
 # it now shares with K3 and K2s (PERF.md's kernel table); within 5 % of it
 # shows the shared rank cost K2 nothing
@@ -359,21 +376,22 @@ def main() -> int:
     for name in build.PTXAS_LOG:
         for line in build.ptxas_summary(name):
             log("build", f"{name}: {line}")
-    # K3, K2s, K1s, K3s, K2p and K2f hold their keys or ranks in registers:
-    # no instance may spill
+    # K3, K2s, K1s, K3s, K2p, K2f, K1p and K3f hold their keys or ranks in
+    # registers: no instance may spill
     redesigned = [(name, line) for name in ("tile_positions", "seg_fused_postscan_reorder",
                                             "seg_tile_histograms", "seg_tile_positions",
                                             "packed_fused_postscan_reorder",
-                                            "fused2_fused_postscan_reorder")
+                                            "fused2_fused_postscan_reorder",
+                                            "packed_tile_histograms", "fused2_tile_positions")
                   for line in build.ptxas_summary(name) if "spill stores" in line]
     spilled = [f"{name}: {line}" for name, line in redesigned
                if "spill stores 0 B, loads 0 B" not in line]
     if spilled:
-        raise AssertionError("K3 / K2s / K1s / K3s / K2p / K2f instances spill:\n" +
+        raise AssertionError("K3 / K2s / K1s / K3s / K2p / K2f / K1p / K3f instances spill:\n" +
                              "\n".join(spilled))
-    log("build", f"K3, K2s, K1s, K3s, K2p and K2f: {len(redesigned)} instances, none spills"
-                 if redesigned else "K3, K2s, K1s, K3s, K2p and K2f: libraries current, not "
-                                    "rebuilt, so no ptxas lines")
+    log("build", f"K3, K2s, K1s, K3s, K2p, K2f, K1p and K3f: {len(redesigned)} instances, none "
+                 f"spills" if redesigned else "K3, K2s, K1s, K3s, K2p, K2f, K1p and K3f: libraries "
+                                              "current, not rebuilt, so no ptxas lines")
 
     # ---- helpers
     def rand_i32(shape):
@@ -1262,6 +1280,153 @@ def main() -> int:
                    f"widths 1, 4 and 8 in both families, segmented tiles of one run, ragged and "
                    f"of runs of 32 and 33 keys, G above 2^24; all four forms of each): K2p and "
                    f"K2f bitwise equal to their plain versions ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- 3e''. the cases the Hopper designs of K1p (persistent, order-free
+    # counts in packed 8-bit copies, two copies a lane at T > 4096, K1s's
+    # window of segments) and K3f (K2f's body in its positions-only form)
+    # make new, each held bitwise against its plain version in all four
+    # forms, and K2f beside K3f (its body moved into the shared header)
+    def check_k1p_case(what, tiled, spec=None, m=None, seg=None, s=1):
+        nonlocal n_checks
+        kw = dict(seg_tiled=seg, num_segments=s)
+        kw.update(spec=spec) if spec is not None else kw.update(num_buckets=m)
+        e = max_err(mst.packed_tile_histograms(tiled, **kw),
+                    mst.packed_tile_histograms_plain(tiled, **kw))
+        torch.cuda.synchronize()
+        n_checks += 1
+        k1p_forms.add(("spec" if spec is not None else "ids", "flat" if seg is None else "segmented"))
+        errs["packed_tile_histograms"] = max(errs["packed_tile_histograms"], e)
+        if e:
+            raise AssertionError(f"packed_tile_histograms != plain for {what}: {e}")
+
+    def check_k3f_case(what, keys_tiled, spec, seg=None, s=1, subs=(None,), with_k2f=False):
+        nonlocal n_checks
+        kw = dict(spec=spec, num_segments=s)
+        g = st.global_scan(mst.fused2_tile_histograms_plain(keys_tiled, seg, **kw)) + (1 << 24) + 1
+        e = e2 = 0
+        for fam in ("onehot", "packed"):
+            for sub in subs:
+                kw2 = dict(kw, split=spec.bits // 2, family=fam, sub_bits=sub)
+                e = max(e, max_err(mst.fused2_tile_positions(keys_tiled, g, seg, **kw2),
+                                   mst.fused2_tile_positions_plain(keys_tiled, g, seg, **kw2)))
+                if with_k2f:
+                    got = mst.fused2_fused_postscan_reorder(keys_tiled, g, None, seg, **kw2)
+                    want = mst.fused2_fused_postscan_reorder_plain(keys_tiled, g, None, seg, **kw2)
+                    e2 = max(e2, *(max_err(a, b) for a, b in zip(got, want)))
+                k3f_forms.add(("flat" if seg is None else "segmented", fam))
+        torch.cuda.synchronize()
+        n_checks += 1
+        errs["fused2_tile_positions"] = max(errs["fused2_tile_positions"], e)
+        errs["fused2_fused_postscan_reorder"] = max(errs["fused2_fused_postscan_reorder"], e2)
+        if e or e2:
+            raise AssertionError(f"K3f / K2f != plain for {what}: {e} / {e2}")
+
+    def k1p_strips(shape):
+        """A strip of one run a tile, a ragged one with empty segments, runs
+        of 32 and 33 keys, and tiles of more segment ids than K1p's window
+        holds (its window: 2 segments at m = 256 and T <= 4096, 1 above)."""
+        n_ = shape[0] * shape[1]
+        lens = np.tile([32, 33, 700, 33, 32], n_ // 830 + 1)
+        runs = np.cumsum(lens) - lens
+        wide = np.sort(np_rng.choice(np.arange(1, n_), min(n_ - 1, 5 * shape[0]), replace=False))
+        return (("one run a tile", one_run_a_tile(shape)),
+                ("ragged", ragged_starts(n_, 7, np_rng, empty=(2, 5))),
+                ("runs of 32 and 33", runs[runs < n_]),
+                ("about five segments a tile", np.r_[0, wide]))
+
+    k1p_forms, k3f_forms = set(), set()
+    t0, n0 = time.perf_counter(), n_checks
+    # tile counts 1, 3 and 997 (below and off a multiple of the persistent
+    # grid), rows of 37, 4095 and MAX_TILE - 1 keys (the scalar path),
+    # MAX_TILE; every strip kind in the segmented forms; K3f's bases above
+    # 2^24; K2f on the same tiles
+    for shape in ((1, 4096), (3, 4096), (997, 4096), (4, 4095), (7, 37), (3, mst.MAX_TILE - 1),
+                  (3, mst.MAX_TILE)):
+        keys = rand_i32(shape).view(torch.uint32)
+        for m in ((256, 7) if shape[0] < 100 else (256,)):
+            spec = main_spec(m) if m == 256 else ops.DeltaSpec(m)
+            ids = torch.randint(-2, m + 2, shape, dtype=torch.int32, device=dev, generator=gen)
+            check_k1p_case(f"K1p m={m} {shape}", keys, spec=spec)
+            check_k1p_case(f"K1p ids m={m} {shape}", ids, m=m)
+            for kind, starts in k1p_strips(shape):
+                # L = 997 takes the ragged strip alone: one run a tile is 997
+                # segments, whose plain version builds s·m-wide planes a tile
+                if shape[0] >= 100 and kind != "ragged":
+                    continue
+                seg = seg_strip(starts, shape)
+                check_k1p_case(f"K1p seg {kind} m={m} {shape}", keys, spec=spec, seg=seg,
+                               s=len(starts))
+                check_k1p_case(f"K1p seg ids {kind} m={m} {shape}", ids, m=m, seg=seg,
+                               s=len(starts))
+        subs = (1, 8) if shape[0] < 100 else (None,)
+        check_k3f_case(f"K3f pair 16 {shape}", keys, pair16, subs=subs, with_k2f=True)
+        check_k3f_case(f"K3f pair 6 {shape}", keys, ops.BitfieldSpec(26, 6), subs=(3, 4))
+        for kind, starts in k2fk2p_strips(shape):
+            if shape[0] >= 100 and kind != "ragged":
+                continue
+            check_k3f_case(f"K3f seg {kind} {shape}", keys, pair16, seg_strip(starts, shape),
+                           len(starts), with_k2f=True)
+    # planes off 16 bytes: keys 4 bytes past, ids 8, the strip 8; rows of s·m
+    # % 4 != 0 (m = 7, s = 5)
+    for shape in ((5, 4096), (3, mst.MAX_TILE)):
+        keys = off16(rand_i32(shape), 1).view(torch.uint32)
+        ids = off16(torch.randint(0, 32, shape, dtype=torch.int32, device=dev, generator=gen), 2)
+        seg = off16(seg_strip(ragged_starts(shape[0] * shape[1], 5, np_rng, empty=(3,)), shape), 2)
+        check_k1p_case(f"K1p planes off 16 bytes {shape}", keys, spec=main_spec(256))
+        check_k1p_case(f"K1p ids planes off 16 bytes {shape}", ids, m=32)
+        check_k1p_case(f"K1p seg m=7 planes off 16 bytes {shape}", keys, spec=ops.DeltaSpec(7),
+                       seg=seg, s=5)
+        check_k1p_case(f"K1p seg ids planes off 16 bytes {shape}", ids, m=32, seg=seg, s=5)
+        check_k3f_case(f"K3f planes off 16 bytes {shape}", keys, pair16)
+        check_k3f_case(f"K3f seg planes off 16 bytes {shape}", keys, pair16, seg, 5)
+    # the lane cap: every key of a full tile in one bucket (128 adds a lane,
+    # at T = MAX_TILE with two copies a lane), flat and as one-run segmented
+    # tiles, at m = 1, 2 and 256; one-cell full tiles for K3f
+    for t in (4096, mst.MAX_TILE):
+        shape = (8, t)
+        seg = seg_strip(np.array([0, 5000, 5001, 20000], np.int32), shape)
+        for m in (1, 2, 256):
+            keys = torch.full(shape, m - 1, dtype=torch.int32, device=dev)
+            spec = ops.IdentitySpec(m)
+            check_k1p_case(f"K1p one bucket {m - 1} of {m}, T = {t}", keys, spec=spec)
+            check_k1p_case(f"K1p ids one bucket {m - 1} of {m}, T = {t}", keys, m=m)
+            check_k1p_case(f"K1p seg one bucket {m - 1} of {m}, T = {t}", keys, spec=spec, seg=seg,
+                           s=4)
+            check_k1p_case(f"K1p seg ids one bucket {m - 1} of {m}, T = {t}", keys, m=m, seg=seg,
+                           s=4)
+        keys = torch.full(shape, 0x5A5A1234, dtype=torch.int32, device=dev)
+        keys[4:] ^= rand_i32(tuple(keys[4:].shape)) & 0xFFFF0000       # one pair, other high bits
+        check_k3f_case(f"K3f one cell, T = {t}", keys, pair16, subs=(4, None), with_k2f=True)
+        check_k3f_case(f"K3f one cell seg, T = {t}", keys, pair16, seg, 4)
+    # tiles of hundreds of runs: one- to eight-key segments, a few K1p
+    # windows a tile (m = 2, tiles of 4096) and hundreds (m = 64 in tiles of
+    # MAX_TILE, four segments a window); phase 3d drives m = 256 in tiles
+    # of 4096 (two a window)
+    for shape, m in (((64, 4096), 2), ((3, mst.MAX_TILE), 64)):
+        lens = np_rng.integers(1, 9, shape[0] * shape[1])
+        starts = np.cumsum(lens) - lens
+        starts = starts[starts < shape[0] * shape[1]].astype(np.int32)
+        seg = seg_strip(starts, shape)
+        keys = rand_i32(shape).view(torch.uint32)
+        ids = torch.randint(-1, m + 1, shape, dtype=torch.int32, device=dev, generator=gen)
+        check_k1p_case(f"K1p {starts.size} tiny segments m={m} {shape}", keys, spec=main_spec(m),
+                       seg=seg, s=int(starts.size))
+        check_k1p_case(f"K1p ids {starts.size} tiny segments m={m} {shape}", ids, m=m, seg=seg,
+                       s=int(starts.size))
+        if m == 64:
+            check_k3f_case(f"K3f {starts.size} tiny segments {shape}", keys,
+                           ops.BitfieldSpec(8, 6), seg, int(starts.size), subs=(1, 8))
+    del keys, ids, seg
+    if len(k1p_forms) != 4 or len(k3f_forms) != 4:
+        raise AssertionError(f"K1p / K3f forms checked: {sorted(k1p_forms)}, {sorted(k3f_forms)}")
+    log("kernels", f"{n_checks - n0} K1p / K3f design cases (L = 1, 3 and 997, T = 37, 4095, "
+                   f"{mst.MAX_TILE - 1} and {mst.MAX_TILE}, planes off 16 bytes, one-bucket full "
+                   f"tiles at m = 1, 2 and 256 (the lane cap, T = 4096 and {mst.MAX_TILE}), "
+                   f"one-cell full tiles, segmented tiles of one run, ragged, of runs of 32 and 33 "
+                   f"keys and of more segments than K1p's window, one- to eight-key segments, s·m "
+                   f"% 4 != 0, stage widths 1, 3, 4 and 8 in both families, G above 2^24; all four "
+                   f"forms of each, K2f beside K3f): K1p, K3f and K2f bitwise equal to their plain "
+                   f"versions ({time.perf_counter() - t0:.1f} s)")
 
     # ---- 3f. B10, the standalone tile reorder of the unfused baseline, against
     # its plain version: key-only (null values) and key-value
@@ -2189,7 +2354,7 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": lib_ms,
         })
         before = f"when added: {FLAT_MS_BEFORE[name]:.4f} ms; " if name in FLAT_MS_BEFORE else ""
-        first = {**K1K2_MS_BEFORE, **K3K2S_MS_BEFORE, **K2FK2P_MS_BEFORE}
+        first = {**K1K2_MS_BEFORE, **K3K2S_MS_BEFORE, **K2FK2P_MS_BEFORE, **K1PK3F_MS_BEFORE}
         if name in first:
             before += f"first design: {first[name]:.4f} ms, now {ms_k / first[name]:.3f}x of it; "
         library = f"{lib_ms:.4f} ms" if lib_ms is not None else "none (no single PyTorch call)"
@@ -2425,11 +2590,12 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": lib_ms,
         })
         extra = ""
-        if name == "fused2_fused_postscan_reorder":
-            # the G reads at sector grain: 32 bytes a sector the keys hit
-            sector_bytes = 8 * n + 16 * n + 32 * sectors16
+        if name in ("fused2_fused_postscan_reorder", "fused2_tile_positions"):
+            # the G reads at sector grain: 32 bytes a sector the keys hit,
+            # beside the keys read (and values) and the outputs written
+            sector_bytes = nbytes - 4 * nnz16 + 32 * sectors16
             kernels[-1]["sector_bound_ms"] = sector_bytes / HBM_BYTES_PER_S * 1e3
-            before = K2FK2P_MS_BEFORE[name]
+            before = {**K2FK2P_MS_BEFORE, **K1PK3F_MS_BEFORE}[name]
             extra = (f"; first design {before:.4f} ms, now {ms_k / before:.3f}x of it; bound at "
                      f"sector grain {kernels[-1]['sector_bound_ms']:.4f} ms = "
                      f"{sector_bytes / 2**20:.0f} MiB / 3.35 TB/s, "

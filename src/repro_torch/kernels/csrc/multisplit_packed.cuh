@@ -1,6 +1,7 @@
-// Shared device code of the packed-counter tile kernels K1p-K3p (paper
-// §4.3, the privatised packed counters; the packed family of the JAX
-// package, src/repro/kernels/common.py:150-410).
+// Device code of the packed-counter tile kernel K3p (paper §4.3, the
+// privatised packed counters; the packed family of the JAX package,
+// src/repro/kernels/common.py:150-410). K1p and K2p have Hopper designs on
+// multisplit_sm90.cuh instead.
 //
 // The stable in-tile rank is two-level, as in the JAX family:
 //

@@ -14,16 +14,18 @@ longer runs on the path above over their range). Keys go to their slots in
 a dead plane, values to the ids plane (segmented ids) or in place, pos_r
 into the key plane.
 
-K2f (``csrc/fused2_fused_postscan_reorder.cu``) sorts a tile by (segment
-run, pair): a run of at most 32 keys in one warp by shuffles, the tile or a
-longer run by an LSD sweep of ``sub``-bit stages between two key buffers,
-each stage ranked by the onehot ballots (K2's ``sm90::warp_rank``) or the
-packed rank on subtiles of ``kStageSubtile`` keys, the first stage taking
-the positions as the source indices. Then a first walk marks each round's
-cell heads in a word and reads each key's base G[cell]; the second finds
-each key's head in its round's word, or carries the last head across rounds
-and, through the head words, across warps: pos = base + p - head; perm
-scattered by source index, the values gathered by it.
+K2f (``csrc/fused2_fused_postscan_reorder.cu``, its body
+``fused2::postscan_kernel`` in ``csrc/multisplit_fused2.cuh``) sorts a tile
+by (segment run, pair): a run of at most 32 keys in one warp by shuffles,
+the tile or a longer run by an LSD sweep of ``sub``-bit stages between two
+key buffers, each stage ranked by the onehot ballots (K2's
+``sm90::warp_rank``) or the packed rank on subtiles of ``kStageSubtile``
+keys, the first stage taking the positions as the source indices. Then a
+first walk marks each round's cell heads in a word and reads each key's
+base G[cell]; the second finds each key's head in its round's word, or
+carries the last head across rounds and, through the head words, across
+warps: pos = base + p - head; perm scattered by source index, the values
+gathered by it.
 
 The CUDA kernels themselves are held against the plain versions on the card
 by ``chip_smoke.py``; these tests hold the designs' arithmetic to the Pallas
@@ -42,7 +44,8 @@ from test_torch_k1k2_design import _label_bits, _peers
 from test_torch_k3k2s_design import SHORT_RUN, _bases, _runs, _strip, warp_rank
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
-K2F_SRC = (CSRC / "fused2_fused_postscan_reorder.cu").read_text()
+# K2f's body, shared with K3f, lives in the fused-pair header
+K2F_SRC = (CSRC / "multisplit_fused2.cuh").read_text()
 K2P_SRC = (CSRC / "packed_fused_postscan_reorder.cu").read_text()
 # the packed stage's subtile and the warps a block, as the sources set them
 STAGE_SUBTILE = int(re.search(r"kStageSubtile = (\d+);", K2F_SRC).group(1))

@@ -32,7 +32,6 @@ import sys
 from pathlib import Path
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-HEADER = "multisplit_sm90.cuh"
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 K1_COUNT = """    sm90::count_keys<kVec, kThreads, kForm>(
@@ -223,18 +222,19 @@ def build_variants(build, variants=None, out_name="variants"):
     procs = {}
     for i, (name, (source, edits, _, *other)) in enumerate((variants or VARIANTS).items()):
         csrc = Path(other[0]) if other else build.CSRC
-        # an edit applies to the source or, failing that, to the Hopper
-        # header, whose edited copy sits beside the variant's source and is
-        # found there first by its quoted include
-        texts = {f"{source}.cu": (csrc / f"{source}.cu").read_text(),
-                 HEADER: (csrc / HEADER).read_text()}
+        # an edit applies to the source or, failing that, to the first local
+        # header that holds its text; every header of the tree is copied
+        # beside the variant's source, so each quoted include finds the
+        # (edited) copy there first
+        texts = {f"{source}.cu": (csrc / f"{source}.cu").read_text()}
+        texts.update((h.name, h.read_text()) for h in sorted(csrc.glob("*.cuh")))
         missing = [old for old, _ in edits if not any(old in x for x in texts.values())]
         if missing:
             print(f"[variants] {name}: edit no longer applies ({missing[0][:60]!r}); skipped",
                   flush=True)
             continue
         for old, new in edits:
-            where = f"{source}.cu" if old in texts[f"{source}.cu"] else HEADER
+            where = next(f for f, x in texts.items() if old in x)
             texts[where] = texts[where].replace(old, new)
         var_dir = os.path.join(out_dir, f"v{i}")
         os.makedirs(var_dir, exist_ok=True)

@@ -7,8 +7,10 @@ Each variant is the committed ``fused2_fused_postscan_reorder.cu`` (K2f) or
 ``packed_fused_postscan_reorder.cu`` (K2p) with one design choice changed by
 a text edit, as ``tools/k1k2_variants.py`` does for K1 and K2 (and through
 its ``build_variants``; an edit that matches nothing in the source applies
-to ``multisplit_sm90.cuh``, where the packed rank lives), each a choice the
-design rejected: for K2p, the packed rank's peers from ballots over the
+to the local header that holds its text: ``multisplit_sm90.cuh``, where the
+packed rank lives, or ``multisplit_fused2.cuh``, where K2f's body lives
+beside K3f's), each a choice the design rejected: for K2p, the packed
+rank's peers from ballots over the
 label bits instead of ``__match_any_sync``, one stage and two stages
 instead of the launch's own choice, one block an SM instead of two; for
 K2f, the values gathered from the tile's row in device memory instead of
@@ -76,9 +78,10 @@ G_ONCE_A_RUN = [
 # K2f: the values gathered by source index from the tile's row in device
 # memory, pos_r staged in the free key buffer and written 16 bytes a store
 VALS_FROM_DEVICE = [
-    ("          pos_r[base + p] = pos;\n", "          free_k[p] = static_cast<uint32_t>(pos);\n"),
-    ("    if (has_vals) {\n      sm90::stage_row<kThreads>(free_k, vals + base, T, vec);\n"
-     "      sm90::copy_wait_all();\n    }\n    __syncthreads();\n", ""),
+    ("          if (!kPositions) pos_r[base + p] = pos;\n",
+     "          if (!kPositions) free_k[p] = static_cast<uint32_t>(pos);\n"),
+    ("      if (has_vals) {\n        sm90::stage_row<kThreads>(free_k, vals + base, T, vec);\n"
+     "        sm90::copy_wait_all();\n      }\n      __syncthreads();\n", ""),
     ("        reinterpret_cast<uint4*>(perm + base)[v] = reinterpret_cast<const uint4*>(fk)[v];\n",
      "        reinterpret_cast<uint4*>(perm + base)[v] = reinterpret_cast<const uint4*>(fk)[v];\n"
      "      for (int v = tid; v < nv; v += kThreads)\n"
