@@ -10,7 +10,8 @@ Phases, one line or more each, every one of which must pass:
 
 1. device  — ``nvidia-smi`` name and power limit, the torch device.
 2. build   — nvcc of every kernel source, in parallel; seconds and ptxas use;
-   no K3, K2s, K1s, K3s, K2p, K2f, K1p or K3f instance may spill.
+   no K3, K2s, K1s, K3s, K2p, K2f, K1p, K3f or B10 instance may spill (K3p's
+   spills, chosen by time, are printed).
 3. kernels — K1-K3 held bitwise against their plain PyTorch versions on the
    card: the main path's shapes (n = 2^25 keys in 8192 tiles of 4096), every
    spec kind, m in {2, 32, 256}, key-only and key-value, int32 / uint32 /
@@ -92,6 +93,17 @@ Phases, one line or more each, every one of which must pass:
    tiles of one run, ragged, of runs of 32 and 33 keys and of more segments
    than K1p's window, one- to eight-key segments, s·m rows not a multiple
    of 4, stage widths 1, 3, 4 and 8 in both families.
+   K3p and B10 in their Hopper designs (K3p: persistent staged tiles, the
+   packed rank in registers, K3s's run split, an ids strip read as the keys
+   in the clamp form; B10: persistent staged tiles, K2's ballot rank on the
+   ids, keys and values moved into the dead planes), each against its plain
+   version, K3p also against the onehot K3 / K3s of its form: one-bucket
+   tiles of ``MAX_TILE`` at subtile 255 (the lane cap at 32 rounds a warp),
+   planes off 16 bytes and rows of 4095, 37 and ``MAX_TILE`` - 1 keys, S1-
+   and S3-like strips of one-run tiles, runs of 32 and 33 keys, tiny
+   segments and long runs, all four forms; B10 at the unfused baseline's
+   tiles of 1024 and 4096, at ``MAX_TILE`` and odd widths, planes off 16
+   bytes.
    B10, the standalone tile reorder of the unfused baseline, key-only and
    key-value, against its plain version: the main shape (8192 tiles of
    4096, m = 256, the destinations riding as the values too), m in {1, 2,
@@ -189,7 +201,10 @@ Phases, one line or more each, every one of which must pass:
    (``K1SK3S_MS_BEFORE``) with the bound their contract forces (a one-run
    tile's strip read at its two ends) beside the whole strip's bound,
    K2p and K2f beside their first design's times (``K2FK2P_MS_BEFORE``),
-   K1p and K3f beside theirs (``K1PK3F_MS_BEFORE``), K2f's and K3f's bounds
+   K1p and K3f beside theirs (``K1PK3F_MS_BEFORE``), K3p and B10 beside
+   theirs (``K3PB10_MS_BEFORE``), B10 key-only, K3p at S1 against the bound
+   of a one-run tile's two end ids, K3p / K3 and K3p / K3s in one call (for
+   A8), K2f's and K3f's bounds
    also at sector grain (the 32-byte sectors of G's rows their keys hit,
    counted from F1's data),
    K2 beside its time when it had its own copy
@@ -269,7 +284,7 @@ K1K2_MS_BEFORE = {"spec_tile_histograms": 0.3411, "spec_fused_postscan_reorder":
 K3K2S_MS_BEFORE = {"spec_tile_positions": 0.3611, "tile_positions": 0.3762,
                    "seg_spec_fused_postscan_reorder": 1.1822, "seg_fused_postscan_reorder": 1.1546}
 # K1s, K3s and both on the ids strip in their first design (one block a
-# tile, the run list of ms::find_runs, the rank walk; K3s through a meta
+# tile, a list of every run start, the rank walk; K3s through a meta
 # plane) at S1 (K3s key-only positions), on an H100 80GB HBM3 at 700 W
 # (PERF.md's kernel table), and the bound they were held to then: the whole
 # strip read (K1s 320 MiB, K3s 385 MiB over 3.35 TB/s)
@@ -286,6 +301,11 @@ K2FK2P_MS_BEFORE = {"packed_fused_postscan_reorder": 0.8779, "fused2_fused_posts
 # sweep through a meta plane at one block an SM and a G read a key), on an
 # H100 80GB HBM3 at 700 W (PERF.md's kernel table)
 K1PK3F_MS_BEFORE = {"packed_tile_histograms": 0.3713, "fused2_tile_positions": 2.0480}
+# K3p (flat m = 256, n = 2^25) and B10 (key-value, m = 256, tiles of 4096)
+# in their first design (one block a tile; K3p's two-level packed rank from
+# device memory through a meta plane, B10's rank walk from device memory),
+# on an H100 80GB HBM3 at 700 W (PERF.md's kernel table)
+K3PB10_MS_BEFORE = {"packed_tile_positions": 0.3825, "tile_reorder": 0.5978}
 # K2 key-value at the main shape when it kept its own copy of the rank that
 # it now shares with K3 and K2s (PERF.md's kernel table); within 5 % of it
 # shows the shared rank cost K2 nothing
@@ -376,22 +396,31 @@ def main() -> int:
     for name in build.PTXAS_LOG:
         for line in build.ptxas_summary(name):
             log("build", f"{name}: {line}")
-    # K3, K2s, K1s, K3s, K2p, K2f, K1p and K3f hold their keys or ranks in
-    # registers: no instance may spill
+    # K3, K2s, K1s, K3s, K2p, K2f, K1p, K3f and B10 hold their keys or ranks
+    # in registers: no instance may spill
     redesigned = [(name, line) for name in ("tile_positions", "seg_fused_postscan_reorder",
                                             "seg_tile_histograms", "seg_tile_positions",
                                             "packed_fused_postscan_reorder",
                                             "fused2_fused_postscan_reorder",
-                                            "packed_tile_histograms", "fused2_tile_positions")
+                                            "packed_tile_histograms", "fused2_tile_positions",
+                                            "tile_reorder")
                   for line in build.ptxas_summary(name) if "spill stores" in line]
     spilled = [f"{name}: {line}" for name, line in redesigned
                if "spill stores 0 B, loads 0 B" not in line]
     if spilled:
-        raise AssertionError("K3 / K2s / K1s / K3s / K2p / K2f / K1p / K3f instances spill:\n" +
-                             "\n".join(spilled))
-    log("build", f"K3, K2s, K1s, K3s, K2p, K2f, K1p and K3f: {len(redesigned)} instances, none "
-                 f"spills" if redesigned else "K3, K2s, K1s, K3s, K2p, K2f, K1p and K3f: libraries "
-                                              "current, not rebuilt, so no ptxas lines")
+        raise AssertionError("K3 / K2s / K1s / K3s / K2p / K2f / K1p / K3f / B10 instances "
+                             "spill:\n" + "\n".join(spilled))
+    log("build", f"K3, K2s, K1s, K3s, K2p, K2f, K1p, K3f and B10: {len(redesigned)} instances, "
+                 f"none spills" if redesigned else "K3, K2s, K1s, K3s, K2p, K2f, K1p, K3f and B10: "
+                                                   "libraries current, not rebuilt, so no ptxas "
+                                                   "lines")
+    # K3p's shift and clamp forms spill a few words at four blocks an SM,
+    # which ran faster than three blocks without a spill
+    # (tools/k3pb10_variants.py): reported, not refused
+    k3p_spills = sorted({int(m_) for line in build.ptxas_summary("packed_tile_positions")
+                         for m_ in re.findall(r"spill stores (\d+) B", line)})
+    log("build", f"K3p: spill stores of its instances {k3p_spills} B (four blocks an SM, chosen "
+                 f"by time)" if k3p_spills else "K3p: library current, no ptxas lines")
 
     # ---- helpers
     def rand_i32(shape):
@@ -1056,6 +1085,98 @@ def main() -> int:
                    f"all four forms): K1p-K3p all bitwise equal to their plain versions and to the "
                    f"onehot kernels ({time.perf_counter() - t0:.1f} s)")
 
+    # (e) K3p in its Hopper design (persistent staged tiles, the packed rank
+    # in registers, K3s's run split), against its plain version and the
+    # onehot K3 / K3s of the same form: tiles of MAX_TILE (32 rounds a warp)
+    # with every key in one bucket at subtile 255 (the lane cap), flat and
+    # segmented with one-run and long-run tiles; planes off 16 bytes and
+    # rows of 4095, 37 and MAX_TILE - 1 keys (the one-word path); S1- and
+    # S3-like strips of one-run tiles, runs of 32 and 33 keys, one- to
+    # eight-key segments and long runs; all four forms, G above 2^24
+    k3p_forms = set()
+
+    def check_k3p_case(what, tiled, spec=None, m=None, seg=None, s=1, subtile=None,
+                       g_offset=0):
+        nonlocal n_checks
+        kw = dict(seg_tiled=seg, num_segments=s, subtile=subtile)
+        kw.update(spec=spec) if spec is not None else kw.update(num_buckets=m)
+        g = st.global_scan(mst.packed_tile_histograms_plain(tiled, **kw)) + g_offset
+        p = mst.packed_tile_positions(tiled, g, **kw)
+        e = max(max_err(p, mst.packed_tile_positions_plain(tiled, g, **kw)),
+                max_err(p, onehot_stages(tiled, None, spec, m, seg, s)[1](g)))
+        torch.cuda.synchronize()
+        n_checks += 1
+        k3p_forms.add(("spec" if spec is not None else "ids", "flat" if seg is None else "segmented"))
+        errs["packed_tile_positions"] = max(errs["packed_tile_positions"], e)
+        if e:
+            raise AssertionError(f"packed_tile_positions != plain or onehot for {what}: {e}")
+
+    def mixed_strip(shape):
+        """A quarter of the tiles one run each, a quarter runs of 32 and 33
+        keys, a quarter one- to eight-key segments over their first 512
+        keys and then one long run, a quarter three ragged long runs."""
+        n_tiles, t = shape
+        q = n_tiles // 4
+        lens = np.tile([32, 33], q * t // 65 + 1)
+        parts = [np.arange(q) * t, q * t + (np.cumsum(lens) - lens)[np.cumsum(lens) - lens < q * t]]
+        for tile in range(2 * q, 3 * q):
+            tiny = np.cumsum(np_rng.integers(1, 9, 200))
+            parts.append(tile * t + np.r_[0, tiny[tiny < 512]])
+        for tile in range(3 * q, n_tiles):
+            parts.append(tile * t + np.r_[0, np.sort(np_rng.choice(np.arange(1, t), 2, replace=False))])
+        return np.unique(np.concatenate(parts)).astype(np.int32)
+
+    t0, n0 = time.perf_counter(), n_checks
+    for m in (1, 2, 256):
+        shape = (8, mst.MAX_TILE)
+        keys = torch.full(shape, m - 1, dtype=torch.int32, device=dev)
+        seg = seg_strip(np.array([0, 5000, 5001, 20000], np.int32), shape)
+        tag = f"one bucket {m - 1} of {m}, T = {mst.MAX_TILE}, subtile 255"
+        check_k3p_case(f"K3p {tag}", keys, spec=ops.IdentitySpec(m), subtile=255,
+                       g_offset=(1 << 24) + 1)
+        check_k3p_case(f"K3p ids {tag}", keys, m=m, subtile=255)
+        check_k3p_case(f"K3p seg {tag}", keys, spec=ops.IdentitySpec(m), seg=seg, s=4, subtile=255)
+        check_k3p_case(f"K3p seg ids {tag}", keys, m=m, seg=seg, s=4, subtile=255,
+                       g_offset=(1 << 24) + 1)
+    # planes off 16 bytes (keys 4 bytes past, ids 8, the strip 8) and rows
+    # of 4095, 37 and MAX_TILE - 1 keys: the one-word copies and stores
+    for shape, shift in (((5, 4096), 1), ((4, 4095), 0), ((7, 37), 0),
+                         ((3, mst.MAX_TILE - 1), 0), ((3, mst.MAX_TILE), 1)):
+        keys = rand_i32(shape).view(torch.uint32)
+        ids = torch.randint(-2, 34, shape, dtype=torch.int32, device=dev, generator=gen)
+        seg = seg_strip(ragged_starts(shape[0] * shape[1], 5, np_rng, empty=(3,)), shape)
+        if shift:
+            keys, ids, seg = off16(keys, shift), off16(ids, 2 * shift), off16(seg, 2 * shift)
+        tag = f"{shape}" + (" planes off 16 bytes" if shift else "")
+        check_k3p_case(f"K3p {tag}", keys, spec=main_spec(256), g_offset=(1 << 24) + 1)
+        check_k3p_case(f"K3p ids {tag}", ids, m=32, subtile=1)
+        check_k3p_case(f"K3p seg m=7 {tag}", keys, spec=ops.DeltaSpec(7), seg=seg, s=5, subtile=32)
+        check_k3p_case(f"K3p seg ids {tag}", ids, m=32, seg=seg, s=5, g_offset=(1 << 24) + 1)
+    # S1-like (m = 32, labels in the kernel and ids) and S3-like (m = 64,
+    # IdentitySpec and ids) strips of every run kind, subtiles 255 and 32
+    for shape, m in (((32, 4096), 32), ((16, 4096), 64)):
+        starts = mixed_strip(shape)
+        seg = seg_strip(starts, shape)
+        keys = rand_i32(shape).view(torch.uint32)
+        spec = main_spec(32) if m == 32 else ops.IdentitySpec(64)
+        labels = keys if m == 32 else torch.randint(0, 64, shape, dtype=torch.int32, device=dev,
+                                                    generator=gen)
+        ids = torch.randint(-1, m + 1, shape, dtype=torch.int32, device=dev, generator=gen)
+        for sub in (255, 32):
+            tag = f"{'S1' if m == 32 else 'S3'}-like strip, {starts.size} segments, subtile {sub}"
+            check_k3p_case(f"K3p {tag}", labels, spec=spec, seg=seg, s=int(starts.size),
+                           subtile=sub, g_offset=(1 << 24) + 1)
+            check_k3p_case(f"K3p ids {tag}", ids, m=m, seg=seg, s=int(starts.size), subtile=sub)
+    del keys, ids, seg, labels
+    if len(k3p_forms) != 4:
+        raise AssertionError(f"K3p forms checked: {sorted(k3p_forms)}")
+    log("kernels", f"{n_checks - n0} K3p design cases (one-bucket tiles of {mst.MAX_TILE} at "
+                   f"subtile 255, m = 1, 2, 256, flat and segmented; planes off 16 bytes, rows of "
+                   f"4095, 37 and {mst.MAX_TILE - 1}; S1- and S3-like strips of one-run tiles, "
+                   f"runs of 32 and 33, tiny segments and long runs at subtiles 255 and 32; all "
+                   f"four forms, G above 2^24): K3p bitwise equal to its plain version and to K3 / "
+                   f"K3s ({time.perf_counter() - t0:.1f} s)")
+
     # ---- 3e. the fused two-digit kernels K1f-K3f against their plain versions:
     # {flat | segmented} x {keys | key-value} x {onehot | packed stage rank} x
     # stage widths
@@ -1456,7 +1577,8 @@ def main() -> int:
     # (b) m in (1, 2, 7, 32, 255, 256), tiles of 1 to MAX_TILE keys, ragged
     # ones among them, int32 / uint32 / float32 keys with NaN and inf, ids
     # outside [0, m) (both sides clamp them)
-    for shape in ((64, 4096), (3, mst.MAX_TILE), (5, 1000), (7, 33), (9, 100), (4, 1)):
+    for shape in ((64, 4096), (64, 1024), (3, mst.MAX_TILE), (5, 4095), (3, 1023), (5, 1000),
+                  (7, 33), (9, 100), (4, 1)):
         for i, m in enumerate((1, 2, 7, 32, 255, 256)):
             dtype = (torch.int32, torch.uint32, torch.float32)[i % 3]
             keys = keys_for(dtype, shape, *spans[dtype])
@@ -1468,9 +1590,22 @@ def main() -> int:
             ids = torch.randint(lo, hi, shape, dtype=torch.int32, device=dev, generator=gen)
             check_reorder_case(f"m={m} {dtype} {shape} ids in [{lo}, {hi})", ids, keys,
                                rand_i32(shape), m)
+    # (c) B10 in its Hopper design (persistent staged tiles, K2's ballot rank
+    # on the ids, the moves into the dead planes): planes off 16 bytes (the
+    # one-word copies and stores) at the tiles multisplit_unfused launches
+    # (1024 and 4096) and at MAX_TILE, float32 keys with NaN and inf
+    for shape in ((64, 1024), (5, 4096), (3, mst.MAX_TILE)):
+        keys = keys_for(torch.float32, shape, *spans[torch.float32])
+        keys.view(-1)[:4] = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0],
+                                         device=dev)
+        ids = torch.randint(0, 256, shape, dtype=torch.int32, device=dev, generator=gen)
+        check_reorder_case(f"{shape} ids off 16 bytes", off16(ids, 1), keys, rand_i32(shape), 256)
+        check_reorder_case(f"{shape} keys and values off 16 bytes", ids, off16(keys, 2),
+                           off16(rand_i32(shape), 3), 7)
     del ids, keys
     log("kernels", f"{n_checks - n0} tile_reorder cases (the main shape at m = 256, m in (1, 2, 7, "
-                   f"32, 255, 256), tiles of 1 to {mst.MAX_TILE} keys and ragged ones, int32/uint32/"
+                   f"32, 255, 256), tiles of 1 to {mst.MAX_TILE} keys, the unfused tiles of 1024 "
+                   f"and 4096, ragged and odd ones (4095, 1023), planes off 16 bytes, int32/uint32/"
                    f"float32 keys with NaN and inf, ids outside [0, m), key-only and key-value): B10 "
                    f"bitwise equal to its plain version ({time.perf_counter() - t0:.1f} s)")
 
@@ -2354,7 +2489,8 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": lib_ms,
         })
         before = f"when added: {FLAT_MS_BEFORE[name]:.4f} ms; " if name in FLAT_MS_BEFORE else ""
-        first = {**K1K2_MS_BEFORE, **K3K2S_MS_BEFORE, **K2FK2P_MS_BEFORE, **K1PK3F_MS_BEFORE}
+        first = {**K1K2_MS_BEFORE, **K3K2S_MS_BEFORE, **K2FK2P_MS_BEFORE, **K1PK3F_MS_BEFORE,
+                 **K3PB10_MS_BEFORE}
         if name in first:
             before += f"first design: {first[name]:.4f} ms, now {ms_k / first[name]:.3f}x of it; "
         library = f"{lib_ms:.4f} ms" if lib_ms is not None else "none (no single PyTorch call)"
@@ -2364,6 +2500,18 @@ def main() -> int:
                      f"{library}; {launches[name]} launches on the main paths [n = 2^25, {label}, "
                      f"tiles 8192 x 4096; {smi}]")
 
+    # B10 key-only, as pass 3 of multisplit_unfused launches it: ids, keys
+    # read, keys_r and dest written, 16 bytes a key
+    b10_ms = cuda_ms(lambda: mst.tile_reorder(ids, vt, None, m))
+    b10_bound = 16 * n / HBM_BYTES_PER_S * 1e3
+    log("times", f"tile_reorder key-only: {b10_ms:.4f} ms (bound {b10_bound:.4f} ms = "
+                 f"{16 * n / 2**20:.0f} MiB / 3.35 TB/s, {b10_bound / b10_ms:.1%} of it) [n = 2^25, "
+                 f"m = 256, tiles 8192 x 4096; {smi}]")
+    # A8 weighs the families by their kernels in one call
+    k3_ms = cuda_ms(lambda: mst.spec_tile_positions(kt, g, spec))
+    k3p_ms = cuda_ms(lambda: mst.packed_tile_positions(kt, g, spec=spec))
+    log("times", f"K3p / K3 in one call (A8): {k3p_ms:.4f} / {k3_ms:.4f} ms = "
+                 f"{k3p_ms / k3_ms:.3f}x [n = 2^25, {spec}, tiles 8192 x 4096; {smi}]")
     k2_ms = next(row["ms"] for row in kernels if row["name"] == "spec_fused_postscan_reorder")
     log("times", f"spec_fused_postscan_reorder with the rank it shares with K3 and K2s "
                  f"(sm90::warp_rank): {k2_ms:.4f} ms, {k2_ms / K2_MS_OWN_RANK:.3f}x its "
@@ -2535,6 +2683,18 @@ def main() -> int:
                     lambda: mst.packed_fused_postscan_reorder(ids1, g1, kt, vt, num_buckets=m1,
                                                               **seg_kw)),
     ]) + f" [S1: n = 2^25, s = 64, m = 32, tiles 8192 x 4096; {smi}]")
+    # K3p at S1 against the bytes its contract forces, as K3s's bound counts
+    # them (a one-run tile's strip read at its two end ids), and K3s in the
+    # same call (A8)
+    k3s_ms = cuda_ms(lambda: mst.seg_spec_tile_positions(kt, seg_main, g1, spec1, s))
+    k3p1_ms = cuda_ms(lambda: mst.packed_tile_positions(kt, g1, spec=spec1, **seg_kw))
+    k3p1_bound = (4 * n + strip_bytes + gbytes_hit + 4 * n) / HBM_BYTES_PER_S * 1e3
+    k3p1_whole = (4 * n + 4 * n + gbytes_hit + 4 * n) / HBM_BYTES_PER_S * 1e3
+    log("times", f"packed_tile_positions at S1: {k3p1_ms:.4f} ms (bound {k3p1_bound:.4f} ms with a "
+                 f"one-run tile's strip read at its two ends, {k3p1_bound / k3p1_ms:.1%} of it; "
+                 f"with the whole strip {k3p1_whole:.4f} ms); K3p / K3s in one call (A8): "
+                 f"{k3p1_ms:.4f} / {k3s_ms:.4f} ms = {k3p1_ms / k3s_ms:.3f}x [S1: n = 2^25, s = 64, "
+                 f"m = 32, tiles 8192 x 4096; {smi}]")
     del cid1, g1, g32, ids1, seg_kw
 
     # the fused two-digit kernels at F1's shapes: 2^25 keys in 4096 tiles of

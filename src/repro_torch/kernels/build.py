@@ -44,8 +44,8 @@ SOURCES = (
     "tile_reorder",
     "flash_attention_f32_sm90", "flash_attention_sm90",
 )
-HEADERS = ("multisplit_common.cuh", "multisplit_segmented.cuh", "multisplit_packed.cuh",
-           "multisplit_fused2.cuh", "multisplit_sm90.cuh", "flash_attention_sm90.cuh")
+HEADERS = ("multisplit_common.cuh", "multisplit_segmented.cuh", "multisplit_fused2.cuh",
+           "multisplit_sm90.cuh", "flash_attention_sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-lineinfo", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",

@@ -3,16 +3,12 @@
 // One block of kThreads threads runs one tile (the paper's subproblem) of T
 // 32-bit keys. Bucket ids are computed in-register from a declarative spec
 // (repro_torch/core/identifiers.py): they never exist in device memory.
-//
-// The stable in-tile rank is the paper's warp-synchronous WMS/BMS design:
-// each warp owns a contiguous run of the tile and walks it in rounds of 32
-// keys, in order. Inside a round, __match_any_sync groups the lanes of one
-// bucket and popc(peers & lanemask_lt) ranks a lane among them; warp-private
-// per-bucket counters in shared memory carry the rank from round to round.
-// After the walk, an exclusive scan of those counters over the warps gives
-// each warp's offset inside each bucket. Rank = warp offset + counter before
-// the round + rank in the round: stable, with no atomics. Everything is
-// int32, so G[b] + rank is exact for every n < 2^31.
+// Here: the spec's label arguments and ms::bucket_of, the label source of a
+// tile (label_at), the block scan that turns the warps' counts into a
+// tile's bucket starts, and the label arguments every entry point takes.
+// The stable rank itself lives in multisplit_sm90.cuh (sm90::warp_rank,
+// sm90::packed_warp_rank).
+// Everything is int32, so G[b] + rank is exact for every n < 2^31.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -101,16 +97,6 @@ __device__ __forceinline__ void load_splitters(const Label& L, uint32_t* sp) {
     for (int j = threadIdx.x; j < L.n_split; j += blockDim.x) sp[j] = L.splitters[j];
 }
 
-__device__ __forceinline__ void zero(int* x, int count) {
-  for (int j = threadIdx.x; j < count; j += blockDim.x) x[j] = 0;
-}
-
-// Rounds of 32 keys per warp: warp w owns rounds [w * R, min((w + 1) * R, nr)).
-__device__ __forceinline__ int rounds_per_warp(int T) {
-  const int nr = (T + 31) >> 5;
-  return (nr + kWarps - 1) / kWarps;
-}
-
 // The label source of a tile: with kIds the labels are read from an int32
 // ids plane under the identity label (L = identity over int32 words, so the
 // label of an id is min(max(id, 0), m - 1), as bucket_of clamps it), and
@@ -120,51 +106,6 @@ template <bool kIds>
 __device__ __forceinline__ int label_at(const uint32_t* __restrict__ ids, int i, uint32_t w,
                                         const Label& L, const uint32_t* sp) {
   return bucket_of(kIds ? ids[i] : w, L, sp);
-}
-
-// Phase 1: each warp walks its run of the tile in order and counts its keys
-// per bucket in its private row cnt[warp * m + b]. With kMeta, it stores
-// each key's (rank within the warp's run, bucket) in meta[i]. With kIds the
-// labels come from `ids` (label_at) and `keys` is unused; else `ids` is.
-// cnt must be zeroed and the splitters loaded, and the caller synchronises
-// the block afterwards.
-template <bool kMeta, bool kIds = false>
-__device__ __forceinline__ void rank_tile(const uint32_t* __restrict__ keys,
-                                          const uint32_t* __restrict__ ids, int T, const Label& L,
-                                          const uint32_t* sp, int* cnt, int* meta) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nr = (T + 31) >> 5, R = rounds_per_warp(T);
-  const int r1 = min((warp + 1) * R, nr);
-  int* mine = cnt + warp * L.m;
-  const unsigned lanemask_lt = (1u << lane) - 1u;
-  for (int rd = warp * R; rd < r1; ++rd) {
-    const int i = (rd << 5) + lane;
-    const bool valid = i < T;
-    const uint32_t w = valid && !kIds ? keys[i] : 0u;
-    const int b = valid ? label_at<kIds>(ids, i, w, L, sp) : -1;
-    const unsigned peers = __match_any_sync(kFull, b);
-    const int before = valid ? mine[b] : 0;     // the same value for all peers
-    __syncwarp();
-    if (valid && lane == __ffs(peers) - 1) mine[b] = before + __popc(peers);
-    __syncwarp();
-    if (valid && kMeta) meta[i] = ((before + __popc(peers & lanemask_lt)) << kLabelBits) | b;
-  }
-}
-
-// Phase 2, one thread per bucket b < m: turn the warp rows of cnt into
-// exclusive offsets over the warps and return the tile's count of b (0 for
-// threads past m).
-__device__ __forceinline__ int warp_offsets(int* cnt, int m) {
-  const int b = threadIdx.x;
-  int run = 0;
-  if (b < m) {
-    for (int w = 0; w < kWarps; ++w) {
-      const int c = cnt[w * m + b];
-      cnt[w * m + b] = run;
-      run += c;
-    }
-  }
-  return run;
 }
 
 // Exclusive scan of one int per thread over the block (kThreads threads).

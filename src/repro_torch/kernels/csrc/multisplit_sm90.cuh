@@ -1,14 +1,15 @@
 // Shared code of the Hopper designs of K1 (tile_histograms.cu), K2
 // (fused_postscan_reorder.cu), K3 (tile_positions.cu), K1s
 // (seg_tile_histograms.cu), K2s (seg_fused_postscan_reorder.cu) and K3s
-// (seg_tile_positions.cu), and of K1p (packed_tile_histograms.cu), K2p
-// (packed_fused_postscan_reorder.cu), K2f and K3f (multisplit_fused2.cuh):
-// labels in a few cheap forms beside the general one, the rows'
-// alignment, the persistent grid from the occupancy the kernel gets, a
-// tile's keys in registers and their order-free count into copies of the
-// counters (K1, K1s, K1p), the cp.async staging of rows into shared memory
-// with the choice of one or two stages, and the stable warp rank of a
-// staged run, in the onehot family's form and in the packed family's.
+// (seg_tile_positions.cu), of K1p (packed_tile_histograms.cu), K2p
+// (packed_fused_postscan_reorder.cu), K3p (packed_tile_positions.cu), K2f
+// and K3f (multisplit_fused2.cuh), and of B10 (tile_reorder.cu): labels in
+// a few cheap forms beside the general one, the rows' alignment, the
+// persistent grid from the occupancy the kernel gets, a tile's keys in
+// registers and their order-free count into copies of the counters (K1,
+// K1s, K1p), the cp.async staging of rows into shared memory with the
+// choice of one or two stages, and the stable warp rank of a staged run, in
+// the onehot family's form and in the packed family's.
 //
 // The labels are ms::bucket_of's (multisplit_common.cuh) bit for bit: a
 // DeltaSpec over delta = 2^k computes q = u >> k where bucket_of computes

@@ -46,9 +46,8 @@
 //   take 128 KiB and leave one block an SM).
 // * Runs: a tile whose first and last segment ids agree is one run (nearly
 //   every tile of S1 and S2) and takes K2's path whole. Else one ballot a
-//   32-key chunk flags the run starts (chunk flags, 1 KiB: ms::find_runs'
-//   list of T + 1 starts would take the 16 KiB that the second stage
-//   needs), and each warp walks the starts of its chunks in order, a run's
+//   32-key chunk flags the run starts (chunk flags, 1 KiB: a list of T + 1
+//   run starts would take the 16 KiB that the second stage needs), and each warp walks the starts of its chunks in order, a run's
 //   end the next flag (ms::split_runs, shared with K3s). A short run (<=
 //   ms::kShortRun keys) is solved there by that warp alone
 //   (ms::short_run_rank: __match_any_sync peers and a shuffle count of the

@@ -125,3 +125,32 @@ def test_k1s_and_k3s_share_the_hopper_headers():
     for text in (k3s, k2s):
         assert '#include "multisplit_segmented.cuh"' in text and "ms::split_runs(" in text
     assert "multisplit_segmented.cuh" in build.HEADERS and "multisplit_sm90.cuh" in build.HEADERS
+
+
+@pytest.mark.parametrize("name", ["packed_tile_positions", "tile_reorder"])
+def test_k3p_and_b10_are_persistent_and_staged(name):
+    """K3p and B10 in their Hopper designs: persistent blocks over tiles
+    staged by ``cp.async`` (``multisplit_sm90.cuh``), K3p on the packed rank
+    that K2p shares (``sm90::packed_warp_rank``) with K3s's run split, B10 on
+    K2's ballot rank (``sm90::warp_rank``); neither walks a run list or a
+    meta plane, and the first design's helpers (``ms::find_runs``,
+    ``ms::rank_tile``, ``ms::rounds_per_warp`` and the packed header with
+    ``ms::packed_rank_range``) are gone from the headers and the build."""
+    text = (CSRC / f"{name}.cu").read_text()
+    assert '#include "multisplit_sm90.cuh"' in text
+    assert "tile += gridDim.x" in text and "sm90::persistent_grid(" in text
+    assert "sm90::stage_row<" in text and "copy_wait_all" in text and "sm90::pick_stages(" in text
+    for gone in ("rank_tile", "packed_rank_range", "find_runs", "meta[", "multisplit_packed"):
+        assert gone not in text, gone
+    if name == "packed_tile_positions":
+        assert "sm90::packed_warp_rank<kR, kForm>(" in text and "ms::split_runs(" in text
+        assert '#include "multisplit_segmented.cuh"' in text and "sm90::kClampedId" in text
+    else:
+        assert "sm90::warp_rank<kR, sm90::kClampedId>(" in text and "uint4" in text
+    assert not (CSRC / "multisplit_packed.cuh").exists()
+    assert "multisplit_packed.cuh" not in build.HEADERS
+    headers = {h: (CSRC / h).read_text() for h in build.HEADERS}
+    assert "find_runs" not in headers["multisplit_segmented.cuh"]
+    for gone in ("rank_tile", "rounds_per_warp"):
+        assert gone not in headers["multisplit_common.cuh"], gone
+    assert "label_at" in headers["multisplit_common.cuh"]     # ms::short_run_rank's
