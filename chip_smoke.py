@@ -185,6 +185,26 @@ Phases, one line or more each, every one of which must pass:
    bfloat16 and float32; A3 h2o-danube-1.8b (32 heads of 80, S = 4096,
    batch 2: (64, 4096, 80)) in bfloat16 and float32. Each result against
    the plain version.
+   Consumers (``consumers_phase``) — ``models.moe.route_tokens_segmented``
+   at S3's shape (2^20 expert ids, 256 ragged requests with empty ones, E
+   = 64, a capacity of 48 that drops tokens) held bitwise against a stable
+   ``torch.sort`` of seg·E + expert; ``expert_load_stats`` (segmented and
+   flat) against ``bincount``; ``_ranks_multisplit`` against
+   ``_ranks_sort``; in both families (the packed one pinned for the
+   shapes: K1p and K3p in place of K1s / K3s and K1 / K3);
+   ``data.DataPipeline.batches_at`` on the card against the same call on
+   the CPU.
+   Autotune (``autotune_phase``) — ``ops.set_autotune(True)`` with its file
+   under ``build/``: the flat key-value bms call at 2^25, m = 256 runs one
+   joint search (each candidate's time printed), bitwise the untuned call;
+   the file holds the card's fingerprint; after ``clear_tile_cache()`` the
+   call reads the file with no search; ``autotune_fused2`` at 2^22 pins
+   (tile, family, stage width) and a fused-pair plan reads them back; the
+   searches reach every kernel of the flat, segmented and fused-pair plans;
+   ``CUDA_TILE`` measured over {2048, 4096, 8192} at the flat call and S1;
+   the shared-memory model of ``core/pipeline/tiles.py`` equals each
+   launcher's own report (stages, shared bytes, blocks an SM) for the 12
+   plan kernels at every tile from 256 to 8192.
 6. launches — every kernel's launch count from its own path's run alone
    (flat, segmented, flat callable, segmented callable, and the four
    packed paths, which launch K1p-K3p and no onehot kernel; each fused
@@ -236,7 +256,12 @@ Phases, one line or more each, every one of which must pass:
    ``scaled_dot_product_attention`` on the (B, H, S, hd) view as the library
    yardstick, with the name of the CUDA kernel it runs for float32 at A1
    (read once with ``torch.profiler``); the causal / non-causal ratio at A1,
-   which must stay below 0.65 to show the diagonal skip.
+   which must stay below 0.65 to show the diagonal skip. S3's host work
+   (``s3_host_phase``, after SDPA's ``torch.profiler`` read, which a
+   session before it would leave without kernels): one traced
+   ``route_tokens_segmented`` call (host ops, syncs, launches, kernels),
+   each of its steps alone, and S3's routing at ``DISPATCH_TILE`` against
+   the resolved tile.
 
 The last lines are the ``nvidia-smi`` line, one JSON line of the kernels
 and ``{"ok": true, "device": {...}}``. The script exits non-zero, printing
@@ -353,6 +378,410 @@ def smi_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# The phases of the consumers and of the autotune layer, each a function of
+# its own; main() calls them after the attention path
+# ---------------------------------------------------------------------------
+
+N_S3 = 1 << 20            # S3: the expert ids of 256 requests, E = 64
+S3_EXPERTS = 64
+S3_CAPACITY = 48          # below the 64 tokens a (request, expert) pair holds on average
+
+
+def route_oracle(ids, starts, e, capacity, dev):
+    """(slot, keep, counts) of ``route_tokens_segmented`` from a stable
+    ``torch.sort`` of the int64 combined key seg·E + expert."""
+    import torch
+
+    from repro_torch.core.pipeline import stages as st
+
+    n, s = ids.shape[0], len(starts)
+    seg = st.segment_ids_from_starts(torch.from_numpy(starts).to(dev), n)
+    cid = seg.long() * e + ids.long()
+    _, order = torch.sort(cid, stable=True)
+    counts = torch.bincount(cid, minlength=s * e)
+    first = torch.cumsum(counts, 0) - counts
+    rank = torch.empty(n, dtype=torch.int64, device=dev)
+    rank[order] = torch.arange(n, device=dev) - first[cid[order]]
+    keep = rank < capacity
+    slot = torch.where(keep, cid * capacity + rank, s * e * capacity).to(torch.int32)
+    return slot, keep, counts.to(torch.int32).view(s, e)
+
+
+def consumers_phase(dev, gen, s3_starts, registry, max_err, log):
+    """The routing and length-bucketing consumers on the card, in both
+    families (the packed one pinned for the shapes), each held bitwise
+    against a stable ``torch.sort`` or ``bincount`` on the card, or, for
+    the data pipeline, against the same call on the CPU. Returns the launch
+    counts of the phase."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.pipeline import clear_tile_cache, tiles
+    from repro_torch.data import DataPipeline
+    from repro_torch.models import moe
+
+    n3, e, cap = N_S3, S3_EXPERTS, S3_CAPACITY
+    s = len(s3_starts)
+    ids = torch.randint(0, e, (n3,), dtype=torch.int32, device=dev, generator=gen)
+    want = route_oracle(ids, s3_starts, e, cap, dev)
+    assert not bool(want[1].all()), "the capacity drops no token"
+    cid = torch.from_numpy(np.repeat(np.arange(s), np.diff(np.append(s3_starts, n3)))).to(dev)
+    cid = cid * e + ids.long()
+    seg_counts = torch.bincount(cid, minlength=s * e).to(torch.int32).view(s, e)
+    flat_counts = torch.bincount(ids.long(), minlength=e).to(torch.int32)
+    drop = (seg_counts - cap).clamp_min(0).sum().to(torch.float32) / n3
+    pipe_cpu = DataPipeline(32000, 2048, 8, seed=0, device="cpu").batches_at(0, 4)
+    counts_all = {}
+    for family in ("onehot", "packed"):
+        clear_tile_cache()
+        if family == "packed":
+            for key in ((n3, s * e, "dms", "cuda"), (n3, e, "dms", "cuda")):
+                tiles._FAMILY_CACHE[key] = ("packed", "pinned by chip_smoke.py")
+        torch.cuda.synchronize()
+        registry.reset_launches()
+        t0 = time.perf_counter()
+        got = moe.route_tokens_segmented(ids, s3_starts, e, cap, device=dev)
+        load_seg = moe.expert_load_stats(ids, e, capacity=cap, segment_starts=s3_starts,
+                                         device=dev)
+        load_flat = moe.expert_load_stats(ids, e, device=dev)
+        ranks = moe._ranks_multisplit(ids, e, device=dev)
+        pipe = (DataPipeline(32000, 2048, 8, seed=0, device=dev).batches_at(0, 4)
+                if family == "onehot" else None)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k: v for k, v in registry.launch_counts().items() if v}
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+        for name, a, b in zip(("slot", "keep", "counts"), got, want):
+            if max_err(a.to(torch.int32), b.to(torch.int32)):
+                raise AssertionError(f"route_tokens_segmented ({family}): {name} differs from "
+                                     f"the stable-sort oracle")
+        if max_err(load_seg[0], seg_counts) or max_err(load_flat[0], flat_counts):
+            raise AssertionError(f"expert_load_stats ({family}) differs from bincount")
+        if not torch.equal(load_seg[1], drop.view(())):
+            raise AssertionError(f"expert_load_stats ({family}): drop share {load_seg[1]} != {drop}")
+        sort_ranks = moe._ranks_sort(ids, e, device=dev)
+        if max_err(ranks[0], sort_ranks[0]) or max_err(ranks[1], sort_ranks[1]):
+            raise AssertionError(f"_ranks_multisplit ({family}) differs from _ranks_sort")
+        if pipe is not None:
+            for a, b in zip(pipe, pipe_cpu):
+                if sorted(a) != sorted(b) or any(not np.array_equal(a[k], b[k]) for k in a):
+                    raise AssertionError("DataPipeline.batches_at on the card differs from the CPU")
+        # route: K1s and K3s (packed: K1p and K3p); the load: K1 and K1s
+        # (K1p twice); the ranks: K1 and K3 (K1p and K3p); the pipeline: K1s
+        # and K3s
+        expect = ({"spec_tile_histograms": 2, "spec_tile_positions": 1,
+                   "seg_spec_tile_histograms": 3, "seg_spec_tile_positions": 2}
+                  if family == "onehot" else
+                  {"packed_tile_histograms": 4, "packed_tile_positions": 2})
+        if counts != expect:
+            raise AssertionError(f"consumer path ({family}): launches {counts} != {expect}")
+        log("consumers", f"{family}: route_tokens_segmented ({n3} expert ids, {s} requests, "
+                         f"{int((np.diff(np.append(s3_starts, n3)) == 0).sum())} empty, E = {e}, "
+                         f"capacity {cap}: {int((~got[1]).sum())} tokens dropped), "
+                         f"expert_load_stats (segmented, flat), _ranks_multisplit"
+                         + (", DataPipeline.batches_at(0, 4) (seq 2048, batch 8)"
+                            if pipe is not None else "")
+                         + f" in {secs:.2f} s (first calls), bitwise equal to the stable sort, "
+                           f"bincount, _ranks_sort" + (" and the CPU" if pipe is not None else "")
+                         + f"; launches {counts}")
+    # a step with no request: empty slots and (0, E) counts, no launch
+    slot, keep, counts = moe.route_tokens_segmented(
+        torch.empty(0, dtype=torch.int32, device=dev), np.zeros(0, np.int32), e, cap, device=dev)
+    if (tuple(slot.shape), tuple(keep.shape), tuple(counts.shape)) != ((0,), (0,), (0, e)):
+        raise AssertionError(f"route_tokens_segmented with no request gave shapes "
+                             f"{slot.shape}, {keep.shape}, {counts.shape}")
+    clear_tile_cache()
+    return counts_all
+
+
+def s3_host_phase(dev, gen, s3_starts, log, smi):
+    """Where the host time of S3's routing launch goes: one
+    ``torch.profiler`` trace of ``route_tokens_segmented`` (its host ops,
+    syncs and kernels), each of its steps timed alone with a
+    synchronisation after it, and S3's routing with the JAX package's tile
+    (``DISPATCH_TILE``) against the tile the resolver gives. Returns the
+    numbers it printed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import ops
+    from repro_torch.core.pipeline import stages as st
+    from repro_torch.core.pipeline import tile_decision
+    from repro_torch.kernels import multisplit_tile as mst
+    from repro_torch.models import moe
+
+    n3, e, cap = N_S3, S3_EXPERTS, S3_CAPACITY
+    s = len(s3_starts)
+    ids = torch.randint(0, e, (n3,), dtype=torch.int32, device=dev, generator=gen)
+    spec = ops.identity_buckets(e)
+    run = functools.partial(moe.route_tokens_segmented, ids, s3_starts, e, cap, device=dev)
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    host = sorted((ev for ev in events if ev.device_type == DeviceType.CPU),
+                  key=lambda ev: -ev.self_cpu_time_total)
+    kernels = [ev for ev in events if ev.device_type == DeviceType.CUDA]
+    syncs = [ev for ev in host if any(w in ev.key for w in (
+        "_local_scalar_dense", "Synchronize", "Memcpy", "nonzero"))]
+    launch_calls = [ev for ev in host if "LaunchKernel" in ev.key]
+    log("s3 host", "torch.profiler over one route_tokens_segmented call at S3: host ops by self "
+                   "time " + "; ".join(f"{ev.key} x{ev.count} {ev.self_cpu_time_total / 1e3:.4f} ms"
+                                       for ev in host[:14]) + f" [{smi}]")
+    log("s3 host", f"syncs: " + "; ".join(f"{ev.key} x{ev.count} "
+                                          f"{ev.self_cpu_time_total / 1e3:.4f} ms" for ev in syncs)
+                   + f"; launch calls: " + "; ".join(f"{ev.key} x{ev.count} "
+                                                     f"{ev.self_cpu_time_total / 1e3:.4f} ms"
+                                                     for ev in launch_calls)
+                   + f"; device kernels {len(kernels) or 'not read'} kinds, "
+                   + "; ".join(f"{ev.key[:48]} x{ev.count} "
+                               f"{getattr(ev, 'device_time_total', getattr(ev, 'cuda_time_total', 0)) / 1e3:.4f} ms"
+                               for ev in kernels))
+
+    def host_ms(fn, reps=25):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    starts_dev = torch.from_numpy(s3_starts).to(dev)
+    plan = ops._segmented_plan(n3, s, e, bucket_fn=spec, method="dms", mode="positions_only",
+                               backend="cuda", tile=None, family=None)
+    seg = st.segment_ids_from_starts(starts_dev, n3)
+    seg_tiled = st.pad_to_tiles(seg, plan.tile, s - 1)[0].view(-1, plan.tile)
+    keys_tiled = st.pad_to_tiles(ids, plan.tile, plan.pad_key(ids.dtype))[0].view(-1, plan.tile)
+    hist = plan.prescan(keys_tiled, None, seg_tiled)
+    g = st.global_scan(hist)
+    res = ops.segmented_multisplit(ids, spec, s3_starts, method="dms", mode="positions_only",
+                                   device=dev)
+    steps = {
+        "plan lookup (the cached plan)": host_ms(lambda: ops._segmented_plan(
+            n3, s, e, bucket_fn=spec, method="dms", mode="positions_only", backend="cuda",
+            tile=None, family=None)),
+        "starts check on the host (numpy) and copy": host_ms(
+            lambda: ops._segment_starts(s3_starts, n3, dev)),
+        "segment ids": host_ms(lambda: st.segment_ids_from_starts(starts_dev, n3)),
+        "pad keys and strip to tiles": host_ms(lambda: (
+            st.pad_to_tiles(ids, plan.tile, plan.pad_key(ids.dtype)),
+            st.pad_to_tiles(seg, plan.tile, s - 1))),
+        "K1s launch": host_ms(lambda: plan.prescan(keys_tiled, None, seg_tiled)),
+        "global scan": host_ms(lambda: st.global_scan(hist)),
+        "K3s launch": host_ms(lambda: mst.seg_spec_tile_positions(keys_tiled, seg_tiled, g,
+                                                                  spec, s)),
+        "counts and starts (finalize)": host_ms(lambda: st.exclusive_rows(
+            hist.sum(0, dtype=torch.int32).view(s, e))),
+        "ranks and slots (moe)": host_ms(lambda: torch.where(
+            (res.permutation - res.bucket_starts[seg.long(), ids.long()]) < cap,
+            (seg * e + ids) * cap, s * e * cap)),
+        "route_tokens_segmented end to end": host_ms(run),
+    }
+    log("s3 host", "steps alone, host wall with a synchronisation after each, median of 25, ms: "
+                   + "; ".join(f"{k} {v:.4f}" for k, v in steps.items()) + f" [{smi}]")
+    tiles_ms = {}
+    for name, tile in (("DISPATCH_TILE", moe.DISPATCH_TILE), ("resolved", None)):
+        fn = functools.partial(moe._segmented_ranks, ids, s3_starts, e, tile, device=dev)
+        tiles_ms[name] = [host_ms(fn), host_ms(fn)]
+    resolved = tile_decision(n3, s * e, "dms", False, "cuda")[0]
+    log("s3 host", f"S3 routing (_segmented_ranks) end to end, host wall, two medians of 25 each: "
+                   f"tile {moe.DISPATCH_TILE} (DISPATCH_TILE) {tiles_ms['DISPATCH_TILE']} ms; "
+                   f"the resolved tile {resolved} {tiles_ms['resolved']} ms [{smi}]")
+    return {"steps": steps, "tiles": tiles_ms}
+
+
+def autotune_phase(dev, gen, registry, max_err, log, smi):
+    """The autotune layer on the card: a search armed by ``set_autotune`` at
+    the flat key-value bms call of 2^25 keys (m = 256), bitwise the untuned
+    call, persisted under the H100's fingerprint and read back after
+    ``clear_tile_cache()`` without a second search; a fused-pair grid that
+    pins (tile, family, stage width); the searches that reach every kernel
+    of the flat, segmented and fused-pair plans; the shared-memory model
+    against every launcher's own report; and CUDA_TILE's measurement over
+    {2048, 4096, 8192}. Returns the launch counts of the phase."""
+    import shutil
+
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.core.pipeline import (
+        autotune as at,
+        autotune_tile,
+        clear_tile_cache,
+        family_decision,
+        resolve_sub_bits,
+        resolve_tile,
+        set_autotune,
+        tile_decision,
+        tiles,
+    )
+    from repro_torch.kernels import multisplit_tile as mst
+
+    cache_dir = os.path.join(ROOT, "build", "autotune_smoke")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    n = N_MAIN
+    keys = torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device=dev,
+                         generator=gen).view(torch.uint32)
+    values = torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device=dev, generator=gen)
+    spec = ops.DeltaSpec(256, 1 << 32)
+    fields = ("keys", "values", "bucket_starts", "bucket_counts", "permutation")
+    clear_tile_cache()
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    untuned = ops.multisplit_key_value(keys, values, spec, device=dev)
+    set_autotune(True, cache_dir=cache_dir, trials=3)
+    clear_tile_cache()
+    s0 = at._SEARCHES
+    t0 = time.perf_counter()
+    tuned = ops.multisplit_key_value(keys, values, spec, device=dev)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    if at._SEARCHES - s0 != 1:
+        raise AssertionError(f"the armed call ran {at._SEARCHES - s0} searches, not one")
+    times = at.last_times()
+    tile, tile_reason = tile_decision(n, 256, "bms", True, "cuda")
+    fam, fam_reason = family_decision(n, 256, "bms", "cuda")
+    for f in fields:
+        if max_err(getattr(tuned, f), getattr(untuned, f)):
+            raise AssertionError(f"the tuned call's {f} differs from the untuned call's")
+    log("autotune", f"set_autotune(True): the flat kv bms call at 2^25, m = 256 ran one joint "
+                    f"search in {search_s:.2f} s ({len(times)} candidates, 3 trials each): "
+                    + "; ".join(f"({t}, {f_}) {s * 1e3:.4f} ms" for t, f_, s in times)
+                    + f"; pinned ({tile}, {fam!r}); tile reason: {tile_reason}; bitwise the "
+                      f"untuned call [{smi}]")
+    with open(at.cache_path()) as f:
+        entries = json.load(f)["entries"]
+    fp = at.host_fingerprint()
+    if "H100" not in fp or not any(k.startswith(fp + "|") for k in entries):
+        raise AssertionError(f"the cache file holds {sorted(entries)}, not the card's "
+                             f"fingerprint {fp}")
+    clear_tile_cache()
+    s0 = at._SEARCHES
+    again = ops.multisplit_key_value(keys, values, spec, device=dev)
+    if at._SEARCHES != s0 or family_decision(n, 256, "bms", "cuda")[1] != at._DISK_REASON:
+        raise AssertionError("after clear_tile_cache() the call searched again instead of "
+                             "reading the file")
+    for f in fields:
+        if max_err(getattr(again, f), getattr(untuned, f)):
+            raise AssertionError(f"the call from the file: {f} differs")
+    log("autotune", f"{at.cache_path()} holds {len(entries)} entries under {fp}; after "
+                    f"clear_tile_cache() the same call read them with no search")
+    del untuned, tuned, again
+    # a small fused-pair grid: 2^22 keys, the pair (0, 16, 8), key-value
+    t0 = time.perf_counter()
+    won = at.autotune_fused2(N_FUSED_SMALL, 0, 16, 8, key_value=True, backend="cuda",
+                             candidates=(4096, 8192), sub_bits_candidates=(4, 8), trials=2)
+    fused_s = time.perf_counter() - t0
+    pinned = (resolve_tile(N_FUSED_SMALL, 1 << 16, "bms", True, "cuda", digits=2, stage_m=256),
+              family_decision(N_FUSED_SMALL, 256, "bms", "cuda", digits=2)[0],
+              resolve_sub_bits(N_FUSED_SMALL, 1 << 16, "bms", True, "cuda", 256))
+    if pinned != won:
+        raise AssertionError(f"autotune_fused2 won {won} but the caches hold {pinned}")
+    plan = ops._plan(ops.BitfieldSpec(0, 16), N_FUSED_SMALL, key_value=True, backend="cuda",
+                     digit_split=8)
+    if (plan.tile, plan.family, plan.sub_bits) != won:
+        raise AssertionError(f"a fused-pair plan resolved {(plan.tile, plan.family, plan.sub_bits)}"
+                             f", not the pinned {won}")
+    log("autotune", f"autotune_fused2 at 2^22, pair (0, 16, 8), kv, tiles (4096, 8192) x both "
+                    f"families x sub_bits (4, 8) in {fused_s:.2f} s: "
+                    + "; ".join(f"({t}, {f_}, {sb}) {s * 1e3:.4f} ms"
+                                for t, f_, sb, s in at.last_times())
+                    + f"; pinned {won} and read back by a fused-pair plan [{smi}]")
+    # the dms and segmented shapes, and the fused dms pair: every kernel of
+    # the plans
+    autotune_tile(n, spec, method="dms", backend="cuda", candidates=(2048, 4096), trials=1)
+    autotune_tile(N_S3, ops.IdentitySpec(S3_EXPERTS), method="dms", segments=256,
+                  backend="cuda", candidates=(2048, 4096), trials=1)
+    autotune_tile(n, ops.DeltaSpec(32, 1 << 32), key_value=True, segments=64, backend="cuda",
+                  candidates=(2048, 4096), trials=1)
+    at.autotune_fused2(N_FUSED_SMALL, 0, 16, 8, method="dms", backend="cuda",
+                       candidates=(8192,), sub_bits_candidates=(8,), trials=1)
+    # CUDA_TILE: the flat kv bms call at 2^25, m = 256, and S1 kv bms, onehot
+    tile_ms = {}
+    for cell, kw in (("flat kv bms m=256", dict(bucket_fn=spec)),
+                     ("S1 kv bms", dict(bucket_fn=ops.DeltaSpec(32, 1 << 32), segments=64))):
+        bf = kw["bucket_fn"]
+        probe, _, _ = at.synthetic_inputs(n, bf, device=dev)
+        live = int((torch.bincount(bf(probe).long(), minlength=bf.num_buckets) > 0).sum())
+        if live != bf.num_buckets:
+            raise AssertionError(f"CUDA_TILE, {cell}: the search's keys fill {live} of "
+                                 f"{bf.num_buckets} buckets")
+        del probe
+        runs = []
+        for _ in range(2):
+            won_t = autotune_tile(n, key_value=True, backend="cuda", candidates=(2048, 4096, 8192),
+                                  families=("onehot",), trials=7, **kw)
+            runs.append((won_t, {t: s * 1e3 for t, _, s in at.last_times()}))
+        tile_ms[cell] = runs
+        log("autotune", f"CUDA_TILE, {cell} at 2^25 (keys over the spec's range, all {live} "
+                        f"buckets live), autotune_tile over (2048, 4096, 8192), "
+                        f"onehot, least of 7 trials, two searches: "
+                        + "; ".join(f"won {w}: " + ", ".join(f"{t} {ms:.4f} ms"
+                                                            for t, ms in d.items())
+                                    for w, d in runs) + f" [{smi}]")
+    counts = {k: v for k, v in registry.launch_counts().items() if v}
+    reached = ("spec_tile_histograms", "spec_fused_postscan_reorder", "spec_tile_positions",
+               "seg_spec_tile_histograms", "seg_spec_fused_postscan_reorder",
+               "seg_spec_tile_positions", "packed_tile_histograms",
+               "packed_fused_postscan_reorder", "packed_tile_positions",
+               "fused2_tile_histograms", "fused2_fused_postscan_reorder", "fused2_tile_positions")
+    if any(counts.get(k, 0) == 0 for k in reached):
+        raise AssertionError(f"the autotune path launched {counts}: not every kernel of the "
+                             f"flat, segmented and fused-pair plans")
+    log("launches", f"autotune path: {counts}")
+    set_autotune(False)
+    clear_tile_cache()
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    # the model against every launcher's report, at every candidate tile
+    limits = tiles.device_limits(dev)
+    n_rep = n_ceiling = 0
+    specs = {"shift": spec, "any": ops.EvenSpec(0.0, 2.0**30, 256), "clamp": ops.IdentitySpec(256)}
+    cases = []
+    for t in (256, 512, 1024, 2048, 4096, 8192):
+        for kv in (False, True):
+            for seg in (None, 64):
+                for family in ("onehot", "packed"):
+                    for ids in (False, True):
+                        for form, sp in specs.items():
+                            if ids and form != "clamp":
+                                continue
+                            for method in ("bms", "dms"):
+                                kv_ = kv and method == "bms"
+                                for lay in tiles.plan_kernels(t, 256, method=method, key_value=kv_,
+                                                              segments=seg, family=family,
+                                                              ids=ids, form=form):
+                                    cases.append((lay, t, sp, seg, kv_, "packed_ids" if (
+                                        family == "packed" and ids) else family))
+        for bits, seg, family in ((16, None, "onehot"), (16, 16, "packed"), (14, None, "packed")):
+            for lay in tiles.plan_kernels(t, 1 << bits, key_value=True, segments=seg,
+                                          family=family, pair_bits=bits):
+                cases.append((lay, t, ops.BitfieldSpec(0, bits), seg, True, family))
+    for lay, t, sp, seg, kv, family in cases:
+        rep = mst.launch_report(lay.kernel, t, sp, num_segments=seg, key_value=kv, family=family)
+        occ = tiles.occupancy(lay, rep["registers"], rep["static_smem"], limits)
+        n_rep += 1
+        if (occ.stages, occ.smem, occ.blocks, lay.threads) != (
+                rep["stages"], rep["smem"], rep["blocks"], rep["threads"]):
+            raise AssertionError(f"{lay.kernel} at T = {t} ({family}, s = {seg}, kv = {kv}): the "
+                                 f"model gives {occ}, the launcher reports {rep}")
+        n_ceiling += tiles.occupancy(lay, limits=limits).blocks == rep["blocks"]
+    log("autotune", f"the shared-memory model equals the launchers' reported (stages, shared "
+                    f"bytes, blocks an SM) in all {n_rep} reports (12 kernels, tiles 256-8192, "
+                    f"both families, flat and segmented, both label sources; the card's "
+                    f"registers and static bytes); with the __launch_bounds__ register ceiling "
+                    f"instead, {n_ceiling} of {n_rep} block counts agree; limits {limits}")
+    return counts, {"search_s": search_s, "times": times, "tile_ms": tile_ms}
 
 
 def main() -> int:
@@ -2401,6 +2830,16 @@ def main() -> int:
                      f"within the limit of the plain version; max abs err over phases 3h and 5i "
                      f"{attn_max}, worst share of the limit {attn_share}")
 
+    # ---- 5j. the consumers: MoE routing and length bucketing, each with its
+    # own launch counts (where S3's host time goes is traced after the times:
+    # a torch.profiler session before SDPA's would leave that one no kernels)
+    for name, count in consumers_phase(dev, gen, s3_starts, registry, max_err, log).items():
+        launches[name] += count
+
+    # ---- 5k. the autotune layer: its searches, its file, its model against
+    # the launchers (its launches are search trials, logged apart)
+    autotune_phase(dev, gen, registry, max_err, log, smi)
+
     for name in launches:
         if launches[name] == 0:
             raise AssertionError(f"{name} was launched on none of the paths")
@@ -3229,6 +3668,7 @@ def main() -> int:
                  f"skip) [{smi}]")
     if not ratio < 0.65:
         raise AssertionError(f"causal / non-causal time at A1 is {ratio:.3f}, not below 0.65")
+    s3_host_phase(dev, gen, s3_starts, log, smi)
     log("times", f"peak device memory of the timed runs above the inputs: "
                  f"{(torch.cuda.max_memory_allocated() - base_mem) / 2**30:.2f} GiB")
 

@@ -318,6 +318,13 @@ class CallableSpec(BucketSpec):
         )
 
 
+class BucketIdentifier(CallableSpec):
+    """The deprecated name of :class:`CallableSpec`, kept as the JAX package
+    keeps it (``repro/core/identifiers.py:346``): ``BucketIdentifier(fn, m,
+    name)`` builds a callable spec and warns nothing. New code builds a
+    declarative spec, or :func:`from_fn`."""
+
+
 def delta_buckets(num_buckets: int, key_max: int = 2**30) -> DeltaSpec:
     return DeltaSpec(num_buckets, key_max)
 

@@ -26,19 +26,28 @@ from repro_torch.core.pipeline import (
     WMS_TILE,
     MultisplitPlan,
     MultisplitResult,
-    direct_solve_ids,
+    direct_solve_reference,
     exclusive_rows,
     global_scan,
     make_batched_plan,
     make_plan,
     make_segmented_plan,
     pad_to_tiles,
+    segment_ids_from_starts,
+    tile_local_offsets,
 )
 from repro_torch.core.pipeline.stages import scatter
 from repro_torch.kernels import common as _body
 from repro_torch.kernels import ops as _kops
 
 Tensor = torch.Tensor
+
+__all__ = [
+    "WMS_TILE", "BMS_TILE", "MultisplitResult", "global_scan",
+    "tile_histogram", "tile_local_offsets", "multisplit_ref", "multisplit",
+    "batched_multisplit", "segmented_multisplit", "segment_ids_from_starts",
+    "multisplit_unfused", "prescan", "postscan_positions",
+]
 
 
 def tile_histogram(bucket_ids: Tensor, num_buckets: int) -> Tensor:
@@ -50,7 +59,7 @@ def multisplit_ref(
     keys: Tensor, bucket_fn: BucketSpec, values: Optional[Tensor] = None
 ) -> MultisplitResult:
     """O(n·m) direct evaluation of paper eq. (1): the oracle."""
-    return direct_solve_ids(keys, bucket_fn(keys).to(torch.int32), bucket_fn.num_buckets, values)
+    return direct_solve_reference(keys, bucket_fn, values)
 
 
 def prescan(ids_tiled: Tensor, num_buckets: int) -> Tensor:

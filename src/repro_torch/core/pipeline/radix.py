@@ -125,9 +125,10 @@ class RadixPipeline:
             self.schedule = radix_pass_pairs(radix_bits, key_bits)
             _, bits0, split0 = self.schedule[0]
             stage_m = (1 << (split0 or bits0)) * s
-            self.family = resolve_kernel_family(n, stage_m, method, backend, family, digits=2)
+            self.family = resolve_kernel_family(n, stage_m, method, backend, family, digits=2,
+                                                key_value=key_value, pair_m=(1 << bits0) * s)
             self.tile = resolve_tile(n, (1 << bits0) * s, method, key_value, backend, tile,
-                                     digits=2, stage_m=stage_m)
+                                     digits=2, stage_m=stage_m, family=family)
         else:
             self.schedule = [(shift, bits, None) for shift, bits in self.passes]
             # ONE tile for every pass, keyed by the widest digit (the first)

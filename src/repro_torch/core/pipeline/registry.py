@@ -246,8 +246,20 @@ def get_backend(name: str) -> Backend:
         ) from None
 
 
+def available_backends() -> Tuple[Backend, ...]:
+    """Every registered :class:`Backend`, in registration order."""
+    return tuple(_REGISTRY.values())
+
+
 def backend_names() -> Tuple[str, ...]:
     return tuple(_REGISTRY)
+
+
+def resolve_backend(backend: Optional[str] = None) -> str:
+    """A backend name, validated (``ValueError`` for an unknown one), or the
+    port's default ``cuda``. The JAX package's ``(use_pallas, interpret)``
+    knobs select among its Pallas backends and have no counterpart here."""
+    return get_backend("cuda" if backend is None else backend).name
 
 
 register_backend(Backend(
@@ -274,3 +286,6 @@ register_backend(Backend(
     key_itemsize=4,
     families=("onehot", "packed"),
 ))
+
+# The registered names, reference first: the JAX package's compatibility tuple.
+BACKENDS = backend_names()

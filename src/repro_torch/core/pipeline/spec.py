@@ -38,7 +38,7 @@ identity: two chained stable passes equal one stable pass over the pair).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -55,6 +55,34 @@ from repro_torch.core.pipeline.tiles import (
 Tensor = torch.Tensor
 
 MODES = ("reorder", "counts_only", "positions_only")
+
+# (backend, spec kind, m_eff) -> (fused?, reason): every label-fusion choice
+# of :meth:`PipelineSpec.label_fusion`, recorded with its reason as the JAX
+# package records it (``spec.py:54-78``). The JAX package's vmap ceiling
+# (``VMAP_FUSION_MAX_BUCKETS = 512``) was measured with jnp on a CPU host and
+# is not the port's: the vmap stages fuse every fusable spec unless the
+# autotuner (``set_autotune``) measured otherwise for the shape.
+_FUSION_CACHE: dict = {}
+
+
+def fusion_decision(backend: str, spec_kind: str, m_eff: int):
+    """(fused?, reason) recorded for one (backend, spec kind, m_eff) shape,
+    or None if no call of that shape decided yet."""
+    return _FUSION_CACHE.get((backend, spec_kind, m_eff))
+
+
+def fusion_decisions() -> dict:
+    """A snapshot of every recorded label-fusion decision."""
+    return dict(_FUSION_CACHE)
+
+
+class Stage(NamedTuple):
+    """One node of a plan's stage graph: ``name`` the pipeline role
+    (layout, prescan, scan, postscan, reduce, scatter, direct-solve),
+    ``impl`` its implementation tag."""
+
+    name: str
+    impl: str
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,12 +138,43 @@ class PipelineSpec:
         """Whether this call computes bucket ids inside the tile stage: a
         fusable spec on a label-fusing tiled backend, with keys of the
         backend's width. Otherwise the labels are materialised
-        (:meth:`_host_labels`) and the stages take the ids strip."""
+        (:meth:`_host_labels`) and the stages take the ids strip. Each
+        eligible shape's choice is recorded with its reason
+        (:func:`fusion_decision`): the kernels and the radix digit always
+        fuse; on ``vmap`` an armed autotuner measures the choice
+        (``autotune.maybe_tune_fusion``), else the stages fuse."""
         bf = self.bucket_fn
         be = get_backend(self.backend)
         if bf is None or not bf.fusable or not be.tiled or not be.fuses_labels:
             return False
-        return be.key_itemsize is None or keys.element_size() == be.key_itemsize
+        if be.key_itemsize is not None and keys.element_size() != be.key_itemsize:
+            return False
+        if self.digit_split is not None:
+            return True               # the fused2 stages take the key strip only
+        key = (self.backend, type(bf).__name__, self.m_eff)
+        hit = _FUSION_CACHE.get(key)
+        if hit is None:
+            if isinstance(bf, BitfieldSpec):
+                hit = (True, "radix BitfieldSpec: the digit is a shift and a mask, and a "
+                             "chained radix sort moves no labels")
+            elif be.uses_kernels:
+                hit = (True, "kernel backend: the CUDA kernels compute the labels in registers")
+            else:
+                from repro_torch.core.pipeline import autotune as _at
+
+                hit = _at.maybe_tune_fusion(self)          # pins on success
+                if hit is None:
+                    if _at.armed() and _at._IN_SEARCH:
+                        # inside another axis's search: fuse without pinning,
+                        # so the shape can still be measured later
+                        return True
+                    hit = (True, (
+                        f"m_eff={self.m_eff}: the plain stage bodies fuse every fusable spec; "
+                        f"the JAX ceiling (VMAP_FUSION_MAX_BUCKETS = 512) was measured with jnp "
+                        f"on a CPU host and is not the port's; set_autotune measures the choice"
+                    ))
+            _FUSION_CACHE[key] = hit
+        return hit[0]
 
     def _host_labels(self, keys: Tensor) -> Tensor:
         """The single label-materialisation door: a ``CallableSpec`` plan,
@@ -186,6 +245,10 @@ class PipelineSpec:
         else:
             base = (pre, "scan:global", post, "scatter:bucket-major")
         return self._with_layout(base)
+
+    def stage_graph(self) -> Tuple[Stage, ...]:
+        """:meth:`stages` as :class:`Stage` nodes."""
+        return tuple(Stage(*s.partition(":")[::2]) for s in self.stages())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -514,14 +577,19 @@ def make_plan(
     digits, stage_m = 1, None
     if digit_split is not None:
         digits, stage_m = 2, (1 << digit_split) * (segments or 1)
+    # the family first: an armed autotuner's family miss pins the tile too
+    resolved = resolve_kernel_family(n, stage_m or m_eff, method, backend, family, digits,
+                                     key_value=key_value,
+                                     pair_m=None if digit_split is None else m_eff)
     return MultisplitPlan(
         n=n, num_buckets=num_buckets, method=method, key_value=key_value,
         backend=backend,
-        tile=resolve_tile(n, m_eff, method, key_value, backend, tile, digits, stage_m),
+        tile=resolve_tile(n, m_eff, method, key_value, backend, tile, digits, stage_m,
+                          family=family),
         bucket_fn=bucket_fn, batch=batch, segments=segments, mode=mode,
-        family=resolve_kernel_family(n, stage_m or m_eff, method, backend, family, digits),
-        digit_split=digit_split,
-        sub_bits=None if digit_split is None else resolve_sub_bits(sub_bits),
+        family=resolved, digit_split=digit_split,
+        sub_bits=None if digit_split is None else resolve_sub_bits(
+            n, m_eff, method, key_value, backend, stage_m, sub_bits),
     )
 
 

@@ -207,6 +207,14 @@ def direct_solve_ids(
     return _direct_solve_with(tile_local_offsets, keys, ids, m, values)
 
 
+def direct_solve_reference(
+    keys: Tensor, bucket_fn, values: Optional[Tensor]
+) -> MultisplitResult:
+    """O(n·m) direct evaluation of paper eq. (1) on the spec's own labels:
+    the oracle (``repro/core/pipeline/stages.py:232``)."""
+    return direct_solve_ids(keys, bucket_fn(keys).to(torch.int32), bucket_fn.num_buckets, values)
+
+
 def packed_direct_solve_ids(
     keys: Tensor, ids: Tensor, m: int, values: Optional[Tensor]
 ) -> MultisplitResult:

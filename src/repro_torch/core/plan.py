@@ -4,26 +4,28 @@
 ``from repro_torch.core.plan import make_plan`` and the other names below
 import the very objects of the pipeline package (the tile cache here IS the
 package's cache, not a copy), as the JAX package's shim re-exports its
-pipeline. Only the symbols the port has are re-exported: the JAX shim's
-backend aliases (``BACKENDS``, ``available_backends``, ``resolve_backend``),
-its ``Stage`` record, its VMEM budget and its autotuner
-(``autotune_tile``, ``clear_tile_cache``; ROADMAP queue A item 8) have no
-counterpart yet. New code imports :mod:`repro_torch.core.pipeline`.
+pipeline. Its VMEM budget has no counterpart: the port sizes tiles by the
+Hopper shared-memory model of :mod:`repro_torch.core.pipeline.tiles`. New
+code imports :mod:`repro_torch.core.pipeline`.
 """
 
 from __future__ import annotations
 
 from repro_torch.core.pipeline.radix import RadixPipeline, radix_passes
 from repro_torch.core.pipeline.registry import (
+    BACKENDS,
     Backend,
+    available_backends,
     backend_names,
     get_backend,
     register_backend,
+    resolve_backend,
 )
 from repro_torch.core.pipeline.spec import (
     MODES,
     MultisplitPlan,
     PipelineSpec,
+    Stage,
     make_batched_plan,
     make_plan,
     make_radix_plan,
@@ -41,6 +43,7 @@ from repro_torch.core.pipeline.stages import (
     tile_local_offsets,
 )
 from repro_torch.core.pipeline.stages import direct_solve_ids as _direct_solve_ids
+from repro_torch.core.pipeline.stages import direct_solve_reference as _direct_solve_reference
 from repro_torch.core.pipeline.stages import exclusive_rows as _exclusive_rows
 from repro_torch.core.pipeline.stages import seg_tile_local as _seg_tile_local
 from repro_torch.core.pipeline.stages import tile_local_offsets as _tile_local_offsets
@@ -52,6 +55,8 @@ from repro_torch.core.pipeline.tiles import (
     FAMILIES,
     WMS_TILE,
     _heuristic_tile,
+    autotune_tile,
+    clear_tile_cache,
     family_decision,
     family_decisions,
     resolve_kernel_family,
@@ -59,12 +64,13 @@ from repro_torch.core.pipeline.tiles import (
 )
 
 __all__ = [
-    "BMS_TILE", "Backend", "FAMILIES", "MODES", "MultisplitPlan",
-    "MultisplitResult", "PipelineSpec", "RadixPipeline", "WMS_TILE",
-    "backend_names", "direct_counts", "exclusive_rows", "family_decision",
+    "BACKENDS", "BMS_TILE", "FAMILIES", "MODES", "MultisplitPlan",
+    "MultisplitResult", "PipelineSpec", "RadixPipeline", "Stage", "WMS_TILE",
+    "autotune_tile", "available_backends", "backend_names",
+    "clear_tile_cache", "direct_counts", "exclusive_rows", "family_decision",
     "family_decisions", "get_backend", "global_scan", "make_batched_plan",
     "make_plan", "make_radix_plan", "make_segmented_plan",
     "make_segmented_radix_plan", "pad_rows", "pad_to_tiles", "radix_passes",
-    "register_backend", "resolve_kernel_family", "resolve_tile",
-    "segment_ids_from_starts", "tile_local_offsets",
+    "register_backend", "resolve_backend", "resolve_kernel_family",
+    "resolve_tile", "segment_ids_from_starts", "tile_local_offsets",
 ]

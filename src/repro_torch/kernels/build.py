@@ -6,7 +6,9 @@ seconds). All sources build at once, one ``nvcc`` process each, started
 together. Libraries land in ``build/repro_torch/`` at the repository root,
 named by a hash of their sources and flags, so an edited source never loads
 a stale build. A failed build raises :class:`KernelBuildError` with the
-compiler's output; nothing falls back. Beside :func:`load` sit the
+compiler's output; nothing falls back. :func:`launch_report` asks a
+launcher what it would launch with (stages, shared bytes, blocks an SM,
+registers) and launches nothing. Beside :func:`load` sit the
 helpers every wrapper launches through: :func:`on_cuda` picks the kernel or
 the plain version by the tensor's device, :func:`stream` is the current CUDA
 stream, and :func:`raise_on` turns a failed launch into
@@ -120,8 +122,19 @@ ENTRY_SOURCE = {
     "seg_fused_postscan_reorder_ids": "seg_fused_postscan_reorder",
 }
 
+# sources whose launchers report instead of launching while asked to
+# (``ms_launch_report`` of multisplit_sm90.cuh): the plans' kernels
+REPORTING = (
+    "tile_histograms", "tile_positions", "fused_postscan_reorder",
+    "seg_tile_histograms", "seg_tile_positions", "seg_fused_postscan_reorder",
+    "packed_tile_histograms", "packed_tile_positions", "packed_fused_postscan_reorder",
+    "fused2_tile_histograms", "fused2_tile_positions", "fused2_fused_postscan_reorder",
+)
+REPORT_FIELDS = ("stages", "smem", "blocks", "registers", "static_smem", "threads")
+
 _LOCK = threading.Lock()
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: Dict[str, float] = {}     # source -> wall seconds of its nvcc run
 PTXAS_LOG: Dict[str, str] = {}           # source -> nvcc/ptxas report
 
@@ -211,11 +224,37 @@ def load(name: str):
         if fn is None:
             symbol, argtypes = ENTRY_POINTS[name]
             source = ENTRY_SOURCE.get(name, name)
-            fn = getattr(ctypes.CDLL(str(build_all()[source])), symbol)
+            lib = _LIBS.get(source)
+            if lib is None:
+                lib = _LIBS[source] = ctypes.CDLL(str(build_all()[source]))
+            fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _FNS[name] = fn
     return fn
+
+
+def launch_report(name: str, *args) -> Dict[str, int]:
+    """What the entry point ``name`` would launch with for ``args``, without
+    launching: the launcher's stages and dynamic shared bytes, the blocks an
+    SM the occupancy API allows, the instance's registers and static shared
+    bytes, and its threads. The data pointers are never read, so any
+    16-byte-aligned address stands for a plane. Only this thread's call
+    reports: the slot is the thread's own."""
+    fn = load(name)
+    source = ENTRY_SOURCE.get(name, name)
+    if source not in REPORTING:
+        raise ValueError(f"{source}.cu does not report its launches")
+    slot = _LIBS[source].ms_launch_report
+    slot.argtypes, slot.restype = [_P], None
+    out = (ctypes.c_int * len(REPORT_FIELDS))()
+    slot(ctypes.addressof(out))
+    try:
+        err = fn(*args)
+    finally:
+        slot(None)
+    raise_on(err, name)
+    return dict(zip(REPORT_FIELDS, out))
 
 
 class KernelLaunchError(RuntimeError):

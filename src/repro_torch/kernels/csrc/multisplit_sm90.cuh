@@ -314,4 +314,39 @@ inline cudaError_t pick_stages(K kernel, int threads, size_t one, size_t two, in
   return cudaSuccess;
 }
 
+// A launch report in place of a launch: while a thread has set its slot
+// (ms_launch_report below), a launcher it calls writes what it would launch
+// with -- its stages, its dynamic shared bytes, the blocks an SM the
+// occupancy API allows it, the instance's registers and static shared
+// bytes, and its threads -- and returns without launching; other threads
+// launch as always. The shared-memory model of
+// repro_torch/core/pipeline/tiles.py is held against these reports.
+inline int*& report_slot() {
+  static thread_local int* slot = nullptr;
+  return slot;
+}
+
+template <typename K>
+inline bool report(K kernel, int threads, int stages, size_t smem, cudaError_t* err) {
+  int* const out = report_slot();
+  if (out == nullptr) return false;
+  cudaFuncAttributes attr;
+  int fit = 0;
+  *err = cudaFuncGetAttributes(&attr, kernel);
+  if (*err == cudaSuccess)
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, threads, smem);
+  out[0] = stages;
+  out[1] = static_cast<int>(smem);
+  out[2] = fit;
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.sharedSizeBytes);
+  out[5] = threads;
+  return true;
+}
+
 }  // namespace sm90
+
+// Sets (or, with null, clears) the calling thread's report slot of this
+// library's launchers.
+// Each library is one translation unit, so the definition is made once.
+extern "C" void ms_launch_report(int* out) { sm90::report_slot() = out; }

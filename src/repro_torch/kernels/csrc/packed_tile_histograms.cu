@@ -212,6 +212,8 @@ int launch(const void* keys, const void* segs, void* hist, int n_tiles, int T, i
   const size_t smem = sizeof(uint32_t) * 2 * static_cast<size_t>(kSetWords);
   auto kernel = packed_tile_histograms_kernel<kVec, kForm, kSeg>;
   cudaError_t err = ms::allow_smem(kernel, smem);
+  if (err == cudaSuccess && sm90::report(kernel, kThreads, 1, smem, &err))
+    return static_cast<int>(err);
   int blocks = 0;
   if (err == cudaSuccess) err = sm90::persistent_grid(kernel, kThreads, smem, n_tiles, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -849,7 +849,9 @@ MAX_SUB_BITS = 8          # a stage of the sweep has 2^sub <= MAX_BUCKETS bucket
 # warp-ballot rank barely grows with the bucket count. Measured at F1's
 # shapes (2^25 keys in tiles of 8192): K2f key-value 2.5706 ms at 8 against
 # 2.9508 at 4, K3f 1.9733 against 2.3833, the packed stage rank alike
-# (PERF.md §6, the fused-radix findings). Every width gives the same bits.
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6, the fused-radix findings);
+# chip_smoke.py's fused-pair autotune grid picks 8 again. Every width gives
+# the same bits.
 CUDA_SUB_BITS = 8
 
 
@@ -984,3 +986,72 @@ def fused2_fused_postscan_reorder(
                     stream(keys_tiled)), "fused2_fused_postscan_reorder")
         fused2_fused_postscan_reorder.launches += 1
     return keys_r, vals_r, pos_r, perm
+
+
+# ---------------------------------------------------------------------------
+# Launch reports: what a kernel's launcher would launch with, nothing launched
+# ---------------------------------------------------------------------------
+
+_PLANE = 1 << 12          # an aligned address standing for a plane: never read
+
+
+def launch_report(kernel: str, tile: int, spec, *, num_segments: Optional[int] = None,
+                  key_value: bool = False, family: str = "onehot",
+                  key_dtype: torch.dtype = torch.int32) -> dict:
+    """The launcher's (stages, shared bytes, blocks an SM, registers, static
+    shared bytes, threads) for the kernel wrapper ``kernel`` over one tile
+    of ``tile`` keys (:func:`repro_torch.kernels.build.launch_report`): the
+    card's own answer, which the shared-memory model of
+    ``core/pipeline/tiles.py`` is held against. ``spec`` gives the labels
+    (the pair's ``BitfieldSpec`` for the fused2 kernels); the ids wrappers
+    and ``family="packed_ids"`` read an ids strip of ``spec.num_buckets``
+    ids. Counts no launch."""
+    p, s = _PLANE, num_segments or 1
+    seg = p if num_segments is not None else None
+    vals = p if key_value else None
+    m = spec.num_buckets
+    ids = kernel in ("tile_histograms", "tile_positions", "fused_postscan_reorder",
+                     "seg_tile_histograms", "seg_tile_positions", "seg_fused_postscan_reorder")
+    label = identity_args(m) if ids else None
+    if kernel.startswith("fused2_"):
+        sub = CUDA_SUB_BITS
+        packed = int(family == "packed")
+        tail = (1, tile, s, spec.shift, spec.bits)
+        args = {
+            "fused2_tile_histograms": (p, seg, p) + tail,
+            "fused2_tile_positions": (p, seg, p, p) + tail + (sub, packed),
+            "fused2_fused_postscan_reorder": (p, seg, p, vals, p, vals, p, p) + tail + (sub, packed),
+        }[kernel]
+        return build.launch_report(kernel, *args, None)
+    if kernel.startswith("packed_"):
+        on_ids = family == "packed_ids"
+        keys, idp = (None, p) if on_ids else (p, None)
+        label = identity_args(m) if on_ids else label_args(spec, key_dtype, torch.device("cpu"))
+        sub = _packed_layout(tile, m * s, None, None).subtile
+        args = {
+            "packed_tile_histograms": (keys, idp, seg, p, 1, tile, s, sub),
+            "packed_tile_positions": (keys, idp, seg, p, p, 1, tile, s, sub),
+            "packed_fused_postscan_reorder": (p, idp, seg, p, vals, p, vals, p, p, 1, tile, s,
+                                              sub),
+        }[kernel]
+        return build.launch_report(kernel, *args, *label, None)
+    label = label or label_args(spec, key_dtype, torch.device("cpu"))
+    entry, args = {
+        "spec_tile_histograms": ("tile_histograms", (p, p, 1, tile) + label),
+        "tile_histograms": ("tile_histograms", (p, p, 1, tile) + label),
+        "spec_tile_positions": ("tile_positions", (p, p, p, 1, tile) + label),
+        "tile_positions": ("tile_positions", (p, p, p, 1, tile) + label),
+        "spec_fused_postscan_reorder": ("fused_postscan_reorder",
+                                        (p, p, vals, p, vals, p, p, 1, tile) + label),
+        "fused_postscan_reorder": ("fused_postscan_reorder_ids",
+                                   (p, p, p, vals, p, vals, p, p, 1, tile, m)),
+        "seg_spec_tile_histograms": ("seg_tile_histograms", (p, p, p, 1, tile, s) + label),
+        "seg_tile_histograms": ("seg_tile_histograms", (p, p, p, 1, tile, s) + label),
+        "seg_spec_tile_positions": ("seg_tile_positions", (p, p, p, p, 1, tile, s) + label),
+        "seg_tile_positions": ("seg_tile_positions", (p, p, p, p, 1, tile, s) + label),
+        "seg_spec_fused_postscan_reorder": ("seg_fused_postscan_reorder",
+                                            (p, p, p, vals, p, vals, p, p, 1, tile, s) + label),
+        "seg_fused_postscan_reorder": ("seg_fused_postscan_reorder_ids",
+                                       (p, p, p, p, vals, p, vals, p, p, 1, tile, s, m)),
+    }[kernel]
+    return build.launch_report(entry, *args, None)

@@ -30,7 +30,11 @@ cached per
 (spec, shape, config); declarative specs hash by value, so the cache is
 exact. A :class:`CallableSpec` (``from_fn``: a programmer's bucket
 function) runs on the keys' device, its int32 labels go to the ids-strip
-kernels, and its plan is never cached.
+kernels, and its plan is never cached. :func:`set_autotune` arms the
+autotuner (``core/pipeline/autotune.py``): a plan cache miss then times the
+tile and family candidates on the card once and keeps the winner on disk.
+The JAX package's ``set_strict`` and ``set_verify`` come with the
+resilience layer (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import torch
 from repro_torch.core import sort as _sort
 from repro_torch.core.identifiers import (
     BitfieldSpec,
+    BucketIdentifier,
     BucketSpec,
     CallableSpec,
     DeltaSpec,
@@ -64,18 +69,21 @@ from repro_torch.core.pipeline import (
     make_batched_plan,
     make_plan,
     segment_ids_from_starts,
+    set_autotune,
 )
+from repro_torch.core.pipeline.tiles import on_clear
 
 Tensor = torch.Tensor
 
 __all__ = [
     "BucketSpec", "BitfieldSpec", "CallableSpec", "DeltaSpec", "EvenSpec",
-    "IdentitySpec", "RangeSpec",
+    "IdentitySpec", "RangeSpec", "BucketIdentifier",
     "as_spec", "delta_buckets", "even_buckets", "from_fn",
     "identity_buckets", "radix_buckets", "range_buckets",
     "MultisplitResult",
     "multisplit", "multisplit_key_value", "segmented_multisplit", "histogram",
     "radix_sort", "segmented_radix_sort",
+    "set_autotune",
     "vmap_out_dims",
 ]
 
@@ -96,6 +104,9 @@ def _check_flat(keys: Tensor, what: str, batch_with_vmap: bool = True) -> None:
 
 _plan_cached = functools.lru_cache(maxsize=512)(make_plan)
 _batched_plan_cached = functools.lru_cache(maxsize=512)(make_batched_plan)
+# the cached plans hold resolved tiles: clear_tile_cache drops them too
+on_clear(_plan_cached.cache_clear)
+on_clear(_batched_plan_cached.cache_clear)
 
 
 def _plan(spec: BucketSpec, n: int, **kw) -> MultisplitPlan:

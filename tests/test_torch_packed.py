@@ -489,11 +489,12 @@ def test_family_validation_matches_jax(monkeypatch):
 @pytest.mark.parametrize("m", [2, 8, 256])
 def test_default_family_is_onehot_with_its_reason(backend, m):
     """No constant of the CPU era becomes the port's default: onehot at
-    every m, with the reason recorded; the reference backend's reason is
-    that it has no tile solve."""
+    every m, with the reason recorded, which cites the H100 measurements
+    the default was pinned from; the reference backend's reason is that it
+    has no tile solve."""
     family, reason = tpipe.family_decision(4096 + m, m, "bms", backend)
     assert family == "onehot"
-    assert "CPU host" in reason and "A8" in reason
+    assert "CPU host" in reason and "H100" in reason
     assert tpipe.family_decisions()[(4096 + m, m, "bms", backend)] == (family, reason)
     assert tpipe.make_plan(4096 + m, m, backend=backend).family == "onehot"
     assert tpipe.family_decision(7, m, "dms", "reference") == (
