@@ -205,6 +205,32 @@ Phases, one line or more each, every one of which must pass:
    the shared-memory model of ``core/pipeline/tiles.py`` equals each
    launcher's own report (stages, shared bytes, blocks an SM) for the 12
    plan kernels at every tile from 256 to 8192.
+   Serving (``serving_phase``) — ``serving.ServerLoop`` at S3's routing
+   shape as a served step (at most 2^20 tokens and 256 requests a step, E
+   = 64, capacity 48): prewarmed, a closed loop of 2048 synthetic requests
+   (mean length 4096) and an open loop at half the QPS the closed loop
+   sustained, every step of both verified at level 2 and its (slot, keep,
+   counts) held bitwise against ``route_oracle``; then 80 closed and 24
+   open passes unverified, timed (median and spread); every request
+   conserved, no retry or requeue; K1s and K3s once a step, K1 and K2 once
+   an admission window; one packed step bitwise ``route_oracle``;
+   ``launch.serve.main(["--traffic"])`` at its defaults.
+   ``serving_trace_phase`` (after the times) traces one step with
+   ``torch.profiler``, counts its host syncs and takes the card's idle
+   share of that step's own span.
+   Resilience (``resilience_phase``) — chaos, not strict, the fallback off
+   the card opted in: a seeded ``FaultInjector(rate=0.01,
+   dispatch_rate=0.05)`` over the flat kv bms call at 2^25, S1 kv and a
+   serving run, results bitwise the strict runs; a real out-of-memory (the
+   card filled through the allocator): strict raises
+   ``torch.OutOfMemoryError``, classified a resource error; without strict
+   the default ladder shrinks the tile and re-raises with no quarantine,
+   and opted in it shrinks, quarantines and demotes; freed, the call on
+   ``cuda`` is bitwise right again. Every other phase runs strict
+   (``ops.set_strict(True)``: a kernel that fails to build or launch fails
+   the run) with ``REPRO_AUTOTUNE_DIR`` under ``build/`` (removed before
+   and after), and the run ends with no demotion, shrink, retry or
+   quarantine counted outside those deliberate faults over the whole run.
 6. launches — every kernel's launch count from its own path's run alone
    (flat, segmented, flat callable, segmented callable, and the four
    packed paths, which launch K1p-K3p and no onehot kernel; each fused
@@ -270,11 +296,13 @@ no result, when no CUDA device is present or a phase fails.
 
 from __future__ import annotations
 
+import atexit
 import functools
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -784,6 +812,482 @@ def autotune_phase(dev, gen, registry, max_err, log, smi):
     return counts, {"search_s": search_s, "times": times, "tile_ms": tile_ms}
 
 
+
+# The serving slice (repro_torch.serving): S3's routing shape as a served
+# step — steps of at most 2^20 tokens and 256 requests, E = 64, capacity 48
+SERVE_REQUESTS = 2048
+SERVE_MEAN_LEN, SERVE_MAX_LEN = 4096, 16384
+# timed passes over those requests, unverified: a closed pass lasts about
+# 0.05 s and an open one about 0.11 s on an H100, so each set spans a few
+# seconds, and the median and spread are over passes
+SERVE_PASSES, SERVE_OPEN_PASSES = 80, 24
+# the chaos parts' injector seed: on the flat kv and S1 calls below its
+# "cuda" stream fires as a transient, two resource and a lowering fault,
+# never three times on one plan class, and once more in the serving run (a
+# CPU rehearsal of the same ladder and the same steps picks it)
+CHAOS_SEED = 737
+
+
+# the resilience layer's counters outside the deliberate faults (the chaos
+# runs, the out-of-memory ladder), summed over the whole run: the last check
+# reads the sum, so no phase's reset can hide a demotion or a shrink
+STRICT_STATS = {}
+
+
+def settle_stats(deliberate=False):
+    """Add the resilience counters since the last reset to
+    :data:`STRICT_STATS` (unless they count deliberate faults), reset them,
+    and return them."""
+    from repro_torch.runtime import resilience as rz
+
+    got = rz.stats()
+    if not deliberate:
+        for k, v in got.items():
+            STRICT_STATS[k] = STRICT_STATS.get(k, 0) + v
+    rz.reset_stats()
+    return got
+
+
+def serving_config(dev, **kw):
+    from repro_torch.serving import ServingConfig
+
+    base = dict(num_experts=S3_EXPERTS, capacity=S3_CAPACITY, max_batch_requests=256,
+                max_batch_tokens=1 << 20, length_splitters=(1024, 4096), device=str(dev))
+    base.update(kw)
+    return ServingConfig(**base)
+
+
+def serving_phase(dev, registry, max_err, log, smi):
+    """The serving slice at full size: ``ServerLoop`` over S3's routing
+    shape, prewarmed. A closed loop of 2048 requests and an open loop at
+    half the QPS the closed loop sustained, each verified at level 2 on
+    every step in strict mode and every step's (slot, keep, counts) held
+    bitwise against ``route_oracle``; then :data:`SERVE_PASSES` closed and
+    :data:`SERVE_OPEN_PASSES` open passes unverified, timed, for the median
+    and spread of QPS, host ms a step and latency; one packed step bitwise
+    ``route_oracle``; ``launch.serve.main(["--traffic"])`` at its defaults.
+    Returns the launch counts of all these runs."""
+    import torch
+
+    from repro_torch.core.pipeline import clear_tile_cache, tiles
+    from repro_torch.launch import serve
+    from repro_torch.runtime import resilience as rz
+    from repro_torch.serving import (ServerLoop, closed_loop, engine, open_loop,
+                                     poisson_arrivals, synthetic_requests)
+
+    cfg = serving_config(dev)
+    reqs = synthetic_requests(SERVE_REQUESTS, cfg.num_experts, seed=SEED,
+                              mean_len=SERVE_MEAN_LEN, max_len=SERVE_MAX_LEN)
+    loop = ServerLoop(cfg)
+    t0 = time.perf_counter()
+    loop.prewarm()
+    torch.cuda.synchronize()
+    prewarm_s = time.perf_counter() - t0
+    windows, seen = [], []          # admission windows; (ids, starts, out) of verified steps
+    groups = loop.policy.length_groups
+
+    def watched(lp, verified):
+        lp.policy.length_groups = lambda rs: (windows.append(len(rs)), groups(rs))[1]
+        if verified:
+            check = lp._maybe_verify
+
+            def keep(p, out):
+                out = check(p, out)
+                seen.append((p.ids, p.starts, out))
+                return out
+
+            lp._maybe_verify = keep
+        return lp
+
+    def clean(name, summ):
+        if summ["dropped_by_bug"] != 0 or summ["completed"] != (
+                summ["submitted"] - summ["shed"] - summ["failed"]) or summ["failed"]:
+            raise AssertionError(f"serving ({name}) lost or failed requests: {summ}")
+        if summ["retries"] or summ["requeued"] or summ["degradations"]:
+            raise AssertionError(f"serving ({name}) retried, requeued or degraded in strict "
+                                 f"mode: {summ}")
+
+    def spread(xs):
+        q1, _, q3 = statistics.quantiles(xs, n=4)
+        return (f"median {statistics.median(xs):.4f} (min {min(xs):.4f}, quartiles "
+                f"{q1:.4f} / {q3:.4f}, max {max(xs):.4f})")
+
+    settle_stats()
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    # ---- verified: every step at level 2 and against the oracle
+    rz.set_verify(2)
+    t0 = time.perf_counter()
+    closed = closed_loop(watched(loop, True), reqs)
+    closed_v_s = time.perf_counter() - t0
+    rz.set_verify(None)
+    clean("verified closed loop", closed)
+    # ---- timed: the same requests, unverified, pass after pass
+    passes = []
+    for _ in range(SERVE_PASSES):
+        lp = watched(ServerLoop(cfg), False)
+        t0 = time.perf_counter()
+        summ = closed_loop(lp, reqs)
+        dt = time.perf_counter() - t0
+        clean("timed closed loop", summ)
+        passes.append((summ["completed"] / dt, dt / summ["steps"] * 1e3, summ["steps"], dt))
+    qps = statistics.median(p[0] for p in passes)
+    rz.set_verify(2)
+    opened = open_loop(watched(ServerLoop(cfg), True), reqs,
+                       poisson_arrivals(SERVE_REQUESTS, qps / 2, seed=SEED))
+    rz.set_verify(None)
+    clean("verified open loop", opened)
+    open_passes = []
+    for i in range(SERVE_OPEN_PASSES):
+        t0 = time.perf_counter()
+        summ = open_loop(watched(ServerLoop(cfg), False), reqs,
+                         poisson_arrivals(SERVE_REQUESTS, qps / 2, seed=SEED + 1 + i))
+        clean("timed open loop", summ)
+        open_passes.append((summ, time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in registry.launch_counts().items() if v}
+    checks = rz.stats()["verify_checks"]
+    verified = closed["steps"] + opened["steps"]
+    steps = verified + sum(p[2] for p in passes) + sum(s["steps"] for s, _ in open_passes)
+    if checks != verified or len(seen) != verified or closed["verify_mismatches"] or opened[
+            "verify_mismatches"]:
+        raise AssertionError(f"serving: {checks} routing checks and {len(seen)} outputs kept for "
+                             f"{verified} verified steps")
+    for i, (ids, starts, out) in enumerate(seen):
+        want = route_oracle(torch.from_numpy(ids).to(dev), starts, cfg.num_experts,
+                            cfg.capacity, dev)
+        for name, a, b in zip(("slot", "keep", "counts"), out, want):
+            if max_err(a.to(torch.int32), b.to(torch.int32)):
+                raise AssertionError(f"served step {i} ({ids.shape[0]} tokens, {len(starts)} "
+                                     f"segments): {name} differs from route_oracle")
+    shapes = sorted({(ids.shape[0], len(starts)) for ids, starts, _ in seen})
+    del seen[:]
+    # every routing step K1s then K3s; every admission window K1 and K2
+    # (the length bucketing, key-value)
+    expect = {"seg_spec_tile_histograms": steps, "seg_spec_tile_positions": steps,
+              "spec_tile_histograms": len(windows), "spec_fused_postscan_reorder": len(windows)}
+    if counts != expect:
+        raise AssertionError(f"serving launches {counts} != {expect}")
+    tokens_per_step = statistics.mean(r.tokens for r in loop.metrics.step_records)
+    log("serving", f"ServerLoop (E = {cfg.num_experts}, capacity {cfg.capacity}, at most "
+                   f"{cfg.max_batch_requests} requests and 2^20 tokens a step, token classes "
+                   f"{cfg.token_pad_classes}, length splitters {cfg.length_splitters}): prewarm "
+                   f"{prewarm_s:.2f} s; {SERVE_REQUESTS} requests (mean length "
+                   f"{SERVE_MEAN_LEN}, at most {SERVE_MAX_LEN}, {sum(map(len, reqs))} tokens), "
+                   f"{closed['steps']} steps of {closed['batch_requests_mean']:.1f} requests and "
+                   f"{tokens_per_step:.0f} tokens, occupancy "
+                   f"{closed['batch_token_occupancy']:.4f} [{smi}]")
+    log("serving", f"closed loop, {SERVE_PASSES} timed passes unverified in "
+                   f"{sum(p[3] for p in passes):.4f} s: QPS sustained "
+                   f"{spread([p[0] for p in passes])}; host ms a step "
+                   f"{spread([p[1] for p in passes])}; every pass {sorted({p[2] for p in passes})} "
+                   f"steps; the verified pass (level 2 on every step) {closed_v_s:.4f} s, "
+                   f"{closed['completed'] / closed_v_s:.1f} QPS [{smi}]")
+    log("serving", f"open loop at {qps / 2:.1f} QPS (Poisson, half the closed loop's median), "
+                   f"{SERVE_OPEN_PASSES} timed passes unverified in "
+                   f"{sum(t for _, t in open_passes):.4f} s: latency p50 "
+                   f"{spread([s['latency_p50_ms'] for s, _ in open_passes])} ms, p95 "
+                   f"{spread([s['latency_p95_ms'] for s, _ in open_passes])} ms, p99 "
+                   f"{spread([s['latency_p99_ms'] for s, _ in open_passes])} ms; QPS sustained "
+                   f"{spread([s['qps_sustained'] for s, _ in open_passes])}; steps a pass "
+                   f"{spread([s['steps'] for s, _ in open_passes])}; occupancy "
+                   f"{spread([s['batch_token_occupancy'] for s, _ in open_passes])}; queue depth "
+                   f"max {max(s['queue_depth_max'] for s, _ in open_passes)} [{smi}]")
+    log("serving", f"strict: {verified} verified steps (the closed loop's {closed['steps']}, the "
+                   f"open loop's {opened['steps']}), each at level 2 and each (slot, keep, "
+                   f"counts) bitwise route_oracle (shapes {shapes}); no retry, requeue or "
+                   f"degradation in any pass; every request conserved; launches {counts} "
+                   f"({steps} steps, {len(windows)} admission windows)")
+    # one step of the packed family, bitwise the stable-sort oracle
+    batch = [r for r in reqs[:256] if r.shape[0]][:64]
+    from repro_torch.serving.request import Request
+
+    ids, starts, _ = loop._pack([Request(i, r, 0.0) for i, r in enumerate(batch)])
+    n_pad, s_pad = ids.shape[0], starts.shape[0]
+    clear_tile_cache()
+    tiles._FAMILY_CACHE[(n_pad, s_pad * cfg.num_experts, "dms", "cuda")] = (
+        "packed", "pinned by chip_smoke.py")
+    registry.reset_launches()
+    got = engine._routing_op(cfg.num_experts, cfg.capacity, "cuda", str(dev))(ids, starts)
+    torch.cuda.synchronize()
+    packed = {k: v for k, v in registry.launch_counts().items() if v}
+    want = route_oracle(torch.from_numpy(ids).to(dev), starts, cfg.num_experts, cfg.capacity, dev)
+    for name, a, b in zip(("slot", "keep", "counts"), got, want):
+        if max_err(a.to(torch.int32), b.to(torch.int32)):
+            raise AssertionError(f"packed serving step: {name} differs from route_oracle")
+    if packed != {"packed_tile_histograms": 1, "packed_tile_positions": 1}:
+        raise AssertionError(f"packed serving step launched {packed}")
+    clear_tile_cache()
+    for k, v in packed.items():
+        counts[k] = counts.get(k, 0) + v
+    log("serving", f"one packed step ({len(batch)} requests, {n_pad} tokens padded, "
+                   f"{s_pad} segments): (slot, keep, counts) bitwise equal to route_oracle; "
+                   f"launches {packed}")
+    t0 = time.perf_counter()
+    summ = serve.main(["--traffic"])
+    log("serving", f"launch.serve.main(['--traffic']) at its defaults on the card in "
+                   f"{time.perf_counter() - t0:.2f} s: completed {summ['completed']} of "
+                   f"{summ['submitted']}, dropped_by_bug {summ['dropped_by_bug']}, retries "
+                   f"{summ['retries']}, requeued {summ['requeued']}, p99 "
+                   f"{summ['latency_p99_ms']:.4f} ms [{smi}]")
+    clean("launch.serve --traffic", summ)
+    return counts
+
+
+def serving_trace_phase(dev, log, smi):
+    """Where one serving step's host time goes: a ``torch.profiler`` trace of
+    one full step (admit, pack, route, finalize) at the serving phase's
+    config, its host syncs counted, and the card's idle share of that same
+    step: one minus the union of its device activities over the span from
+    the step's start to its final synchronisation. After the times: a
+    profiler session before SDPA's would leave that one no kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.serving import ServerLoop, synthetic_requests
+
+    cfg = serving_config(dev, lookahead_batches=1)
+    reqs = synthetic_requests(768, cfg.num_experts, seed=SEED + 1, mean_len=SERVE_MEAN_LEN,
+                              max_len=SERVE_MAX_LEN)
+    loop = ServerLoop(cfg)
+    loop.prewarm()
+    for r in reqs:
+        loop.submit(r)
+
+    def one_step():
+        rep_ = loop.step(force=True)
+        loop.flush()
+        torch.cuda.synchronize()
+        return rep_
+
+    one_step()                                  # warm the admission's depth class
+    t0 = time.perf_counter()
+    timed = one_step()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("serving_step"):
+            rep = one_step()
+    spans = [ev.time_range for ev in prof.events()
+             if ev.name == "serving_step" and ev.device_type == DeviceType.CPU]
+    if len(spans) != 1:
+        raise AssertionError(f"the trace holds {len(spans)} serving_step spans, not one")
+    span = spans[0]
+    busy, end = 0.0, span.start
+    # the card's activities (kernels, copies, sets), not the span's own
+    # annotation on the card's timeline
+    for ev in sorted((ev for ev in prof.events()
+                      if ev.device_type == DeviceType.CUDA and ev.name != "serving_step"),
+                     key=lambda ev: ev.time_range.start):
+        a, b = max(ev.time_range.start, end), min(ev.time_range.end, span.end)
+        if b > a:
+            busy += b - a
+        end = max(end, ev.time_range.end)
+    span_ms, busy_ms = (span.end - span.start) / 1e3, busy / 1e3
+    events = prof.key_averages()
+    host = sorted((ev for ev in events if ev.device_type == DeviceType.CPU),
+                  key=lambda ev: -ev.self_cpu_time_total)
+    syncs = [ev for ev in host if any(w in ev.key for w in (
+        "_local_scalar_dense", "Synchronize", "Memcpy", "nonzero"))]
+    kernels = [ev for ev in events if ev.device_type == DeviceType.CUDA
+               and ev.key != "serving_step"]
+    dev_ms = sum(getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0))
+                 for ev in kernels) / 1e3
+    n_sync = sum(ev.count for ev in syncs if "Synchronize" in ev.key or "_local_scalar" in ev.key)
+    log("serving trace", f"one step ({timed['requests']} requests, {timed['tokens']} tokens, "
+                         f"{timed['tokens_padded']} padded) {step_ms:.4f} ms host wall with a "
+                         f"synchronisation after it; the next ({rep['requests']} requests, "
+                         f"{rep['tokens']} tokens) under torch.profiler: span "
+                         f"{span_ms:.4f} ms, the card busy {busy_ms:.4f} ms of it (idle "
+                         f"{1 - busy_ms / span_ms:.4f}), device kernels {dev_ms:.4f} ms; host syncs "
+                         f"(stream / device / event synchronize and scalar reads) {n_sync}: "
+                         + "; ".join(f"{ev.key} x{ev.count} "
+                                     f"{ev.self_cpu_time_total / 1e3:.4f} ms" for ev in syncs)
+                         + "; host ops by self time " + "; ".join(
+                             f"{ev.key} x{ev.count} {ev.self_cpu_time_total / 1e3:.4f} ms"
+                             for ev in host[:10]) + f" [{smi}]")
+    return {"step_ms": step_ms, "device_ms": dev_ms, "syncs": n_sync, "span_ms": span_ms,
+            "busy_ms": busy_ms}
+
+
+def fill_memory(dev):
+    """Blocks of 256, then 16, then 1 MiB until the caching allocator refuses
+    each size: what it keeps reserved in partly used segments goes too,
+    which holding ``mem_get_info``'s free bytes leaves to the next call."""
+    import torch
+
+    held = []
+    for mib in (256, 16, 1):
+        try:
+            while True:
+                held.append(torch.empty(mib << 20, dtype=torch.uint8, device=dev))
+        except torch.OutOfMemoryError:
+            pass
+    return held
+
+
+def resilience_phase(dev, gen, s1_starts, registry, max_err, log, smi):
+    """The resilience layer on the card. (a) Chaos, not strict, with the
+    fallback off the card opted in (``rz.set_fallback(True)``): a seeded
+    ``FaultInjector(rate=0.01, dispatch_rate=0.05)`` over the flat key-value
+    bms call at 2^25 (m = 256), S1 key-value and a serving run, each result
+    bitwise the strict run's and no request lost. (b) A real out-of-memory:
+    with the card filled (:func:`fill_memory`), the same flat call raises
+    ``torch.OutOfMemoryError`` in strict mode, which ``classify`` makes a
+    ``KernelResourceError``; without strict, at the default, the ladder
+    shrinks the tile and re-raises, leaving no quarantine; opted in, it
+    shrinks, quarantines and demotes to its floor; then, the memory freed
+    and the quarantine cleared, the call on ``cuda`` is bitwise right and
+    launches its kernels: an out-of-memory leaves the context alive. The
+    counters of both parts are kept out of :data:`STRICT_STATS`."""
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.core.pipeline import clear_tile_cache, set_autotune
+    from repro_torch.runtime import FaultInjector
+    from repro_torch.runtime import resilience as rz
+    from repro_torch.serving import ServerLoop, closed_loop, synthetic_requests
+
+    run_dir = os.environ["REPRO_AUTOTUNE_DIR"]
+    set_autotune(cache_dir=run_dir)          # an earlier phase pointed it elsewhere
+    fields = ("keys", "values", "bucket_starts", "bucket_counts", "permutation")
+    n = N_MAIN
+    keys = torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device=dev,
+                         generator=gen).view(torch.uint32)
+    values = torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device=dev, generator=gen)
+    spec, spec1 = ops.DeltaSpec(256, 1 << 32), ops.DeltaSpec(32, 1 << 32)
+    flat = functools.partial(ops.multisplit_key_value, keys, values, spec, device=dev)
+    seg = functools.partial(ops.segmented_multisplit, keys, spec1, s1_starts, values, device=dev)
+    want_flat, want_seg = flat(), seg()            # strict
+    torch.cuda.synchronize()
+
+    # ---- (a) chaos, not strict, the fallback opted in
+    ops.set_strict(False)
+    rz.set_fallback(True)
+    settle_stats()
+    inj = FaultInjector(rate=0.01, dispatch_rate=0.05, seed=CHAOS_SEED)
+    rz.set_fault_injector(inj)
+    t0 = time.perf_counter()
+    for what, call, want in (("flat kv bms 2^25", flat, want_flat), ("S1 kv bms", seg, want_seg)):
+        for trial in range(8):
+            got = call()
+            for f in fields:
+                if max_err(getattr(got, f), getattr(want, f)):
+                    raise AssertionError(f"chaos {what} trial {trial}: {f} differs from strict")
+    del got
+    calls_s = time.perf_counter() - t0
+    op_stats = rz.stats()
+    cfg = serving_config(dev)
+    reqs = synthetic_requests(512, cfg.num_experts, seed=SEED + 2, mean_len=SERVE_MEAN_LEN,
+                              max_len=SERVE_MAX_LEN)
+    rz.set_verify(2)
+    loop = ServerLoop(cfg, fault_injector=inj)
+    before = inj.injected
+    summ = closed_loop(loop, reqs)
+    rz.set_verify(None)
+    if summ["dropped_by_bug"] or summ["verify_mismatches"] or summ["completed"] != (
+            summ["submitted"] - summ["shed"] - summ["failed"]) or inj.injected == before:
+        raise AssertionError(f"chaos serving ({inj.injected - before} faults): {summ}")
+    rz.set_fault_injector(None)
+    rz.set_fallback(None)
+    s = settle_stats(deliberate=True)
+    log("resilience", f"chaos (FaultInjector(rate=0.01, dispatch_rate=0.05, seed={CHAOS_SEED}), "
+                      f"not strict, set_fallback(True)): 8 flat kv bms calls at 2^25 (m = 256) and 8 S1 kv bms calls "
+                      f"in {calls_s:.2f} s, each bitwise the strict run; ladder on those calls: "
+                      f"injected {inj.dispatch_injected}, transient_retries "
+                      f"{op_stats['transient_retries']}, tile_shrinks {op_stats['tile_shrinks']}, "
+                      f"backend_demotions {op_stats['backend_demotions']}, breaker_trips "
+                      f"{op_stats['breaker_trips']}; then a closed serving loop of 512 requests "
+                      f"under the same injector ({inj.injected - before} faults, "
+                      f"{summ['steps']} steps): completed {summ['completed']}, failed "
+                      f"{summ['failed']}, retries {summ['retries']}, requeued {summ['requeued']}, "
+                      f"degradations {summ['degradations']}, dropped_by_bug 0, every step "
+                      f"verified (level 2, no mismatch); injected in all {inj.injected}; counters "
+                      f"{s} [{smi}]")
+    if not (op_stats["transient_retries"] and op_stats["tile_shrinks"]
+            and op_stats["backend_demotions"]):
+        raise AssertionError(f"the chaos seed did not reach every rung: {op_stats}")
+    rz.clear_quarantine(disk=True)
+    clear_tile_cache()
+
+    # ---- (b) a real out-of-memory
+    ops.set_strict(True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    hog = fill_memory(dev)
+    try:
+        flat()
+        raise AssertionError("the flat call ran on a full card")
+    except torch.OutOfMemoryError as err:
+        kind = rz.classify(err, backend="cuda")
+        if not isinstance(kind, rz.KernelResourceError):
+            raise AssertionError(f"classify made the out-of-memory a {type(kind).__name__}")
+        strict_msg = str(err).splitlines()[0][:160]
+    ops.set_strict(False)
+    try:                                     # the default on the card: no fallback
+        flat()
+        raise AssertionError("the flat call ran on a full card")
+    except torch.OutOfMemoryError:
+        pass
+    plain_events = [f"{e['kind']} tile {e['tile']}" for e in rz.events() if "tile" in e]
+    plain = settle_stats(deliberate=True)
+    if (plain["tile_shrinks"] == 0 or plain["backend_demotions"] or plain["breaker_trips"]
+            or rz.quarantine_snapshot() or os.path.exists(rz.quarantine_path())):
+        raise AssertionError(f"the default out-of-memory ladder on the card left the kernels or "
+                             f"kept a quarantine: {plain}, {rz.quarantine_snapshot()}")
+    rz.set_fallback(True)
+    floor = None
+    try:
+        flat()
+    except torch.OutOfMemoryError as err:
+        floor = type(err).__name__
+    rz.set_fallback(None)
+    ladder = rz.stats()
+    events = [e["kind"] + (f" {e.get('frm')}->{e.get('to')}" if "frm" in e else "")
+              + (f" tile {e['tile']}" if "tile" in e else "") for e in rz.events()]
+    sidecar = sorted(rz.quarantine_snapshot())
+    on_disk = os.path.exists(rz.quarantine_path())
+    n_blocks = len(hog)
+    del hog
+    torch.cuda.empty_cache()
+    log("resilience", f"out-of-memory: the card filled through the caching allocator "
+                      f"({free / 2**30:.2f} GiB free before, {n_blocks} blocks of 256, 16 and "
+                      f"1 MiB); strict: "
+                      f"torch.OutOfMemoryError ({strict_msg}) classified "
+                      f"{type(kind).__name__}; not strict, at the default (no fallback off the "
+                      f"card): {plain_events}, then the out-of-memory re-raised, tile_shrinks "
+                      f"{plain['tile_shrinks']}, backend_demotions 0, no quarantine; opted in "
+                      f"(set_fallback(True)), the ladder: {events}, ending in "
+                      f"{floor or 'a result'}; counters tile_shrinks {ladder['tile_shrinks']}, "
+                      f"backend_demotions {ladder['backend_demotions']}, quarantine_skips "
+                      f"{ladder['quarantine_skips']}, breaker_trips {ladder['breaker_trips']}; "
+                      f"the sidecar ({'on disk' if on_disk else 'in memory'}) holds "
+                      f"{len(sidecar)} entries: {sidecar} [{smi}]")
+    if ladder["tile_shrinks"] == 0 or ladder["breaker_trips"] == 0:
+        raise AssertionError(f"the out-of-memory ladder neither shrank nor tripped: {ladder}")
+    settle_stats(deliberate=True)
+    rz.clear_quarantine(disk=True)
+    clear_tile_cache()
+    ops.set_strict(True)
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    got = flat()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in registry.launch_counts().items() if v}
+    for f in fields:
+        if max_err(getattr(got, f), getattr(want_flat, f)):
+            raise AssertionError(f"after the out-of-memory: {f} differs")
+    if counts != {"spec_tile_histograms": 1, "spec_fused_postscan_reorder": 1}:
+        raise AssertionError(f"after the out-of-memory the call launched {counts}")
+    log("resilience", f"after the out-of-memory, memory freed and the quarantine cleared: the "
+                      f"flat kv call on cuda is bitwise the strict run and launched {counts}: "
+                      f"the context is alive")
+    rz.set_fault_injector(None)
+    rz.clear_quarantine(disk=True)
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -809,6 +1313,15 @@ def main() -> int:
     torch.cuda.set_device(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
+    # strict everywhere but the chaos parts; the autotune file and the
+    # quarantine sidecar in a directory of this run, not the user's cache
+    from repro_torch.runtime import resilience as rz
+
+    run_dir = os.path.join(ROOT, "build", "smoke_cache")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    atexit.register(shutil.rmtree, run_dir, True)
+    os.environ["REPRO_AUTOTUNE_DIR"] = run_dir
+    ops.set_strict(True)
 
     # ---- 1. device
     smi = smi_line()
@@ -2840,6 +3353,13 @@ def main() -> int:
     # the launchers (its launches are search trials, logged apart)
     autotune_phase(dev, gen, registry, max_err, log, smi)
 
+    # ---- 5l. the serving slice at full size, with its own launch counts; 5m.
+    # the resilience layer (chaos and a real out-of-memory, not counted)
+    serve_counts = serving_phase(dev, registry, max_err, log, smi)
+    for name, count in serve_counts.items():
+        launches[name] += count
+    resilience_phase(dev, gen, s1_starts, registry, max_err, log, smi)
+
     for name in launches:
         if launches[name] == 0:
             raise AssertionError(f"{name} was launched on none of the paths")
@@ -3669,9 +4189,19 @@ def main() -> int:
     if not ratio < 0.65:
         raise AssertionError(f"causal / non-causal time at A1 is {ratio:.3f}, not below 0.65")
     s3_host_phase(dev, gen, s3_starts, log, smi)
+    serving_trace_phase(dev, log, smi)
     log("times", f"peak device memory of the timed runs above the inputs: "
                  f"{(torch.cuda.max_memory_allocated() - base_mem) / 2**30:.2f} GiB")
 
+    settle_stats()
+    left = {k: STRICT_STATS.get(k, 0) for k in (
+        "backend_demotions", "degradations", "tile_shrinks", "transient_retries",
+        "quarantine_skips", "breaker_trips", "verify_mismatches", "reference_reruns")}
+    if any(left.values()) or rz.quarantine_snapshot():
+        raise AssertionError(f"a strict phase left its kernels or quarantined: {left}, "
+                             f"{rz.quarantine_snapshot()}")
+    log("resilience", f"outside the deliberate faults, over the whole run: {STRICT_STATS} "
+                      f"(no demotion, shrink, retry or quarantine)")
     wrappers = sorted(fn.__name__ for fn in registry.KERNELS)
     if sorted(row["name"] for row in kernels) != wrappers:
         raise AssertionError(f"the kernels line lists {sorted(r['name'] for r in kernels)}, "

@@ -289,3 +289,38 @@ register_backend(Backend(
 
 # The registered names, reference first: the JAX package's compatibility tuple.
 BACKENDS = backend_names()
+
+
+def capability_summary() -> dict:
+    """Registry and resilience state in one introspection dict (DESIGN.md
+    §17): each backend's capability flags, with the runtime-verification
+    level, strict mode, the demotion order, the quarantined plan classes
+    and the degradation counters. The JAX package's ``fuses_radix`` and
+    ``compiled`` flags have no field here (nothing is compiled ahead:
+    ``cuda`` builds its kernels at first use); ``tunable`` lists what
+    ``autotune.py`` searches on each backend."""
+    from repro_torch.runtime import resilience as _rz
+
+    backends = {}
+    for b in available_backends():
+        backends[b.name] = {
+            "description": b.description,
+            "caps": [k for k in ("tiled", "uses_kernels", "fuses_labels", "fuses_digits")
+                     if getattr(b, k)],
+            "families": list(b.families),
+            "digits": [1, 2] if b.fuses_digits else [1],
+            "tunable": (["tile", "family"] + (["fusion"] if b.name == "vmap" else [])
+                        + ["sub_bits"]) if b.tiled else [],
+            "demotes_to": _rz.demote(b.name),
+        }
+    return {
+        "backends": backends,
+        "resilience": {
+            "verify": _rz.verify_level(),
+            "strict": _rz.strict(),
+            "demotion_order": list(_rz.DEMOTION_ORDER),
+            "breaker_threshold": _rz.BREAKER_THRESHOLD,
+            "quarantined": len(_rz.quarantine_snapshot()),
+            "counters": _rz.stats(),
+        },
+    }

@@ -37,9 +37,10 @@ Autotuning (:mod:`~repro_torch.core.pipeline.autotune`) is opt-in
 consults the persistent cache and otherwise times the candidates. A family
 miss runs the joint (tile x family) search, a tile miss searches tiles under
 the family already resolved, so a plan never mixes a heuristic family with
-a tile tuned for another. The quarantine sidecar of the JAX package's
-``clear_tile_cache`` belongs to the resilience layer, which the port does
-not have yet (ROADMAP A10).
+a tile tuned for another. :func:`clear_tile_cache` also reaches what the
+layers above registered with :func:`on_clear`: the plans ``ops`` cached
+and the resilience layer's quarantine sidecar (``runtime/resilience.py``),
+whose loaded snapshot it drops and whose file ``disk=True`` deletes.
 """
 
 from __future__ import annotations
@@ -643,13 +644,16 @@ def pin_tile(n: int, m: int, method: str, key_value: bool, backend: str, tile: i
 
 
 # callables that drop what a layer above cached from these decisions (a
-# plan holds its resolved tile); clear_tile_cache runs them all
-_CLEAR_HOOKS: List[Callable[[], None]] = []
+# plan holds its resolved tile) or loaded beside the autotune file;
+# clear_tile_cache(disk) runs them all with its disk flag
+_CLEAR_HOOKS: List[Callable[[bool], None]] = []
 
 
-def on_clear(hook: Callable[[], None]) -> None:
-    """Have :func:`clear_tile_cache` call ``hook``: a layer that caches
-    plans registers how to drop them, so a re-resolved tile reaches it."""
+def on_clear(hook: Callable[[bool], None]) -> None:
+    """Have :func:`clear_tile_cache` call ``hook(disk)``: a layer that
+    caches plans registers how to drop them, so a re-resolved tile reaches
+    it; a layer with a file beside the autotune file, how to forget its
+    loaded snapshot (and, under ``disk``, delete the file)."""
     if hook not in _CLEAR_HOOKS:
         _CLEAR_HOOKS.append(hook)
 
@@ -657,10 +661,10 @@ def on_clear(hook: Callable[[], None]) -> None:
 def clear_tile_cache(disk: bool = False) -> None:
     """Drop every cached tile, family, stage-width and label-fusion decision,
     what the :func:`on_clear` hooks cached with them (the plans of ``ops``),
-    and the loaded snapshot of the autotune cache file, so the next miss
-    reads the file again (what a fresh process would see). ``disk=True``
-    deletes the file as well. (The JAX package also drops the resilience
-    layer's quarantine sidecar here; the port has none until ROADMAP A10.)"""
+    and the loaded snapshots of the autotune file and of the resilience
+    layer's quarantine sidecar, so the next miss reads the files again (what
+    a fresh process would see: a quarantined plan class survives).
+    ``disk=True`` deletes both files as well."""
     from repro_torch.core.pipeline import autotune as _at
     from repro_torch.core.pipeline import spec as _spec
 
@@ -670,7 +674,7 @@ def clear_tile_cache(disk: bool = False) -> None:
     _SUB_BITS_CACHE.clear()
     _spec._FUSION_CACHE.clear()
     for hook in _CLEAR_HOOKS:
-        hook()
+        hook(disk)
     if disk:
         _at.clear_disk()
     else:

@@ -12,7 +12,9 @@ registers) and launches nothing. Beside :func:`load` sit the
 helpers every wrapper launches through: :func:`on_cuda` picks the kernel or
 the plain version by the tensor's device, :func:`stream` is the current CUDA
 stream, and :func:`raise_on` turns a failed launch into
-:class:`KernelLaunchError`.
+:class:`KernelLaunchError`, which carries the CUDA error's code and name and
+whether the card refused the launcher's shared memory (the resilience
+layer classifies by them, ``runtime/resilience.py``).
 
 The flags never include ``--use_fast_math``: EvenSpec labels need IEEE
 float32 division to match the JAX package bitwise, and flash attention's
@@ -140,7 +142,7 @@ PTXAS_LOG: Dict[str, str] = {}           # source -> nvcc/ptxas report
 
 
 class KernelBuildError(RuntimeError):
-    """nvcc is missing or refused a source."""
+    """nvcc is missing or refused a source, or its library does not load."""
 
 
 def nvcc_path() -> str:
@@ -226,8 +228,16 @@ def load(name: str):
             source = ENTRY_SOURCE.get(name, name)
             lib = _LIBS.get(source)
             if lib is None:
-                lib = _LIBS[source] = ctypes.CDLL(str(build_all()[source]))
-            fn = getattr(lib, symbol)
+                path = build_all()[source]
+                try:
+                    lib = ctypes.CDLL(str(path))
+                except OSError as err:
+                    raise KernelBuildError(f"cannot load {path}: {err}") from err
+                _LIBS[source] = lib
+            try:
+                fn = getattr(lib, symbol)
+            except AttributeError as err:
+                raise KernelBuildError(f"{source}.cu has no entry point {symbol}") from err
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _FNS[name] = fn
@@ -257,8 +267,35 @@ def launch_report(name: str, *args) -> Dict[str, int]:
     return dict(zip(REPORT_FIELDS, out))
 
 
+# The CUDA errors (cuda_runtime_api.h's cudaError) the resilience layer
+# tells apart; any other code is named by its number.
+CUDA_ERRORS = {
+    1: "cudaErrorInvalidValue", 2: "cudaErrorMemoryAllocation",
+    98: "cudaErrorInvalidDeviceFunction", 209: "cudaErrorNoKernelImageForDevice",
+    700: "cudaErrorIllegalAddress", 701: "cudaErrorLaunchOutOfResources",
+    714: "cudaErrorHardwareStackError", 715: "cudaErrorIllegalInstruction",
+    716: "cudaErrorMisalignedAddress", 719: "cudaErrorLaunchFailure",
+    999: "cudaErrorUnknown",
+}
+# ms::kSmemRefused (multisplit_common.cuh) and fa90::kSmemRefused
+# (flash_attention_sm90.cuh): set above the CUDA error in a launcher's return
+# when the card refused the dynamic shared memory it asked for
+SMEM_REFUSED = 1 << 16
+
+
 class KernelLaunchError(RuntimeError):
-    """A kernel launch returned a CUDA error."""
+    """A kernel launch returned a CUDA error: ``code`` and ``name`` are the
+    CUDA error's, ``smem_refused`` says that the card refused the dynamic
+    shared memory the launcher asked for (the same code,
+    ``cudaErrorInvalidValue``, also comes back from the launchers' argument
+    checks)."""
+
+    def __init__(self, kernel: str, code: int, smem_refused: bool = False):
+        self.kernel, self.code, self.smem_refused = kernel, int(code), bool(smem_refused)
+        self.name = CUDA_ERRORS.get(self.code, f"cudaError {self.code}")
+        refused = "; the card refused its dynamic shared memory" if smem_refused else ""
+        super().__init__(f"{kernel} kernel launch failed with CUDA error {self.code} "
+                         f"({self.name}){refused}")
 
 
 def on_cuda(x: torch.Tensor, what: str) -> bool:
@@ -276,6 +313,8 @@ def stream(x: torch.Tensor) -> int:
 
 
 def raise_on(err: int, kernel: str) -> None:
-    """Raise :class:`KernelLaunchError` for a nonzero CUDA error code."""
+    """Raise :class:`KernelLaunchError` for a launcher's nonzero return: a
+    CUDA error code, with :data:`SMEM_REFUSED` set where the card refused
+    the launcher's shared memory."""
     if err != 0:
-        raise KernelLaunchError(f"{kernel} kernel launch failed with CUDA error {err}")
+        raise KernelLaunchError(kernel, err & ~SMEM_REFUSED, bool(err & SMEM_REFUSED))

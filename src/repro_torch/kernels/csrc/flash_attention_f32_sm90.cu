@@ -351,7 +351,7 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, 
   cudaError_t err = cudaFuncSetAttribute(flash_f32_sm90_kernel<kChunks>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return fa90::smem_refused(err);
   flash_f32_sm90_kernel<kChunks><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       tq, tk, tv, o, S, hd, BH, n_qt, causal, scale);
   return static_cast<int>(cudaGetLastError());

@@ -326,7 +326,7 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, 
   cudaError_t err = cudaFuncSetAttribute(flash_sm90_kernel<D, kChunks>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return fa90::smem_refused(err);
   flash_sm90_kernel<D, kChunks><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<uint32_t*>(o), S, hd, BH, n_qt, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());

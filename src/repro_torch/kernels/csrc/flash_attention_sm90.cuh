@@ -26,6 +26,16 @@ constexpr int kRowBytes = 128;               // one swizzle atom row
 constexpr float kMasked = -1e30f;            // the Pallas kernel's mask value
 constexpr unsigned kFull = 0xffffffffu;
 
+// ms::kSmemRefused of multisplit_common.cuh: set in a launcher's return when
+// the card refused the dynamic shared memory it asked for (a
+// cudaErrorInvalidValue from cudaFuncSetAttribute; other codes pass unflagged).
+constexpr int kSmemRefused = 1 << 16;
+
+inline int smem_refused(cudaError_t err) {
+  return err == cudaErrorInvalidValue ? kSmemRefused | static_cast<int>(err)
+                                      : static_cast<int>(err);
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

@@ -180,8 +180,8 @@ int launch(const void* keys, const void* segs, void* hist, int n_tiles, int T, i
   auto kernel = fused2_tile_histograms_kernel<kSeg>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
-  if (err == cudaSuccess && sm90::report(kernel, kBlock, 1, smem, &err))
-    return static_cast<int>(err);
+  if (err != cudaSuccess) return ms::smem_refused(err);
+  if (sm90::report(kernel, kBlock, 1, smem, &err)) return static_cast<int>(err);
   int dev = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

@@ -141,6 +141,20 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// Set in a launcher's return, above the CUDA error, when the card refused the
+// dynamic shared memory it asked for (allow_smem, sm90::pick_stages): the
+// caller can then tell a resource failure from the argument checks, which
+// return cudaErrorInvalidValue too (build.py's SMEM_REFUSED). A size above
+// the card's opt-in limit is the one failure of that set-up that comes back
+// as cudaErrorInvalidValue; a kernel with no image for the card fails it
+// with its own code (98, 209), which smem_refused passes on unflagged.
+constexpr int kSmemRefused = 1 << 16;
+
+inline int smem_refused(cudaError_t err) {
+  return err == cudaErrorInvalidValue ? kSmemRefused | static_cast<int>(err)
+                                      : static_cast<int>(err);
+}
+
 inline Label make_label(int kind, int key_kind, int m, unsigned u0, unsigned u1, float f0,
                         float f1, const void* splitters, int n_split, int plane) {
   Label L;

@@ -279,8 +279,8 @@ int launch_kernel(const void* keys, const void* ids, const void* segs, const voi
   size_t smem = 0;
   int blocks = 0;
   cudaError_t err = sm90::pick_stages(kernel, kThreads, one, one + stage_bytes, &Y.stages, &smem);
-  if (err == cudaSuccess && sm90::report(kernel, kThreads, Y.stages, smem, &err))
-    return static_cast<int>(err);
+  if (err != cudaSuccess) return ms::smem_refused(err);
+  if (sm90::report(kernel, kThreads, Y.stages, smem, &err)) return static_cast<int>(err);
   if (err == cudaSuccess) err = sm90::persistent_grid(kernel, kThreads, smem, n_tiles, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool vec = sm90::rows_aligned(T, keys) && sm90::rows_aligned(T, ids) &&

@@ -190,7 +190,8 @@ int launch(const void* ids, const void* keys, const void* vals, void* keys_r, vo
   size_t smem = 0;
   int blocks = 0;
   cudaError_t err = sm90::pick_stages(kernel, kThreads, one, two, &Y.stages, &smem);
-  if (err == cudaSuccess) err = sm90::persistent_grid(kernel, kThreads, smem, n_tiles, &blocks);
+  if (err != cudaSuccess) return ms::smem_refused(err);
+  err = sm90::persistent_grid(kernel, kThreads, smem, n_tiles, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool vec = sm90::rows_aligned(T, ids) && sm90::rows_aligned(T, keys) &&
                    sm90::rows_aligned(T, vals) && sm90::rows_aligned(T, keys_r) &&

@@ -33,8 +33,17 @@ function) runs on the keys' device, its int32 labels go to the ids-strip
 kernels, and its plan is never cached. :func:`set_autotune` arms the
 autotuner (``core/pipeline/autotune.py``): a plan cache miss then times the
 tile and family candidates on the card once and keeps the winner on disk.
-The JAX package's ``set_strict`` and ``set_verify`` come with the
-resilience layer (ROADMAP A10).
+
+The eager calls of :func:`multisplit`, :func:`multisplit_key_value` and
+:func:`segmented_multisplit` run under the resilience layer's degradation
+ladder (``runtime/resilience.py``, DESIGN.md §17): a failed dispatch
+retries or shrinks its tile, and where :func:`set_fallback` allows it
+(the default on the CPU, not on the card) demotes its backend (``cuda ->
+vmap -> reference``); :func:`set_verify` arms output checks. A call whose
+inputs are functorch-wrapped (under ``torch.vmap`` or ``torch.func.grad``)
+bypasses the ladder, so the transform rules see the plain op, and so does a
+call inside ``resilience.bypass()`` (the serving loop's steps).
+:func:`set_strict` turns every fallback off.
 """
 
 from __future__ import annotations
@@ -71,7 +80,10 @@ from repro_torch.core.pipeline import (
     segment_ids_from_starts,
     set_autotune,
 )
+from repro_torch.core.pipeline import tiles as _tiles
 from repro_torch.core.pipeline.tiles import on_clear
+from repro_torch.runtime import resilience as _rz
+from repro_torch.runtime.resilience import set_fallback, set_strict, set_verify
 
 Tensor = torch.Tensor
 
@@ -83,7 +95,7 @@ __all__ = [
     "MultisplitResult",
     "multisplit", "multisplit_key_value", "segmented_multisplit", "histogram",
     "radix_sort", "segmented_radix_sort",
-    "set_autotune",
+    "set_autotune", "set_fallback", "set_strict", "set_verify",
     "vmap_out_dims",
 ]
 
@@ -104,9 +116,16 @@ def _check_flat(keys: Tensor, what: str, batch_with_vmap: bool = True) -> None:
 
 _plan_cached = functools.lru_cache(maxsize=512)(make_plan)
 _batched_plan_cached = functools.lru_cache(maxsize=512)(make_batched_plan)
-# the cached plans hold resolved tiles: clear_tile_cache drops them too
-on_clear(_plan_cached.cache_clear)
-on_clear(_batched_plan_cached.cache_clear)
+
+
+def _clear_plans(disk: bool = False) -> None:
+    """Drop the cached plans, which hold resolved tiles (the hook of
+    ``clear_tile_cache``; no file, so ``disk`` changes nothing)."""
+    _plan_cached.cache_clear()
+    _batched_plan_cached.cache_clear()
+
+
+on_clear(_clear_plans)
 
 
 def _plan(spec: BucketSpec, n: int, **kw) -> MultisplitPlan:
@@ -175,6 +194,46 @@ class _Multisplit(torch.autograd.Function):
         return outs, (0,) * len(outs)
 
 
+def _wrapped(*tensors) -> bool:
+    """Any input functorch-wrapped: the call runs under ``torch.vmap`` or
+    ``torch.func.grad``, whose rules must see the plain op."""
+    return any(t is not None and torch._C._functorch.is_functorch_wrapped_tensor(t)
+               for t in tensors)
+
+
+def _resilient(run, keys: Tensor, values: Optional[Tensor], spec: BucketSpec, *, n: int,
+               method: str, backend: str, tile: Optional[int], key_value: bool, mode: str,
+               segments: Optional[int] = None, segment_starts: Optional[Tensor] = None):
+    """Route one eager call through the degradation ladder and runtime
+    verification (``repro/ops.py:220-262``): ``run(backend, tile)``
+    re-executes the op on any rung. Functorch-wrapped inputs bypass it, and
+    so does a call inside ``resilience.bypass()``."""
+    if _wrapped(keys, values) or _rz.bypassed():
+        return run(backend, tile)
+    m_eff = spec.num_buckets * (segments or 1)
+    ctx = _rz.DispatchContext(
+        spec_name=getattr(spec, "name", type(spec).__name__), shape=tuple(keys.shape),
+        num_buckets=spec.num_buckets, method=method, key_value=key_value, mode=mode,
+        layout="segmented" if segments is not None else "flat", device=str(keys.device),
+    )
+
+    def resolved_tile(be: str) -> int:
+        return _tiles.resolve_tile(n, m_eff, method, key_value, be)
+
+    def pin_tile(be: str, t: int) -> None:
+        _tiles.pin_tile(n, m_eff, method, key_value, be, t)
+        # the cached plans hold the tile that failed: the next call resolves
+        # the pinned one
+        _clear_plans()
+
+    def verifier(res, be: str) -> None:
+        _rz.verify_result(res, keys=keys, spec=spec, n=n, values=values,
+                          segment_starts=segment_starts, mode=mode, backend=be, ctx=ctx)
+
+    return _rz.dispatch(run, ctx, backend=backend, tile=tile, resolved_tile=resolved_tile,
+                        pin_tile=pin_tile, verifier=verifier)
+
+
 def _segmented_plan(n: int, s: int, m: int, *, bucket_fn: BucketSpec, **kw) -> MultisplitPlan:
     """:func:`make_segmented_plan`'s signature onto :func:`_plan`'s cache."""
     return _plan(bucket_fn, n, segments=s, **kw)
@@ -210,9 +269,14 @@ def multisplit(
             keys, values, spec, method=method, backend=backend, tile=tile,
             family=family, device=device,
         )
-    plan = _plan(spec, keys.shape[0], method=method, backend=backend, tile=tile,
-                 mode=mode, family=family)
-    return _result(plan, _Multisplit.apply(keys, plan))
+    n = keys.shape[0]
+
+    def run(be, tl):
+        plan = _plan(spec, n, method=method, backend=be, tile=tl, mode=mode, family=family)
+        return _result(plan, _Multisplit.apply(keys, plan))
+
+    return _resilient(run, keys, None, spec, n=n, method=method, backend=backend, tile=tile,
+                      key_value=False, mode=mode)
 
 
 def _segment_starts(segment_starts, n: int, device) -> Tensor:
@@ -289,9 +353,14 @@ def multisplit_key_value(
     spec = as_spec(spec)
     keys, values = _place(keys, device), _place(values, device)
     _check_flat(keys, "ops.multisplit_key_value")
-    plan = _plan(spec, keys.shape[0], method=method, key_value=True, backend=backend,
-                 tile=tile, family=family)
-    return MultisplitResult(*_KeyValueMultisplit.apply(keys, values, plan))
+    n = keys.shape[0]
+
+    def run(be, tl):
+        plan = _plan(spec, n, method=method, key_value=True, backend=be, tile=tl, family=family)
+        return MultisplitResult(*_KeyValueMultisplit.apply(keys, values, plan))
+
+    return _resilient(run, keys, values, spec, n=n, method=method, backend=backend, tile=tile,
+                      key_value=True, mode="reorder")
 
 
 class _SegmentedKeyValue(torch.autograd.Function):
@@ -348,14 +417,23 @@ def segmented_multisplit(
         raise ValueError(f"mode={mode!r} never touches values")
     values = _place(values, device)
     starts = _segment_starts(segment_starts, keys.shape[0], keys.device)
-    run = functools.partial(
-        _multisplit.segmented_multisplit, bucket_fn=spec, segment_starts=starts,
-        method=method, backend=backend, tile=tile, mode=mode, family=family,
-        build_plan=_segmented_plan, device=keys.device,
-    )
-    if values is None:
-        return run(keys)
-    return MultisplitResult(*_SegmentedKeyValue.apply(keys, values, starts, run))
+    s = starts.shape[0]
+
+    def run(be, tl):
+        call = functools.partial(
+            _multisplit.segmented_multisplit, bucket_fn=spec, segment_starts=starts,
+            method=method, backend=be, tile=tl, mode=mode, family=family,
+            build_plan=_segmented_plan, device=keys.device,
+        )
+        if values is None:
+            return call(keys)
+        return MultisplitResult(*_SegmentedKeyValue.apply(keys, values, starts, call))
+
+    if s == 0:                   # a zero-request step: no launch to guard
+        return run(backend, tile)
+    return _resilient(run, keys, values, spec, n=keys.shape[0], method=method, backend=backend,
+                      tile=tile, key_value=values is not None, mode=mode, segments=s,
+                      segment_starts=starts)
 
 
 def histogram(

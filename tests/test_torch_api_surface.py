@@ -25,9 +25,10 @@ SRC = Path(repro.__file__).resolve().parent
 
 # name -> the ROADMAP queue item that brings it
 PENDING = {
-    "repro.core.pipeline.registry": {"capability_summary": "A10"},
-    "repro.ops": {"set_strict": "A10", "set_verify": "A10"},
     "repro.models.moe": {"MoEAux": "A13", "moe_decl": "A13", "moe_block": "A13"},
+    # the training supervisor drives a training loop over the checkpoint manager
+    "repro.runtime": {"Supervisor": "A13", "TrainLoopConfig": "A13"},
+    "repro.runtime.supervisor": {"Supervisor": "A13", "TrainLoopConfig": "A13"},
 }
 
 _TPU_HELPER = ("a TPU workaround inside the Pallas bodies (one-hot MXU matmuls, 128-lane "
@@ -86,7 +87,10 @@ def _public(mod: types.ModuleType):
 
 def test_the_twins_cover_the_ported_modules():
     for name in ("repro.ops", "repro.core.pipeline.autotune", "repro.models.moe",
-                 "repro.data.pipeline", "repro.data", "repro.core.multisplit"):
+                 "repro.data.pipeline", "repro.data", "repro.core.multisplit",
+                 "repro.runtime", "repro.runtime.resilience", "repro.runtime.supervisor",
+                 "repro.serving", "repro.serving.engine", "repro.serving.admission",
+                 "repro.launch.serve"):
         assert name in TWINS
 
 

@@ -349,16 +349,19 @@ def test_search_keys_fill_every_bucket_of_the_spec(spec):
 
 def test_clear_tile_cache_runs_the_registered_hooks():
     """clear_tile_cache reaches the caches above it only through on_clear:
-    ops registered its two plan caches, and a new hook runs once a clear."""
-    assert ops._plan_cached.cache_clear in tiles._CLEAR_HOOKS
-    assert ops._batched_plan_cached.cache_clear in tiles._CLEAR_HOOKS
+    ops registered the hook of its two plan caches, and a new hook runs once
+    a clear, with the clear's disk flag."""
+    assert ops._clear_plans in tiles._CLEAR_HOOKS
+    ops._plan_cached(N, M, bucket_fn=_spec(), backend="vmap")
+    clear_tile_cache()
+    assert ops._plan_cached.cache_info().currsize == 0
     calls = []
-    hook = lambda: calls.append(1)                       # noqa: E731
+    hook = lambda disk: calls.append(disk)               # noqa: E731
     tiles.on_clear(hook)
     tiles.on_clear(hook)
     try:
         clear_tile_cache()
-        assert calls == [1]
+        assert calls == [False]
     finally:
         tiles._CLEAR_HOOKS.remove(hook)
     assert "repro_torch.ops" not in Path(tiles.__file__).read_text()

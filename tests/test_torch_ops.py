@@ -297,7 +297,8 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, repro_torch.ops, repro_torch.convert, repro_torch.kernels.build; "
+    code = ("import sys, repro_torch.ops, repro_torch.convert, repro_torch.kernels.build, "
+            "repro_torch.runtime, repro_torch.serving, repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('clean')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
