@@ -231,6 +231,32 @@ Phases, one line or more each, every one of which must pass:
    the run) with ``REPRO_AUTOTUNE_DIR`` under ``build/`` (removed before
    and after), and the run ends with no demotion, shrink, retry or
    quarantine counted outside those deliberate faults over the whole run.
+   Distributed (``distributed_phase``) — ``core.distributed``:
+   ``multisplit_all_shards`` at (8, 2^22) uint32 keys with int32 values,
+   ``DeltaSpec(256, 2^32)``, bms, bitwise the flat ``ops.multisplit`` of the
+   concatenation (keys, values, starts, counts, permutation), one K1 and one
+   K2 for all shards; then four gloo ranks on the one card
+   (``torch.multiprocessing``, the kernels built before the spawn), 2^23
+   keys a rank, m = 256: ``multisplit_sharded`` bitwise each rank's slice of
+   the flat result, ``multisplit_bucket_sharded`` ragged and dense at a
+   capacity that drops nothing and one that drops, bitwise an oracle of the
+   JAX package's drop rule built from the flat result; the local stage's
+   time on the card apart from the whole call's on the host's clock (the
+   gloo transport's time is the host's).
+   Model (``model_phase``) — the serving path of the dense and MoE
+   families: the decode demo ``launch.serve.main(["--arch",
+   "tinyllama-1.1b", ...])`` at the full config in bfloat16 (batch 4,
+   prompt 32, gen 32; ms/step and tok/s); the smoke configs of tinyllama
+   and dbrx in float32, 24 decode steps against one forward; dbrx-132b at
+   full width with its depth cut to 2 layers (its 40 layers, 264 GB in
+   bfloat16, do not fit one card): ``forward`` on 2 x 2048 tokens launches
+   B11, K1 and K3, every layer's MoE ranks and counts bitwise the plain
+   multisplit and the stable sort on the same expert ids, 16 decode
+   steps (after the times, ``model_trace_phase`` traces one demo decode
+   step and the forward's device time by kernel kind); then float32
+   from the same parameters, kernels against their plain versions: the
+   share of tokens whose top-4 experts agree, and the logits before the
+   first token that differs held to ``DBRX_LOGIT_RTOL``.
 6. launches — every kernel's launch count from its own path's run alone
    (flat, segmented, flat callable, segmented callable, and the four
    packed paths, which launch K1p-K3p and no onehot kernel; each fused
@@ -1285,6 +1311,574 @@ def resilience_phase(dev, gen, s1_starts, registry, max_err, log, smi):
                       f"the context is alive")
     rz.set_fault_injector(None)
     rz.clear_quarantine(disk=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# The distributed stage (A12) and the model serving path (A13, dense and
+# MoE), each a phase of its own; main() calls them after the resilience layer
+# ---------------------------------------------------------------------------
+
+N_SHARDS = 8                   # multisplit_all_shards: (8, 2^22), an 8-shard split
+N_SHARD = 1 << 22
+DIST_WORLD = 4                 # gloo ranks on the one card
+DIST_N = 1 << 23               # keys a rank
+DIST_M = 256
+DBRX_LAYERS = 2                # dbrx-132b at full width, depth cut to 2 layers (see model_phase)
+DBRX_BATCH, DBRX_SEQ = 2, 2048
+DBRX_DECODE_STEPS = 16
+# float32 logits, kernels against plain versions. The init's fan_in of wq
+# (d, h, hd) is h = 48, so q and k reach about 60 and 150 and a score sums
+# products of up to about 9000: 3xTF32 keeps about 2^-21 of each, and the
+# attention outputs part by a few 1e-4 of their largest, the logits by a
+# few 1e-3 after two layers (tools/dbrx_fp32_gap.py measures each stage)
+DBRX_LOGIT_RTOL = 1e-2
+DECODE_RTOL = 2e-2             # decode against forward: tests/test_models.py's limit
+
+
+def event_ms(fn, reps=5, inner=2) -> float:
+    """Median ms of ``fn`` on the card: CUDA events around ``inner`` calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    return statistics.median(times)
+
+
+def bits_equal(a, b) -> bool:
+    import torch
+
+    if a is None or b is None:
+        return a is None and b is None
+    return a.shape == b.shape and torch.equal(a.reshape(-1).view(torch.int32),
+                                              b.reshape(-1).view(torch.int32))
+
+
+def dist_inputs(dev):
+    """The keys and values of all ranks, from :data:`SEED` on the card (every
+    rank draws the same)."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 1)
+    keys = torch.randint(-2**31, 2**31, (DIST_WORLD * DIST_N,), dtype=torch.int32, device=dev,
+                         generator=g).view(torch.uint32)
+    return keys, torch.arange(DIST_WORLD * DIST_N, dtype=torch.int32, device=dev)
+
+
+def bucket_oracle(flat, rank: int, capacity: int, n_dev: int, world: int):
+    """JAX's drop rule on the flat result: rank ``rank`` gets the elements
+    of its bucket group in src-major order (source rank, then its
+    bucket-major order), keeps the first ``capacity`` and puts them back
+    bucket-major, zeros after them. Returns (keys, values, count)."""
+    import torch
+
+    dev = flat.keys.device
+    mb = flat.bucket_counts.shape[0] // world
+    lo = int(flat.bucket_starts[rank * mb])
+    hi = lo + int(flat.bucket_counts[rank * mb:(rank + 1) * mb].sum())
+    n = flat.keys.shape[0]
+    src_of = torch.empty(n, dtype=torch.int64, device=dev)
+    src_of[flat.permutation.long()] = torch.arange(n, device=dev) // n_dev   # source of a slot
+    order = torch.sort(src_of[lo:hi], stable=True).indices          # the src-major order
+    src_major = torch.empty_like(order)
+    src_major[order] = torch.arange(hi - lo, device=dev)
+    kept = src_major < capacity
+    count = int(kept.sum())
+    out = []
+    for x in (flat.keys, flat.values):
+        o = torch.zeros(capacity, dtype=torch.int32, device=dev)
+        o[:count] = x[lo:hi].view(torch.int32)[kept]
+        out.append(o)
+    return out[0], out[1], count
+
+
+def distributed_rank(rank: int, world: int, store: str, report: str, device: str) -> None:
+    """One gloo rank of ``distributed_phase`` on the one card (a
+    ``torch.multiprocessing.spawn`` target): ``multisplit_sharded`` and
+    ``multisplit_bucket_sharded`` (ragged and dense, a capacity that drops
+    nothing and one that drops), each bitwise its oracle from the flat
+    multisplit of all ranks' keys; then the local stage's and the whole
+    call's times. Rank 0 writes the report."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import ops
+    from repro_torch.core import distributed as D
+    import repro_torch.kernels as registry
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        spec = ops.DeltaSpec(DIST_M, 1 << 32)
+        keys, vals = dist_inputs(dev)
+        flat = ops.multisplit(keys, spec, vals, device=dev)
+        sl = slice(rank * DIST_N, (rank + 1) * DIST_N)
+        mine, my_vals = keys[sl], vals[sl]
+        registry.reset_launches()
+        got = D.multisplit_sharded(mine, spec, my_vals, device=dev)
+        torch.cuda.synchronize()
+        sharded_launches = {k: v for k, v in registry.launch_counts().items() if v}
+        for name, a, b in (("keys", got.keys, flat.keys[sl]),
+                           ("values", got.values, flat.values[sl]),
+                           ("bucket_starts", got.bucket_starts, flat.bucket_starts),
+                           ("bucket_counts", got.bucket_counts, flat.bucket_counts)):
+            if not bits_equal(a, b):
+                raise AssertionError(f"rank {rank}: multisplit_sharded {name} differs from the "
+                                     f"flat result's slice")
+        capacities = {"no drop": 2 * DIST_N, "drop": DIST_N // 2}
+        dropped, bucket_launches = {}, {}
+        for transport in ("ragged", "dense"):
+            for what, cap in capacities.items():
+                registry.reset_launches()
+                b = D.multisplit_bucket_sharded(mine, spec, my_vals, capacity=cap,
+                                                transport=transport, device=dev)
+                torch.cuda.synchronize()
+                bucket_launches[transport] = {k: v for k, v in registry.launch_counts().items()
+                                              if v}
+                wk, wv, count = bucket_oracle(flat, rank, cap, DIST_N, world)
+                mb = DIST_M // world
+                checks = (("keys", b.keys.view(torch.int32), wk), ("values", b.values, wv),
+                          ("count", b.count, torch.tensor([count], dtype=torch.int32, device=dev)),
+                          ("group_counts", b.group_counts,
+                           flat.bucket_counts[rank * mb:(rank + 1) * mb]),
+                          ("bucket_counts", b.bucket_counts, flat.bucket_counts))
+                for name, x, y in checks:
+                    if not bits_equal(x, y):
+                        raise AssertionError(f"rank {rank}: multisplit_bucket_sharded "
+                                             f"({transport}, {what}) {name} differs from the "
+                                             f"oracle of JAX's drop rule")
+                dropped[f"{transport}, {what}"] = int(b.group_counts.sum()) - count
+        if dropped["ragged, drop"] <= 0 or dropped["ragged, no drop"] != 0:
+            raise AssertionError(f"rank {rank}: the capacities did not drop as meant: {dropped}")
+
+        # times: the local stage alone on the card (CUDA events), the whole
+        # call on the host's clock (every rank in step)
+        local_ms = event_ms(lambda: D._local_plan(mine, spec, my_vals, "bms", None, None))
+
+        def wall_ms(fn, reps=3):
+            times = []
+            for _ in range(reps):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times)
+
+        call_ms = {
+            "sharded (dense)": wall_ms(lambda: D.multisplit_sharded(mine, spec, my_vals,
+                                                                    device=dev)),
+            "bucket_sharded ragged": wall_ms(lambda: D.multisplit_bucket_sharded(
+                mine, spec, my_vals, capacity=2 * DIST_N, transport="ragged", device=dev)),
+            "bucket_sharded dense": wall_ms(lambda: D.multisplit_bucket_sharded(
+                mine, spec, my_vals, capacity=2 * DIST_N, transport="dense", device=dev)),
+        }
+        if rank == 0:
+            with open(report, "w") as f:
+                json.dump({"local_ms": local_ms, "call_ms": call_ms, "dropped": dropped,
+                           "sharded_launches": sharded_launches,
+                           "bucket_launches": bucket_launches}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def distributed_phase(dev, registry, log, smi):
+    """The distributed stage (A12) on the card. ``multisplit_all_shards`` at
+    (8, 2^22) uint32 keys with int32 values, ``DeltaSpec(256, 2^32)``, bms:
+    bitwise the flat ``ops.multisplit`` of the concatenation (keys, values,
+    starts, counts, permutation), one K1 and one K2 for all shards. Then
+    :data:`DIST_WORLD` gloo ranks on the one card (``torch.multiprocessing``,
+    the kernels built here first, so the ranks only load them), 2^23 keys a
+    rank, m = 256 (:func:`distributed_rank`). Returns the launch counts of
+    the single-process call."""
+    import torch
+    import torch.multiprocessing as tmp
+
+    from repro_torch import ops
+    from repro_torch.core import distributed as D
+
+    torch.cuda.empty_cache()              # the ranks' contexts and inputs need room
+    spec = ops.DeltaSpec(DIST_M, 1 << 32)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 2)
+    keys = torch.randint(-2**31, 2**31, (N_SHARDS, N_SHARD), dtype=torch.int32, device=dev,
+                         generator=g).view(torch.uint32)
+    vals = torch.arange(N_SHARDS * N_SHARD, dtype=torch.int32, device=dev).view(N_SHARDS, N_SHARD)
+    registry.reset_launches()
+    got = D.multisplit_all_shards(keys, spec, vals, device=dev)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in registry.launch_counts().items() if v}
+    want = ops.multisplit(keys.reshape(-1), spec, vals.reshape(-1), device=dev)
+    for field in ("keys", "values", "bucket_starts", "bucket_counts", "permutation"):
+        if not bits_equal(getattr(got, field), getattr(want, field)):
+            raise AssertionError(f"multisplit_all_shards {field} differs from the flat multisplit")
+    if counts != {"spec_tile_histograms": 1, "spec_fused_postscan_reorder": 1}:
+        raise AssertionError(f"multisplit_all_shards launched {counts}, not one K1 and one K2")
+    ms_all = event_ms(lambda: D.multisplit_all_shards(keys, spec, vals, device=dev))
+    ms_flat = event_ms(lambda: ops.multisplit(keys.reshape(-1), spec, vals.reshape(-1),
+                                              device=dev))
+    log("distributed", f"multisplit_all_shards ({N_SHARDS}, 2^{N_SHARD.bit_length() - 1}) uint32 "
+                       f"kv, DeltaSpec({DIST_M}, 2^32), bms: keys, values, starts, counts and "
+                       f"permutation bitwise the flat multisplit of the concatenation; launches "
+                       f"{counts}; {ms_all:.4f} ms against the flat call's {ms_flat:.4f} ms "
+                       f"[CUDA events; {smi}]")
+    del keys, vals, got, want
+    torch.cuda.empty_cache()
+
+    store = os.path.join(ROOT, "build", "dist_store")
+    report = os.path.join(ROOT, "build", "dist_report.json")
+    for path in (store, report):
+        if os.path.exists(path):
+            os.remove(path)
+    t0 = time.perf_counter()
+    tmp.spawn(distributed_rank, args=(DIST_WORLD, store, report, str(dev)), nprocs=DIST_WORLD,
+              join=True)
+    with open(report) as f:
+        rep = json.load(f)
+    log("distributed", f"{DIST_WORLD} gloo ranks on one card, 2^{DIST_N.bit_length() - 1} keys a "
+                       f"rank, m = {DIST_M}, {time.perf_counter() - t0:.1f} s in all: "
+                       f"multisplit_sharded bitwise each rank's slice of the flat result; "
+                       f"multisplit_bucket_sharded ragged and dense, capacity 2^"
+                       f"{(2 * DIST_N).bit_length() - 1} (no drop) and 2^"
+                       f"{(DIST_N // 2).bit_length() - 1} (rank 0 dropped {rep['dropped']}), "
+                       f"bitwise the oracle of JAX's drop rule on every rank; rank 0's launches: "
+                       f"sharded {rep['sharded_launches']}, bucket-sharded "
+                       f"{rep['bucket_launches']}")
+    log("distributed", f"rank 0: the local stage (one flat kv bms plan over its shard) "
+                       f"{rep['local_ms']:.4f} ms on the card [CUDA events]; whole calls on the "
+                       f"host's clock, median of 3: " + "; ".join(
+                           f"{k} {v:.2f} ms" for k, v in rep["call_ms"].items())
+                       + f" — the gloo transport's time is the host's (device to host, the "
+                       f"collective over loopback, host to device), not the card's [{smi}]")
+    for path in (store, report):
+        if os.path.exists(path):
+            os.remove(path)
+    return counts
+
+
+def decode_step_trace(dev, log, smi) -> None:
+    """One decode step of tinyllama-1.1b's full config (bfloat16, batch 4,
+    the demo's shape) traced by ``torch.profiler``: its kernels, its device
+    time and the card's idle share of the step's host span."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import init_params
+
+    cfg = get_config("tinyllama-1.1b")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    params = init_params(M.decl_model(cfg), g, torch.bfloat16)
+    tok = torch.ones((4, 1), dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        cache = M.init_cache(params, cfg, 4, 64)
+        for t in range(3):                                   # warm
+            M.decode_step(params, cfg, cache, tok, t)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            M.decode_step(params, cfg, cache, tok, 3)
+            torch.cuda.synchronize()
+            span_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = sum(e.count for e in events)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    ops = sum(e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CPU and e.key.startswith("aten::"))
+    log("model", f"one decode step of tinyllama-1.1b (bfloat16, batch 4) traced: {kernels} "
+                 f"kernels ({kernels / cfg.n_layers:.1f} a layer), {ops} aten calls, device busy "
+                 f"{busy_ms:.3f} ms of a {span_ms:.2f} ms step (idle {1 - busy_ms / span_ms:.3f}; "
+                 f"the host span runs under the profiler) [torch.profiler; {smi}]")
+    del params, cache
+
+
+def model_trace_phase(dev, log, smi) -> None:
+    """The model path under ``torch.profiler``, after SDPA's read (a
+    session before that one leaves it no kernels): one decode step of the
+    demo (:func:`decode_step_trace`), and dbrx's bfloat16 forward (the
+    same 2 layers, parameters and tokens as ``model_phase``) by kernel
+    kind: B11, K1, K3, the matmuls and the rest."""
+    import dataclasses
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import init_params
+
+    decode_step_trace(dev, log, smi)
+    cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=DBRX_LAYERS)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    params = init_params(M.decl_model(cfg), g, torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab, (DBRX_BATCH, DBRX_SEQ), device=dev, generator=g,
+                           dtype=torch.int32)
+    with torch.inference_mode():
+        M.forward(params, cfg, tokens=tokens)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            M.forward(params, cfg, tokens=tokens)
+            torch.cuda.synchronize()
+    kinds = {"B11": 0.0, "K1": 0.0, "K3": 0.0, "matmuls": 0.0, "other": 0.0}
+    others = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us, key = e.self_device_time_total, e.key.lower()
+        if "flash_sm90_kernel" in key or "flash_f32_sm90_kernel" in key:
+            kinds["B11"] += us
+        elif "tile_histograms_kernel" in key:
+            kinds["K1"] += us
+        elif "tile_positions_kernel" in key:
+            kinds["K3"] += us
+        elif any(w in key for w in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
+            kinds["matmuls"] += us
+        else:
+            kinds["other"] += us
+            others[e.key[:60]] = others.get(e.key[:60], 0.0) + us
+    busy = sum(kinds.values())
+    if not (busy and kinds["B11"] and kinds["K1"] and kinds["K3"]):
+        raise AssertionError(f"torch.profiler read no device time of B11, K1 or K3 in the dbrx "
+                             f"forward: {kinds}")
+    log("model", f"dbrx forward bfloat16 device time by kind (torch.profiler, {busy / 1e3:.2f} ms "
+                 f"busy): " + ", ".join(f"{k} {v / 1e3:.3f} ms ({v / busy:.1%})"
+                                       for k, v in kinds.items())
+                 + "; the largest others: " + ", ".join(
+                     f"{k} {v / 1e3:.3f} ms" for k, v in sorted(others.items(),
+                                                                key=lambda kv: -kv[1])[:4])
+                 + f" [{smi}]")
+    del params, tokens
+    torch.cuda.empty_cache()
+
+
+def decode_matches_forward(arch: str, dev) -> float:
+    """A small float32 check of the cache on the card: ``arch``'s smoke
+    config, 24 single-token decode steps against one forward. Returns the
+    relative error of the logits."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import init_params
+
+    cfg = get_config(arch).smoke()
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    params = init_params(M.decl_model(cfg), g)
+    tokens = torch.randint(0, cfg.vocab, (2, 24), device=dev, generator=g, dtype=torch.int32)
+    with torch.inference_mode():
+        full, _, _ = M.forward(params, cfg, tokens=tokens)
+        cache = M.init_cache(params, cfg, 2, 24)
+        dec = torch.cat([M.decode_step(params, cfg, cache, tokens[:, t:t + 1], t)[0]
+                         for t in range(24)], dim=1)
+    err = float((dec - full).abs().max() / full.abs().max())
+    if not err < DECODE_RTOL:
+        raise AssertionError(f"{arch} smoke on the card: decode against forward {err:.3e}")
+    return err
+
+
+def model_phase(dev, registry, log, smi):
+    """The model serving path (A13, dense and MoE) on the card.
+
+    (a) The decode demo, ``launch.serve.main``, at tinyllama-1.1b's full
+    config (22 layers, d_model 2048, 32 heads, kv 4, vocab 32000, bfloat16):
+    batch 4, prompt 32, gen 32; and the smoke configs of tinyllama and dbrx
+    in float32, decode against forward.
+    (b) dbrx-132b at full width, its depth cut to :data:`DBRX_LAYERS` layers:
+    its 40 layers are 132B parameters, 264 GB in bfloat16, and one card
+    holds 80 GB; two layers are about 7.8B parameters (15.5 GB). Every width
+    stays (d_model 6144, 48 heads, kv 8, d_ff 10752, 16 experts top-4,
+    vocab 100352, ``dispatch="multisplit"``). ``forward`` on 2 x 2048 tokens
+    in bfloat16 launches B11, K1 and K3 (counted), and each layer's MoE
+    ranks and counts are bitwise the plain multisplit's (``vmap``) and the
+    stable sort's on the same expert ids; 16 decode steps from
+    ``init_cache`` (the device time by kernel kind is
+    :func:`model_trace_phase`'s). Then, after the bfloat16 run has freed
+    its memory, ``forward`` in float32 from the same parameters, once on the
+    kernels and once on their plain versions (backend ``vmap``,
+    ``flash_attention_plain``): the share of tokens whose top-4 experts agree
+    in both layers, and the logits of the tokens before the first that
+    differs in their sequence held to :data:`DBRX_LOGIT_RTOL`.
+    Returns the launch counts of the demo and of the bfloat16 forward and
+    decode."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel.sharding import init_params, param_count, tree_map
+
+    torch.cuda.empty_cache()              # dbrx's float32 run holds about 46 GiB
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    # ---- (a) the decode demo at tinyllama-1.1b's full config
+    registry.reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        gen_tokens = serve.main(["--arch", "tinyllama-1.1b", "--batch", "4", "--prompt-len", "32",
+                                 "--gen-len", "32", "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    demo = {k: v for k, v in registry.launch_counts().items() if v}
+    add(demo)
+    text = out.getvalue()
+    step = re.search(r"([\d.]+) ms/step, ([\d.]+) tok/s", text)
+    in_vocab = bool(((gen_tokens >= 0) & (gen_tokens < 32000)).all())
+    if gen_tokens.shape != (4, 32) or not step or not in_vocab:
+        raise AssertionError(f"the decode demo's output is wrong: {tuple(gen_tokens.shape)}\n"
+                             f"{text}")
+    for line in text.strip().splitlines():
+        log("model", line)
+    log("model", f"decode demo tinyllama-1.1b full config, bfloat16, batch 4, prompt 32, gen 32 "
+                 f"(63 decode steps, eager): {step.group(1)} ms/step, {step.group(2)} tok/s "
+                 f"[host clock around the steps; {smi}]; kernel launches {demo or 'none'} (a "
+                 f"dense model's decode step runs no kernel of the port)")
+    errs = {arch: decode_matches_forward(arch, dev) for arch in ("tinyllama-1.1b", "dbrx-132b")}
+    log("model", f"smoke configs on the card, float32, 24 decode steps against one forward: "
+                 + ", ".join(f"{a} {e:.2e}" for a, e in errs.items())
+                 + f" (relative, limit {DECODE_RTOL})")
+
+    # ---- (b) dbrx-132b at full width, 2 layers
+    cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=DBRX_LAYERS)
+    decls = M.decl_model(cfg)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(decls, g, torch.bfloat16)
+    torch.cuda.synchronize()
+    log("model", f"dbrx-132b at {DBRX_LAYERS} layers (full: 40), every width kept: "
+                 f"{param_count(decls) / 1e9:.3f}B parameters, "
+                 f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card in bfloat16, drawn "
+                 f"in {time.perf_counter() - t0:.2f} s")
+    tokens = torch.randint(0, cfg.vocab, (DBRX_BATCH, DBRX_SEQ), device=dev, generator=g,
+                           dtype=torch.int32)
+
+    routed = []                                  # (flat expert ids, ranks, counts) a layer
+    ranks_fn = moe_mod._ranks_multisplit
+
+    def recording(ids, e, *a, **kw):
+        r = ranks_fn(ids, e, *a, **kw)
+        routed.append((ids.clone(), r[0].clone(), r[1].clone()))
+        return r
+
+    moe_mod._ranks_multisplit = recording
+    try:
+        with torch.inference_mode():
+            registry.reset_launches()
+            logits, _, aux = M.forward(params, cfg, tokens=tokens)
+            torch.cuda.synchronize()
+            fwd = {k: v for k, v in registry.launch_counts().items() if v}
+    finally:
+        moe_mod._ranks_multisplit = ranks_fn
+    add(fwd)
+    for name in ("flash_attention", "spec_tile_histograms", "spec_tile_positions"):
+        if not fwd.get(name):
+            raise AssertionError(f"dbrx forward did not launch {name}: {fwd}")
+    if logits.shape != (DBRX_BATCH, DBRX_SEQ, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"dbrx forward: logits {tuple(logits.shape)}, not all finite")
+    for layer, (ids, ranks, cnt) in enumerate(routed):
+        for backend_ranks, what in ((ranks_fn(ids, cfg.moe.num_experts, backend="vmap",
+                                              device=dev), "the plain multisplit (vmap)"),
+                                    (moe_mod._ranks_sort(ids, cfg.moe.num_experts, device=dev),
+                                     "the stable sort")):
+            if not (bits_equal(ranks, backend_ranks[0]) and bits_equal(cnt, backend_ranks[1])):
+                raise AssertionError(f"dbrx layer {layer}: MoE ranks or counts differ from {what}")
+    with torch.inference_mode():
+        fwd_ms = event_ms(lambda: M.forward(params, cfg, tokens=tokens), reps=3, inner=1)
+    log("model", f"dbrx forward bfloat16, {DBRX_BATCH} x {DBRX_SEQ} tokens: {fwd_ms:.2f} ms "
+                 f"[CUDA events, median of 3; {smi}]; launches {fwd}; load balance "
+                 f"{float(aux.load_balance):.4f}, drop {float(aux.drop_fraction):.4f}; MoE ranks "
+                 f"and counts of both layers bitwise the plain multisplit and the stable sort")
+
+    with torch.inference_mode():
+        cache = M.init_cache(params, cfg, DBRX_BATCH, DBRX_DECODE_STEPS)
+        registry.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(DBRX_DECODE_STEPS):
+            step_logits, cache = M.decode_step(params, cfg, cache, tokens[:, t:t + 1], t)
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) * 1e3 / DBRX_DECODE_STEPS
+        dec = {k: v for k, v in registry.launch_counts().items() if v}
+    add(dec)
+    if (step_logits.shape != (DBRX_BATCH, 1, cfg.vocab)
+            or not bool(torch.isfinite(step_logits).all())):
+        raise AssertionError("dbrx decode: logits not finite or of the wrong shape")
+    log("model", f"dbrx {DBRX_DECODE_STEPS} decode steps from init_cache, bfloat16, batch "
+                 f"{DBRX_BATCH}: {dec_ms:.2f} ms/step [host clock; {smi}]; launches {dec}")
+    del logits, cache, step_logits, routed
+
+    # ---- float32: the kernels against their plain versions, same parameters
+    params = tree_map(lambda t: t.float(), params)
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    experts = {}
+    router = moe_mod._router
+
+    def keep_experts(tag):
+        def fn(p, xn, c, **kw):
+            out = router(p, xn, c, **kw)
+            experts.setdefault(tag, []).append(out[1].sort(-1).values.clone())
+            return out
+        return fn
+
+    got = {}
+    try:
+        with torch.inference_mode():
+            for tag, backend in (("kernels", "cuda"), ("plain", "vmap")):
+                moe_mod._router = keep_experts(tag)
+                got[tag] = M.forward(params, cfg32, tokens=tokens, backend=backend)[0]
+                torch.cuda.synchronize()
+    finally:
+        moe_mod._router = router
+    same = torch.stack([(a == b).all(-1)
+                        for a, b in zip(experts["kernels"], experts["plain"])]).all(0)
+    same = same.view(DBRX_BATCH, DBRX_SEQ)
+    share = float(same.float().mean())
+    # a token whose experts differ changes what later tokens of its row read
+    # in the next layer's attention: hold the tokens before the first such
+    prefix = torch.cumprod(same.int(), dim=1).bool()
+    a, b = got["kernels"][prefix], got["plain"][prefix]
+    err = float((a - b).abs().max() / b.abs().max())
+    log("model", f"dbrx forward float32 ({torch.cuda.memory_allocated() / 2**30:.1f} GiB held "
+                 f"after both), kernels (B11 3xTF32, K1, K3) against their plain versions "
+                 f"(vmap, flash_attention_plain): top-4 experts agree for {share:.6f} of "
+                 f"{DBRX_BATCH * DBRX_SEQ} tokens in both layers; logits of the "
+                 f"{int(prefix.sum())} tokens before the first that differs in their row: "
+                 f"max abs err {float((a - b).abs().max()):.3e}, relative {err:.3e} (limit "
+                 f"{DBRX_LOGIT_RTOL})")
+    if not err < DBRX_LOGIT_RTOL or int(prefix.sum()) < DBRX_BATCH * DBRX_SEQ // 2:
+        raise AssertionError(f"dbrx float32: kernels against plain versions {err:.3e} over "
+                             f"{int(prefix.sum())} tokens")
+    del params, got, experts
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -3360,6 +3954,12 @@ def main() -> int:
         launches[name] += count
     resilience_phase(dev, gen, s1_starts, registry, max_err, log, smi)
 
+    # ---- 5n. the distributed stage (A12) and 5o. the model serving path (A13,
+    # dense and MoE), each with its own launch counts
+    for phase in (distributed_phase, model_phase):
+        for name, count in phase(dev, registry, log, smi).items():
+            launches[name] += count
+
     for name in launches:
         if launches[name] == 0:
             raise AssertionError(f"{name} was launched on none of the paths")
@@ -4190,6 +4790,7 @@ def main() -> int:
         raise AssertionError(f"causal / non-causal time at A1 is {ratio:.3f}, not below 0.65")
     s3_host_phase(dev, gen, s3_starts, log, smi)
     serving_trace_phase(dev, log, smi)
+    model_trace_phase(dev, log, smi)
     log("times", f"peak device memory of the timed runs above the inputs: "
                  f"{(torch.cuda.max_memory_allocated() - base_mem) / 2**30:.2f} GiB")
 

@@ -1,4 +1,5 @@
-"""Carry bucket specs and arrays across from the JAX package.
+"""Carry bucket specs, arrays, model configs and parameter trees across
+from the JAX package.
 
 The JAX package's specs are frozen dataclasses with the same class names
 and fields as the port's. :func:`spec_from_fields` rebuilds the port's spec
@@ -6,7 +7,11 @@ from a class name and a field dictionary, such as ``type(s).__name__`` and
 ``dataclasses.asdict(s)`` of a JAX spec, so that the tests and
 ``chip_smoke.py`` hand both packages the same spec. :func:`tensor_from_numpy`
 carries an array, ``np.asarray`` of a JAX array, into a tensor bit for bit.
-This module imports nothing of the JAX package: it reads only plain values.
+:func:`convert_config` reads a JAX ``ModelConfig`` field by field into the
+port's, and :func:`params_from_numpy` carries a parameter tree of numpy
+arrays (``jax.tree.map(np.asarray, params)``) into the port's tree on a
+device, bit for bit. This module imports nothing of the JAX package: it
+reads only plain values.
 """
 
 from __future__ import annotations
@@ -17,7 +22,9 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig
 from repro_torch.core import identifiers as _id
+from repro_torch.parallel.sharding import tree_map
 
 _KINDS = {
     "DeltaSpec": _id.DeltaSpec,
@@ -55,3 +62,17 @@ def tensor_from_numpy(a: np.ndarray, device: Optional[torch.device] = None) -> t
     else:
         t = torch.from_numpy(a)
     return t if device is None else t.to(device)
+
+
+def convert_config(cfg) -> ModelConfig:
+    """The port's counterpart of a ``ModelConfig`` (a JAX one included), read
+    by its fields; its nested MoE and SSM configs likewise."""
+    fields = dataclasses.asdict(cfg)
+    return ModelConfig(**{**fields, "moe": MoEConfig(**fields["moe"]),
+                          "ssm": SSMConfig(**fields["ssm"])})
+
+
+def params_from_numpy(tree, device: Optional[torch.device] = None):
+    """A parameter tree of numpy arrays (nested dicts and lists, as the JAX
+    package's) as the port's tree of tensors on ``device``, bit for bit."""
+    return tree_map(lambda a: tensor_from_numpy(a, device), tree)

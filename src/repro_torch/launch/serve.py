@@ -1,4 +1,18 @@
-"""Serving launcher (counterpart of ``repro/launch/serve.py``).
+"""Serving launcher (counterpart of ``repro/launch/serve.py``): two entry
+points behind one CLI, on the card by default.
+
+Batched incremental decoding with a KV cache (the model demo)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        --smoke --batch 4 --prompt-len 32 --gen-len 32
+
+``--smoke`` runs the reduced config. Parameters are drawn from ``--seed``
+in the config's dtype on ``--device``; prompts are consumed through the
+decode path (single-token steps), then generation continues greedily. The
+JAX demo jits its step; the port runs it eagerly under
+``torch.inference_mode()``, so a small batch's ms/step is the time the host
+takes to issue the step. Only the ``dense`` and ``moe`` families are served
+(the rest come with ROADMAP A13a), and with no mesh: one device.
 
 Continuous-batching traffic over the segmented routing plan (DESIGN.md §16)
 — many concurrent synthetic users coalesced into ONE segmented multisplit
@@ -12,16 +26,15 @@ the run prints the exported metrics (p50/p95/p99 latency, sustained QPS,
 occupancy, shed/failed/retry counters) and conservation-checks that no
 request was silently dropped. ``--device cpu`` runs the kernels' plain
 versions on the host.
-
-The JAX launcher's decode demo (``--arch``) needs the model stack, which
-the port does not have yet (ROADMAP A13): without ``--traffic`` the
-launcher exits with an error that says so.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+
+import numpy as np
+import torch
 
 
 def run_traffic(args) -> dict:
@@ -72,10 +85,65 @@ def run_traffic(args) -> dict:
     return s
 
 
+def run_decode(args) -> torch.Tensor:
+    """The decode demo: ``decl_model`` -> ``init_params`` on the device ->
+    ``init_cache`` -> the prompt through ``decode_step`` one token at a
+    time -> greedy generation. Prints the parameter count, ms/step, tok/s
+    and a sample continuation; returns the generated tokens (B, gen_len) on
+    the host."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import init_params, param_count
+
+    cfg = get_config(args.arch).smoke() if args.smoke else get_config(args.arch)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the decode demo runs on the card by default and none is present; "
+                           "pass --device cpu to run it on the host")
+    max_len = args.prompt_len + args.gen_len
+    decls = M.decl_model(cfg)
+    print(f"[serve] {cfg.name}: {param_count(decls) / 1e6:.1f}M params, {cfg.dtype}, "
+          f"device {device}")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    params = init_params(decls, gen, getattr(torch, cfg.dtype))
+    prompts = np.random.RandomState(args.seed).randint(
+        1, cfg.vocab, size=(args.batch, args.prompt_len), dtype=np.int32)
+    tokens = torch.from_numpy(prompts).to(device)
+
+    def step(cache, tok, t):
+        logits, cache = M.decode_step(params, cfg, cache, tok, t)
+        return logits[:, -1].argmax(-1).to(torch.int32), cache
+
+    with torch.inference_mode():
+        cache = M.init_cache(params, cfg, args.batch, max_len=max_len)
+        sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        nxt = None
+        for t in range(args.prompt_len):          # the prompt, token by token
+            nxt, cache = step(cache, tokens[:, t:t + 1], t)
+        generated = [nxt]
+        for t in range(args.prompt_len, max_len - 1):
+            nxt, cache = step(cache, generated[-1][:, None], t)
+            generated.append(nxt)
+        gen_tokens = torch.stack(generated, dim=1).cpu()
+        dt = time.perf_counter() - t0
+    n_steps = args.prompt_len + len(generated) - 1
+    print(f"[serve] {n_steps} decode steps, batch {args.batch}: "
+          f"{1000 * dt / n_steps:.1f} ms/step, {args.batch * n_steps / dt:.1f} tok/s")
+    print(f"[serve] sample continuation: {gen_tokens[0, :16].tolist()}")
+    return gen_tokens
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
-                    help="the decode demo's model (needs the model stack, ROADMAP A13)")
+                    help="model arch for the decode demo (required unless --traffic)")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--traffic", action="store_true",
                     help="serve synthetic open-loop traffic through the "
@@ -92,10 +160,11 @@ def main(argv=None):
     ap.add_argument("--fault-rate", type=float, default=0.0)
     args = ap.parse_args(argv)
 
-    if not args.traffic:
-        ap.error("only --traffic is served: the decode demo (--arch) needs the model "
-                 "stack, which comes with ROADMAP A13")
-    return run_traffic(args)
+    if args.traffic:
+        return run_traffic(args)
+    if args.arch is None:
+        ap.error("--arch is required unless --traffic is given")
+    return run_decode(args)
 
 
 if __name__ == "__main__":

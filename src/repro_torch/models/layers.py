@@ -1,0 +1,379 @@
+"""Core neural layers, functional PyTorch (counterpart of
+``repro/models/layers.py``).
+
+Attention takes one of two routes, chosen by the call's shape and never by
+catching an error (:func:`multihead_attention`): inside B11's contract
+(self-attention, causal, no window, ``q_offset == 0``, ``S == T``, a head
+width that is a multiple of 8 up to 256, no ``probs_bf16``) it goes through
+the B11 door ``repro_torch.kernels.ops.flash_attention`` — the Hopper kernel
+for a CUDA tensor, its plain version for a CPU one; every other call
+(sliding window, cross-attention, the ``probs_bf16`` lever) runs the JAX
+package's triangular block schedule in plain PyTorch. A launch of B11 that
+fails raises.
+
+The tensor-parallel branches of the JAX function (``tp > 1``: kv heads
+expanded or padded to the TP width, layout anchors) are dead on one device
+and have no port; neither have the JAX compile levers ``unroll`` and
+``pad_heads``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ops as kops
+from repro_torch.parallel.sharding import ParamDecl
+
+Tensor = torch.Tensor
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def norm_decl(cfg: ModelConfig, d: Optional[int] = None):
+    d = d or cfg.d_model
+    if cfg.norm == "layernorm":
+        return {
+            "scale": ParamDecl((d,), ("embed",), init="ones"),
+            "bias": ParamDecl((d,), ("embed",), init="zeros"),
+        }
+    return {"scale": ParamDecl((d,), ("embed",), init="ones")}
+
+
+def apply_norm(p, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """Stats in fp32, elementwise math in the activation dtype (the JAX
+    package's mixed-precision form)."""
+    if cfg.norm == "layernorm":
+        mu = x.mean(-1, keepdim=True, dtype=torch.float32)
+        var = (x.float() - mu).square().mean(-1, keepdim=True)
+        inv = torch.rsqrt(var + 1e-5).to(x.dtype)
+        return (x - mu.to(x.dtype)) * inv * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
+    var = x.square().mean(-1, keepdim=True, dtype=torch.float32)
+    inv = torch.rsqrt(var + 1e-6).to(x.dtype)
+    return x * inv * p["scale"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (with partial-rotary support for stablelm-2)
+# ---------------------------------------------------------------------------
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float, pct: float = 1.0) -> Tensor:
+    """x: (..., S, H, hd); positions: (..., S) integers."""
+    hd = x.shape[-1]
+    rot = int(hd * pct) // 2 * 2
+    if rot == 0:
+        return x
+    xr, xp = x[..., :rot], x[..., rot:]
+    exps = -torch.arange(0, rot, 2, dtype=torch.float32, device=x.device) / rot
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exps)
+    ang = positions[..., None].to(torch.float32) * freqs              # (..., S, rot/2)
+    cos = torch.cos(ang)[..., None, :]                                 # broadcast over heads
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x1 * sin + x2 * cos
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
+    return torch.cat([yr, xp.to(yr.dtype)], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention: declarations
+# ---------------------------------------------------------------------------
+
+def attention_decl(cfg: ModelConfig, cross: bool = False):
+    d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd()
+    decl = {
+        "wq": ParamDecl((d, h, hd), ("embed", "heads", None)),
+        "wk": ParamDecl((d, k, hd), ("embed", "kv_heads", None)),
+        "wv": ParamDecl((d, k, hd), ("embed", "kv_heads", None)),
+        "wo": ParamDecl((h, hd, d), ("heads", None, "embed_fsdp")),
+        "norm": norm_decl(cfg),
+    }
+    if cross:
+        decl["norm_kv"] = norm_decl(cfg)
+    return decl
+
+
+# ---------------------------------------------------------------------------
+# Attention: the B11 route and the plain triangular block schedule
+# ---------------------------------------------------------------------------
+
+def _block_pairs(n_q: int, n_kv: int, causal: bool, window_chunks: Optional[int]):
+    """Static schedule of visible (q_chunk, kv_chunk) pairs."""
+    pairs = []
+    for qi in range(n_q):
+        for kj in range(n_kv):
+            if causal and kj > qi:
+                continue
+            if window_chunks is not None and kj < qi - window_chunks:
+                continue
+            pairs.append((qi, kj))
+    return np.array(pairs, dtype=np.int32).reshape(-1, 2)
+
+
+def b11_route(q: Tensor, k: Tensor, *, causal: bool, window: Optional[int], q_offset: int,
+              probs_bf16: bool) -> bool:
+    """Whether a :func:`multihead_attention` call lies inside B11's
+    contract and goes through the kernel door."""
+    hd = q.shape[-1]
+    return (causal and window is None and q_offset == 0 and q.shape[1] == k.shape[1]
+            and hd % 8 == 0 and hd <= _fa.MAX_HEAD_DIM and not probs_bf16
+            and q.dtype in _fa.DTYPES)
+
+
+def _attention_b11(q: Tensor, k: Tensor, v: Tensor, backend: str) -> Tensor:
+    """Causal self-attention through the B11 door: kv heads repeated to the
+    q heads (q head h reads kv head h // g, the JAX grouping), batch and
+    heads folded into (B·H, S, hd). The door's blocks divide S (256 where
+    they can, else S itself); on the card they change nothing but the
+    order of rounding."""
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    if g > 1:
+        k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+    fold = lambda x: x.transpose(1, 2).reshape(b * h, s, hd)
+    blk = 256 if s % 256 == 0 else s
+    attend = kops.flash_attention if backend == "cuda" else _fa.flash_attention_plain
+    out = attend(fold(q), fold(k), fold(v), True, blk, blk)
+    return out.view(b, h, s, hd).transpose(1, 2)
+
+
+def _attention_blocks(q, k, v, *, causal, chunk, window, q_offset, probs_bf16) -> Tensor:
+    """The JAX function's chunked online softmax over its static schedule of
+    visible (q chunk, kv chunk) pairs, in plain PyTorch; the state is kept
+    per q chunk, which visits its kv chunks in the schedule's order."""
+    b, s, h, hd = q.shape
+    t, n_kv_heads = k.shape[1], k.shape[2]
+    g = h // n_kv_heads
+    chunk = min(chunk, s, t)
+    s_pad, t_pad = (-s) % chunk, (-t) % chunk
+    qp = F.pad(q, (0, 0, 0, 0, 0, s_pad))
+    kp = F.pad(k, (0, 0, 0, 0, 0, t_pad))
+    vp = F.pad(v, (0, 0, 0, 0, 0, t_pad))
+    n_q, n_kv = qp.shape[1] // chunk, kp.shape[1] // chunk
+    window_chunks = None if window is None else (window + chunk - 1) // chunk + 1
+    pairs = _block_pairs(n_q, n_kv, causal, window_chunks)
+
+    qp = qp.view(b, n_q, chunk, n_kv_heads, g, hd)
+    kp = kp.view(b, n_kv, chunk, n_kv_heads, hd)
+    vp = vp.view(b, n_kv, chunk, n_kv_heads, hd)
+    scale = 1.0 / np.sqrt(hd)
+    pos = torch.arange(max(n_q, n_kv) * chunk, device=q.device)
+    out = torch.zeros((b, n_q, n_kv_heads, g, chunk, hd), dtype=torch.float32, device=q.device)
+    for qi in range(n_q):
+        kjs = pairs[pairs[:, 0] == qi, 1]
+        if not len(kjs):
+            continue
+        acc = torch.zeros((b, n_kv_heads, g, chunk, hd), dtype=torch.float32, device=q.device)
+        m = torch.full((b, n_kv_heads, g, chunk), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        qpos = q_offset + pos[qi * chunk:(qi + 1) * chunk]
+        for kj in kjs.tolist():
+            kpos = pos[kj * chunk:(kj + 1) * chunk]
+            vc = vp[:, kj]
+            scores = torch.einsum("bikgd,bjkd->bkgij", qp[:, qi], kp[:, kj]).float() * scale
+            mask = (kpos < t)[None, :]                                   # kv padding
+            if causal:
+                mask = mask & (qpos[:, None] >= kpos[None, :])
+            if window is not None:
+                mask = mask & (qpos[:, None] - kpos[None, :] < window)
+            scores = torch.where(mask, scores, NEG_INF)
+            m_new = torch.maximum(m, scores.amax(-1))
+            p = torch.exp(scores - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            if probs_bf16:
+                dt = torch.promote_types(torch.bfloat16, vc.dtype)
+                pv = torch.einsum("bkgij,bjkd->bkgid", p.to(torch.bfloat16).to(dt),
+                                  vc.to(dt)).float()
+            else:
+                pv = torch.einsum("bkgij,bjkd->bkgid", p, vc.float())
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out[:, qi] = acc / torch.clamp(l[..., None], min=1e-30)
+    out = out.permute(0, 1, 4, 2, 3, 5).reshape(b, n_q * chunk, h, hd)[:, :s]
+    return out.to(q.dtype)
+
+
+def multihead_attention(
+    q: Tensor,                   # (B, S, H, hd)
+    k: Tensor,                   # (B, T, K, hd)
+    v: Tensor,                   # (B, T, K, hd)
+    *,
+    causal: bool,
+    chunk: int = 1024,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    probs_bf16: bool = False,
+    backend: str = "cuda",
+) -> Tensor:
+    """Online-softmax attention; GQA: H a multiple of K. ``window`` masks
+    to a sliding window (h2o-danube). Returns (B, S, H, hd).
+
+    A call inside B11's contract (:func:`b11_route`) goes through the
+    kernel door on the ``cuda`` backend and through the kernel's plain
+    version ``flash_attention_plain`` on any other (the same online
+    softmax); every other call runs the JAX package's triangular block
+    schedule (chunks of ``chunk``) in plain PyTorch."""
+    if b11_route(q, k, causal=causal, window=window, q_offset=q_offset,
+                 probs_bf16=probs_bf16):
+        return _attention_b11(q, k, v, backend)
+    return _attention_blocks(q, k, v, causal=causal, chunk=chunk, window=window,
+                             q_offset=q_offset, probs_bf16=probs_bf16)
+
+
+def decode_attention(
+    q: Tensor,                   # (B, 1, H, hd)
+    k_cache: Tensor,             # (B, T, K, hd)  (already roped)
+    v_cache: Tensor,             # (B, T, K, hd)
+    kv_positions: Tensor,        # (T,) or (B, T) absolute positions, -1 = invalid
+    q_position: Tensor,          # scalar — position of the new token
+    *,
+    window: Optional[int] = None,
+) -> Tensor:
+    """Single-token attention over a (ring-buffered) cache, plain PyTorch."""
+    b, _, h, hd = q.shape
+    n_kv_heads = k_cache.shape[2]
+    g = h // n_kv_heads
+    qg = q.reshape(b, 1, n_kv_heads, g, hd)
+    scores = torch.einsum("bikgd,bjkd->bkgj", qg, k_cache).float() / np.sqrt(hd)
+    if kv_positions.dim() == 1:
+        kv_positions = kv_positions[None, :]
+    valid = (kv_positions >= 0) & (kv_positions <= q_position)
+    if window is not None:
+        valid = valid & (q_position - kv_positions < window)
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgj,bjkd->bkgd", p, v_cache.float())
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def _write_cache(cache: dict, k: Tensor, v: Tensor, positions: Tensor, window) -> None:
+    """Append this step's K/V and positions to a layer's cache in place, at
+    ``pos`` (ring: ``pos mod size``) clamped so the slice fits, as
+    ``dynamic_update_slice`` clamps; then advance ``pos``."""
+    size, s = cache["k"].shape[1], k.shape[1]
+    slot = cache["pos"] % size if window is not None else cache["pos"]
+    idx = slot.clamp(max=size - s).long() + torch.arange(s, device=k.device)
+    cache["k"].index_copy_(1, idx, k)
+    cache["v"].index_copy_(1, idx, v)
+    cache["positions"].index_copy_(0, idx, positions.to(torch.int32))
+    cache["pos"].add_(s)
+
+
+def attention_block(
+    p,
+    x: Tensor,                   # (B, S, d)
+    cfg: ModelConfig,
+    *,
+    positions: Tensor,           # (S,) absolute positions of x
+    kv_src: Optional[Tensor] = None,   # cross-attention source (B, Skv, d)
+    cache: Optional[dict] = None,      # decode cache for this layer
+    window: Optional[int] = None,
+    cross: bool = False,
+    backend: str = "cuda",
+) -> Tuple[Tensor, Optional[dict]]:
+    """Pre-norm attention block: returns (residual delta, cache).
+
+    ``cross=True`` attends to ``kv_src`` (or, during decode, to the
+    precomputed K/V held in ``cache``) with no causal mask. A self-attention
+    cache (one token a step) is updated in place and returned, where the
+    JAX function returns a new one."""
+    dtype = x.dtype
+    xn = apply_norm(p["norm"], x, cfg)
+    q = torch.einsum("bsd,dhk->bshk", xn, p["wq"].to(dtype))
+    if cross and cache is not None:
+        k = v = None                      # K/V precomputed in the cache
+    else:
+        src = apply_norm(p["norm_kv"], kv_src, cfg) if cross else xn
+        k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(dtype))
+        v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(dtype))
+
+    if not cross:
+        q = apply_rope(q, positions[None, :], cfg.rope_theta, cfg.rope_pct)
+        k = apply_rope(k, positions[None, :], cfg.rope_theta, cfg.rope_pct)
+
+    attend = dict(chunk=cfg.attn_chunk, probs_bf16=cfg.attn_probs_bf16, backend=backend)
+    if cache is not None and not cross:
+        _write_cache(cache, k, v, positions, window)
+        out = decode_attention(q, cache["k"], cache["v"], cache["positions"], positions[0],
+                               window=window)
+    elif cache is not None:
+        out = multihead_attention(q, cache["k"], cache["v"], causal=False, **attend)
+    else:
+        out = multihead_attention(q, k, v, causal=not cross, window=window, q_offset=0,
+                                  **attend)
+        cache = None
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype))
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def mlp_decl(cfg: ModelConfig):
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "norm": norm_decl(cfg),
+        "w_gate": ParamDecl((d, f), ("embed", "ff")),
+        "w_up": ParamDecl((d, f), ("embed", "ff")),
+        "w_down": ParamDecl((f, d), ("ff", "embed_fsdp")),
+    }
+
+
+def mlp_block(p, x: Tensor, cfg: ModelConfig) -> Tensor:
+    dtype = x.dtype
+    xn = apply_norm(p["norm"], x, cfg)
+    gate = torch.einsum("bsd,df->bsf", xn, p["w_gate"].to(dtype))
+    up = torch.einsum("bsd,df->bsf", xn, p["w_up"].to(dtype))
+    act = F.silu(gate.float()).to(dtype) * up
+    return torch.einsum("bsf,fd->bsd", act, p["w_down"].to(dtype))
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+def embed_decl(cfg: ModelConfig):
+    decl = {}
+    vp = cfg.padded_vocab()
+    if not cfg.embed_frontend_stub:
+        decl["tok"] = ParamDecl((vp, cfg.d_model), ("vocab", "embed"), scale=0.02)
+    if not cfg.tie_embeddings:
+        decl["head"] = ParamDecl((cfg.d_model, vp), ("embed", "vocab"))
+    decl["norm_f"] = norm_decl(cfg)
+    return decl
+
+
+def embed_tokens(p, tokens: Tensor, cfg: ModelConfig) -> Tensor:
+    return F.embedding(tokens.long(), p["tok"]).to(_dt(cfg))
+
+
+def lm_head(p, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """Final norm + projection to vocab. x: (B, S, d) -> (B, S, V_padded)."""
+    xn = apply_norm(p["norm_f"], x, cfg)
+    w = (p["tok"].t() if cfg.tie_embeddings else p["head"]).to(x.dtype)
+    logits = torch.einsum("bsd,dv->bsv", xn, w)
+    if cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    vp = cfg.padded_vocab()
+    if vp != cfg.vocab:
+        # mask padded vocab columns so they never win softmax/argmax
+        col = torch.arange(vp, device=x.device)
+        logits = torch.where(col < cfg.vocab, logits,
+                             torch.tensor(-1e9, dtype=logits.dtype, device=x.device))
+    return logits
+
+
+def _dt(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)

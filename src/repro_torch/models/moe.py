@@ -21,22 +21,82 @@ package passes ``min(DISPATCH_TILE, n)``; on ``cuda`` the port leaves the
 tile to ``core/pipeline/tiles.py`` (a tile changes no bits, and K1s writes a
 whole L·s·E row of H a tile), on ``vmap`` it passes the JAX package's.
 
-``MoEAux``, ``_router``, ``moe_block`` and the expert dispatch come with the
-model stack (ROADMAP A13).
+The MoE block (counterpart of ``moe.py:41-80, 226-410``): :func:`moe_decl`,
+:func:`_router` (softmax, top-k, the Switch load-balance and z losses; its
+top-1 load count is :func:`expert_load_stats`, a ``counts_only`` call),
+:func:`_expert_ffn` and :func:`moe_block` with three dispatches that give
+the same output: ``dense`` (every expert on every token), ``sort`` (ranks
+from :func:`_ranks_sort`) and ``multisplit`` (ranks from
+:func:`_ranks_multisplit`, one ``positions_only`` call: K1 + K3 on the
+card). ``multisplit_ep`` does what the JAX block does with no mesh in
+scope: the ``multisplit`` dispatch (its expert-parallel body over a process
+group comes with the mesh slice). The block's ``backend`` is that of the
+routing calls; they run where the activations lie.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import ops
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pipeline import get_backend, segment_ids_from_starts
+from repro_torch.models.layers import apply_norm, mlp_block, mlp_decl, norm_decl
+from repro_torch.parallel.sharding import ParamDecl
 
 Tensor = torch.Tensor
 
 DISPATCH_TILE = 2048
+
+
+class MoEAux(NamedTuple):
+    load_balance: Tensor
+    router_z: Tensor
+    drop_fraction: Tensor
+
+
+def moe_decl(cfg: ModelConfig):
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    decl = {
+        "norm": norm_decl(cfg),
+        "router": ParamDecl((d, e), ("embed", "experts"), scale=0.02),
+        "w_gate": ParamDecl((e, d, f), ("experts", "embed", "ff")),
+        "w_up": ParamDecl((e, d, f), ("experts", "embed", "ff")),
+        "w_down": ParamDecl((e, f, d), ("experts", "ff", "embed")),
+    }
+    if cfg.moe.shared_expert:
+        decl["shared"] = mlp_decl(cfg)
+    return decl
+
+
+def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    cap = int(math.ceil(n_tokens * k / e * cfg.moe.capacity_factor))
+    return max(8, -(-cap // 8) * 8)
+
+
+def _router(p, xn: Tensor, cfg: ModelConfig, *, backend: str = "cuda"):
+    """xn: (n, d) -> (gates (n, k), experts (n, k), load-balance loss,
+    z-loss). The top-1 dispatch fraction is a ``counts_only`` call
+    (:func:`expert_load_stats`): exact integer counts."""
+    logits = torch.einsum("nd,de->ne", xn, p["router"].to(xn.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    gates, experts = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    experts = experts.to(torch.int32)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    e = cfg.moe.num_experts
+    me = probs.mean(0)
+    counts, _ = expert_load_stats(experts[:, 0].contiguous(), e, backend=backend,
+                                  device=xn.device)
+    ce = counts.float() / experts.shape[0]
+    lb = e * torch.sum(me * ce)
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return gates, experts, lb, z
 
 
 def _place(x, device) -> Tensor:
@@ -161,3 +221,64 @@ def _ranks_sort(expert_ids, num_experts: int, *, device="cuda") -> Tuple[Tensor,
     ranks = torch.zeros(n, dtype=torch.int32, device=ids.device).index_copy_(0, order,
                                                                             ranks_sorted)
     return ranks, counts
+
+
+def _expert_ffn(p, x: Tensor, dtype) -> Tensor:
+    """x: (E, C, d) -> (E, C, d), SwiGLU per expert (batched over E)."""
+    gate = torch.einsum("ecd,edf->ecf", x, p["w_gate"].to(dtype))
+    up = torch.einsum("ecd,edf->ecf", x, p["w_up"].to(dtype))
+    act = F.silu(gate.float()).to(dtype) * up
+    return torch.einsum("ecf,efd->ecd", act, p["w_down"].to(dtype))
+
+
+def moe_block(p, x: Tensor, cfg: ModelConfig, *, backend: str = "cuda") -> Tuple[Tensor, MoEAux]:
+    """x: (B, S, d) -> (residual delta, aux losses)."""
+    if cfg.moe.dispatch == "multisplit_ep":
+        # no process group in scope: the JAX block's own fallback
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch="multisplit"))
+    b, s, d = x.shape
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    dtype = x.dtype
+    xn = apply_norm(p["norm"], x, cfg).reshape(b * s, d)
+    n = b * s
+    gates, experts, lb, z = _router(p, xn, cfg, backend=backend)
+
+    if cfg.moe.dispatch == "dense":
+        # every expert on every token (no data movement, O(n·E) compute)
+        all_out = _expert_ffn(p, xn[None].expand(e, n, d), dtype)          # (E, n, d)
+        combine = torch.zeros((n, e), dtype=torch.float32, device=x.device)
+        combine.scatter_add_(1, experts.long(), gates)
+        y = torch.einsum("ne,end->nd", combine.to(dtype), all_out)
+        drop = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        cap = _capacity(n, cfg)
+        flat_experts = experts.reshape(-1)                          # (n·k,) virtual tokens
+        if cfg.moe.dispatch == "multisplit":
+            ranks, _ = _ranks_multisplit(flat_experts, e, backend=backend, device=x.device)
+        elif cfg.moe.dispatch == "sort":
+            ranks, _ = _ranks_sort(flat_experts, e, device=x.device)
+        else:
+            raise ValueError(f"unknown dispatch {cfg.moe.dispatch!r}")
+
+        keep = ranks < cap
+        slot = torch.where(keep, flat_experts * cap + ranks, e * cap).long()   # e·cap: dropped
+        token_idx = torch.arange(n * k, dtype=torch.int32, device=x.device) // k
+        # one spare row takes the dropped tokens, then is cut off (JAX: mode="drop")
+        token_for_slot = torch.full((e * cap + 1,), n, dtype=torch.int32, device=x.device)
+        token_for_slot = token_for_slot.index_put_((slot,), token_idx)[:e * cap]
+        valid_slot = (token_for_slot < n)[:, None].to(dtype)                 # (E·C, 1)
+        expert_in = xn[token_for_slot.clamp(max=n - 1).long()] * valid_slot
+        flat_out = _expert_ffn(p, expert_in.view(e, cap, d), dtype).reshape(e * cap, d)
+        # combine: a loop over the k routed experts, one (n, d) gather each;
+        # a dropped slot's gate times keep is 0
+        w = (gates * keep.view(n, k)).to(dtype)                             # (n, k)
+        slot_nk = slot.view(n, k).clamp(max=e * cap - 1)
+        y = torch.zeros((n, d), dtype=dtype, device=x.device)
+        for kk in range(k):
+            y = y + flat_out[slot_nk[:, kk]] * w[:, kk:kk + 1]
+        drop = 1.0 - keep.float().mean()
+
+    y = y.view(b, s, d)
+    if cfg.moe.shared_expert:
+        y = y + mlp_block(p["shared"], x, cfg)   # always-on shared expert (own pre-norm)
+    return y, MoEAux(lb, z, drop)

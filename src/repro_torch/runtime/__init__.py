@@ -3,7 +3,7 @@
 circuit breaker and its quarantine sidecar, runtime verification, and the
 seeded fault injector. The JAX package's training supervisor
 (``Supervisor``, ``TrainLoopConfig``) comes with the training stack
-(ROADMAP A13)."""
+(ROADMAP A13b)."""
 
 from repro_torch.runtime.supervisor import FaultInjector  # noqa: F401
 from repro_torch.runtime.resilience import (  # noqa: F401

@@ -13,7 +13,7 @@ classifier.
 
 The JAX module's training supervisor (``Supervisor``, ``TrainLoopConfig``)
 drives a training loop over its checkpoint manager and comes with the
-training stack (ROADMAP A13).
+training stack (ROADMAP A13b).
 """
 
 from __future__ import annotations

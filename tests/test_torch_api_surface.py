@@ -25,10 +25,13 @@ SRC = Path(repro.__file__).resolve().parent
 
 # name -> the ROADMAP queue item that brings it
 PENDING = {
-    "repro.models.moe": {"MoEAux": "A13", "moe_decl": "A13", "moe_block": "A13"},
-    # the training supervisor drives a training loop over the checkpoint manager
-    "repro.runtime": {"Supervisor": "A13", "TrainLoopConfig": "A13"},
-    "repro.runtime.supervisor": {"Supervisor": "A13", "TrainLoopConfig": "A13"},
+    # training: the loss, and the training supervisor, which drives a training
+    # loop over the checkpoint manager
+    "repro.models.model": {"loss_fn": "A13b"},
+    "repro.runtime": {"Supervisor": "A13b", "TrainLoopConfig": "A13b"},
+    "repro.runtime.supervisor": {"Supervisor": "A13b", "TrainLoopConfig": "A13b"},
+    # the mesh layer: logical axes onto a device mesh
+    "repro.parallel.sharding": {"spec_for_decl": "A13c", "decl_to_sharding": "A13c"},
 }
 
 _TPU_HELPER = ("a TPU workaround inside the Pallas bodies (one-hot MXU matmuls, 128-lane "
@@ -90,7 +93,9 @@ def test_the_twins_cover_the_ported_modules():
                  "repro.data.pipeline", "repro.data", "repro.core.multisplit",
                  "repro.runtime", "repro.runtime.resilience", "repro.runtime.supervisor",
                  "repro.serving", "repro.serving.engine", "repro.serving.admission",
-                 "repro.launch.serve"):
+                 "repro.launch.serve", "repro.core.distributed", "repro.configs",
+                 "repro.configs.base", "repro.configs.dbrx_132b", "repro.parallel.sharding",
+                 "repro.models.layers", "repro.models.model"):
         assert name in TWINS
 
 

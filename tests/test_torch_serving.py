@@ -15,6 +15,7 @@ the ``--traffic`` launcher."""
 
 import numpy as np
 import pytest
+import torch
 
 from repro import serving as jserving
 from repro.runtime import resilience as jrz
@@ -486,8 +487,12 @@ def test_launcher_serves_traffic_on_the_cpu(capsys):
     assert s["completed"] + s["shed"] + s["failed"] == 200
     assert "[serve] completed" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "tinyllama-1.1b"])
-    assert "A13" in capsys.readouterr().err
+        serve.main([])
+    assert "--arch is required" in capsys.readouterr().err
+    if not torch.cuda.is_available():
+        # the decode demo runs on the card by default: no card, no demo
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            serve.main(["--arch", "tinyllama-1.1b"])
 
 
 def test_chaos_serving_conserves_and_verifies():
