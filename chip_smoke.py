@@ -257,6 +257,20 @@ Phases, one line or more each, every one of which must pass:
    from the same parameters, kernels against their plain versions: the
    share of tokens whose top-4 experts agree, and the logits before the
    first token that differs held to ``DBRX_LOGIT_RTOL``.
+   Families (``families_phase``, after the model phase has freed dbrx's
+   memory) — the hybrid, ssm, vlm and audio families: the decode demo at
+   the full configs of zamba2-1.2b, xlstm-350m and musicgen-large
+   (bfloat16; musicgen serves its 32 frame embeddings with ``--gen-len
+   1`` and exits at ``--gen-len 2``) and on llama-3.2-vision-90b's smoke
+   config; the four smoke configs in float32, decode against forward; a
+   bfloat16 forward on 2 x 2048 tokens at full width (the vision model's
+   depth cut to 10 of its 100 layers: 175 GB in bfloat16 do not fit one
+   card) with B11 launched 6, 8 and 48 times inside zamba2, vision and
+   musicgen and no kernel in xlstm, then 16 decode steps; zamba2 at its
+   full config in float32, kernels against plain versions (each B11 call
+   on the same inputs, the logits against what a 2^-21 perturbation of
+   the parameters moves them). After the times, ``family_trace_phase``
+   splits zamba2's prefill by kernel kind and traces one decode step.
 6. launches — every kernel's launch count from its own path's run alone
    (flat, segmented, flat callable, segmented callable, and the four
    packed paths, which launch K1p-K3p and no onehot kernel; each fused
@@ -297,7 +311,8 @@ Phases, one line or more each, every one of which must pass:
    loop of flat calls and ``torch.vmap`` against ``batched_multisplit``,
    ``multisplit_unfused`` against the fused plan with its stages,
    ``radix_sort_per_pass`` against ``radix_sort``. K1f at F1 and, segmented,
-   at F3. B11 at A1, A1n, A2 and A3 (float32, bfloat16, A1 also float16):
+   at F3. B11 at A1, A1n, A2 and A3 (float32, bfloat16, A1 also float16)
+   and at A4 and A5 (bfloat16, the families' prefill shapes):
    ms beside the time before (``ATTN_MS_BEFORE``), the plain version's ms,
    the bytes bound (3.35 TB/s),
    the operations bound and its share (4·hd flops a (q, k) pair the mask
@@ -401,6 +416,11 @@ ATTN = {
     "A1n": ((128, 2048, 64), False, (4, 32), ("float32",)),
     "A2": ((48, 4096, 128), True, (1, 48), ("bfloat16", "float32")),   # dbrx_132b.py
     "A3": ((64, 4096, 80), True, (2, 32), ("bfloat16", "float32")),    # h2o_danube_1p8b.py
+    # the prefills of families_phase: zamba2's shared attention and
+    # musicgen's (zamba2_1p2b.py, musicgen_large.py), the vision model's
+    # self-attention, kv 8 repeated to 64 heads (llama32_vision_90b.py)
+    "A4": ((64, 2048, 64), True, (2, 32), ("bfloat16",)),
+    "A5": ((128, 2048, 128), True, (2, 64), ("bfloat16",)),
 }
 # B11 against its plain version, element by element: |got - want| <= the
 # smaller of the JAX tests' tolerance (tests/test_kernels.py:149, 159) and
@@ -1669,10 +1689,30 @@ def model_trace_phase(dev, log, smi) -> None:
     torch.cuda.empty_cache()
 
 
+def family_inputs(cfg, batch: int, seq: int, g, dtype=None):
+    """The model's inputs drawn from ``g`` on its device: ``{"tokens": ...}``,
+    or ``{"embeds": ...}`` (frame embeddings) for a frontend-stub arch, and
+    the patch embeddings (batch, n_vis_tokens, d_model) for a vlm, else
+    None."""
+    import torch
+
+    dev = g.device
+    dtype = dtype or getattr(torch, cfg.dtype)
+    if cfg.embed_frontend_stub:
+        x = {"embeds": torch.randn((batch, seq, cfg.d_model), device=dev, generator=g).to(dtype)}
+    else:
+        x = {"tokens": torch.randint(0, cfg.vocab, (batch, seq), device=dev, generator=g,
+                                     dtype=torch.int32)}
+    vis = (torch.randn((batch, cfg.n_vis_tokens, cfg.d_model), device=dev, generator=g).to(dtype)
+           if cfg.n_vis_tokens else None)
+    return x, vis
+
+
 def decode_matches_forward(arch: str, dev) -> float:
     """A small float32 check of the cache on the card: ``arch``'s smoke
-    config, 24 single-token decode steps against one forward. Returns the
-    relative error of the logits."""
+    config, 24 single-token decode steps (tokens, or frame embeddings for a
+    frontend-stub arch; a vlm's cross K/V from ``init_cache``) against one
+    forward. Returns the relative error of the logits."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1683,11 +1723,12 @@ def decode_matches_forward(arch: str, dev) -> float:
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
     params = init_params(M.decl_model(cfg), g)
-    tokens = torch.randint(0, cfg.vocab, (2, 24), device=dev, generator=g, dtype=torch.int32)
+    x, vis = family_inputs(cfg, 2, 24, g)
+    (key, inp), = x.items()
     with torch.inference_mode():
-        full, _, _ = M.forward(params, cfg, tokens=tokens)
-        cache = M.init_cache(params, cfg, 2, 24)
-        dec = torch.cat([M.decode_step(params, cfg, cache, tokens[:, t:t + 1], t)[0]
+        full, _, _ = M.forward(params, cfg, vis_embeds=vis, **x)
+        cache = M.init_cache(params, cfg, 2, 24, vis_embeds=vis)
+        dec = torch.cat([M.decode_step(params, cfg, cache, inp[:, t:t + 1], t)[0]
                          for t in range(24)], dim=1)
     err = float((dec - full).abs().max() / full.abs().max())
     if not err < DECODE_RTOL:
@@ -1881,6 +1922,358 @@ def model_phase(dev, registry, log, smi):
     torch.cuda.empty_cache()
     return counts
 
+
+FAMILY_BATCH, FAMILY_SEQ = 2, 2048
+FAMILY_DECODE_STEPS = 16
+VISION_LAYERS = 10             # llama-3.2-vision-90b at full width, depth cut (see families_phase)
+# B11 launches in one full forward: one a causal self-attention layer
+# (zamba2's six shared occurrences, the 8 of vision's 10 layers that are not
+# cross-attention, musicgen's 48); xlstm has no attention and no kernel
+FAMILY_B11 = {"zamba2-1.2b": 6, "xlstm-350m": 0, "llama-3.2-vision-90b": 8,
+              "musicgen-large": 48}
+# zamba2 in float32, kernels against plain versions. Its 38 layers magnify
+# rounding: each of the six shared attention occurrences multiplies the
+# gap between two runs by about 8, and a relative 2^-21 perturbation of
+# every parameter (about what 3xTF32 keeps of a product) moves the plain
+# run's logits by 0.40 of their largest (tools/zamba2_fp32_gap.py). So the
+# logits are held to what that perturbation does in the same run, and each
+# B11 call, on the plain run's q, k, v (which reach 46: a score sums
+# products of up to 2100), to ZAMBA_ATTN_RTOL of its largest output
+# (measured 3.8e-5 to 4.4e-5)
+ZAMBA_PERTURB = 2.0 ** -21
+ZAMBA_ATTN_RTOL = 1e-3
+
+
+def family_config(arch: str):
+    """``arch``'s full config; the vision model's depth cut to
+    :data:`VISION_LAYERS` (two super-blocks of 4 attn + 1 cross)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch == "llama-3.2-vision-90b":
+        cfg = dataclasses.replace(cfg, n_layers=VISION_LAYERS)
+    return cfg
+
+
+def families_phase(dev, registry, log, smi):
+    """The hybrid, ssm, vlm and audio families (A13a) on the card.
+
+    (a) The decode demo, ``launch.serve.main``, in bfloat16 at the full
+    configs of zamba2-1.2b and xlstm-350m (batch 4, prompt 32, gen 32) and
+    musicgen-large (batch 4, prompt 32 frame embeddings, ``--gen-len 1``:
+    the demo generates nothing for a frontend-stub arch, and ``--gen-len
+    2`` exits); llama-3.2-vision-90b through ``--smoke`` (its full config
+    is 175 GB). (b) The smoke configs of all four in float32, 24 decode
+    steps against one forward. (c) ``forward`` in bfloat16 on 2 x 2048
+    tokens (musicgen: seeded frame embeddings) at zamba2's, xlstm's and
+    musicgen's full configs and the vision model's full width at
+    :data:`VISION_LAYERS` layers with (2, 256, 8192) patch embeddings: B11
+    launched :data:`FAMILY_B11` times and no other kernel, logits finite;
+    CUDA-event ms; then 16 decode steps from ``init_cache``. (d) zamba2 at
+    its full config in float32, ``forward`` on the kernels (B11's 3xTF32
+    route) against their plain versions: each B11 call on the plain run's
+    inputs within :data:`ZAMBA_ATTN_RTOL`, the logits within what a
+    relative 2^-21 perturbation of the parameters moves the plain run.
+    Returns the launch counts of the forwards and decodes of (c)."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import init_params, param_count, tree_map
+
+    torch.cuda.empty_cache()
+    counts = {}
+
+    def launched():
+        return {k: v for k, v in registry.launch_counts().items() if v}
+
+    # ---- (a) the decode demos
+    demos = (("zamba2-1.2b", [], 32), ("xlstm-350m", [], 32), ("musicgen-large", [], 1),
+             ("llama-3.2-vision-90b", ["--smoke"], 32))
+    for arch, extra, gen_len in demos:
+        argv = ["--arch", arch, *extra, "--batch", "4", "--prompt-len", "32", "--gen-len",
+                str(gen_len), "--seed", str(SEED)]
+        registry.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            gen_tokens = serve.main(argv)
+        torch.cuda.synchronize()
+        demo = launched()
+        text = out.getvalue()
+        step = re.search(r"([\d.]+) ms/step, ([\d.]+) tok/s", text)
+        cfg = get_config(arch).smoke() if extra else get_config(arch)
+        in_vocab = bool(((gen_tokens >= 0) & (gen_tokens < cfg.vocab)).all())
+        if gen_tokens.shape != (4, gen_len) or not step or not in_vocab:
+            raise AssertionError(f"the {arch} decode demo's output is wrong: "
+                                 f"{tuple(gen_tokens.shape)}\n{text}")
+        for line in text.strip().splitlines():
+            log("families", line)
+        n_steps = 32 + gen_len - 1
+        log("families", f"decode demo {arch} {'smoke config, float32' if extra else 'full config, bfloat16'}, "
+                        f"batch 4, prompt 32, gen {gen_len} ({n_steps} decode steps, eager): "
+                        f"{step.group(1)} ms/step, {step.group(2)} tok/s [host clock around the "
+                        f"steps; {smi}]; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                        f"kernel launches {demo or 'none'}")
+        del gen_tokens
+        torch.cuda.empty_cache()
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            serve.main(["--arch", "musicgen-large", "--batch", "4", "--prompt-len", "32",
+                        "--gen-len", "2", "--seed", str(SEED)])
+    except SystemExit as exc:
+        log("families", f"musicgen-large with --gen-len 2 exits as the JAX demo does: {exc}")
+    else:
+        raise AssertionError("musicgen-large's demo generated past the prompt: it has no token "
+                             "table to feed generation back through")
+    torch.cuda.empty_cache()
+
+    # ---- (b) the smoke configs in float32: decode against forward
+    errs = {arch: decode_matches_forward(arch, dev) for arch in FAMILY_B11}
+    log("families", f"smoke configs on the card, float32, 24 decode steps against one forward: "
+                    + ", ".join(f"{a} {e:.2e}" for a, e in errs.items())
+                    + f" (relative, limit {DECODE_RTOL})")
+
+    # ---- (c) full width, bfloat16: forward on 2 x 2048 tokens, 16 decode steps
+    for arch in FAMILY_B11:
+        cfg = family_config(arch)
+        decls = M.decl_model(cfg)
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(decls, g, torch.bfloat16)
+        torch.cuda.synchronize()
+        drawn_s = time.perf_counter() - t0
+        held = torch.cuda.memory_allocated() / 2**30
+        if arch == "llama-3.2-vision-90b":
+            full = param_count(M.decl_model(get_config(arch)))
+            log("families", f"{arch} at {VISION_LAYERS} layers (full: {get_config(arch).n_layers}, "
+                            f"{full / 1e9:.3f}B parameters, {2 * full / 1e9:.0f} GB in bfloat16: no "
+                            f"card of 80 GB holds it), every width kept (d_model 8192, 64 heads, "
+                            f"kv 8, d_ff 28672, vocab 128256, 256 patch embeddings)")
+        x, vis = family_inputs(cfg, FAMILY_BATCH, FAMILY_SEQ, g)
+        (key, inp), = x.items()
+        with torch.inference_mode():
+            registry.reset_launches()
+            t0 = time.perf_counter()
+            logits, _, _ = M.forward(params, cfg, vis_embeds=vis, **x)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            fwd = launched()
+        for name, n in fwd.items():
+            counts[name] = counts.get(name, 0) + n
+        if fwd != ({"flash_attention": FAMILY_B11[arch]} if FAMILY_B11[arch] else {}):
+            raise AssertionError(f"{arch} forward launched {fwd}, not B11 "
+                                 f"{FAMILY_B11[arch]} times and nothing else")
+        if (logits.shape != (FAMILY_BATCH, FAMILY_SEQ, cfg.vocab)
+                or not bool(torch.isfinite(logits).all())):
+            raise AssertionError(f"{arch} forward: logits {tuple(logits.shape)}, not all finite")
+        del logits
+        reps = 1 if arch == "xlstm-350m" else 3
+        with torch.inference_mode():
+            times = []
+            for _ in range(reps):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                M.forward(params, cfg, vis_embeds=vis, **x)
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b))
+            fwd_ms = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log("families", f"{arch} forward bfloat16, {FAMILY_BATCH} x {FAMILY_SEQ} "
+                        f"{'frame embeddings' if key == 'embeds' else 'tokens'}"
+                        f"{', (2, 256, 8192) patch embeddings' if vis is not None else ''}, "
+                        f"{cfg.n_layers} layers, {param_count(decls) / 1e9:.3f}B parameters "
+                        f"({held:.1f} GiB, drawn in {drawn_s:.2f} s): {fwd_ms:.2f} ms [CUDA events, "
+                        f"median of {reps} after the first, which took {first_s:.2f} s; {smi}]; "
+                        f"launches {fwd or 'none'}; peak {peak:.2f} GiB")
+
+        with torch.inference_mode():
+            cache = M.init_cache(params, cfg, FAMILY_BATCH, FAMILY_DECODE_STEPS, vis_embeds=vis)
+            registry.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(FAMILY_DECODE_STEPS):
+                step_logits, cache = M.decode_step(params, cfg, cache, inp[:, t:t + 1], t)
+            torch.cuda.synchronize()
+            dec_ms = (time.perf_counter() - t0) * 1e3 / FAMILY_DECODE_STEPS
+            dec = launched()
+        for name, n in dec.items():
+            counts[name] = counts.get(name, 0) + n
+        if (step_logits.shape != (FAMILY_BATCH, 1, cfg.vocab)
+                or not bool(torch.isfinite(step_logits).all())):
+            raise AssertionError(f"{arch} decode: logits not finite or of the wrong shape")
+        log("families", f"{arch} {FAMILY_DECODE_STEPS} decode steps from init_cache, bfloat16, "
+                        f"batch {FAMILY_BATCH}: {dec_ms:.2f} ms/step [host clock; {smi}]; "
+                        f"launches {dec or 'none'}")
+        del params, cache, step_logits, x, vis, inp
+        torch.cuda.empty_cache()
+
+    # ---- (d) zamba2 at its full config in float32: kernels against plain versions
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"), dtype="float32")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    params = init_params(M.decl_model(cfg), g)
+    x, _ = family_inputs(cfg, FAMILY_BATCH, FAMILY_SEQ, g)
+    calls = {}
+    b11 = L._attention_b11
+
+    def recording(q, k, v, backend):
+        out = b11(q, k, v, backend)
+        calls.setdefault(backend, []).append((q.clone(), k.clone(), v.clone()))
+        return out
+
+    got = {}
+    L._attention_b11 = recording
+    try:
+        with torch.inference_mode():
+            for tag, backend in (("kernels", "cuda"), ("plain", "vmap")):
+                got[tag] = M.forward(params, cfg, backend=backend, **x)[0]
+                torch.cuda.synchronize()
+    finally:
+        L._attention_b11 = b11
+    with torch.inference_mode():
+        attn = []
+        for q, k, v in calls["vmap"]:
+            a, b = b11(q, k, v, "cuda"), b11(q, k, v, "vmap")
+            attn.append(float((a - b).abs().max() / b.abs().max()))
+        pg = torch.Generator(device=dev)
+        pg.manual_seed(SEED + 1)
+        moved = tree_map(lambda t: t * (1 + ZAMBA_PERTURB * torch.randn(
+            t.shape, device=dev, generator=pg)), params)
+        got["perturbed"] = M.forward(moved, cfg, backend="vmap", **x)[0]
+    a, b = got["kernels"], got["plain"]
+    err = float((a - b).abs().max() / b.abs().max())
+    cond = float((got["perturbed"] - b).abs().max() / b.abs().max())
+    log("families", f"zamba2-1.2b forward float32, full config, {FAMILY_BATCH} x {FAMILY_SEQ} "
+                    f"tokens, kernels (B11 3xTF32) against their plain versions "
+                    f"(flash_attention_plain): the {len(attn)} B11 calls on the plain run's q, k, "
+                    f"v part by at most {max(attn):.3e} of their largest output (limit "
+                    f"{ZAMBA_ATTN_RTOL}); logits max abs err {float((a - b).abs().max()):.3e}, "
+                    f"relative {err:.3e}, against {cond:.3e} that the plain run moves when every "
+                    f"parameter is perturbed by a relative 2^-21 (the limit; DBRX_LOGIT_RTOL "
+                    f"{DBRX_LOGIT_RTOL} {'met' if err < DBRX_LOGIT_RTOL else 'missed'}: the 38 "
+                    f"layers magnify rounding, tools/zamba2_fp32_gap.py)")
+    if len(attn) != FAMILY_B11["zamba2-1.2b"] or not max(attn) < ZAMBA_ATTN_RTOL:
+        raise AssertionError(f"zamba2 float32: B11 against its plain version on the same inputs "
+                             f"{attn}")
+    if not err < cond:
+        raise AssertionError(f"zamba2 float32: kernels against plain versions {err:.3e}, more "
+                             f"than a 2^-21 perturbation of the parameters moves them ({cond:.3e})")
+    del params, moved, got, a, b, x, calls
+    torch.cuda.empty_cache()
+    return counts
+
+
+def family_trace_phase(dev, log, smi) -> None:
+    """zamba2-1.2b under ``torch.profiler``, after SDPA's read: its
+    bfloat16 prefill on 2 x 2048 tokens by kernel kind (B11, the matmuls,
+    the scans, the elementwise kernels, the rest), with the device time
+    under the chunked SSD and the causal conv (``record_function`` ranges
+    around ``models.ssm._ssd_chunked`` and ``_causal_conv``), and one
+    decode step's kernels a layer and idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.parallel.sharding import init_params
+
+    cfg = family_config("zamba2-1.2b")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    params = init_params(M.decl_model(cfg), g, torch.bfloat16)
+    x, _ = family_inputs(cfg, FAMILY_BATCH, FAMILY_SEQ, g)
+    ranges = {"ssd_chunked": ssm_mod._ssd_chunked, "causal_conv": ssm_mod._causal_conv}
+
+    def ranged(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    try:
+        ssm_mod._ssd_chunked = ranged("ssd_chunked", ranges["ssd_chunked"])
+        ssm_mod._causal_conv = ranged("causal_conv", ranges["causal_conv"])
+        with torch.inference_mode():
+            M.forward(params, cfg, **x)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                M.forward(params, cfg, **x)
+                torch.cuda.synchronize()
+    finally:
+        ssm_mod._ssd_chunked = ranges["ssd_chunked"]
+        ssm_mod._causal_conv = ranges["causal_conv"]
+    kinds = {"B11": 0.0, "matmuls": 0.0, "scans": 0.0, "elementwise": 0.0, "other": 0.0}
+    others, under, n_kernels = {}, {name: 0.0 for name in ranges}, 0
+    for e in prof.key_averages():
+        if e.key in under:                   # the range's kernels, not its span
+            if e.device_type == DeviceType.CPU:
+                under[e.key] = e.device_time_total
+            continue
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us, key = e.self_device_time_total, e.key.lower()
+        n_kernels += e.count
+        if "flash_sm90_kernel" in key or "flash_f32_sm90_kernel" in key:
+            kinds["B11"] += us
+        elif any(w in key for w in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
+            kinds["matmuls"] += us
+        elif "scan" in key:
+            kinds["scans"] += us
+        elif "elementwise" in key:
+            kinds["elementwise"] += us
+        else:
+            kinds["other"] += us
+            others[e.key[:60]] = others.get(e.key[:60], 0.0) + us
+    busy = sum(kinds.values())
+    if not (busy and kinds["B11"] and kinds["matmuls"]):
+        raise AssertionError(f"torch.profiler read no device time of B11 or the matmuls in the "
+                             f"zamba2 forward: {kinds}")
+    log("families", f"zamba2-1.2b forward bfloat16 ({FAMILY_BATCH} x {FAMILY_SEQ}) device time by "
+                    f"kind (torch.profiler, {busy / 1e3:.2f} ms busy, {n_kernels} kernels, "
+                    f"{n_kernels / cfg.n_layers:.1f} a layer): "
+                    + ", ".join(f"{k} {v / 1e3:.3f} ms ({v / busy:.1%})" for k, v in kinds.items())
+                    + "; kernels under the ranges: " + ", ".join(
+                        f"{k} {v / 1e3:.3f} ms" for k, v in under.items())
+                    + "; the largest others: " + ", ".join(
+                        f"{k} {v / 1e3:.3f} ms" for k, v in sorted(others.items(),
+                                                                   key=lambda kv: -kv[1])[:4])
+                    + f" [{smi}]")
+
+    tok = x["tokens"][:, :1]
+    with torch.inference_mode():
+        cache = M.init_cache(params, cfg, FAMILY_BATCH, 8)
+        for t in range(3):                                   # warm
+            M.decode_step(params, cfg, cache, tok, t)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            M.decode_step(params, cfg, cache, tok, 3)
+            torch.cuda.synchronize()
+            span_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = sum(e.count for e in events)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log("families", f"one decode step of zamba2-1.2b (bfloat16, batch {FAMILY_BATCH}) traced: "
+                    f"{kernels} kernels ({kernels / cfg.n_layers:.1f} a layer), device busy "
+                    f"{busy_ms:.3f} ms of a {span_ms:.2f} ms step (idle {1 - busy_ms / span_ms:.3f}; "
+                    f"the host span runs under the profiler) [torch.profiler; {smi}]")
+    del params, cache, x
+    torch.cuda.empty_cache()
 
 def main() -> int:
     import numpy as np
@@ -3907,7 +4300,7 @@ def main() -> int:
                    "and batched: bitwise equal to the fused plan, the stable-sort oracle and "
                    "radix_sort")
 
-    # ---- 5i. attention: the kernel door at the full widths A1-A3, door
+    # ---- 5i. attention: the kernel door at the full widths A1-A5, door
     # defaults (blocks of 256), its launches counted alone (one B11 a call, no
     # other kernel); each result against the plain version
     torch.cuda.synchronize()
@@ -3932,7 +4325,7 @@ def main() -> int:
         attn_err(f"door, {what}", out, q, k, v, causal)
     del attn_runs, q, k, v, out
     log("attention", f"kernels.ops.flash_attention at A1 (float32, bfloat16), A1n, A2 (bfloat16, "
-                     f"float32) and A3 (bfloat16, float32): {len(ATTN)} shapes, "
+                     f"float32), A3 (bfloat16, float32), A4 and A5 (bfloat16): {len(ATTN)} shapes, "
                      f"{launches['flash_attention']} calls in {attn_s:.2f} s (first calls), each "
                      f"within the limit of the plain version; max abs err over phases 3h and 5i "
                      f"{attn_max}, worst share of the limit {attn_share}")
@@ -3954,9 +4347,10 @@ def main() -> int:
         launches[name] += count
     resilience_phase(dev, gen, s1_starts, registry, max_err, log, smi)
 
-    # ---- 5n. the distributed stage (A12) and 5o. the model serving path (A13,
-    # dense and MoE), each with its own launch counts
-    for phase in (distributed_phase, model_phase):
+    # ---- 5n. the distributed stage (A12), 5o. the model serving path (A13,
+    # dense and MoE) and 5p. the other families (A13a, after dbrx has freed
+    # its memory), each with its own launch counts
+    for phase in (distributed_phase, model_phase, families_phase):
         for name, count in phase(dev, registry, log, smi).items():
             launches[name] += count
 
@@ -4706,7 +5100,7 @@ def main() -> int:
         ops_ = [e.key for e in events if "attention" in e.key and e.key.startswith("aten::")]
         return kernels_, ops_
 
-    # B11 at A1, A1n, A2 and A3, door defaults: the kernel of each route, its
+    # B11 at A1-A5, door defaults: the kernel of each route, its
     # plain version and scaled_dot_product_attention on the (B, H, S, hd)
     # view; the operations bound counts the function's 4·hd flops a (q, k)
     # pair the mask keeps at the tensor cores' peak for the input type (495
@@ -4716,7 +5110,8 @@ def main() -> int:
     attn_ms, attn_routes = {}, []
     for name, dt in (("A1", "float32"), ("A1n", "float32"), ("A1", "bfloat16"),
                      ("A1", "float16"), ("A2", "bfloat16"), ("A2", "float32"),
-                     ("A3", "bfloat16"), ("A3", "float32")):
+                     ("A3", "bfloat16"), ("A3", "float32"), ("A4", "bfloat16"),
+                     ("A5", "bfloat16")):
         (bh, s_len, hd), causal, (b_, h_), _ = ATTN[name]
         q, k, v = attn_inputs((bh, s_len, hd), getattr(torch, dt))
         q4, k4, v4 = (x.view(b_, h_, s_len, hd) for x in (q, k, v))
@@ -4791,6 +5186,7 @@ def main() -> int:
     s3_host_phase(dev, gen, s3_starts, log, smi)
     serving_trace_phase(dev, log, smi)
     model_trace_phase(dev, log, smi)
+    family_trace_phase(dev, log, smi)
     log("times", f"peak device memory of the timed runs above the inputs: "
                  f"{(torch.cuda.max_memory_allocated() - base_mem) / 2**30:.2f} GiB")
 

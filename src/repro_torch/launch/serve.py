@@ -11,8 +11,15 @@ in the config's dtype on ``--device``; prompts are consumed through the
 decode path (single-token steps), then generation continues greedily. The
 JAX demo jits its step; the port runs it eagerly under
 ``torch.inference_mode()``, so a small batch's ms/step is the time the host
-takes to issue the step. Only the ``dense`` and ``moe`` families are served
-(the rest come with ROADMAP A13a), and with no mesh: one device.
+takes to issue the step. Every family is served, with no mesh: one device.
+A vlm's patch embeddings (batch, n_vis_tokens, d_model) are drawn from the
+prompts' ``np.random.RandomState(seed)`` right after the prompts and fill
+the cross-attention cache. A frontend-stub arch (musicgen) takes its
+prompt as seeded random frame embeddings, drawn from a
+``torch.Generator`` on ``--seed`` (JAX's ``PRNGKey(t)`` stream has no
+PyTorch counterpart); it has no token table to feed generation back
+through, so, as in the JAX demo, ``--gen-len 1`` serves the prompt and a
+longer generation exits.
 
 Continuous-batching traffic over the segmented routing plan (DESIGN.md §16)
 — many concurrent synthetic users coalesced into ONE segmented multisplit
@@ -107,16 +114,25 @@ def run_decode(args) -> torch.Tensor:
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = init_params(decls, gen, getattr(torch, cfg.dtype))
-    prompts = np.random.RandomState(args.seed).randint(
-        1, cfg.vocab, size=(args.batch, args.prompt_len), dtype=np.int32)
+    rng = np.random.RandomState(args.seed)
+    prompts = rng.randint(1, cfg.vocab, size=(args.batch, args.prompt_len), dtype=np.int32)
     tokens = torch.from_numpy(prompts).to(device)
+    vis = None
+    if cfg.n_vis_tokens:
+        vis = torch.from_numpy(rng.randn(args.batch, cfg.n_vis_tokens, cfg.d_model)).to(
+            device=device, dtype=getattr(torch, cfg.dtype))
+    if cfg.embed_frontend_stub:                   # the prompt as frame embeddings
+        frames = torch.Generator(device=device)
+        frames.manual_seed(args.seed)
+        tokens = torch.randn((args.batch, args.prompt_len, cfg.d_model), generator=frames,
+                             device=device).to(getattr(torch, cfg.dtype))
 
     def step(cache, tok, t):
         logits, cache = M.decode_step(params, cfg, cache, tok, t)
         return logits[:, -1].argmax(-1).to(torch.int32), cache
 
     with torch.inference_mode():
-        cache = M.init_cache(params, cfg, args.batch, max_len=max_len)
+        cache = M.init_cache(params, cfg, args.batch, max_len=max_len, vis_embeds=vis)
         sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
         sync()
         t0 = time.perf_counter()
@@ -125,6 +141,10 @@ def run_decode(args) -> torch.Tensor:
             nxt, cache = step(cache, tokens[:, t:t + 1], t)
         generated = [nxt]
         for t in range(args.prompt_len, max_len - 1):
+            if cfg.embed_frontend_stub:
+                raise SystemExit("generation loop for frontend-stub archs needs "
+                                 "external frame embeddings; serve supports "
+                                 "token archs")
             nxt, cache = step(cache, generated[-1][:, None], t)
             generated.append(nxt)
         gen_tokens = torch.stack(generated, dim=1).cpu()

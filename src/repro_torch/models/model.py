@@ -1,6 +1,5 @@
 """Model assembly: super-block patterns, stacked layer parameters, caches
-(counterpart of ``repro/models/model.py``) for the ``dense`` and ``moe``
-families.
+(counterpart of ``repro/models/model.py``), for every family.
 
 Every architecture is a repeating *super-block* pattern (a list of block
 kinds) stacked ``n_super`` times, plus an optional unrolled tail:
@@ -8,15 +7,22 @@ kinds) stacked ``n_super`` times, plus an optional unrolled tail:
     dense           ["attn"]                        x n_layers
     dbrx            ["attn_moe"]                    x 40
     llama4-maverick ["attn", "attn_moe"]            x 24   (interleaved MoE)
+    zamba2          ["mamba"]*5 + ["shared_attn"]   x 6  + ["mamba"]*2
+    xlstm           ["mlstm", "slstm"]              x 12
+    llama3.2-vision ["attn"]*4 + ["cross"]          x 20
+
+zamba2's shared attention block reuses ONE parameter set
+(``params["shared_attn"]``) at every occurrence; each occurrence has its
+own KV cache, stacked over ``n_super``. The modality frontends are stubs:
+an ``embed_frontend_stub`` architecture (musicgen) takes precomputed frame
+embeddings, and the vlm's cross-attention reads patch embeddings
+(``vis_embeds``), whose K/V :func:`init_cache` computes once for decode.
 
 The stacked parameters keep their leading ``n_super`` axis, so the
 parameter tree matches the JAX package's name for name and shape for shape
 (:func:`repro_torch.convert.params_from_numpy` carries one across);
 :func:`forward` loops over that axis where JAX scans it. The scan and remat
 levers of the config are compile and training levers and are dead here.
-The ``hybrid``, ``ssm``, ``vlm`` and ``audio`` families come with ROADMAP
-A13a: :func:`decl_model`, :func:`init_cache` and :func:`forward` raise
-``NotImplementedError`` for them.
 
 :class:`Transformer` is a thin ``nn.Module`` over these functions: it
 registers the parameter tree and calls them.
@@ -31,7 +37,10 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (
+    apply_norm,
     attention_block,
     attention_decl,
     embed_decl,
@@ -43,16 +52,6 @@ from repro_torch.models.layers import (
 from repro_torch.parallel.sharding import ParamDecl, init_params, tree_map
 
 Tensor = torch.Tensor
-
-FAMILIES = ("dense", "moe")
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family has no port yet (ROADMAP A13a brings the "
-            f"hybrid, ssm, vlm and audio families); the port runs {FAMILIES}")
-
 
 # ---------------------------------------------------------------------------
 # Patterns
@@ -90,7 +89,17 @@ def _block_decl(kind: str, cfg: ModelConfig):
         return {"attn": attention_decl(cfg), "mlp": mlp_decl(cfg)}
     if kind == "attn_moe":
         return {"attn": attention_decl(cfg), "moe": moe_mod.moe_decl(cfg)}
-    raise NotImplementedError(f"block kind {kind!r} comes with ROADMAP A13a")
+    if kind == "cross":
+        return {"cross": attention_decl(cfg, cross=True), "mlp": mlp_decl(cfg)}
+    if kind == "mamba":
+        return ssm_mod.mamba2_decl(cfg)
+    if kind == "mlstm":
+        return xlstm_mod.mlstm_decl(cfg)
+    if kind == "slstm":
+        return xlstm_mod.slstm_decl(cfg)
+    if kind == "shared_attn":
+        return None  # parameters live once in params["shared_attn"]
+    raise ValueError(kind)
 
 
 def _stack_decl(decl, n: int):
@@ -100,13 +109,16 @@ def _stack_decl(decl, n: int):
 
 def decl_model(cfg: ModelConfig):
     """Full declaration tree for one architecture."""
-    _check_family(cfg)
     pattern, n_super, tail = block_pattern(cfg)
-    return {
+    decl = {
         "embed": embed_decl(cfg),
-        "blocks": [_stack_decl(_block_decl(kind, cfg), n_super) for kind in pattern],
+        "blocks": [_stack_decl(_block_decl(kind, cfg), n_super) for kind in pattern
+                   if kind != "shared_attn"],
         "tail": [_block_decl(kind, cfg) for kind in tail],
     }
+    if "shared_attn" in pattern:
+        decl["shared_attn"] = {"attn": attention_decl(cfg), "mlp": mlp_decl(cfg)}
+    return decl
 
 
 def _pattern_param_slots(pattern: List[str]) -> List[Optional[int]]:
@@ -138,28 +150,68 @@ def _attn_cache_decl(cfg: ModelConfig, batch: int, max_len: int, window: Optiona
     }
 
 
+def _block_cache_decl(kind: str, cfg: ModelConfig, batch: int, max_len: int):
+    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta")
+    if kind in ("attn", "attn_moe", "shared_attn"):
+        return _attn_cache_decl(cfg, batch, max_len, cfg.window)
+    if kind == "cross":
+        k, hd = cfg.n_kv, cfg.hd()
+        dt = getattr(torch, cfg.dtype)
+        return {"k": meta((batch, cfg.n_vis_tokens, k, hd), dt),
+                "v": meta((batch, cfg.n_vis_tokens, k, hd), dt)}
+    if kind == "mamba":
+        return ssm_mod.mamba2_cache_decl(cfg, batch)
+    if kind == "mlstm":
+        d_inner, nh, hd = xlstm_mod._mdims(cfg)
+        return {"c": meta((batch, nh, hd, hd), torch.float32),
+                "n": meta((batch, nh, hd), torch.float32),
+                "m": meta((batch, nh), torch.float32),
+                "pos": meta((), torch.int32)}
+    if kind == "slstm":
+        nh = cfg.n_heads
+        shp = (batch, nh, cfg.d_model // nh)
+        return {**{name: meta(shp, torch.float32) for name in ("c", "n", "h", "m")},
+                "pos": meta((), torch.int32)}
+    raise ValueError(kind)
+
+
 def cache_decl(cfg: ModelConfig, batch: int, max_len: int):
     """Abstract cache tree (``meta`` tensors; no allocation)."""
-    _check_family(cfg)
     pattern, n_super, tail = block_pattern(cfg)
     stack = lambda tree, n: tree_map(
         lambda s: torch.empty((n,) + tuple(s.shape), dtype=s.dtype, device="meta"), tree)
-    one = lambda: _attn_cache_decl(cfg, batch, max_len, cfg.window)
-    return {"pattern": [stack(one(), n_super) for _ in pattern], "tail": [one() for _ in tail]}
+    return {
+        "pattern": [stack(_block_cache_decl(kind, cfg, batch, max_len), n_super)
+                    for kind in pattern],
+        "tail": [_block_cache_decl(kind, cfg, batch, max_len) for kind in tail],
+    }
 
 
 def init_cache(params, cfg: ModelConfig, batch: int, max_len: int, vis_embeds=None):
     """Concrete zero cache on the parameters' device; positions start at -1
     (invalid). The caches of one pattern slot are stacked over ``n_super``
-    like its parameters. Cross-attention K/V (``vis_embeds``) come with the
-    vlm family (ROADMAP A13a)."""
-    _check_family(cfg)
-    if vis_embeds is not None:
-        raise NotImplementedError("cross-attention K/V come with ROADMAP A13a")
+    like its parameters. Each cross slot's K/V are computed here, once,
+    from ``vis_embeds`` (B, n_vis, d): ``norm_kv``, then ``wk`` and ``wv``
+    of each stacked layer, in ``vis_embeds``' dtype. The recurrent states
+    start at zero (mLSTM and sLSTM ``m`` too, as in the JAX cache)."""
     device = params["embed"]["norm_f"]["scale"].device
     cache = tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device),
                      cache_decl(cfg, batch, max_len))
-    return _map_named(cache, "positions", lambda z: z - 1)
+    cache = _map_named(cache, "positions", lambda z: z - 1)
+    if vis_embeds is not None:
+        pattern, n_super, _ = block_pattern(cfg)
+        slots = _pattern_param_slots(pattern)
+        dt = vis_embeds.dtype
+        for pi, kind in enumerate(pattern):
+            if kind != "cross":
+                continue
+            layers = [_layer(params["blocks"][slots[pi]], i)["cross"] for i in range(n_super)]
+            srcs = [apply_norm(lp["norm_kv"], vis_embeds, cfg) for lp in layers]
+            cache["pattern"][pi] = {
+                name: torch.stack([torch.einsum("bsd,dhk->bshk", src, lp[w].to(dt))
+                                   for lp, src in zip(layers, srcs)])
+                for name, w in (("k", "wk"), ("v", "wv"))}
+    return cache
 
 
 def _map_named(tree, name, fn):
@@ -185,21 +237,35 @@ def apply_block(
     *,
     positions: Tensor,
     cache=None,
+    vis_embeds=None,
+    shared_params=None,
     backend: str = "cuda",
 ):
-    """Returns (x_out, cache, aux)."""
-    if kind not in ("attn", "attn_moe"):
-        raise NotImplementedError(f"block kind {kind!r} comes with ROADMAP A13a")
+    """Returns (x_out, cache, aux). A decode cache is updated in place."""
     aux = _zero_aux(x.device)
-    dx, cache = attention_block(p["attn"], x, cfg, positions=positions, cache=cache,
-                                window=cfg.window, backend=backend)
-    x = x + dx
-    if kind == "attn_moe":
-        dx, aux = moe_mod.moe_block(p["moe"], x, cfg, backend=backend)
+    if kind in ("attn", "attn_moe", "shared_attn"):
+        pp = shared_params if kind == "shared_attn" else p
+        dx, cache = attention_block(pp["attn"], x, cfg, positions=positions, cache=cache,
+                                    window=cfg.window, backend=backend)
         x = x + dx
-    else:
-        x = x + mlp_block(p["mlp"], x, cfg)
-    return x, cache, aux
+        if kind == "attn_moe":
+            dx, aux = moe_mod.moe_block(p["moe"], x, cfg, backend=backend)
+            x = x + dx
+        else:
+            x = x + mlp_block(pp["mlp"], x, cfg)
+        return x, cache, aux
+    if kind == "cross":
+        dx, cache = attention_block(p["cross"], x, cfg, positions=positions, cross=True,
+                                    kv_src=vis_embeds if cache is None else None, cache=cache,
+                                    backend=backend)
+        x = x + dx
+        return x + mlp_block(p["mlp"], x, cfg), cache, aux
+    blocks = {"mamba": ssm_mod.mamba2_block, "mlstm": xlstm_mod.mlstm_block,
+              "slstm": xlstm_mod.slstm_block}
+    if kind not in blocks:
+        raise ValueError(kind)
+    dx, cache = blocks[kind](p, x, cfg, cache=cache)
+    return x + dx, cache, aux
 
 
 def _zero_aux(device) -> moe_mod.MoEAux:
@@ -221,33 +287,39 @@ def forward(
     cfg: ModelConfig,
     *,
     tokens: Optional[Tensor] = None,      # (B, S) integers
-    embeds: Optional[Tensor] = None,      # (B, S, d): frontend-stub archs (ROADMAP A13a)
+    embeds: Optional[Tensor] = None,      # (B, S, d): frontend-stub archs
     positions: Optional[Tensor] = None,   # (S,)
     cache=None,
-    vis_embeds: Optional[Tensor] = None,  # (B, n_vis, d): vlm (ROADMAP A13a)
+    vis_embeds: Optional[Tensor] = None,  # (B, n_vis, d): vlm prefill
     backend: str = "cuda",
 ):
     """Returns (logits, cache, aux). With a cache (decode, one token a
     step) every layer's cache is updated in place and the tree returned.
     ``backend`` is the MoE routing's multisplit backend; on ``cuda``
     attention inside B11's contract goes through the kernel door, on any
-    other backend through its plain version."""
-    _check_family(cfg)
-    if embeds is not None or vis_embeds is not None:
-        raise NotImplementedError("frame and vision embeddings come with ROADMAP A13a")
+    other backend through its plain version. ``embeds`` replaces the token
+    table's lookup (frontend-stub archs); ``vis_embeds`` is the source of
+    the cross blocks at prefill (at decode they read the cache)."""
     pattern, n_super, tail = block_pattern(cfg)
     slots = _pattern_param_slots(pattern)
-    x = embed_tokens(params["embed"], tokens, cfg)
+    dtype = getattr(torch, cfg.dtype)
+    if embeds is None:
+        x = embed_tokens(params["embed"], tokens, cfg)
+    else:
+        x = embeds.to(dtype)
     if positions is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    run = dict(positions=positions, backend=backend)
+    if vis_embeds is not None:
+        vis_embeds = vis_embeds.to(dtype)
+    run = dict(positions=positions, vis_embeds=vis_embeds,
+               shared_params=params.get("shared_attn"), backend=backend)
 
     aux = _zero_aux(x.device)
     for i in range(n_super):
         for pi, kind in enumerate(pattern):
             c = None if cache is None else _layer(cache["pattern"][pi], i)
-            x, _, a = apply_block(kind, _layer(params["blocks"][slots[pi]], i), x, cfg,
-                                  cache=c, **run)
+            p = None if slots[pi] is None else _layer(params["blocks"][slots[pi]], i)
+            x, _, a = apply_block(kind, p, x, cfg, cache=c, **run)
             aux = _add_aux(aux, a)
     for ti, kind in enumerate(tail):
         c = None if cache is None else cache["tail"][ti]
@@ -256,21 +328,24 @@ def forward(
     return lm_head(params["embed"], x, cfg), cache, aux
 
 
-def decode_step(params, cfg: ModelConfig, cache, token, position):
-    """One serving step: (B, 1) tokens + cache -> logits (B, 1, V).
-    ``position``: the scalar absolute position of the new token (an int or
-    a 0-d tensor)."""
+def decode_step(params, cfg: ModelConfig, cache, token_or_embed, position):
+    """One serving step: (B, 1) tokens (a (B, 1, d) frame embedding for a
+    frontend-stub arch) + cache -> logits (B, 1, V). ``position``: the
+    scalar absolute position of the new token (an int or a 0-d tensor)."""
+    device = token_or_embed.device
     if isinstance(position, int):              # filled on the device: no host copy
-        positions = torch.full((1,), position, dtype=torch.int32, device=token.device)
+        positions = torch.full((1,), position, dtype=torch.int32, device=device)
     else:
-        position = torch.as_tensor(position, dtype=torch.int32, device=token.device)
+        position = torch.as_tensor(position, dtype=torch.int32, device=device)
         positions = position[None] if position.dim() == 0 else position
-    logits, cache, _ = forward(params, cfg, tokens=token, positions=positions, cache=cache)
+    key = "embeds" if cfg.embed_frontend_stub else "tokens"
+    logits, cache, _ = forward(params, cfg, positions=positions, cache=cache,
+                               **{key: token_or_embed})
     return logits, cache
 
 
 class Transformer(nn.Module):
-    """The dense and MoE families as an ``nn.Module``: the parameter tree of
+    """Every family as an ``nn.Module``: the parameter tree of
     :func:`decl_model`, drawn by :func:`init_params` from ``generator``
     (or carried in as ``params``), registered leaf by leaf under its tree
     path; ``forward``, ``init_cache`` and ``decode_step`` call the
@@ -301,11 +376,13 @@ class Transformer(nn.Module):
         """The parameter tree, its leaves the registered parameters."""
         return tree_map(lambda name: getattr(self, name), self._layout)
 
-    def forward(self, tokens: Tensor):
-        return forward(self.params, self.cfg, tokens=tokens)
+    def forward(self, tokens: Optional[Tensor] = None, embeds: Optional[Tensor] = None,
+                vis_embeds: Optional[Tensor] = None):
+        return forward(self.params, self.cfg, tokens=tokens, embeds=embeds,
+                       vis_embeds=vis_embeds)
 
-    def init_cache(self, batch: int, max_len: int):
-        return init_cache(self.params, self.cfg, batch, max_len)
+    def init_cache(self, batch: int, max_len: int, vis_embeds: Optional[Tensor] = None):
+        return init_cache(self.params, self.cfg, batch, max_len, vis_embeds=vis_embeds)
 
-    def decode_step(self, cache, token: Tensor, position):
-        return decode_step(self.params, self.cfg, cache, token, position)
+    def decode_step(self, cache, token_or_embed: Tensor, position):
+        return decode_step(self.params, self.cfg, cache, token_or_embed, position)

@@ -95,7 +95,8 @@ def test_the_twins_cover_the_ported_modules():
                  "repro.serving", "repro.serving.engine", "repro.serving.admission",
                  "repro.launch.serve", "repro.core.distributed", "repro.configs",
                  "repro.configs.base", "repro.configs.dbrx_132b", "repro.parallel.sharding",
-                 "repro.models.layers", "repro.models.model"):
+                 "repro.models.layers", "repro.models.model", "repro.models.ssm",
+                 "repro.models.xlstm"):
         assert name in TWINS
 
 

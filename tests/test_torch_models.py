@@ -1,6 +1,7 @@
 """The port's model serving path (``repro_torch.configs``,
 ``parallel.sharding``, ``models.layers``, ``models.moe``, ``models.model``,
-the ``--arch`` decode demo) against the JAX package's on the CPU.
+the ``--arch`` decode demo) against the JAX package's on the CPU, for the
+dense and MoE families (the others: ``tests/test_torch_families.py``).
 
 Float32 ``smoke()`` configs; the parameters are drawn by the JAX package's
 ``init_params`` and carried across by ``convert.params_from_numpy``, the
@@ -48,7 +49,6 @@ ARCHS = {
     "dbrx-132b": {},                             # every block MoE, top-2 of 8
     "llama4-maverick-400b-a17b": {},             # every=2, shared expert
 }
-UNPORTED = ["zamba2-1.2b", "xlstm-350m", "llama-3.2-vision-90b", "musicgen-large"]
 
 
 def _params(jc, seed=0):
@@ -176,7 +176,7 @@ def test_config_registry():
         assert tconfigs.get_config(alias) == tconfigs.get_config(mod)
 
 
-@pytest.mark.parametrize("arch", list(ARCHS))
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_declarations_equal_jax(arch):
     """The full config's tree, name for name and shape for shape, and its
     counts; no allocation (meta tensors)."""
@@ -204,17 +204,6 @@ def test_init_params_rules():
     assert again["w"].dtype == torch.bfloat16
     assert torch.equal(again["w"], p["w"].to(torch.bfloat16))
     assert tsharding.tp_size() == 1 and tsharding.constrain(p["w"], "dp", None) is p["w"]
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    cfg = tconfigs.get_config(arch).smoke()
-    with pytest.raises(NotImplementedError, match="A13a"):
-        TM.decl_model(cfg)
-    with pytest.raises(NotImplementedError, match="A13a"):
-        TM.forward({}, cfg, tokens=torch.zeros((1, 4), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="A13a"):
-        tserve.main(["--arch", arch, "--smoke", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------
