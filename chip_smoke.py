@@ -271,6 +271,20 @@ Phases, one line or more each, every one of which must pass:
    on the same inputs, the logits against what a 2^-21 perturbation of
    the parameters moves them). After the times, ``family_trace_phase``
    splits zamba2's prefill by kernel kind and traces one decode step.
+   Training (``training_phase``, after the families have freed their
+   memory): ``launch.train.main`` at tinyllama-1.1b's full config, 8
+   AdamW steps of 4 x 2048 tokens under the supervisor with checkpoints
+   every 4 steps (ms/step, tokens/s, peak memory, B11 44 times a step:
+   forward and remat recompute); tinyllama at full width and 2 layers in
+   float32, every gradient on the kernels against the plain versions and
+   4 steps on one batch that lower its loss; dbrx-132b at full width and
+   1 layer in bfloat16 with its float32 master, 4 steps of 1 x 2048 with
+   K1, K3 and B11 launched twice a forward's count and every step's ranks
+   bitwise the plain multisplit's and the stable sort's; the supervisor
+   on the card under injected faults, restoring the step-4 checkpoint and
+   replaying. After the times, ``training_trace_phase`` splits one
+   tinyllama step by kind (B11, the plain attention backward, the
+   optimizer, K1/K3, matmuls, elementwise) with the card's idle share.
 6. launches — every kernel's launch count from its own path's run alone
    (flat, segmented, flat callable, segmented callable, and the four
    packed paths, which launch K1p-K3p and no onehot kernel; each fused
@@ -2274,6 +2288,488 @@ def family_trace_phase(dev, log, smi) -> None:
                     f"the host span runs under the profiler) [torch.profiler; {smi}]")
     del params, cache, x
     torch.cuda.empty_cache()
+
+
+# training (A13b): tinyllama-1.1b's full config under the launcher
+TRAIN_ARGV = ["--arch", "tinyllama-1.1b", "--steps", "8", "--batch", "4", "--seq", "2048",
+              "--ckpt-every", "4"]
+TRAIN_TOKENS = 4 * 2048
+# the gradient check: tinyllama at full width, depth cut, float32, kernels
+# against plain versions; each leaf's gradient to GRAD_RTOL of its largest.
+# Then DESCENT_STEPS AdamW steps on that one batch, each of which must lower
+# its loss: at 22 layers the JAX init's gradient norm is about 1e17 (it grows
+# by orders of magnitude with depth, in JAX's model as in the port's:
+# tests/test_torch_train.py, tools/grad_norm_depth.py), the clip at 1.0
+# scales every gradient by about 1e-17, and 8 steps on fresh batches do not
+# lower the loss beyond the batches' spread; at 2 layers the norm is about
+# 200 and the steps descend
+GRAD_LAYERS, GRAD_BATCH, GRAD_SEQ = 2, 2, 512
+# the same ill-conditioning magnifies rounding in the gradients: at 2 layers
+# a relative 2^-21 perturbation of every parameter moves the plain run's
+# gradients by 2.5e-3 to 4.6e-3 of their largest, and the kernels part from
+# the plain by 1.0e-3 to 5.0e-3 (PERF.md). So the limit is fixed at twice
+# the worst of those readings; B11's own error on the run's q, k, v is held
+# to ATTN_TOL["float32"]; and a control whose forward is B11's 16-bit route
+# (q, k, v rounded to bfloat16) must break the limit, which shows that the
+# limit tells a worse forward from B11's
+GRAD_RTOL = 1e-2
+LOSS_RTOL = 1e-4
+DESCENT_STEPS, DESCENT_LR = 4, 1e-4
+# dbrx-132b at full width, one layer, JAX's setting for memory-bound
+# architectures (bfloat16 params and moments, a float32 master), 1 x 2048
+# tokens a step
+DBRX_TRAIN_LAYERS, DBRX_TRAIN_STEPS, DBRX_TRAIN_SEQ = 1, 4, 2048
+# the supervisor on the card: dbrx's smoke config, a transient fault at
+# step 5 and a persistent one at step 6 (three failures: past the two
+# retries), which restores the step-4 checkpoint and replays steps 4 and 5
+SUP_STEPS, SUP_FAULTS, SUP_REPLAY_RTOL = 8, {5: 1, 6: 3}, 1e-3
+
+
+def _step_recorder(registry, make, log_to):
+    """``make`` (``launch.steps.make_train_step``) whose steps record, each,
+    (loss, ms on the host clock around a synchronised step, the launches of
+    the step alone)."""
+    import torch
+
+    def recording_make(cfg, tc, **kw):
+        step = make(cfg, tc, **kw)
+
+        def run(state, batch):
+            before = registry.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = registry.launch_counts()
+            log_to.append((float(metrics["loss"]), ms,
+                           {k: after[k] - before[k] for k in after if after[k] != before[k]},
+                           float(metrics["grad_norm"])))
+            return state, metrics
+        return run
+    return recording_make
+
+
+def training_phase(dev, registry, log, smi):
+    """Training on the card (A13b), after the families have freed their
+    memory.
+
+    (a) ``launch.train.main`` at tinyllama-1.1b's full config (22 layers at
+    full width, bfloat16 compute, float32 params and moments, remat): 8
+    AdamW steps of 4 x 2048 tokens under the supervisor, checkpoints every
+    4 steps: ms/step (the median of steps 2-8), tokens/s, peak memory, B11
+    launched 2 x 22 times a step (forward and the remat recompute) and no
+    other kernel in a step; the losses and gradient norms finite (the
+    loss does not fall in 8 steps at this depth: see :data:`GRAD_LAYERS`).
+    (b) tinyllama at full width, depth cut to :data:`GRAD_LAYERS`,
+    float32, 2 x 512 tokens: the loss and every parameter's gradient on
+    ``backend="cuda"`` (B11's 3xTF32 forward) against ``backend="vmap"``
+    (``flash_attention_plain``) within :data:`LOSS_RTOL` and
+    :data:`GRAD_RTOL` of each leaf's largest; B11's own error on the run's
+    q, k, v within ``ATTN_TOL["float32"]``; a control run whose forward is
+    B11's 16-bit route breaking :data:`GRAD_RTOL`; every wq / wk / wv
+    gradient nonzero; then :data:`DESCENT_STEPS` steps of
+    ``make_train_step`` on that batch, on the kernels, each lowering its
+    loss. (c) dbrx-132b at full width cut to one layer, bfloat16 params and
+    moments with the float32 master: :data:`DBRX_TRAIN_STEPS`
+    ``make_train_step`` steps of 1 x 2048
+    tokens; K1, K3 and B11 launched twice a step what one forward launches;
+    every step's ranks (forward and recompute) bitwise each other, the plain
+    multisplit's (``vmap``) and the stable sort's on the same expert ids.
+    (d) The supervisor on the card (dbrx's smoke config, the multisplit
+    dispatch, the port's data pipeline on the card) under
+    :data:`SUP_FAULTS`: its retries and restores, the history's replayed
+    steps, and each replayed loss within :data:`SUP_REPLAY_RTOL` of the
+    first run's (the MoE gather's backward adds with atomics). Returns the
+    launch counts of (a), (c) and (d); (b)'s are a comparison."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import init_params, tree_leaves, tree_leaves_with_path
+    from repro_torch.runtime import FaultInjector, Supervisor, TrainLoopConfig
+
+    torch.cuda.empty_cache()
+    counts = {}
+
+    def add(before):
+        after = registry.launch_counts()
+        for k in after:
+            if after[k] != before[k]:
+                counts[k] = counts.get(k, 0) + after[k] - before[k]
+
+    work = tempfile.mkdtemp(prefix="train_", dir=os.path.join(ROOT, "build"))
+    try:
+        # ---- (a) the launcher at tinyllama-1.1b's full config
+        steps_log = []
+        make = S.make_train_step
+        S.make_train_step = _step_recorder(registry, make, steps_log)
+        torch.cuda.reset_peak_memory_stats()
+        before = registry.launch_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                sup = train.main(TRAIN_ARGV + ["--ckpt-dir", os.path.join(work, "tinyllama"),
+                                               "--seed", str(SEED)])
+        finally:
+            S.make_train_step = make
+        run_s = time.perf_counter() - t0
+        add(before)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for line in out.getvalue().strip().splitlines():
+            log("training", line)
+        cfg = get_config("tinyllama-1.1b")
+        losses = [loss for loss, *_ in steps_log]
+        norms = [norm for *_, norm in steps_log]
+        step_ms = statistics.median(ms for _, ms, *_ in steps_log[1:])
+        per_step = [launches for _, _, launches, _ in steps_log]
+        b11 = 2 * cfg.n_layers
+        log("training", f"tinyllama-1.1b full config (22 layers, bfloat16 compute, float32 "
+                        f"params and moments, remat), 8 steps of 4 x 2048 tokens under the "
+                        f"supervisor, checkpoints at steps 4 and 8: {step_ms:.2f} ms/step "
+                        f"(median of steps 2-8; steps {[round(s[1], 2) for s in steps_log]}), "
+                        f"{TRAIN_TOKENS / step_ms * 1e3:.0f} tokens/s [host clock around "
+                        f"synchronised steps; {smi}]; peak {peak:.2f} GiB; launcher {run_s:.1f} s "
+                        f"with its checkpoint writes; losses {[round(x, 4) for x in losses]}, "
+                        f"gradient norms {[f'{x:.3e}' for x in norms]}; "
+                        f"launches a step {per_step[0]} (the remat rule: B11 {b11}); stats "
+                        f"{sup.stats}")
+        if len(steps_log) != 8 or sup.ckpt.latest_step() != 8:
+            raise AssertionError(f"the launcher ran {len(steps_log)} steps, last checkpoint "
+                                 f"{sup.ckpt.latest_step()}")
+        if any(launches != {"flash_attention": b11} for launches in per_step):
+            raise AssertionError(f"a tinyllama step launched {per_step}, not B11 {b11} times "
+                                 f"and nothing else")
+        if not all(math.isfinite(x) for x in losses + norms):
+            raise AssertionError(f"tinyllama's losses or gradient norms: {losses}, {norms}")
+        del sup
+        torch.cuda.empty_cache()
+
+        # ---- (b) gradients, kernels against plain versions
+        cfg = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=GRAD_LAYERS,
+                                  dtype="float32")
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED)
+        params = init_params(M.decl_model(cfg), g)
+        tokens = torch.randint(0, cfg.vocab, (GRAD_BATCH, GRAD_SEQ + 1), device=dev,
+                               generator=g, dtype=torch.int32)
+        batch = {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()}
+        got, calls = {}, []
+        b11 = L._attention_b11
+
+        def recording(q, k, v, backend):
+            calls.append((q.detach().clone(), k.detach().clone(), v.detach().clone()))
+            return b11(q, k, v, backend)
+
+        def sixteen_bit(q, k, v, backend):                 # the control's forward
+            return b11(q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16),
+                       backend).to(q.dtype)
+
+        for name, door, backend in (("cuda", recording, "cuda"), ("vmap", b11, "vmap"),
+                                    ("control", sixteen_bit, "cuda")):
+            L._attention_b11 = door
+            try:
+                (loss, _), grads = S.grads_of(params, cfg, batch, backend=backend)
+            finally:
+                L._attention_b11 = b11
+            got[name] = (float(loss), grads)
+        rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        with torch.no_grad():
+            kernel_err = max(rel(b11(q, k, v, "cuda"), b11(q, k, v, "vmap")) for q, k, v in calls)
+        del calls
+
+        def held(run):
+            """(loss's relative error, [(leaf, error)], the worst leaf) of a run
+            against the plain one"""
+            errs = [(path, rel(a, b)) for (path, a), b in
+                    zip(tree_leaves_with_path(got[run][1]), tree_leaves(got["vmap"][1]))]
+            return (abs(got[run][0] - got["vmap"][0]) / abs(got["vmap"][0]), errs,
+                    max(errs, key=lambda e: e[1]))
+
+        loss_err, errs, worst = held("cuda")
+        control_loss, _, control_worst = held("control")
+        attn = got["cuda"][1]["blocks"][0]["attn"]
+        zero = [f"{w}[{i}]" for w in ("wq", "wk", "wv") for i in range(GRAD_LAYERS)
+                if not bool(attn[w][i].abs().amax() > 0)]
+        log("training", f"gradients, tinyllama at full width and {GRAD_LAYERS} layers, float32, "
+                        f"{GRAD_BATCH} x {GRAD_SEQ} tokens, B11 (3xTF32) against "
+                        f"flash_attention_plain: loss {got['cuda'][0]:.6f} against "
+                        f"{got['vmap'][0]:.6f} (relative {loss_err:.3e}, limit {LOSS_RTOL}); "
+                        f"B11's own relative error on the run's q, k, v {kernel_err:.3e} (limit "
+                        f"{ATTN_TOL['float32']}); each leaf's error against its largest "
+                        f"gradient (limit {GRAD_RTOL}): "
+                        f"{[(p, f'{e:.3e}') for p, e in errs]}, the worst {worst[1]:.3e} "
+                        f"({worst[0]}); the control (B11's 16-bit route in the forward): loss "
+                        f"{control_loss:.3e}, the worst leaf {control_worst[1]:.3e} "
+                        f"({control_worst[0]}); wq / wk / wv gradients zero in {zero or 'none'}")
+        if not (loss_err <= LOSS_RTOL and worst[1] <= GRAD_RTOL
+                and kernel_err <= ATTN_TOL["float32"]) or zero:
+            raise AssertionError(f"training gradients: loss {loss_err:.3e}, {worst[0]} at "
+                                 f"{worst[1]:.3e}, B11 {kernel_err:.3e}, zero attention "
+                                 f"gradients {zero}")
+        if not control_worst[1] > GRAD_RTOL:
+            raise AssertionError(f"the gradient limit {GRAD_RTOL} passes the control: the 16-bit "
+                                 f"route's worst leaf {control_worst[1]:.3e}")
+        del got, grads, attn, worst, control_worst
+        tc = TrainConfig(lr=DESCENT_LR, warmup_steps=1, total_steps=100)
+        state = S.TrainState(params, adamw_init(params, tc))
+        step_fn = S.make_train_step(cfg, tc)
+        descent = []
+        for _ in range(DESCENT_STEPS + 1):           # the first step's rate is the warmup's 0
+            state, metrics = step_fn(state, batch)
+            descent.append(float(metrics["loss"]))
+        log("training", f"{DESCENT_STEPS + 1} steps on that batch (lr {DESCENT_LR}, B11 in the "
+                        f"forward): losses {[round(x, 5) for x in descent]}, gradient norm at the "
+                        f"last {float(metrics['grad_norm']):.3e}")
+        if not all(b < a for a, b in zip(descent[1:], descent[2:])) or not descent[-1] < descent[0]:
+            raise AssertionError(f"steps along the port's gradient did not lower the loss: "
+                                 f"{descent}")
+        del params, state, metrics
+        torch.cuda.empty_cache()
+
+        # ---- (c) dbrx-132b at full width, one layer
+        _dbrx_training(dev, registry, log, smi, add)
+        # ---- (d) the supervisor on the card
+        cfg = get_config("dbrx-132b").smoke()
+        tc = TrainConfig(global_batch=4, seq_len=256, lr=3e-3, total_steps=SUP_STEPS,
+                         warmup_steps=2, seed=SEED)
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED)
+        params = init_params(M.decl_model(cfg), g)
+        pipeline = DataPipeline(vocab=cfg.vocab, seq_len=tc.seq_len, batch_per_host=4,
+                                seed=SEED, device=dev)
+
+        def batch_fn(step):
+            return {k: torch.from_numpy(v).to(dev) for k, v in pipeline.batch_at(step).items()}
+
+        before = registry.launch_counts()
+        sup = Supervisor(S.make_train_step(cfg, tc), batch_fn,
+                         TrainLoopConfig(total_steps=SUP_STEPS, checkpoint_every=4,
+                                         checkpoint_dir=os.path.join(work, "supervisor"),
+                                         log_every=1, max_retries_per_step=2),
+                         fault_injector=FaultInjector(fail_at=dict(SUP_FAULTS)),
+                         sleep_fn=lambda s: None)
+        sup.run(S.TrainState(params, adamw_init(params, tc)))
+        add(before)
+        hist = [(h["step"], h["loss"]) for h in sup.history]
+        first = {}
+        replay = []
+        for step, loss in hist:
+            if step in first:
+                replay.append((step, loss, first[step], abs(loss - first[step]) / abs(first[step])))
+            else:
+                first[step] = loss
+        log("training", f"supervisor on the card (dbrx-132b smoke, multisplit, 4 x 256 tokens, "
+                        f"faults {SUP_FAULTS}): stats {sup.stats}; history steps "
+                        f"{[s for s, _ in hist]}; replayed steps (step, loss, first run's, "
+                        f"relative): "
+                        f"{[(s, round(a, 6), round(b, 6), f'{r:.2e}') for s, a, b, r in replay]}")
+        want_steps = [0, 1, 2, 3, 4, 5, 4, 5, 6, 7]
+        if (sup.stats["retries"] != 4 or sup.stats["restores"] != 1
+                or [s for s, _ in hist] != want_steps
+                or any(r > SUP_REPLAY_RTOL for *_, r in replay) or len(replay) != 2):
+            raise AssertionError(f"the supervisor on the card: stats {sup.stats}, history {hist}")
+        del sup, params, pipeline
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
+def _dbrx_training(dev, registry, log, smi, add):
+    """Part (c) of :func:`training_phase`: dbrx-132b at full width and
+    :data:`DBRX_TRAIN_LAYERS` layer, trained by ``make_train_step``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import init_params, param_count
+
+    cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=DBRX_TRAIN_LAYERS)
+    decls = M.decl_model(cfg)
+    seq = DBRX_TRAIN_SEQ
+    tc = TrainConfig(global_batch=1, seq_len=seq, lr=3e-4, warmup_steps=1,
+                     total_steps=DBRX_TRAIN_STEPS, params_dtype="bfloat16",
+                     moments_dtype="bfloat16", seed=SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    params = init_params(decls, g, torch.bfloat16)
+    state = S.TrainState(params, adamw_init(params, tc))
+    held = torch.cuda.memory_allocated() / 2**30
+    tokens = torch.randint(0, cfg.vocab, (DBRX_TRAIN_STEPS, 1, seq + 1), device=dev,
+                           generator=g, dtype=torch.int32)
+    batches = [{"tokens": t[:, :-1].contiguous(), "labels": t[:, 1:].contiguous()}
+               for t in tokens]
+    with torch.inference_mode():                     # one forward: what the remat rule doubles
+        before = registry.launch_counts()
+        M.forward(state.params, cfg, tokens=batches[0]["tokens"])
+        torch.cuda.synchronize()
+        after = registry.launch_counts()
+        fwd = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    routed = []
+    ranks_fn = moe_mod._ranks_multisplit
+
+    def recording(ids, e, *a, **kw):
+        r = ranks_fn(ids, e, *a, **kw)
+        routed.append((ids.clone(), r[0].clone(), r[1].clone()))
+        return r
+
+    steps_log = []
+    step_fn = _step_recorder(registry, S.make_train_step, steps_log)(cfg, tc)
+    moe_mod._ranks_multisplit = recording
+    try:
+        before = registry.launch_counts()
+        for b in batches:
+            state, metrics = step_fn(state, b)
+        add(before)
+    finally:
+        moe_mod._ranks_multisplit = ranks_fn
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: 2 * v for k, v in fwd.items()}
+    if any(launches != want for _, _, launches, _ in steps_log):
+        raise AssertionError(f"dbrx steps launched {[s[2] for s in steps_log]}, not twice a "
+                             f"forward's {fwd}")
+    if len(routed) != 2 * DBRX_TRAIN_STEPS * DBRX_TRAIN_LAYERS:
+        raise AssertionError(f"dbrx routed {len(routed)} times in {DBRX_TRAIN_STEPS} steps")
+    for i, (ids, ranks, cnt) in enumerate(routed):
+        twin = routed[i ^ 1]                             # the forward's and the recompute's
+        if not (bits_equal(ids, twin[0]) and bits_equal(ranks, twin[1])):
+            raise AssertionError(f"dbrx step {i // 2}: the recompute routed otherwise")
+        for other, what in ((ranks_fn(ids, cfg.moe.num_experts, backend="vmap", device=dev),
+                             "the plain multisplit (vmap)"),
+                            (moe_mod._ranks_sort(ids, cfg.moe.num_experts, device=dev),
+                             "the stable sort")):
+            if not (bits_equal(ranks, other[0]) and bits_equal(cnt, other[1])):
+                raise AssertionError(f"dbrx step {i // 2}: ranks or counts differ from {what}")
+    losses = [loss for loss, *_ in steps_log]
+    ms = [ms for _, ms, *_ in steps_log]
+    log("training", f"dbrx-132b at {DBRX_TRAIN_LAYERS} layer (full: 40), every width kept, "
+                    f"{param_count(decls) / 1e9:.3f}B parameters, bfloat16 params and moments, "
+                    f"float32 master ({held:.1f} GiB of state), {DBRX_TRAIN_STEPS} steps of 1 x "
+                    f"{seq} tokens: {statistics.median(ms[1:]):.2f} ms/step (median of steps 2-"
+                    f"{DBRX_TRAIN_STEPS}; steps {[round(x, 2) for x in ms]}) [host clock around "
+                    f"synchronised steps; {smi}]; peak {peak:.2f} GiB; losses "
+                    f"{[round(x, 4) for x in losses]}; launches a step {steps_log[0][2]} (a "
+                    f"forward: {fwd}); every step's ranks and counts, forward and recompute, "
+                    f"bitwise each other, the plain multisplit and the stable sort")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"dbrx losses {losses}")
+    for name in ("flash_attention", "spec_tile_histograms", "spec_tile_positions"):
+        if not fwd.get(name):
+            raise AssertionError(f"dbrx's forward launched no {name}: {fwd}")
+    del state, params, batches, routed
+    torch.cuda.empty_cache()
+
+
+def training_trace_phase(dev, log, smi) -> None:
+    """One training step of tinyllama-1.1b's full config (4 x 2048 tokens,
+    as :func:`training_phase` (a)) under ``torch.profiler``, after SDPA's
+    read: device time by kind (B11, the plain attention backward under
+    ``models.layers._b11_backward``, the optimizer under
+    ``launch.steps.adamw_update``, K1/K3, the matmuls, the elementwise
+    kernels, the rest; a kernel under a range counts for the range) and the
+    card's idle share of the step's host span."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import steps as S
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import init_params
+
+    cfg = get_config("tinyllama-1.1b")
+    tc = TrainConfig(global_batch=4, seq_len=2048)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    params = init_params(M.decl_model(cfg), g)
+    state = S.TrainState(params, adamw_init(params, tc))
+    tokens = torch.randint(0, cfg.vocab, (4, 2049), device=dev, generator=g, dtype=torch.int32)
+    batch = {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()}
+    ranges = {"attention backward": ("_b11_backward", L), "optimizer": ("adamw_update", S)}
+    originals = {name: getattr(mod, fn) for name, (fn, mod) in ranges.items()}
+
+    def ranged(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    step = S.make_train_step(cfg, tc)
+    try:
+        for name, (fn, mod) in ranges.items():
+            setattr(mod, fn, ranged(name, originals[name]))
+        state, _ = step(state, batch)                          # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            span_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, (fn, mod) in ranges.items():
+            setattr(mod, fn, originals[name])
+    kinds = {k: 0.0 for k in ("B11", "attention backward", "optimizer", "K1/K3", "matmuls",
+                              "elementwise", "other")}
+    n_kernels = [0]
+
+    def by_name(key):
+        key = key.lower()
+        if "flash_sm90_kernel" in key or "flash_f32_sm90_kernel" in key:
+            return "B11"
+        if "tile_histograms_kernel" in key or "tile_positions_kernel" in key:
+            return "K1/K3"
+        if any(w in key for w in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
+            return "matmuls"
+        return "elementwise" if "elementwise" in key else "other"
+
+    def walk(ev, kind):
+        kind = ev.name if ev.name in ranges else kind
+        for k in ev.kernels:
+            n_kernels[0] += 1
+            kinds[kind or by_name(k.name)] += k.duration
+        for child in ev.cpu_children:
+            walk(child, kind)
+
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.cpu_parent is None:
+            walk(ev, None)
+    busy = sum(kinds.values())
+    if not (busy and kinds["B11"] and kinds["matmuls"]):
+        raise AssertionError(f"torch.profiler read no device time of B11 or the matmuls in a "
+                             f"training step: {kinds}")
+    log("training", f"one training step of tinyllama-1.1b (full config, 4 x 2048) traced: "
+                    f"{n_kernels[0]} kernels, device busy {busy / 1e3:.2f} ms of a "
+                    f"{span_ms:.2f} ms step (idle {1 - busy / 1e3 / span_ms:.3f}; the host span "
+                    f"runs under the profiler); by kind: "
+                    + ", ".join(f"{k} {v / 1e3:.3f} ms ({v / busy:.1%})" for k, v in kinds.items())
+                    + f" [torch.profiler; {smi}]")
+    del state, params, batch
+    torch.cuda.empty_cache()
+
 
 def main() -> int:
     import numpy as np
@@ -4348,9 +4844,10 @@ def main() -> int:
     resilience_phase(dev, gen, s1_starts, registry, max_err, log, smi)
 
     # ---- 5n. the distributed stage (A12), 5o. the model serving path (A13,
-    # dense and MoE) and 5p. the other families (A13a, after dbrx has freed
-    # its memory), each with its own launch counts
-    for phase in (distributed_phase, model_phase, families_phase):
+    # dense and MoE), 5p. the other families (A13a, after dbrx has freed
+    # its memory) and 5q. training (A13b, after the families have freed
+    # theirs), each with its own launch counts
+    for phase in (distributed_phase, model_phase, families_phase, training_phase):
         for name, count in phase(dev, registry, log, smi).items():
             launches[name] += count
 
@@ -5187,6 +5684,7 @@ def main() -> int:
     serving_trace_phase(dev, log, smi)
     model_trace_phase(dev, log, smi)
     family_trace_phase(dev, log, smi)
+    training_trace_phase(dev, log, smi)
     log("times", f"peak device memory of the timed runs above the inputs: "
                  f"{(torch.cuda.max_memory_allocated() - base_mem) / 2**30:.2f} GiB")
 

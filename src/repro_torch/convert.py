@@ -8,9 +8,10 @@ from a class name and a field dictionary, such as ``type(s).__name__`` and
 ``chip_smoke.py`` hand both packages the same spec. :func:`tensor_from_numpy`
 carries an array, ``np.asarray`` of a JAX array, into a tensor bit for bit.
 :func:`convert_config` reads a JAX ``ModelConfig`` field by field into the
-port's, and :func:`params_from_numpy` carries a parameter tree of numpy
+port's, :func:`params_from_numpy` carries a parameter tree of numpy
 arrays (``jax.tree.map(np.asarray, params)``) into the port's tree on a
-device, bit for bit. This module imports nothing of the JAX package: it
+device, bit for bit, and :func:`train_state_from_numpy` a whole train state
+(params, the AdamW moments and step, the float32 master) likewise. This module imports nothing of the JAX package: it
 reads only plain values.
 """
 
@@ -76,3 +77,21 @@ def params_from_numpy(tree, device: Optional[torch.device] = None):
     """A parameter tree of numpy arrays (nested dicts and lists, as the JAX
     package's) as the port's tree of tensors on ``device``, bit for bit."""
     return tree_map(lambda a: tensor_from_numpy(a, device), tree)
+
+
+def train_state_from_numpy(state, device: Optional[torch.device] = None):
+    """A train state of numpy arrays (``jax.tree.map(np.asarray, state)`` of
+    a JAX ``TrainState``, read by its field names) as the port's
+    :class:`repro_torch.launch.steps.TrainState` on ``device``, bit for
+    bit; a missing master stays None."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optim import AdamWState
+
+    opt = state.opt
+    return TrainState(
+        params=params_from_numpy(state.params, device),
+        opt=AdamWState(step=tensor_from_numpy(np.asarray(opt.step), device),
+                       mu=params_from_numpy(opt.mu, device),
+                       nu=params_from_numpy(opt.nu, device),
+                       master=None if opt.master is None else params_from_numpy(opt.master,
+                                                                                 device)))

@@ -38,6 +38,12 @@ blocks change only the order of rounding. The kernels take head widths
 ``hd`` that are multiples of 8 up to 256; another ``hd`` raises
 ``ValueError`` on a CUDA tensor.
 
+The door has no gradient: on the card its output is filled by a ``ctypes``
+launch and carries no autograd history. So it raises ``RuntimeError``, on
+every device, when grad mode is on and q, k or v requires grad; a model
+differentiates B11 through ``repro_torch.models.layers._B11Attention``,
+whose forward calls the door with grad off.
+
 Dispatch: a CPU tensor runs :func:`flash_attention_plain`; a CUDA tensor
 launches the kernel of its dtype on the current stream, counts it in
 ``flash_attention.launches`` (registered with the other wrappers in
@@ -120,6 +126,10 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
     """(BH, S, hd) q, k, v -> (BH, S, hd) attention output in q's dtype
     (B11)."""
     _check(q, k, v, block_q, block_k)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError("flash_attention has no gradient (the kernel's output carries no "
+                           "autograd history): call it under torch.no_grad(), or differentiate "
+                           "attention through repro_torch.models.layers.multihead_attention")
     if not build.on_cuda(q, "flash_attention"):
         return flash_attention_plain(q, k, v, causal, block_q, block_k)
     bh, s, hd = q.shape

@@ -11,6 +11,13 @@ for a CUDA tensor, its plain version for a CPU one; every other call
 package's triangular block schedule in plain PyTorch. A launch of B11 that
 fails raises.
 
+The B11 route is differentiable through :class:`_B11Attention`: the kernel
+carries the forward, and the backward is the gradient of the JAX package's
+own function, the triangular block schedule, recomputed from the saved q, k
+and v. The kernel's output has no autograd history (a ``ctypes`` launch
+fills it), and the door refuses to run under grad, so no caller can cut the
+gradient of q, k and v silently.
+
 The tensor-parallel branches of the JAX function (``tp > 1``: kv heads
 expanded or padded to the TP width, layout anchors) are dead on one device
 and have no port; neither have the JAX compile levers ``unroll`` and
@@ -140,11 +147,43 @@ def _attention_b11(q: Tensor, k: Tensor, v: Tensor, backend: str) -> Tensor:
     g = h // k.shape[2]
     if g > 1:
         k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
-    fold = lambda x: x.transpose(1, 2).reshape(b * h, s, hd)
+    # contiguous: at b = 1 the reshape is a strided view, which the kernel refuses
+    fold = lambda x: x.transpose(1, 2).reshape(b * h, s, hd).contiguous()
     blk = 256 if s % 256 == 0 else s
     attend = kops.flash_attention if backend == "cuda" else _fa.flash_attention_plain
     out = attend(fold(q), fold(k), fold(v), True, blk, blk)
     return out.view(b, h, s, hd).transpose(1, 2)
+
+
+def _b11_backward(q: Tensor, k: Tensor, v: Tensor, grad: Tensor, chunk: int):
+    """The gradients of q, k and v: autograd of :func:`_attention_blocks`
+    (causal, no window, ``q_offset`` 0, chunks of ``chunk``), the function
+    JAX differentiates, recomputed from the saved inputs."""
+    with torch.enable_grad():
+        q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+        out = _attention_blocks(q, k, v, causal=True, chunk=chunk, window=None, q_offset=0,
+                                probs_bf16=False)
+        return torch.autograd.grad(out, (q, k, v), grad)
+
+
+class _B11Attention(torch.autograd.Function):
+    """Causal self-attention inside B11's contract: the forward is
+    :func:`_attention_b11` (the kernel door on ``cuda``, its plain version on
+    any other backend) and saves q, k and v, not the probabilities; the
+    backward is :func:`_b11_backward`. There is no backward kernel: the JAX
+    package has none either, and its gradient is that of the block
+    schedule."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, backend: str, chunk: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.chunk = chunk
+        return _attention_b11(q, k, v, backend)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        return (*_b11_backward(q, k, v, grad, ctx.chunk), None, None)
 
 
 def _attention_blocks(q, k, v, *, causal, chunk, window, q_offset, probs_bf16) -> Tensor:
@@ -222,11 +261,12 @@ def multihead_attention(
     A call inside B11's contract (:func:`b11_route`) goes through the
     kernel door on the ``cuda`` backend and through the kernel's plain
     version ``flash_attention_plain`` on any other (the same online
-    softmax); every other call runs the JAX package's triangular block
-    schedule (chunks of ``chunk``) in plain PyTorch."""
+    softmax), by :class:`_B11Attention`, whose backward is the block
+    schedule's gradient; every other call runs the JAX package's
+    triangular block schedule (chunks of ``chunk``) in plain PyTorch."""
     if b11_route(q, k, causal=causal, window=window, q_offset=q_offset,
                  probs_bf16=probs_bf16):
-        return _attention_b11(q, k, v, backend)
+        return _B11Attention.apply(q, k, v, backend, chunk)
     return _attention_blocks(q, k, v, causal=causal, chunk=chunk, window=window,
                              q_offset=q_offset, probs_bf16=probs_bf16)
 

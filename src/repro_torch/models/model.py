@@ -21,8 +21,18 @@ embeddings, and the vlm's cross-attention reads patch embeddings
 The stacked parameters keep their leading ``n_super`` axis, so the
 parameter tree matches the JAX package's name for name and shape for shape
 (:func:`repro_torch.convert.params_from_numpy` carries one across);
-:func:`forward` loops over that axis where JAX scans it. The scan and remat
-levers of the config are compile and training levers and are dead here.
+:func:`forward` loops over that axis where JAX scans it. The scan levers of
+the config are compile levers and are dead here.
+
+Training (:func:`loss_fn`, over :func:`_forward_trunk`): the causal LM loss,
+a chunked cross entropy over ``loss_chunk`` positions so the (B, S, V)
+logits never exist at once, plus the MoE aux terms. ``cfg.remat`` is JAX's
+``jax.checkpoint`` as ``torch.utils.checkpoint`` (non-reentrant): a
+super-block and a loss chunk keep only their inputs and run again in the
+backward. The recomputation re-runs the MoE routing, which must route as
+the first run did: a token's rank is its stable position among the tokens
+of its expert, which K1 and K3 (and every backend) compute without
+atomics, so the ranks come out bitwise the same.
 
 :class:`Transformer` is a thin ``nn.Module`` over these functions: it
 registers the parameter tree and calls them.
@@ -30,10 +40,11 @@ registers the parameter tree and calls them.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_mod
@@ -328,6 +339,125 @@ def forward(
     return lm_head(params["embed"], x, cfg), cache, aux
 
 
+# ---------------------------------------------------------------------------
+# Loss (chunked over the sequence: the (B, S, V) logits never exist at once)
+# ---------------------------------------------------------------------------
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``torch.utils.checkpoint`` when ``cfg.remat`` (JAX's
+    ``jax.checkpoint``): its activations are recomputed in the backward."""
+    if not cfg.remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, each leaf split once along its
+    leading axis (one gradient for the stack, where ``t[i]`` a layer would
+    scatter a full-size gradient per layer); one layer is a plain view."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, (list, tuple)):
+        per = [_unstack(v, n) for v in tree]
+        return [type(tree)(p[i] for p in per) for i in range(n)]
+    if tree is None:
+        return [None] * n
+    return [tree.squeeze(0)] if n == 1 else list(tree.unbind(0))
+
+
+def _forward_trunk(params, cfg: ModelConfig, batch: Dict[str, Tensor], *,
+                   backend: str = "cuda"):
+    """:func:`forward` minus the LM head, with no cache: returns (final
+    hidden states (B, S, d), None, aux). ``batch`` holds ``tokens`` (or
+    ``embeds`` for a frontend-stub arch) and, for a vlm, ``vis_embeds``.
+    Each super-block is one checkpointed region under ``cfg.remat``; the
+    tail's blocks are not, as in JAX."""
+    pattern, n_super, tail = block_pattern(cfg)
+    slots = _pattern_param_slots(pattern)
+    dtype = getattr(torch, cfg.dtype)
+    if cfg.embed_frontend_stub:
+        x = batch["embeds"].to(dtype)
+    else:
+        x = embed_tokens(params["embed"], batch["tokens"], cfg)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    vis_embeds = batch.get("vis_embeds")
+    if vis_embeds is not None:
+        vis_embeds = vis_embeds.to(dtype)
+    run = dict(positions=positions, vis_embeds=vis_embeds,
+               shared_params=params.get("shared_attn"), backend=backend)
+    layers = [_unstack(stack, n_super) for stack in params["blocks"]]
+
+    def superblock(x, i):
+        aux = _zero_aux(x.device)
+        for pi, kind in enumerate(pattern):
+            p = None if slots[pi] is None else layers[slots[pi]][i]
+            x, _, a = apply_block(kind, p, x, cfg, **run)
+            aux = _add_aux(aux, a)
+        return (x, *aux)
+
+    superblock = _remat(superblock, cfg)
+    aux = _zero_aux(x.device)
+    for i in range(n_super):
+        x, *a = superblock(x, i)
+        aux = _add_aux(aux, moe_mod.MoEAux(*a))
+    for ti, kind in enumerate(tail):
+        x, _, a = apply_block(kind, params["tail"][ti], x, cfg, **run)
+        aux = _add_aux(aux, a)
+    return x, None, aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Tensor], *, backend: str = "cuda"):
+    """Causal LM loss: (loss, metrics). ``batch``: ``tokens`` (or
+    ``embeds``), ``labels`` (B, S) with -1 where no token is predicted, and
+    ``vis_embeds`` for a vlm. The cross entropy runs over chunks of
+    ``loss_chunk`` positions (the labels padded with -1 to a whole chunk),
+    each chunk's logits in float32, or, with ``loss_bf16_logits``, in the
+    compute dtype with the logsumexp summed in float32; the MoE aux terms
+    are added to the mean. The metrics are JAX's: loss, the two aux losses,
+    the drop fraction and the count of labelled tokens."""
+    labels = batch["labels"]
+    trunk_out, _, aux = _forward_trunk(params, cfg, batch, backend=backend)
+    b, s, d = trunk_out.shape
+    chunk = min(cfg.loss_chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        trunk_out = torch.nn.functional.pad(trunk_out, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+
+    def chunk_loss(h, lab):
+        logits = lm_head(params["embed"], h, cfg)
+        if cfg.loss_bf16_logits:
+            # the logsumexp accumulates in fp32 without an fp32 (B, chunk, V) tensor
+            m = logits.amax(-1)
+            lse = m.float() + torch.log(torch.exp(logits - m[..., None]).sum(
+                -1, dtype=torch.float32))
+        else:
+            logits = logits.float()
+            lse = torch.logsumexp(logits, -1)
+        picked = logits.gather(-1, lab.clamp_min(0).long()[..., None])[..., 0].float()
+        valid = lab >= 0
+        return torch.where(valid, lse - picked, 0.0).sum(), valid.sum(dtype=torch.int32)
+
+    body = _remat(chunk_loss, cfg)
+    total = torch.zeros((), dtype=torch.float32, device=trunk_out.device)
+    count = torch.zeros((), dtype=torch.int32, device=trunk_out.device)
+    for c in range(trunk_out.shape[1] // chunk):
+        nll, n = body(trunk_out[:, c * chunk:(c + 1) * chunk], labels[:, c * chunk:(c + 1) * chunk])
+        total, count = total + nll, count + n
+    loss = total / count.clamp_min(1)
+    if cfg.moe.num_experts:
+        loss = loss + cfg.moe.aux_loss * aux.load_balance + cfg.moe.router_z_loss * aux.router_z
+    metrics = {
+        "loss": loss,
+        "aux_load_balance": aux.load_balance,
+        "aux_router_z": aux.router_z,
+        "moe_drop_fraction": aux.drop_fraction,
+        "tokens": count,
+    }
+    return loss, metrics
+
+
 def decode_step(params, cfg: ModelConfig, cache, token_or_embed, position):
     """One serving step: (B, 1) tokens (a (B, 1, d) frame embedding for a
     frontend-stub arch) + cache -> logits (B, 1, V). ``position``: the
@@ -348,8 +478,8 @@ class Transformer(nn.Module):
     """Every family as an ``nn.Module``: the parameter tree of
     :func:`decl_model`, drawn by :func:`init_params` from ``generator``
     (or carried in as ``params``), registered leaf by leaf under its tree
-    path; ``forward``, ``init_cache`` and ``decode_step`` call the
-    functions of this module."""
+    path as trainable parameters; ``forward``, ``init_cache``,
+    ``decode_step`` and ``loss`` call the functions of this module."""
 
     def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
                  params=None, dtype: Optional[torch.dtype] = None):
@@ -359,7 +489,7 @@ class Transformer(nn.Module):
             params = init_params(decl_model(cfg), generator, dtype)
         def register(path, t):
             name = "_".join(path)
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            self.register_parameter(name, nn.Parameter(t))
             return name
 
         def walk(tree, path):
@@ -386,3 +516,7 @@ class Transformer(nn.Module):
 
     def decode_step(self, cache, token_or_embed: Tensor, position):
         return decode_step(self.params, self.cfg, cache, token_or_embed, position)
+
+    def loss(self, batch: Dict[str, Tensor], *, backend: str = "cuda"):
+        """:func:`loss_fn` on the registered parameters: (loss, metrics)."""
+        return loss_fn(self.params, self.cfg, batch, backend=backend)

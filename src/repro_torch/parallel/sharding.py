@@ -49,10 +49,13 @@ FSDP_AXES = frozenset({"embed", "embed_fsdp"})
 
 
 def tree_map(fn: Callable, tree, *rest):
-    """``fn`` over the leaves of nested dicts and lists (several trees of one
-    structure leaf by leaf); None stays None, as a JAX pytree keeps it."""
+    """``fn`` over the leaves of nested dicts, lists, tuples and named
+    tuples (several trees of one structure leaf by leaf); None stays None,
+    as a JAX pytree keeps it."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
     if tree is None:
@@ -68,6 +71,44 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [leaf for x in tree for leaf in tree_leaves(x)]
     return [] if tree is None else [tree]
+
+
+def tree_leaves_with_path(tree, prefix: str = "") -> list:
+    """(path, leaf) in :func:`tree_leaves`' order, the path JAX's
+    ``keystr``: a named tuple's fields ``.name``, a dict's keys ``['key']``,
+    a sequence's items ``[i]``."""
+    if tree is None:
+        return []
+    if hasattr(tree, "_fields"):
+        return [kv for name, sub in zip(tree._fields, tree)
+                for kv in tree_leaves_with_path(sub, f"{prefix}.{name}")]
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in tree_leaves_with_path(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, sub in enumerate(tree)
+                for kv in tree_leaves_with_path(sub, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
+
+
+def tree_unflatten(like, leaves):
+    """``like``'s structure holding ``leaves`` (a sequence in
+    :func:`tree_leaves`' order) in place of its own."""
+    it = iter(leaves)
+
+    def walk(t):
+        if t is None:
+            return None
+        if hasattr(t, "_fields"):
+            return type(t)(*(walk(x) for x in t))
+        if isinstance(t, dict):
+            out = {k: walk(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(x) for x in t)
+        return next(it)
+
+    return walk(like)
 
 
 def constrain(x: Tensor, *entries) -> Tensor:

@@ -1,11 +1,10 @@
 """repro_torch.runtime — the resilience layer (counterpart of
 ``repro/runtime``): the failure taxonomy, the degradation ladder, the
 circuit breaker and its quarantine sidecar, runtime verification, and the
-seeded fault injector. The JAX package's training supervisor
-(``Supervisor``, ``TrainLoopConfig``) comes with the training stack
-(ROADMAP A13b)."""
+seeded fault injector, and the training supervisor (``Supervisor``,
+``TrainLoopConfig``)."""
 
-from repro_torch.runtime.supervisor import FaultInjector  # noqa: F401
+from repro_torch.runtime.supervisor import FaultInjector, Supervisor, TrainLoopConfig  # noqa: F401
 from repro_torch.runtime.resilience import (  # noqa: F401
     DEMOTION_ORDER,
     DispatchContext,

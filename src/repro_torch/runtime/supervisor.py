@@ -1,5 +1,30 @@
-"""Seeded fault injection for the resilience layer and the serving loop
-(counterpart of ``repro/runtime/supervisor.py:63-155``).
+"""Training-loop supervisor: checkpoint/restart, failure retry, elastic
+re-mesh, straggler detection; and the seeded fault injector (counterpart
+of ``repro/runtime/supervisor.py``).
+
+Fault-tolerance model, the JAX package's:
+
+* **Checkpoint/restart**: async checkpoints every ``checkpoint_every``
+  steps; on a step that fails past its retries the supervisor restores the
+  last committed checkpoint and replays. The data pipeline is
+  deterministic in (seed, step), so replayed batches are identical.
+* **Step retry with backoff**: a failed step is retried after a seeded,
+  capped exponential backoff; a failure that
+  :func:`repro_torch.runtime.resilience.classify` calls persistent (a
+  lowering or resource error: the same program cannot succeed again) skips
+  the remaining retries and goes to restore-and-replay; a restore budget
+  spent calls the elastic ``remesh_fn`` hook. The port's train step
+  updates its state in place (JAX's donates it), so a failure after the
+  update began (:class:`repro_torch.optim.StateConsumedError`, or a
+  failure at the wait for the returned metrics, where the card's
+  asynchronous errors surface) is never retried on that state: it goes
+  straight to restore-and-replay, and raises when there is no checkpoint.
+* **Straggler mitigation**: step wall times are kept in a rolling window;
+  a step slower than ``straggler_factor`` x the median is logged and
+  counted.
+
+A step counts as done when its first metric (in tree order) is ready: a
+CUDA tensor's device is synchronised, as ``jax.block_until_ready`` waits.
 
 :class:`FaultInjector` raises at given steps, or at a seeded Bernoulli rate
 a check, and (``dispatch_rate``) inside kernel dispatch
@@ -10,18 +35,49 @@ same calls in both packages for the same backend name. The injected
 messages carry the port's markers (a CUDA out-of-memory, a failed ``nvcc``
 build, a transient interruption), so that a chaos run exercises the real
 classifier.
-
-The JAX module's training supervisor (``Supervisor``, ``TrainLoopConfig``)
-drives a training loop over its checkpoint manager and comes with the
-training stack (ROADMAP A13b).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
+import os
+import statistics
+import tempfile
+import time
 import zlib
-from typing import Dict, Optional, Tuple
+from collections import deque
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.optim.adamw import StateConsumedError
+from repro_torch.parallel.sharding import tree_leaves
+
+log = logging.getLogger("repro_torch.supervisor")
+
+
+@dataclasses.dataclass
+class TrainLoopConfig:
+    total_steps: int = 100
+    checkpoint_every: int = 50
+    checkpoint_dir: str = dataclasses.field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
+    max_retries_per_step: int = 2
+    max_restores: int = 3
+    max_remeshes: int = 2
+    straggler_window: int = 32
+    straggler_factor: float = 2.0
+    log_every: int = 10
+    # Seeded exponential backoff between step retries:
+    # sleep = min(cap, base * 2**attempt) * (0.5 + u), u ~ U[0, 1) seeded —
+    # back-to-back retries against a flapping device just burn the retry
+    # budget inside the same failure window.
+    retry_backoff_base: float = 0.05
+    retry_backoff_cap: float = 2.0
+    retry_backoff_seed: int = 0
 
 # Injected dispatch-fault flavours map onto the resilience taxonomy THROUGH
 # the real classifier: the messages carry the text of the failures the port
@@ -110,3 +166,129 @@ class FaultInjector:
             self.dispatch_injected += 1
             self.injected += 1
             raise RuntimeError(f"{_DISPATCH_FAULT_MESSAGES[kind]} [backend={backend}]")
+
+
+def _block_until_ready(x) -> None:
+    """Wait for ``x``: a CUDA tensor's device is synchronised."""
+    if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+        torch.cuda.synchronize(x.device)
+
+
+class Supervisor:
+    """Drives (state, batch) -> (state, metrics) with full fault tolerance."""
+
+    def __init__(
+        self,
+        train_step: Callable,
+        batch_fn: Callable[[int], Any],
+        loop_cfg: TrainLoopConfig,
+        fault_injector: Optional[FaultInjector] = None,
+        remesh_fn: Optional[Callable[[Any], Any]] = None,
+        sleep_fn: Callable[[float], None] = time.sleep,
+    ):
+        self.train_step = train_step
+        self.batch_fn = batch_fn
+        self.cfg = loop_cfg
+        self.ckpt = CheckpointManager(loop_cfg.checkpoint_dir, async_saves=True)
+        self.faults = fault_injector
+        self.remesh_fn = remesh_fn
+        self.sleep_fn = sleep_fn          # injectable: tests pass a recorder
+        self._backoff_rng = np.random.RandomState(loop_cfg.retry_backoff_seed)
+        self.step_times: deque = deque(maxlen=loop_cfg.straggler_window)
+        self.stats = {"retries": 0, "restores": 0, "stragglers": 0, "remeshes": 0}
+        self.history = []
+
+    def _backoff(self, attempt: int) -> float:
+        """Seeded, capped exponential backoff with jitter: deterministic
+        given ``retry_backoff_seed``, never above ``retry_backoff_cap``."""
+        cfg = self.cfg
+        base = min(cfg.retry_backoff_cap, cfg.retry_backoff_base * (2 ** attempt))
+        return base * (0.5 + self._backoff_rng.random_sample())
+
+    def run(self, state) -> Any:
+        from repro_torch.runtime import resilience
+
+        cfg = self.cfg
+        start = self.ckpt.latest_step()
+        step = 0
+        if start is not None:
+            state, step = self.ckpt.restore(state, start)
+            log.info("resumed from checkpoint step %d", step)
+        restores = 0
+
+        while step < cfg.total_steps:
+            batch = self.batch_fn(step)
+            ok = consumed = False
+            for attempt in range(cfg.max_retries_per_step + 1):
+                returned = False
+                try:
+                    t0 = time.time()
+                    if self.faults is not None:
+                        self.faults.check(step)
+                    state, metrics = self.train_step(state, batch)
+                    returned = True
+                    _block_until_ready(tree_leaves(metrics)[0])
+                    dt = time.time() - t0
+                    self._track_straggler(step, dt)
+                    ok = True
+                    break
+                except Exception as e:  # noqa: BLE001 — supervisor boundary
+                    self.stats["retries"] += 1
+                    log.warning("step %d attempt %d failed: %s", step, attempt, e)
+                    if returned or isinstance(e, StateConsumedError):
+                        # the update had begun writing the state in place: a
+                        # retry would apply a second update on top of it
+                        log.warning("step %d: the state is partly updated; restoring instead "
+                                    "of retrying", step)
+                        consumed = True
+                        break
+                    kerr = resilience.classify(e)
+                    if isinstance(kerr, (resilience.KernelLoweringError,
+                                         resilience.KernelResourceError)):
+                        # persistent lowering/resource failure: the same
+                        # program cannot succeed on retry — go straight to
+                        # restore instead of burning the retry budget
+                        log.warning("step %d: persistent %s; skipping remaining retries",
+                                    step, type(kerr).__name__)
+                        break
+                    if attempt < cfg.max_retries_per_step:
+                        self.sleep_fn(self._backoff(attempt))
+            if not ok:
+                restores += 1
+                self.stats["restores"] += 1
+                if restores > cfg.max_restores:
+                    if self.remesh_fn is not None and self.stats["remeshes"] < cfg.max_remeshes:
+                        log.error("restore budget exhausted; elastic re-mesh")
+                        state = self.remesh_fn(state)
+                        self.stats["remeshes"] += 1
+                        restores = 0
+                        continue
+                    raise RuntimeError("restore + re-mesh budgets exhausted")
+                self.ckpt.wait()              # drain in-flight async saves first
+                last = self.ckpt.latest_step()
+                if last is not None:
+                    state, step = self.ckpt.restore(state, last)
+                    log.warning("restored checkpoint step %d, replaying", step)
+                elif consumed:
+                    raise RuntimeError(f"step {step} failed after it began updating the state "
+                                       f"in place, and there is no checkpoint to restore")
+                continue
+
+            if step % cfg.log_every == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                self.history.append({"step": step, **m})
+                log.info("step %d: %s", step, {k: round(v, 4) for k, v in m.items()})
+            step += 1
+            if step % cfg.checkpoint_every == 0 or step == cfg.total_steps:
+                self.ckpt.save(step, state)
+
+        self.ckpt.wait()
+        return state
+
+    def _track_straggler(self, step: int, dt: float):
+        if len(self.step_times) >= 8:
+            med = statistics.median(self.step_times)
+            if dt > self.cfg.straggler_factor * med:
+                self.stats["stragglers"] += 1
+                log.warning("straggler: step %d took %.3fs (median %.3fs)", step, dt, med)
+        self.step_times.append(dt)

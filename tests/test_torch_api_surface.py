@@ -25,13 +25,11 @@ SRC = Path(repro.__file__).resolve().parent
 
 # name -> the ROADMAP queue item that brings it
 PENDING = {
-    # training: the loss, and the training supervisor, which drives a training
-    # loop over the checkpoint manager
-    "repro.models.model": {"loss_fn": "A13b"},
-    "repro.runtime": {"Supervisor": "A13b", "TrainLoopConfig": "A13b"},
-    "repro.runtime.supervisor": {"Supervisor": "A13b", "TrainLoopConfig": "A13b"},
-    # the mesh layer: logical axes onto a device mesh
+    # the mesh layer: logical axes onto a device mesh, and the train, batch
+    # and cache shardings over it
     "repro.parallel.sharding": {"spec_for_decl": "A13c", "decl_to_sharding": "A13c"},
+    "repro.launch.steps": {"state_shardings": "A13c", "batch_sharding": "A13c",
+                           "cache_shardings": "A13c"},
 }
 
 _TPU_HELPER = ("a TPU workaround inside the Pallas bodies (one-hot MXU matmuls, 128-lane "
