@@ -285,6 +285,31 @@ Phases, one line or more each, every one of which must pass:
    replaying. After the times, ``training_trace_phase`` splits one
    tinyllama step by kind (B11, the plain attention backward, the
    optimizer, K1/K3, matmuls, elementwise) with the card's idle share.
+   The one-card launchers (the demo and the training launcher) print their
+   ``(1,)`` ``data`` mesh of one nccl rank first; their ms a step is
+   logged beside the figures of the PRs before the mesh
+   (``MESH_MS_BEFORE``).
+   Subnormal keys (``subnormal_phase``): float32 keys holding ±1e-38,
+   ±5e-39, ±1e-39, ±1.4e-45 and ±0 under ``RangeSpec((-2.0, -0.0, 0.5,
+   1.0, 4.0))`` and ``EvenSpec(-1e-38, 1e-38, 4)``, flat and segmented,
+   every method and mode, key-value, and both histograms: the ``cuda``
+   labels bitwise ``vmap``'s (the port keeps IEEE subnormals; XLA flushes
+   them).
+   Mesh (``mesh_phase``, last, after training has freed its memory): four
+   gloo ranks on the card as a (2, 2) ``(data, model)`` mesh. (a)
+   dbrx-132b's MoE block at full width in float32, ``multisplit_ep`` on 2 x
+   2048 tokens: within ``MESH_MOE_RTOL`` of the one-process ``multisplit``
+   dispatch at capacity factor 8 with drop 0; at the config's 1.25 and at
+   1.0 (which drops) each rank's kept slots bitwise an oracle of JAX's
+   local-capacity rule and its
+   ranks bitwise ``vmap``'s; K1 and K3 counted on each rank. (b) dbrx-132b
+   at full width, 2 layers, bfloat16, parameters placed by
+   ``decl_to_sharding``, caches by ``cache_shardings``: a prefill of 2 x
+   2048 tokens and 4 decode steps (ms by rank, peak memory a rank, the
+   collectives of a prefill and a decode step by ``CommDebugMode``: no
+   functional all-gather, which gloo cannot run on CUDA tensors); the
+   logits against the one-process run routed as the ranks routed, within
+   what a relative 2^-8 perturbation of its parameters moves them.
 6. launches — every kernel's launch count from its own path's run alone
    (flat, segmented, flat callable, segmented callable, and the four
    packed paths, which launch K1p-K3p and no onehot kernel; each fused
@@ -1814,6 +1839,8 @@ def model_phase(dev, registry, log, smi):
                  f"(63 decode steps, eager): {step.group(1)} ms/step, {step.group(2)} tok/s "
                  f"[host clock around the steps; {smi}]; kernel launches {demo or 'none'} (a "
                  f"dense model's decode step runs no kernel of the port)")
+    launcher_mesh(text, "model", float(step.group(1)),
+                  "decode demo tinyllama-1.1b ms/step, three runs before the mesh layer")
     errs = {arch: decode_matches_forward(arch, dev) for arch in ("tinyllama-1.1b", "dbrx-132b")}
     log("model", f"smoke configs on the card, float32, 24 decode steps against one forward: "
                  + ", ".join(f"{a} {e:.2e}" for a, e in errs.items())
@@ -2446,6 +2473,8 @@ def training_phase(dev, registry, log, smi):
                         f"gradient norms {[f'{x:.3e}' for x in norms]}; "
                         f"launches a step {per_step[0]} (the remat rule: B11 {b11}); stats "
                         f"{sup.stats}")
+        launcher_mesh(out.getvalue(), "training", step_ms,
+                      "train tinyllama-1.1b ms/step, the last run before the mesh layer")
         if len(steps_log) != 8 or sup.ckpt.latest_step() != 8:
             raise AssertionError(f"the launcher ran {len(steps_log)} steps, last checkpoint "
                                  f"{sup.ckpt.latest_step()}")
@@ -2769,6 +2798,709 @@ def training_trace_phase(dev, log, smi) -> None:
                     + f" [torch.profiler; {smi}]")
     del state, params, batch
     torch.cuda.empty_cache()
+
+
+SUBNORMAL_TINY = (1e-38, -1e-38, 1e-39, -1e-39, 1.4e-45, -1.4e-45, 5e-39, -5e-39, 0.0, -0.0)
+SUBNORMAL_N = 1 << 20
+
+
+def subnormal_phase(dev, registry, log, smi):
+    """Subnormal float32 keys on the card (``ROADMAP.md`` §C, §C 4): XLA
+    flushes them, the port keeps IEEE subnormals (the CPU tests hold
+    ``reference`` and ``vmap`` to numpy's answer). Here the ``cuda`` labels
+    (``RangeSpec((-2.0, -0.0, 0.5, 1.0, 4.0))`` and ``EvenSpec(-1e-38,
+    1e-38, 4)``, whose width 5e-39 is subnormal, computed in K1-K3, K1s-K3s
+    and K2/K2s) against ``vmap`` on 2^20 keys holding every probe (±1e-38,
+    ±5e-39, ±1e-39, ±1.4e-45, ±0) 4096 times: flat and segmented, every
+    method and mode, key-value, bitwise; and ``histogram``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import ops
+
+    rng = np.random.RandomState(SEED + 31)
+    keys = rng.uniform(-3, 5, SUBNORMAL_N).astype(np.float32)
+    at = rng.choice(SUBNORMAL_N, 4096 * len(SUBNORMAL_TINY), replace=False)
+    keys[at] = np.tile(np.asarray(SUBNORMAL_TINY, np.float32), 4096)
+    keys = torch.from_numpy(keys).to(dev)
+    vals = torch.arange(SUBNORMAL_N, dtype=torch.int32, device=dev)
+    starts = torch.tensor([0, 1000, 1000, SUBNORMAL_N // 3, SUBNORMAL_N * 3 // 4],
+                          dtype=torch.int64, device=dev)
+    specs = {"range": ops.RangeSpec((-2.0, -0.0, 0.5, 1.0, 4.0)),
+             "even": ops.EvenSpec(-1e-38, 1e-38, 4)}
+    registry.reset_launches()
+    cases = 0
+    for name, spec in specs.items():
+        for seg in (False, True):
+            for method in ("dms", "wms", "bms"):
+                for mode in ("reorder", "counts_only", "positions_only"):
+                    v = vals if mode == "reorder" else None
+                    got = {}
+                    for backend in ("cuda", "vmap"):
+                        kw = dict(method=method, mode=mode, backend=backend, device=dev)
+                        got[backend] = (ops.segmented_multisplit(keys, spec, starts, v, **kw)
+                                        if seg else ops.multisplit(keys, spec, v, **kw))
+                    for field in ("keys", "values", "bucket_starts", "bucket_counts",
+                                  "permutation"):
+                        a, b = getattr(got["cuda"], field), getattr(got["vmap"], field)
+                        if not bits_equal(a, b):
+                            raise AssertionError(f"subnormal keys, {name} "
+                                                 f"{'segmented' if seg else 'flat'} {method} "
+                                                 f"{mode}: {field} differs from vmap")
+                    cases += 1
+        hist = {b: ops.histogram(keys, spec, backend=b, device=dev) for b in ("cuda", "vmap")}
+        if not bits_equal(hist["cuda"], hist["vmap"]):
+            raise AssertionError(f"subnormal keys, {name}: histogram differs from vmap")
+        neg = int(hist["cuda"][1]) if name == "range" else None
+        if name == "range":
+            log("subnormal", f"RangeSpec((-2, -0.0, 0.5, 1, 4)) histogram on the card "
+                             f"{hist['cuda'].tolist()}: -1e-38, -5e-39, -1e-39, -1.4e-45 counted "
+                             f"in bucket 1 ({neg} keys), as numpy does (XLA flushes them into "
+                             f"bucket 2)")
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in registry.launch_counts().items() if v}
+    log("subnormal", f"{cases} cases (2 specs x flat/segmented x 3 methods x 3 modes, key-value "
+                     f"in reorder) and both histograms: the cuda labels bitwise vmap's on "
+                     f"{SUBNORMAL_N} float32 keys with every subnormal probe 4096 times; launches "
+                     f"{counts} [{smi}]")
+    return counts
+
+
+MESH_WORLD = 4                 # gloo ranks on the one card: a (2, 2) (data, model) mesh
+MESH_SHAPE = (2, 2)
+MESH_BATCH, MESH_SEQ = 2, 2048
+MESH_DECODE_STEPS = 4
+MESH_MOE_RTOL = 1e-4           # multisplit_ep against the one-process dispatch (JAX's criterion)
+MESH_CAPACITY_FACTORS = (1.25, 1.0)   # the config's, and one whose local capacity drops
+MESH_F32_LAYERS = 1            # the float32 run that holds the sharded logits to a limit
+MESH_PERTURB = 2.0 ** -21      # float32: the one-process run's movement, reported beside the gap
+MESH_TIE = 1e-3                # a routing that differs is a near-tie: top-k gap under this
+MESH_MS_BEFORE = {"decode demo tinyllama-1.1b ms/step, three runs before the mesh layer": (50.6, 43.4, 76.8),
+                  "train tinyllama-1.1b ms/step, the last run before the mesh layer": (1028.89,)}
+
+
+def launcher_mesh(text: str, phase: str, ms: float, before: str) -> None:
+    """(c) of the mesh layer: a one-card launcher printed its ``(1,)``
+    ``data`` mesh of one nccl rank first, and its time beside the figure
+    of the PRs before the mesh (``MESH_MS_BEFORE``; ±10 % is the end-to-end
+    spread)."""
+    first = text.strip().splitlines()[0]
+    if "mesh {'data': 1} over 1 rank(s), nccl on cuda" not in first:
+        raise AssertionError(f"the launcher's first line is not its one-card mesh: {first}")
+    was = MESH_MS_BEFORE[before]
+    log(phase, f"(c) through the launcher's mesh ({first.split('] ', 1)[-1]}): {ms:.2f} ms a "
+               f"step beside {before} {list(was)}: {ms / statistics.median(was):.3f}x of their "
+               f"median")
+
+
+def _mesh_cfg(layers=None, capacity_factor=None, dtype=None):
+    """dbrx-132b at full width with ``dispatch="multisplit_ep"``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("dbrx-132b")
+    moe = dataclasses.replace(cfg.moe, dispatch="multisplit_ep",
+                              capacity_factor=capacity_factor or cfg.moe.capacity_factor)
+    return dataclasses.replace(cfg, n_layers=layers or cfg.n_layers, moe=moe,
+                               dtype=dtype or cfg.dtype)
+
+
+def _mesh_x(dev, cfg):
+    """The MoE block's input: (2, 2048, d_model) float32 from the seed."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 41)
+    return torch.randn((MESH_BATCH, MESH_SEQ, cfg.d_model), generator=g, device=dev)
+
+
+def _mesh_tokens(dev, cfg):
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 42)
+    return torch.randint(0, cfg.vocab, (MESH_BATCH, MESH_SEQ), generator=g, device=dev,
+                         dtype=torch.int32)
+
+
+def _recording_router(moe_mod, out):
+    """``moe._router`` recording each call's top-k experts, whole, in the
+    router's order."""
+    from repro_torch.parallel.sharding import gather_full
+
+    router = moe_mod._router
+
+    def fn(p, xn, cfg, **kw):
+        r = router(p, xn, cfg, **kw)
+        out.append(gather_full(r[1]).clone())
+        return r
+
+    return router, fn
+
+
+def _forced_router(moe_mod, experts):
+    """``moe._router`` that routes every call to the next recorded experts
+    (gates from this run's probabilities at them): a run routed as another
+    was, so the two differ by their rounding alone."""
+    import torch
+
+    router = moe_mod._router
+    calls = iter(experts)
+
+    def fn(p, xn, cfg, **kw):
+        _, own, lb, z = router(p, xn, cfg, **kw)
+        chosen = next(calls).to(xn.device)
+        probs = torch.softmax(torch.einsum("nd,de->ne", xn, p["router"].to(xn.dtype)).float(), -1)
+        # where this run's own top-k differs from the recorded one, its gap
+        # between the k-th and (k+1)-th probability: a near-tie, or a fault
+        k = chosen.shape[-1]
+        differ = (own.sort(-1).values != chosen.sort(-1).values).any(-1)
+        top = probs.topk(k + 1, dim=-1).values
+        gap = (top[:, k - 1] - top[:, k])[differ]
+        diffs.append((int(differ.sum()), float(gap.max()) if gap.numel() else 0.0))
+        gates = probs.gather(-1, chosen.long())
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        return gates, chosen, lb, z
+
+    diffs = []
+    return router, fn, diffs
+
+
+def _recording_b11(layers_mod, calls, fault_rank=None):
+    """``layers._b11_sharded`` keeping each call's DTensor q, k, v and
+    output in ``calls``. With ``fault_rank``, the rank at that ``model``
+    coordinate hands B11 its kv heads rolled by one, so its q heads meet the
+    wrong kv heads: the control that the logits' limit must catch."""
+    from torch.distributed.tensor import DTensor
+
+    fn = layers_mod._b11_sharded
+
+    def rec(q, k, v, backend, chunk):
+        mesh = k.device_mesh
+        if (fault_rank is not None
+                and mesh.get_coordinate()[mesh.mesh_dim_names.index("model")] == fault_rank):
+            k, v = (DTensor.from_local(x.to_local().roll(1, 2), x.device_mesh, x.placements,
+                                       run_check=False) for x in (k, v))
+        out = fn(q, k, v, backend, chunk)
+        calls.append((q, k, v, out))
+        return out
+
+    return fn, rec
+
+
+def _local_index(x):
+    """The global indices, a dimension each, of the slice of DTensor ``x``
+    that this rank holds: each mesh dimension that shards a tensor
+    dimension splits it evenly, in the mesh's order."""
+    import torch
+
+    mesh, coord = x.device_mesh, x.device_mesh.get_coordinate()
+    idx = [torch.arange(n, device=x.device) for n in x.shape]
+    for i, pl in enumerate(x.placements):
+        if pl.is_shard():
+            idx[pl.dim] = idx[pl.dim].tensor_split(mesh.size(i))[coord[i]]
+    return idx
+
+
+def _assemble(parts, shape):
+    """The whole tensor from (global indices, local slice) pairs, one a
+    rank (:func:`_local_index`)."""
+    import torch
+
+    full = torch.full(shape, float("nan"), dtype=parts[0][1].dtype, device=parts[0][1].device)
+    for idx, local in parts:
+        n = len(idx)
+        full[tuple(i.view([-1 if d == j else 1 for d in range(n)]).to(full.device)
+                   for j, i in enumerate(idx))] = local
+    return full
+
+
+def _b11_against_plain(q, k, v, out):
+    """One sharded B11 call on the whole q, k and v, the rank's slice of
+    each dimension taken from the output's placements: bitwise against B11
+    on the whole tensors in one call (the heads' layout: each (head, q
+    block) is computed alike in both), and against ``flash_attention_plain``
+    with the rank's q heads meeting kv heads by the global rule (q head h
+    reads kv head h // g). The plain version's limit is ``ATTN_TOL`` in
+    bfloat16 (``limit``). In float32 no limit is set: dbrx's scores reach
+    about 9000, and B11's 3xTF32 products part from the plain version by
+    about what a relative 2^-21 move of q, k and v moves the plain version
+    (``moved``), above ``ATTN_TOL``'s 2e-4 for unit-scale inputs; both are
+    reported. Returns a dict of the errors, over the largest |value| of the
+    rank's slice."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L
+    from repro_torch.parallel.sharding import gather_full
+
+    qf, kf, vf = (gather_full(x) for x in (q, k, v))
+    idx = _local_index(out)
+    if len(idx[1]) != qf.shape[1] or len(idx[3]) != qf.shape[3]:
+        raise AssertionError(f"B11's output is sharded over time or the head dim: "
+                             f"{out.placements}")
+    g = qf.shape[2] // kf.shape[2]
+    bi, hi = idx[0], idx[2]
+    got = out.to_local()
+    whole = L._attention_b11(qf, kf, vf, "cuda")[bi][:, :, hi]
+    qs, ks, vs = qf[bi][:, :, hi], kf[bi][:, :, hi // g], vf[bi][:, :, hi // g]
+    b, s, h, hd = qs.shape
+    fold = lambda x: x.transpose(1, 2).reshape(b * h, s, hd).contiguous()
+    blk = 256 if s % 256 == 0 else s
+    plain = lambda *a: fa.flash_attention_plain(*map(fold, a), True, blk, blk).view(
+        b, h, s, hd).transpose(1, 2)
+    want = plain(qs, ks, vs)
+    top = want.abs().max()
+    dt = str(qf.dtype).split(".")[1]
+    rep = {"dtype": dt, "same_as_whole": bool(torch.equal(got, whole)),
+           "err": float((got.float() - want).abs().max() / top)}
+    if dt == "float32":
+        gen = torch.Generator(device=qs.device)
+        gen.manual_seed(SEED + 45)
+        moved = plain(*(x * (1 + 2.0 ** -21 * torch.randn(x.shape, generator=gen,
+                                                           device=x.device))
+                        for x in (qs, ks, vs)))
+        rep["moved"] = float((moved - want).abs().max() / top)
+    else:
+        rep["limit"] = ATTN_TOL[dt]
+    return rep
+
+
+def draw_in_turn(rank: int, world: int, decls, seed: int, dtype, shardings, dev):
+    """``init_params(..., shardings=)`` one rank at a time (a leaf's whole
+    float32 draw is 4.2 GB for dbrx's experts, 8.5 GB for two stacked
+    layers), the rank's cache of freed blocks returned after its turn."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.parallel.sharding import init_params
+
+    params = None
+    for r in range(world):
+        if r == rank:
+            g = torch.Generator(device=dev)
+            g.manual_seed(seed)
+            params = init_params(decls, g, dtype, shardings=shardings)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return params
+
+
+def mesh_rank(rank: int, world: int, store: str, work: str, device: str) -> None:
+    """One gloo rank of ``mesh_phase`` (a ``torch.multiprocessing.spawn``
+    target) on a (2, 2) ``(data, model)`` mesh over the one card.
+
+    (a) dbrx-132b's MoE block at full width in float32, ``multisplit_ep``,
+    on 2 x 2048 tokens: at capacity factor 8 the output against the
+    one-process ``multisplit`` dispatch (``work/moe_ref.pt``) and drop 0; at
+    the config's 1.25 and at 1.0 (which drops) every rank's kept slots
+    against an oracle of JAX's
+    local-capacity rule (a stable sort of the rank's sub-ids) and its ranks
+    against the ``vmap`` backend's, bitwise; K1 and K3 counted on each rank.
+    (b) dbrx-132b at full width, 2 layers, bfloat16, parameters placed by
+    ``decl_to_sharding`` (drawn one rank at a time), ``multisplit_ep`` at
+    capacity factor 8: a prefill of 2 x 2048 tokens and 4 decode steps on
+    caches placed by ``cache_shardings``; times, peak memory and the
+    collectives a prefill and a decode step issue (``CommDebugMode``); the
+    first B11 call's output on the rank's heads against B11 on the whole q,
+    k and v and ``flash_attention_plain`` (:func:`_b11_against_plain`).
+    (b32) The same model at :data:`MESH_F32_LAYERS` layer in float32: each
+    rank's slice of the prefill's logits (``work/sharded32_r{r}.pt``), and
+    4 decode steps' logits and the routing from rank 0
+    (``work/sharded32.pt``), for the one-process comparison; B11 checked as
+    in (b); a control prefill whose model rank 1 hands B11 its kv heads
+    rolled by one, its parting from the good run on each rank's slice. Each
+    rank writes ``work/rank{r}.json``."""
+    import json as _json
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    import repro_torch.kernels as registry
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel.sharding import (
+        decl_to_sharding, distribute_input, gather_full, set_mesh)
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    rep = {"rank": rank}
+    launched = lambda: {k: v for k, v in registry.launch_counts().items() if v}
+    try:
+        mesh = init_device_mesh(dev.type, MESH_SHAPE, mesh_dim_names=("data", "model"))
+        coord = tuple(mesh.get_coordinate())
+        rep["coordinate"] = coord
+        pcfg = ParallelConfig()
+
+        # ---- (a) the MoE block, float32, full width
+        cfg = _mesh_cfg(capacity_factor=8.0, dtype="float32")
+        decls = moe_mod.moe_decl(cfg)
+        p = draw_in_turn(rank, world, decls, SEED + 40, torch.float32,
+                         decl_to_sharding(decls, pcfg, mesh), dev)
+        x = _mesh_x(dev, cfg)
+        n = MESH_BATCH * MESH_SEQ
+        with torch.no_grad(), set_mesh(mesh):
+            xd = distribute_input(x, "dp", None, None)
+            registry.reset_launches()
+            y, aux = moe_mod.moe_block(p, xd, cfg)
+            torch.cuda.synchronize()
+            rep["moe_launches"] = launched()
+            y = gather_full(y).view(n, -1)
+            ref = torch.load(f"{work}/moe_ref.pt", map_location=dev)
+            rep["moe_rel"] = float((y - ref["y"]).abs().max() / ref["y"].abs().max())
+            rep["moe_drop"] = float(aux.drop_fraction)
+            del y, ref
+            # the config's capacity factor (and 1.0, which drops): the rank's
+            # slots against the rule
+            rep["slots_bitwise"], rep["kept_dropped"], rep["drop_c"] = [], [], []
+            for factor in MESH_CAPACITY_FACTORS:
+                cfg_c = _mesh_cfg(capacity_factor=factor, dtype="float32")
+                xn = moe_mod.constrain(moe_mod.apply_norm(p["norm"], xd, cfg_c).reshape(n, -1),
+                                       "dp", None)
+                _, experts, _, _ = moe_mod._router(p, xn, cfg_c)
+                experts_l = experts.to_local()
+                cap = moe_mod._capacity(n, cfg_c)
+                e_loc = cfg_c.moe.num_experts // MESH_SHAPE[1]
+                cap_loc = max(8, ((-(-cap // MESH_SHAPE[0]) + 7) // 8) * 8)
+                got = moe_mod._ep_slots(experts_l, coord[1], e_loc, cap_loc, backend="cuda",
+                                        device=dev)
+                plain = moe_mod._ep_slots(experts_l, coord[1], e_loc, cap_loc, backend="vmap",
+                                          device=dev)
+                # the oracle: JAX's rule by a stable sort of the sub-ids
+                flat = experts_l.reshape(-1).long()
+                lo = coord[1] * e_loc
+                in_group = (flat >= lo) & (flat < lo + e_loc)
+                sub = torch.where(in_group, flat - lo, e_loc)
+                order = torch.sort(sub, stable=True).indices
+                counts = torch.bincount(sub, minlength=e_loc + 1)
+                starts = torch.cumsum(counts, 0) - counts
+                ranks = torch.empty_like(sub)
+                ranks[order] = torch.arange(sub.numel(), device=dev) - starts[sub[order]]
+                keep = in_group & (ranks < cap_loc)
+                slot = torch.where(keep, sub * cap_loc + ranks, e_loc * cap_loc)
+                rep["slots_bitwise"].append(bool(
+                    torch.equal(got[1], keep) and torch.equal(got[2], slot.to(got[2].dtype))
+                    and torch.equal(got[0], plain[0])))
+                rep["kept_dropped"].append([int(keep.sum()), int((in_group & ~keep).sum())])
+                rep["drop_c"].append(float(moe_mod.moe_block(p, xd, cfg_c)[1].drop_fraction))
+        del p, x, xd, xn, experts, experts_l, got, plain
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+        # ---- (b) dbrx-132b, 2 layers, bfloat16: times, memory, collectives,
+        # and B11 on the rank's heads against its plain version
+        cfg = _mesh_cfg(layers=DBRX_LAYERS, capacity_factor=8.0)
+        decls = M.decl_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        params = draw_in_turn(rank, world, decls, SEED, torch.bfloat16,
+                              decl_to_sharding(decls, pcfg, mesh), dev)
+        rep["params_gib"] = torch.cuda.memory_allocated() / 2**30
+        tokens = _mesh_tokens(dev, cfg)
+        b11 = []
+        b11_fn, b11_rec = _recording_b11(L, b11)
+        with torch.no_grad(), set_mesh(mesh):
+            registry.reset_launches()
+            L._b11_sharded = b11_rec
+            try:
+                logits, _, _ = M.forward(params, cfg, tokens=tokens)
+            finally:
+                L._b11_sharded = b11_fn
+            torch.cuda.synchronize()
+            rep["forward_launches"] = launched()
+            rep["finite"] = bool(torch.isfinite(logits.to_local()).all())
+            del logits
+            rep["b11_calls"] = len(b11)
+            rep["b11_shape"] = list(b11[0][0].to_local().shape)
+            rep["b11"] = _b11_against_plain(*b11[0])
+            del b11
+            comm = CommDebugMode()
+            with comm:
+                M.forward(params, cfg, tokens=tokens)
+            rep["forward_comms"] = {str(k): v for k, v in comm.get_comm_counts().items()}
+            times = []
+            for _ in range(3):
+                dist.barrier()
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                M.forward(params, cfg, tokens=tokens)
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b))
+            rep["prefill_ms"] = sorted(times)[1]
+            cache = M.init_cache(params, cfg, MESH_BATCH, MESH_DECODE_STEPS)
+            rep["cache_placements"] = [str(pl) for pl in cache["pattern"][0]["k"].placements]
+            registry.reset_launches()
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(MESH_DECODE_STEPS):
+                comm = CommDebugMode()
+                with comm:
+                    step_logits, cache = M.decode_step(params, cfg, cache, tokens[:, t:t + 1], t)
+                rep["finite"] &= bool(torch.isfinite(step_logits.to_local()).all())
+            torch.cuda.synchronize()
+            rep["decode_ms"] = (time.perf_counter() - t0) * 1e3 / MESH_DECODE_STEPS
+            rep["decode_launches"] = launched()
+            rep["decode_comms"] = {str(k): v for k, v in comm.get_comm_counts().items()}
+        rep["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del params, cache, step_logits
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+        # ---- (b32) dbrx-132b, 1 layer, float32: the sharded logits against
+        # the one-process run's (work/sharded32.pt), and a control whose
+        # model rank 1 groups its q heads with the wrong kv heads
+        cfg = _mesh_cfg(layers=MESH_F32_LAYERS, capacity_factor=8.0, dtype="float32")
+        decls = M.decl_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        params = draw_in_turn(rank, world, decls, SEED + 44, torch.float32,
+                              decl_to_sharding(decls, pcfg, mesh), dev)
+        experts, b11 = [], []
+        router, rec = _recording_router(moe_mod, experts)
+        b11_fn, b11_rec = _recording_b11(L, b11)
+        with torch.no_grad(), set_mesh(mesh):
+            registry.reset_launches()
+            moe_mod._router, L._b11_sharded = rec, b11_rec
+            try:
+                logits = M.forward(params, cfg, tokens=tokens)[0]
+                cache = M.init_cache(params, cfg, MESH_BATCH, MESH_DECODE_STEPS)
+                dec = []
+                for t in range(MESH_DECODE_STEPS):
+                    step_logits, cache = M.decode_step(params, cfg, cache, tokens[:, t:t + 1], t)
+                    dec.append(gather_full(step_logits)[:, 0])
+                dec = torch.stack(dec, 1)
+            finally:
+                moe_mod._router, L._b11_sharded = router, b11_fn
+            torch.cuda.synchronize()
+            rep["f32_launches"] = launched()
+            rep["b11_f32"] = _b11_against_plain(*b11[0])
+            local = logits.to_local()
+            rep["finite"] &= bool(torch.isfinite(local).all() and torch.isfinite(dec).all())
+            del b11, cache
+            _, faulty = _recording_b11(L, [], fault_rank=1)
+            L._b11_sharded = faulty
+            try:
+                control = M.forward(params, cfg, tokens=tokens)[0].to_local()
+            finally:
+                L._b11_sharded = b11_fn
+            # the control's parting from the good run on this rank's slice;
+            # each rank saves its slice of the logits, and mesh_phase
+            # assembles them (no gather of the whole logits through gloo)
+            rep["control_part"] = float((control - local).abs().max())
+            torch.save({"index": [i.cpu() for i in _local_index(logits)], "logits": local.cpu(),
+                        "shape": list(logits.shape)}, f"{work}/sharded32_r{rank}.pt")
+            if rank == 0:
+                torch.save({"decode": dec, "experts": experts}, f"{work}/sharded32.pt")
+        rep["peak32_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del params, logits, local, dec, control
+        with open(f"{work}/rank{rank}.json", "w") as f:
+            _json.dump(rep, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(dev, registry, log, smi):
+    """The mesh layer (A13c) on the card: :data:`MESH_WORLD` gloo ranks on
+    the one card (NCCL refuses two ranks on one device) as a (2, 2)
+    ``(data, model)`` mesh, built with ``init_device_mesh``; the rank's work
+    is :func:`mesh_rank`. The one-process references run here, before the
+    spawn or after it, never beside the ranks: dbrx's MoE block in float32
+    with the ``multisplit`` dispatch (before); the float32 model of (b32),
+    its forward and 4 decode steps (after), routed as the ranks routed
+    (:func:`_forced_router`; where its own top-4 differs, the gap must be a
+    near-tie under :data:`MESH_TIE`). The sharded prefill and decode logits
+    are held to ``DBRX_LOGIT_RTOL`` of their largest, with the decode argmax
+    equal, and the control (q heads grouped with the wrong kv heads on one
+    rank) must break that limit. The same run with every parameter moved by
+    a relative :data:`MESH_PERTURB` is reported beside the gap, not used as
+    its limit: a rank's float32 matmuls have other shapes and sum in another
+    order, which dbrx's attention (scores to about 9000) magnifies about as
+    much as a 2^-21 move of the parameters. Each rank's B11 on its heads is
+    bitwise B11 on the whole q, k and v, and held to its plain version at
+    ``ATTN_TOL`` in bfloat16. Returns the ranks' summed launch counts."""
+    import dataclasses
+
+    import torch
+    import torch.multiprocessing as tmp
+
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel.sharding import init_params, tree_leaves
+
+    work = os.path.join(ROOT, "build", "mesh_work")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30    # what this process keeps beside the ranks
+
+    # ---- the MoE block's reference, one process, before the ranks
+    cfg = _mesh_cfg(capacity_factor=8.0, dtype="float32")
+    one = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch="multisplit"))
+    decls = moe_mod.moe_decl(cfg)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 40)
+    p = init_params(decls, g, torch.float32)
+    with torch.inference_mode():
+        y, aux = moe_mod.moe_block(p, _mesh_x(dev, cfg), one)
+    if float(aux.drop_fraction) != 0.0:
+        raise AssertionError("the one-process MoE reference dropped tokens at capacity 8")
+    torch.save({"y": y.reshape(MESH_BATCH * MESH_SEQ, -1)}, os.path.join(work, "moe_ref.pt"))
+    del p, y
+    torch.cuda.empty_cache()
+
+    # ---- the ranks
+    store = os.path.join(work, "store")
+    t0 = time.perf_counter()
+    tmp.spawn(mesh_rank, args=(MESH_WORLD, store, work, str(dev)), nprocs=MESH_WORLD, join=True)
+    wall = time.perf_counter() - t0
+    reps = []
+    for r in range(MESH_WORLD):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            reps.append(json.load(f))
+    r0 = reps[0]
+    counts = {}
+    for rep in reps:
+        for part in ("moe_launches", "forward_launches", "decode_launches", "f32_launches"):
+            for k, v in rep[part].items():
+                counts[k] = counts.get(k, 0) + v
+        if rep["moe_launches"].get("spec_tile_histograms", 0) < 2 or not rep["moe_launches"].get(
+                "spec_tile_positions"):
+            raise AssertionError(f"rank {rep['rank']}: multisplit_ep launched "
+                                 f"{rep['moe_launches']}, not K1 (router, ranks) and K3")
+        for part in ("forward_launches", "f32_launches"):
+            if not rep[part].get("flash_attention"):
+                raise AssertionError(f"rank {rep['rank']}: the sharded forward launched "
+                                     f"{rep[part]}, no B11")
+        for part in ("b11", "b11_f32"):
+            b11 = rep[part]
+            if not (b11["same_as_whole"] and b11["err"] <= b11.get("limit", math.inf)):
+                raise AssertionError(f"rank {rep['rank']}: B11 on the rank's heads: bitwise B11 "
+                                     f"on the whole q, k, v {b11['same_as_whole']}; against "
+                                     f"flash_attention_plain {b11['err']:.3e} of the largest "
+                                     f"({b11['dtype']}, limit {b11.get('limit')})")
+        if not (rep["moe_rel"] < MESH_MOE_RTOL and rep["moe_drop"] == 0.0):
+            raise AssertionError(f"rank {rep['rank']}: multisplit_ep against the one-process "
+                                 f"dispatch {rep['moe_rel']:.3e}, drop {rep['moe_drop']}")
+        if not all(rep["slots_bitwise"]):
+            raise AssertionError(f"rank {rep['rank']}: the kept slots at capacity factors "
+                                 f"{MESH_CAPACITY_FACTORS} are not JAX's local-capacity rule, or "
+                                 f"the ranks not vmap's: {rep['slots_bitwise']}")
+        if not rep["finite"]:
+            raise AssertionError(f"rank {rep['rank']}: logits not finite")
+        for what in ("forward_comms", "decode_comms"):
+            if any("all_gather" in k and "functional" in k for k in rep[what]):
+                raise AssertionError(f"rank {rep['rank']}: {what} issued a functional "
+                                     f"all-gather: {rep[what]}")
+
+    # ---- (b32)'s references, one process, after the ranks
+    sharded = torch.load(os.path.join(work, "sharded32.pt"), map_location=dev)
+    parts = [torch.load(os.path.join(work, f"sharded32_r{r}.pt")) for r in range(MESH_WORLD)]
+    sharded["logits"] = _assemble([(p["index"], p["logits"]) for p in parts],
+                                  parts[0]["shape"]).to(dev)
+    del parts
+    cfg = _mesh_cfg(layers=MESH_F32_LAYERS, capacity_factor=8.0, dtype="float32")
+    one = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch="multisplit"))
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 44)
+    params = init_params(M.decl_model(cfg), g, torch.float32)
+    tokens = _mesh_tokens(dev, cfg)
+    runs, routing = {}, {}
+    for tag in ("ref", "perturbed"):
+        if tag == "perturbed":
+            pg = torch.Generator(device=dev)
+            pg.manual_seed(SEED + 43)
+            for t in tree_leaves(params):
+                t.mul_(1 + MESH_PERTURB * torch.randn(t.shape, device=dev, generator=pg))
+        router, forced, routing[tag] = _forced_router(moe_mod, sharded["experts"])
+        moe_mod._router = forced
+        try:
+            with torch.inference_mode():
+                logits = M.forward(params, one, tokens=tokens)[0]
+                cache = M.init_cache(params, one, MESH_BATCH, MESH_DECODE_STEPS)
+                dec = torch.stack([M.decode_step(params, one, cache, tokens[:, t:t + 1], t)[0][:, 0]
+                                   for t in range(MESH_DECODE_STEPS)], 1)
+        finally:
+            moe_mod._router = router
+        runs[tag] = (logits, dec)
+        del cache, logits, dec
+    rel = lambda x, y: float((x - y).abs().max() / y.abs().max())
+    (ref, ref_dec), (pert, pert_dec) = runs["ref"], runs["perturbed"]
+    err, moved = rel(sharded["logits"], ref), rel(pert, ref)
+    dec_err, dec_moved = rel(sharded["decode"], ref_dec), rel(pert_dec, ref_dec)
+    # |control - ref| >= |control - sharded| - |sharded - ref|, on the ranks' slices
+    control = max(rep["control_part"] for rep in reps) / float(ref.abs().max()) - err
+    argmax = float((sharded["decode"].argmax(-1) == ref_dec.argmax(-1)).float().mean())
+    flips = sum(c for c, _ in routing["ref"])
+    flip_gap = max(gap for _, gap in routing["ref"])
+    del params, runs, ref, pert, ref_dec, pert_dec, sharded
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if not flip_gap < MESH_TIE:
+        raise AssertionError(f"the one-process run's own routing differs from the ranks' at "
+                             f"{flips} tokens, one with a top-k gap of {flip_gap:.3e} (near-tie "
+                             f"limit {MESH_TIE})")
+    if not (err < DBRX_LOGIT_RTOL and dec_err < DBRX_LOGIT_RTOL and argmax == 1.0):
+        raise AssertionError(f"the sharded float32 dbrx logits part from the one-process run by "
+                             f"{err:.3e}, decode {dec_err:.3e} (limit {DBRX_LOGIT_RTOL}), decode "
+                             f"argmax agrees for {argmax}")
+    if not control > DBRX_LOGIT_RTOL:
+        raise AssertionError(f"the control (q heads grouped with the wrong kv heads on model "
+                             f"rank 1) parts by at least {control:.3e}, within the limit "
+                             f"{DBRX_LOGIT_RTOL}")
+
+    log("mesh", f"{MESH_WORLD} gloo ranks on one card, a {MESH_SHAPE} (data, model) mesh, "
+                f"{wall:.1f} s in all, beside the {held:.2f} GiB this process holds [{smi}]")
+    log("mesh", f"(a) dbrx-132b MoE block, full width, float32, multisplit_ep on {MESH_BATCH} x "
+                f"{MESH_SEQ} tokens ({MESH_SEQ} a data shard, half the experts a model rank): "
+                f"capacity factor 8 against the one-process multisplit dispatch, relative "
+                + ", ".join(f"{rep['moe_rel']:.3e}" for rep in reps)
+                + f" by rank (limit {MESH_MOE_RTOL}), drop 0 on every rank; at capacity factors "
+                f"{MESH_CAPACITY_FACTORS} (the config's, and one that drops; drop fractions "
+                f"{r0['drop_c']}) every rank's kept slots bitwise JAX's local-capacity rule "
+                f"(kept, dropped by rank: " + ", ".join(str(rep["kept_dropped"]) for rep in reps)
+                + f") and its ranks bitwise vmap's; launches by rank "
+                + ", ".join(str(rep["moe_launches"]) for rep in reps))
+    log("mesh", f"(b) dbrx-132b {DBRX_LAYERS} layers bfloat16, multisplit_ep at capacity factor "
+                f"8: parameters {r0['params_gib']:.2f} GiB a rank (decl_to_sharding); prefill "
+                f"{MESH_BATCH} x {MESH_SEQ}: " + ", ".join(f"{rep['prefill_ms']:.2f}"
+                                                          for rep in reps)
+                + f" ms by rank [CUDA events, median of 3; {smi}]; {MESH_DECODE_STEPS} decode "
+                f"steps on caches placed {r0['cache_placements']}: "
+                + ", ".join(f"{rep['decode_ms']:.2f}" for rep in reps)
+                + " host ms a step by rank; peak " + ", ".join(f"{rep['peak_gib']:.2f}"
+                                                              for rep in reps)
+                + f" GiB a rank; B11 on a rank's heads {r0['b11_shape']} ({r0['b11_calls']} calls "
+                f"a forward), the first bitwise B11 on the whole q, k, v in one call on every "
+                f"rank, and against flash_attention_plain "
+                + ", ".join(f"{rep['b11']['err']:.3e}" for rep in reps)
+                + f" of the largest by rank (limit ATTN_TOL {ATTN_TOL['bfloat16']})")
+    log("mesh", f"(b32) dbrx-132b {MESH_F32_LAYERS} layer float32, peak "
+                + ", ".join(f"{rep['peak32_gib']:.2f}" for rep in reps)
+                + f" GiB a rank; B11 on a rank's heads bitwise B11 on the whole, and against "
+                f"its plain version " + ", ".join(f"{rep['b11_f32']['err']:.3e}" for rep in reps)
+                + " (no limit: a relative 2^-21 move of q, k and v moves the plain version by "
+                + ", ".join(f"{rep['b11_f32']['moved']:.3e}" for rep in reps)
+                + f", ATTN_TOL is {ATTN_TOL['float32']}); against the one-process multisplit run "
+                f"routed as the ranks routed (its own top-4 differs at {flips} tokens, largest "
+                f"gap {flip_gap:.3e}, near-tie limit {MESH_TIE}): logits {err:.3e} of their "
+                f"largest, decode {dec_err:.3e} (limit DBRX_LOGIT_RTOL {DBRX_LOGIT_RTOL}; the "
+                f"same run with every parameter moved by a relative 2^-21 moves them {moved:.3e} "
+                f"and {dec_moved:.3e}), decode argmax agrees for {argmax:.4f}; the control "
+                f"(model rank 1's q heads on the wrong kv heads) parts by at least {control:.3e}, "
+                f"over the limit")
+    log("mesh", f"(b) collectives of a prefill (CommDebugMode, rank 0): {r0['forward_comms']}; "
+                f"of a decode step: {r0['decode_comms']}; launches a rank: forward "
+                f"{r0['forward_launches']}, {MESH_DECODE_STEPS} decode steps "
+                f"{r0['decode_launches']}")
+    return counts
 
 
 def main() -> int:
@@ -4847,7 +5579,10 @@ def main() -> int:
     # dense and MoE), 5p. the other families (A13a, after dbrx has freed
     # its memory) and 5q. training (A13b, after the families have freed
     # theirs), each with its own launch counts
-    for phase in (distributed_phase, model_phase, families_phase, training_phase):
+    # 5r. subnormal float32 keys (ROADMAP §C) and 5s. the mesh layer (A13c:
+    # four gloo ranks on the card, after training has freed its memory)
+    for phase in (distributed_phase, model_phase, families_phase, training_phase,
+                  subnormal_phase, mesh_phase):
         for name, count in phase(dev, registry, log, smi).items():
             launches[name] += count
 

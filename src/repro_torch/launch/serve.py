@@ -11,7 +11,15 @@ in the config's dtype on ``--device``; prompts are consumed through the
 decode path (single-token steps), then generation continues greedily. The
 JAX demo jits its step; the port runs it eagerly under
 ``torch.inference_mode()``, so a small batch's ms/step is the time the host
-takes to issue the step. Every family is served, with no mesh: one device.
+takes to issue the step. The demo runs under a mesh, as the JAX demo runs
+under ``jax.set_mesh`` (``launch.mesh.launch_mesh``, printed on the first
+line): the production mesh in a world of 256 or 512 ranks, else the host
+mesh over the world — on one card one rank, a ``(1,)`` ``data`` mesh, where
+the parameters stay plain tensors. Every family is served on one rank; a
+mesh of several ranks serves the dense and MoE families (parameters placed
+by ``decl_to_sharding``, the cache by ``cache_shardings``; a ``multisplit``
+MoE dispatch runs as ``multisplit_ep`` where the mesh has a ``model`` axis,
+``launch.mesh.expert_parallel``, printed on the second line).
 A vlm's patch embeddings (batch, n_vis_tokens, d_model) are drawn from the
 prompts' ``np.random.RandomState(seed)`` right after the prompts and fill
 the cross-attention cache. A frontend-stub arch (musicgen) takes its
@@ -98,22 +106,44 @@ def run_decode(args) -> torch.Tensor:
     time -> greedy generation. Prints the parameter count, ms/step, tok/s
     and a sample continuation; returns the generated tokens (B, gen_len) on
     the host."""
+    import torch.distributed as dist
+
     from repro_torch.configs import get_config
-    from repro_torch.models import model as M
-    from repro_torch.parallel.sharding import init_params, param_count
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch.mesh import data_axes, describe, expert_parallel, launch_mesh
 
     cfg = get_config(args.arch).smoke() if args.smoke else get_config(args.arch)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("the decode demo runs on the card by default and none is present; "
                            "pass --device cpu to run it on the host")
+    mesh, started, device = launch_mesh(device)
+    try:
+        print(f"[serve] {describe(mesh)}")
+        ep = expert_parallel(cfg, mesh)
+        if ep is not cfg:
+            print(f"[serve] MoE dispatch {cfg.moe.dispatch} -> {ep.moe.dispatch} over the "
+                  f"mesh's model axis")
+        return _decode(args, ep, device, mesh, ParallelConfig(dp_axes=data_axes(mesh)))
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _decode(args, cfg, device, mesh, pcfg):
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import (
+        decl_to_sharding, gather_full, init_params, param_count, set_mesh,
+    )
+
     max_len = args.prompt_len + args.gen_len
     decls = M.decl_model(cfg)
     print(f"[serve] {cfg.name}: {param_count(decls) / 1e6:.1f}M params, {cfg.dtype}, "
           f"device {device}")
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    params = init_params(decls, gen, getattr(torch, cfg.dtype))
+    params = init_params(decls, gen, getattr(torch, cfg.dtype),
+                         shardings=decl_to_sharding(decls, pcfg, mesh))
     rng = np.random.RandomState(args.seed)
     prompts = rng.randint(1, cfg.vocab, size=(args.batch, args.prompt_len), dtype=np.int32)
     tokens = torch.from_numpy(prompts).to(device)
@@ -129,9 +159,11 @@ def run_decode(args) -> torch.Tensor:
 
     def step(cache, tok, t):
         logits, cache = M.decode_step(params, cfg, cache, tok, t)
-        return logits[:, -1].argmax(-1).to(torch.int32), cache
+        return gather_full(logits[:, -1]).argmax(-1).to(torch.int32), cache
 
-    with torch.inference_mode():
+    # DTensor views refuse inference tensors: a mesh of several ranks runs under no_grad
+    no_grad = torch.inference_mode() if mesh.size() == 1 else torch.no_grad()
+    with no_grad, set_mesh(mesh):
         cache = M.init_cache(params, cfg, args.batch, max_len=max_len, vis_embeds=vis)
         sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
         sync()

@@ -1,7 +1,6 @@
-"""Step functions (train / prefill / decode) and the abstract train state
-(counterpart of ``repro/launch/steps.py``, less its mesh shardings:
-``state_shardings``, ``batch_sharding`` and ``cache_shardings`` come with
-the mesh layer).
+"""Step functions (train / prefill / decode), the abstract train state and
+the shardings of the state, a batch and a decode cache over a mesh
+(counterpart of ``repro/launch/steps.py``).
 
 The JAX package jits these steps and donates the train state; the port runs
 them eagerly, and the train step updates its state in place
@@ -13,6 +12,7 @@ runs its forward on the kernel); the device is the tensors'.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, NamedTuple
 
 import torch
@@ -21,7 +21,17 @@ from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models import model as M
 from repro_torch.models.layers import lm_head
 from repro_torch.optim import AdamWState, adamw_update, make_schedule
-from repro_torch.parallel.sharding import decl_to_abstract, tree_leaves, tree_map, tree_unflatten
+from repro_torch.parallel.sharding import (
+    NamedSharding,
+    P,
+    data_axes_of,
+    decl_to_abstract,
+    decl_to_sharding,
+    mesh_shape,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 Tensor = torch.Tensor
 
@@ -119,3 +129,79 @@ def abstract_state(decls, tc: TrainConfig) -> TrainState:
     return TrainState(params=params,
                       opt=AdamWState(step=meta((), torch.int32), mu=mom(), nu=mom(),
                                      master=master))
+
+
+# ---------------------------------------------------------------------------
+# Shardings
+# ---------------------------------------------------------------------------
+
+def state_shardings(decls, pcfg, mesh, tc: TrainConfig) -> TrainState:
+    """The train state's :class:`NamedSharding` tree: parameters and both
+    moments by :func:`decl_to_sharding`, the step replicated, the float32
+    master (only for a non-float32 ``params_dtype``) as the parameters."""
+    p_sh = decl_to_sharding(decls, pcfg, mesh)
+    rep = NamedSharding(mesh, P())
+    master = p_sh if getattr(torch, tc.params_dtype) != torch.float32 else None
+    return TrainState(params=p_sh, opt=AdamWState(step=rep, mu=p_sh, nu=p_sh, master=master))
+
+
+def _dp(mesh):
+    """(the data axes' entry, their size) of ``mesh``."""
+    dp = data_axes_of(mesh)
+    return (dp if len(dp) > 1 else dp[0]), math.prod(mesh_shape(mesh)[a] for a in dp)
+
+
+def batch_sharding(cfg: ModelConfig, mesh, batch_tree):
+    """Batch dict -> shardings: batch dim over (pod, data); rest replicated.
+    Batch dims that don't divide the dp axes (long_500k's batch=1)
+    replicate. The leaves need only ``ndim`` and ``shape``."""
+    dp_entry, n_dp = _dp(mesh)
+
+    def spec(leaf):
+        if leaf.ndim >= 1 and leaf.shape[0] % n_dp == 0 and leaf.shape[0] >= n_dp:
+            return NamedSharding(mesh, P(*((dp_entry,) + (None,) * (leaf.ndim - 1))))
+        return NamedSharding(mesh, P(*((None,) * leaf.ndim)))
+
+    return tree_map(spec, batch_tree)
+
+
+def _block_cache_spec(kind: str, cfg: ModelConfig, batch_entry):
+    """PartitionSpecs for one block's decode cache. Self-attention caches are
+    TIME-sharded over the model axis (decode attention reduces over time
+    across the model ranks — flash-decoding style)."""
+    b = batch_entry
+    if kind in ("attn", "attn_moe", "shared_attn"):
+        return {
+            "k": P(b, "model", None, None),
+            "v": P(b, "model", None, None),
+            "positions": P(None),
+            "pos": P(),
+        }
+    if kind == "cross":
+        return {"k": P(b, "model", None, None), "v": P(b, "model", None, None)}
+    if kind == "mamba":
+        return {"conv": P(b, None, "model"), "ssm": P(b, "model", None, None), "pos": P()}
+    if kind == "mlstm":
+        return {"c": P(b, None, "model", None), "n": P(b, None, "model"), "m": P(b, None),
+                "pos": P()}
+    if kind == "slstm":
+        return {k: P(b, None, "model") for k in ("c", "n", "h", "m")} | {"pos": P()}
+    raise ValueError(kind)
+
+
+def cache_shardings(cfg: ModelConfig, mesh, batch: int):
+    """Sharding tree parallel to ``model.init_cache(params, cfg, batch,
+    max_len)``'s: each pattern slot's specs behind the stacked ``n_super``
+    axis, the tail's as they are."""
+    dp_entry, n_dp = _dp(mesh)
+    batch_entry = dp_entry if batch % n_dp == 0 and batch >= n_dp else None
+    pattern, n_super, tail = M.block_pattern(cfg)
+
+    def stack_spec(spec_tree):
+        return tree_map(lambda s: P(*((None,) + tuple(s))), spec_tree)
+
+    tree = {
+        "pattern": [stack_spec(_block_cache_spec(k, cfg, batch_entry)) for k in pattern],
+        "tail": [_block_cache_spec(k, cfg, batch_entry) for k in tail],
+    }
+    return tree_map(lambda s: NamedSharding(mesh, s), tree)

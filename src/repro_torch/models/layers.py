@@ -18,10 +18,18 @@ and v. The kernel's output has no autograd history (a ``ctypes`` launch
 fills it), and the door refuses to run under grad, so no caller can cut the
 gradient of q, k and v silently.
 
-The tensor-parallel branches of the JAX function (``tp > 1``: kv heads
-expanded or padded to the TP width, layout anchors) are dead on one device
-and have no port; neither have the JAX compile levers ``unroll`` and
-``pad_heads``.
+Under a mesh (:func:`repro_torch.parallel.sharding.set_mesh`) the
+activations and parameters are DTensors. :func:`multihead_attention` takes
+the JAX function's ``tp > 1`` branches (kv heads repeated to the q heads
+when only the q heads divide TP, heads zero-padded to a TP multiple under
+``pad_heads``, else the head dimension sharded, and the ``constrain``
+anchors); on B11's route with whole head dims each rank runs B11 on its
+own heads (:func:`_b11_sharded`: the door takes plain contiguous tensors),
+and the head-dim fallback takes the block schedule on the DTensors. A
+decode step over a time-sharded cache (``launch.steps.cache_shardings``) is
+:func:`_decode_sharded`: the rank whose time shard holds the slot writes
+it, and each rank's partial softmax over its shard is combined across the
+shards (flash-decoding). The JAX compile lever ``unroll`` has no port.
 """
 
 from __future__ import annotations
@@ -30,12 +38,14 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ops as kops
-from repro_torch.parallel.sharding import ParamDecl
+from repro_torch.parallel.sharding import ParamDecl, constrain, redistribute, settle, tp_size
 
 Tensor = torch.Tensor
 
@@ -207,12 +217,13 @@ def _attention_blocks(q, k, v, *, causal, chunk, window, q_offset, probs_bf16) -
     vp = vp.view(b, n_kv, chunk, n_kv_heads, hd)
     scale = 1.0 / np.sqrt(hd)
     pos = torch.arange(max(n_q, n_kv) * chunk, device=q.device)
-    out = torch.zeros((b, n_q, n_kv_heads, g, chunk, hd), dtype=torch.float32, device=q.device)
+    outs = []                      # a q chunk's output each (a list: DTensors take no setitem)
     for qi in range(n_q):
         kjs = pairs[pairs[:, 0] == qi, 1]
-        if not len(kjs):
-            continue
         acc = torch.zeros((b, n_kv_heads, g, chunk, hd), dtype=torch.float32, device=q.device)
+        if not len(kjs):
+            outs.append(acc)
+            continue
         m = torch.full((b, n_kv_heads, g, chunk), NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros_like(m)
         qpos = q_offset + pos[qi * chunk:(qi + 1) * chunk]
@@ -238,9 +249,28 @@ def _attention_blocks(q, k, v, *, causal, chunk, window, q_offset, probs_bf16) -
                 pv = torch.einsum("bkgij,bjkd->bkgid", p, vc.float())
             acc = acc * corr[..., None] + pv
             m = m_new
-        out[:, qi] = acc / torch.clamp(l[..., None], min=1e-30)
-    out = out.permute(0, 1, 4, 2, 3, 5).reshape(b, n_q * chunk, h, hd)[:, :s]
-    return out.to(q.dtype)
+        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+    out = torch.stack(outs, dim=1).permute(0, 1, 4, 2, 3, 5).reshape(b, n_q * chunk, h, hd)
+    return out[:, :s].to(q.dtype)
+
+
+def _b11_sharded(q: Tensor, k: Tensor, v: Tensor, backend: str, chunk: int) -> Tensor:
+    """B11 on each rank's shard of DTensor q, k and v whose time and head
+    dimensions are whole on every rank (batch and heads may be sharded): q
+    and v laid out as k (q head h stays with kv head h // g), then
+    :class:`_B11Attention` on the local tensors — the door's ``ctypes``
+    launch takes plain contiguous tensors — and the result wrapped back."""
+    want = tuple(k.placements)
+    q, v = (x if tuple(x.placements) == want else redistribute(x, want) for x in (q, v))
+    out = _B11Attention.apply(q.to_local(), k.to_local(), v.to_local(), backend, chunk)
+    return DTensor.from_local(out, k.device_mesh, want, run_check=False)
+
+
+def _whole_rows(x: Tensor) -> bool:
+    """Whether a DTensor (B, S, H, hd) holds whole sequences and head dims
+    on every rank (only batch and heads sharded, nothing partial)."""
+    return all(not p.is_partial() and not (p.is_shard() and p.dim in (1, 3))
+               for p in x.placements)
 
 
 def multihead_attention(
@@ -253,6 +283,7 @@ def multihead_attention(
     window: Optional[int] = None,
     q_offset: int = 0,
     probs_bf16: bool = False,
+    pad_heads: bool = False,
     backend: str = "cuda",
 ) -> Tensor:
     """Online-softmax attention; GQA: H a multiple of K. ``window`` masks
@@ -263,12 +294,53 @@ def multihead_attention(
     version ``flash_attention_plain`` on any other (the same online
     softmax), by :class:`_B11Attention`, whose backward is the block
     schedule's gradient; every other call runs the JAX package's
-    triangular block schedule (chunks of ``chunk``) in plain PyTorch."""
-    if b11_route(q, k, causal=causal, window=window, q_offset=q_offset,
-                 probs_bf16=probs_bf16):
-        return _B11Attention.apply(q, k, v, backend, chunk)
-    return _attention_blocks(q, k, v, causal=causal, chunk=chunk, window=window,
-                             q_offset=q_offset, probs_bf16=probs_bf16)
+    triangular block schedule (chunks of ``chunk``) in plain PyTorch.
+
+    Under a mesh whose ``model`` axis is wider than 1 (``tp > 1``) the JAX
+    function's layout comes first: kv heads repeated to the q heads when
+    the kv count does not divide TP but the q count does; with
+    ``pad_heads``, heads zero-padded to the next TP multiple (padded heads
+    attend uniformly and are cut before the output projection); else the
+    head dimension sharded over ``model``. On B11's route with whole head
+    dimensions q's heads follow k's (JAX leaves them unanchored when g > 1;
+    the layout changes no value) and each rank runs B11 on its own heads."""
+    b, s, h, hd = q.shape
+    n_kv_heads = k.shape[2]
+    g = h // n_kv_heads
+    route = b11_route(q, k, causal=causal, window=window, q_offset=q_offset,
+                      probs_bf16=probs_bf16)
+    tp = tp_size()
+    h_orig = h
+    if tp > 1:
+        if n_kv_heads % tp != 0 and h % tp == 0 and g > 1:
+            k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+            n_kv_heads, g = h, 1
+        if pad_heads and n_kv_heads % tp != 0:
+            # zero-pad heads to the next TP multiple: padded heads attend
+            # uniformly over valid kv (scores 0), and their outputs are cut
+            # before the output projection
+            if g > 1:
+                k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+                n_kv_heads, g = h, 1
+            hp = -(-h // tp) * tp
+            q, k, v = (F.pad(x, (0, 0, 0, hp - h)) for x in (q, k, v))
+            h = n_kv_heads = hp
+        head_entry = "model" if n_kv_heads % tp == 0 else None
+        hd_entry = None if head_entry else "model"
+        q_entry = head_entry if g == 1 or (route and hd_entry is None) else None
+        q = constrain(q, "dp", None, q_entry, hd_entry)
+        k = constrain(k, "dp", None, head_entry, hd_entry)
+        v = constrain(v, "dp", None, head_entry, hd_entry)
+
+    sharded = isinstance(k, DTensor)
+    if route and sharded and all(map(_whole_rows, (q, k, v))):
+        out = _b11_sharded(q, k, v, backend, chunk)
+    elif route and not sharded:
+        out = _B11Attention.apply(q, k, v, backend, chunk)
+    else:                          # outside B11's contract, or the head-dim fallback
+        out = _attention_blocks(q, k, v, causal=causal, chunk=chunk, window=window,
+                                q_offset=q_offset, probs_bf16=probs_bf16)
+    return out if h == h_orig else out[:, :, :h_orig]
 
 
 def decode_attention(
@@ -295,6 +367,65 @@ def decode_attention(
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgj,bjkd->bkgd", p, v_cache.float())
     return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def _decode_sharded(q: Tensor, k: Tensor, v: Tensor, cache: dict, positions: Tensor,
+                    window: Optional[int]) -> Tensor:
+    """One decode step over a layer's cache whose K/V are DTensors sharded
+    over time (``cache_shardings``: batch over the data axes where it
+    divides, time over ``model``): q, k and v are made whole in heads and
+    laid out as the cache's batch; the rank whose time shard holds the slot
+    writes the new K/V (the others keep theirs), every rank writes the
+    replicated positions and ``pos``; then each rank's partial softmax
+    over its time shard (max, sum, weighted values) is combined by
+    all-reduces over the time groups — the result of
+    :func:`decode_attention` over the whole cache."""
+    if k.shape[1] != 1:
+        raise ValueError(f"a time-sharded cache takes one token a step, not {k.shape[1]}")
+    ck_d = cache["k"]
+    mesh, kp = ck_d.device_mesh, tuple(ck_d.placements)
+    want = tuple(p if p.is_shard() and p.dim == 0 else Replicate() for p in kp)
+    q_l, k_l, v_l = (redistribute(x, want).to_local() for x in (q, k, v))
+    ck, cv = ck_d.to_local(), cache["v"].to_local()
+    kv_pos, pos = cache["positions"].to_local(), cache["pos"].to_local()
+    size, t_loc = ck_d.shape[1], ck.shape[1]
+    t_dims = [i for i, p in enumerate(kp) if p.is_shard() and p.dim == 1]
+    coord, index = mesh.get_coordinate(), 0
+    for i in t_dims:
+        index = index * mesh.shape[i] + coord[i]
+    off = index * t_loc
+    slot = pos % size if window is not None else pos
+    idx = slot.clamp(max=size - 1).long().reshape(1)
+    li = idx - off
+    inside = (li >= 0) & (li < t_loc)
+    lic = li.clamp(0, t_loc - 1)
+    for c, new in ((ck, k_l), (cv, v_l)):
+        c.index_copy_(1, lic, torch.where(inside[None, :, None, None], new, c.index_select(1, lic)))
+    kv_pos.index_copy_(0, idx, positions.to(torch.int32))
+    pos.add_(1)
+
+    b, _, h, hd = q_l.shape
+    n_kv_heads = ck.shape[2]
+    g = h // n_kv_heads
+    qg = q_l.reshape(b, 1, n_kv_heads, g, hd)
+    scores = torch.einsum("bikgd,bjkd->bkgj", qg, ck).float() / np.sqrt(hd)
+    mine = kv_pos[off:off + t_loc][None, :]
+    valid = (mine >= 0) & (mine <= positions[0])
+    if window is not None:
+        valid = valid & (positions[0] - mine < window)
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    m = scores.amax(-1)
+    groups = [mesh.get_group(i) for i in t_dims]
+    for grp in groups:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=grp)
+    p = torch.exp(scores - m[..., None])
+    l = p.sum(-1)
+    acc = torch.einsum("bkgj,bjkd->bkgd", p, cv.float())
+    for grp in groups:
+        dist.all_reduce(l, group=grp)
+        dist.all_reduce(acc, group=grp)
+    out = (acc / l[..., None]).reshape(b, 1, h, hd).to(q_l.dtype)
+    return DTensor.from_local(out, mesh, want, run_check=False)
 
 
 def _write_cache(cache: dict, k: Tensor, v: Tensor, positions: Tensor, window) -> None:
@@ -342,8 +473,11 @@ def attention_block(
         q = apply_rope(q, positions[None, :], cfg.rope_theta, cfg.rope_pct)
         k = apply_rope(k, positions[None, :], cfg.rope_theta, cfg.rope_pct)
 
-    attend = dict(chunk=cfg.attn_chunk, probs_bf16=cfg.attn_probs_bf16, backend=backend)
-    if cache is not None and not cross:
+    attend = dict(chunk=cfg.attn_chunk, probs_bf16=cfg.attn_probs_bf16,
+                  pad_heads=cfg.pad_attn_heads, backend=backend)
+    if cache is not None and not cross and isinstance(cache["k"], DTensor):
+        out = _decode_sharded(q, k, v, cache, positions, window)
+    elif cache is not None and not cross:
         _write_cache(cache, k, v, positions, window)
         out = decode_attention(q, cache["k"], cache["v"], cache["positions"], positions[0],
                                window=window)
@@ -353,7 +487,8 @@ def attention_block(
         out = multihead_attention(q, k, v, causal=not cross, window=window, q_offset=0,
                                   **attend)
         cache = None
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype))
+    # the heads' partial sums reduced once, to the residual's layout
+    y = settle(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype)))
     return y, cache
 
 
@@ -377,7 +512,7 @@ def mlp_block(p, x: Tensor, cfg: ModelConfig) -> Tensor:
     gate = torch.einsum("bsd,df->bsf", xn, p["w_gate"].to(dtype))
     up = torch.einsum("bsd,df->bsf", xn, p["w_up"].to(dtype))
     act = F.silu(gate.float()).to(dtype) * up
-    return torch.einsum("bsf,fd->bsd", act, p["w_down"].to(dtype))
+    return settle(torch.einsum("bsf,fd->bsd", act, p["w_down"].to(dtype)))
 
 
 # ---------------------------------------------------------------------------
@@ -396,7 +531,10 @@ def embed_decl(cfg: ModelConfig):
 
 
 def embed_tokens(p, tokens: Tensor, cfg: ModelConfig) -> Tensor:
-    return F.embedding(tokens.long(), p["tok"]).to(_dt(cfg))
+    """The token table's rows; on a vocab-sharded table (a DTensor) each
+    rank looks up the rows it holds and the partial rows are summed once
+    (:func:`settle`)."""
+    return settle(F.embedding(tokens.long(), p["tok"]).to(_dt(cfg)))
 
 
 def lm_head(p, x: Tensor, cfg: ModelConfig) -> Tensor:

@@ -60,7 +60,14 @@ from repro_torch.models.layers import (
     mlp_block,
     mlp_decl,
 )
-from repro_torch.parallel.sharding import ParamDecl, init_params, tree_map
+from repro_torch.parallel.sharding import (
+    ParamDecl,
+    distribute_input,
+    get_mesh,
+    init_params,
+    place,
+    tree_map,
+)
 
 Tensor = torch.Tensor
 
@@ -200,7 +207,8 @@ def cache_decl(cfg: ModelConfig, batch: int, max_len: int):
 
 def init_cache(params, cfg: ModelConfig, batch: int, max_len: int, vis_embeds=None):
     """Concrete zero cache on the parameters' device; positions start at -1
-    (invalid). The caches of one pattern slot are stacked over ``n_super``
+    (invalid). Under a mesh of more than one device it is placed by
+    ``launch.steps.cache_shardings`` (K/V time-sharded over ``model``). The caches of one pattern slot are stacked over ``n_super``
     like its parameters. Each cross slot's K/V are computed here, once,
     from ``vis_embeds`` (B, n_vis, d): ``norm_kv``, then ``wk`` and ``wv``
     of each stacked layer, in ``vis_embeds``' dtype. The recurrent states
@@ -209,6 +217,11 @@ def init_cache(params, cfg: ModelConfig, batch: int, max_len: int, vis_embeds=No
     cache = tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device),
                      cache_decl(cfg, batch, max_len))
     cache = _map_named(cache, "positions", lambda z: z - 1)
+    mesh = get_mesh()
+    if mesh is not None and mesh.size() > 1:
+        from repro_torch.launch.steps import cache_shardings
+
+        cache = place(cache, cache_shardings(cfg, mesh, batch))
     if vis_embeds is not None:
         pattern, n_super, _ = block_pattern(cfg)
         slots = _pattern_param_slots(pattern)
@@ -315,13 +328,13 @@ def forward(
     slots = _pattern_param_slots(pattern)
     dtype = getattr(torch, cfg.dtype)
     if embeds is None:
-        x = embed_tokens(params["embed"], tokens, cfg)
+        x = embed_tokens(params["embed"], distribute_input(tokens, "dp", None), cfg)
     else:
-        x = embeds.to(dtype)
+        x = distribute_input(embeds.to(dtype), "dp", None, None)
     if positions is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     if vis_embeds is not None:
-        vis_embeds = vis_embeds.to(dtype)
+        vis_embeds = distribute_input(vis_embeds.to(dtype), "dp", None, None)
     run = dict(positions=positions, vis_embeds=vis_embeds,
                shared_params=params.get("shared_attn"), backend=backend)
 
@@ -377,13 +390,13 @@ def _forward_trunk(params, cfg: ModelConfig, batch: Dict[str, Tensor], *,
     slots = _pattern_param_slots(pattern)
     dtype = getattr(torch, cfg.dtype)
     if cfg.embed_frontend_stub:
-        x = batch["embeds"].to(dtype)
+        x = distribute_input(batch["embeds"].to(dtype), "dp", None, None)
     else:
-        x = embed_tokens(params["embed"], batch["tokens"], cfg)
+        x = embed_tokens(params["embed"], distribute_input(batch["tokens"], "dp", None), cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     vis_embeds = batch.get("vis_embeds")
     if vis_embeds is not None:
-        vis_embeds = vis_embeds.to(dtype)
+        vis_embeds = distribute_input(vis_embeds.to(dtype), "dp", None, None)
     run = dict(positions=positions, vis_embeds=vis_embeds,
                shared_params=params.get("shared_attn"), backend=backend)
     layers = [_unstack(stack, n_super) for stack in params["blocks"]]

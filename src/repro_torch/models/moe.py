@@ -28,26 +28,47 @@ top-1 load count is :func:`expert_load_stats`, a ``counts_only`` call),
 the same output: ``dense`` (every expert on every token), ``sort`` (ranks
 from :func:`_ranks_sort`) and ``multisplit`` (ranks from
 :func:`_ranks_multisplit`, one ``positions_only`` call: K1 + K3 on the
-card). ``multisplit_ep`` does what the JAX block does with no mesh in
-scope: the ``multisplit`` dispatch (its expert-parallel body over a process
-group comes with the mesh slice). The block's ``backend`` is that of the
-routing calls; they run where the activations lie.
+card). ``multisplit_ep`` is the expert-parallel dispatch over the mesh in
+scope (:func:`_dispatch_multisplit_ep`: each rank multisplits its token
+shard over its own expert group, and one all-reduce over ``model`` combines
+the outputs); with no ``model`` axis in scope, or experts or tokens that do
+not divide, it is ``multisplit``, as the JAX block falls back. The block's
+``backend`` is that of the routing calls; they run where the activations
+lie.
+
+Under a mesh the activations are DTensors. The router makes its weight
+whole on every rank and routes each rank's token shard; the load-balance
+fraction is global, as in JAX, so the local ``counts_only`` counts are
+summed over the data axes. A dispatch other than the expert-parallel one
+runs on whole tensors on every rank (:func:`_replicated`), which is
+GSPMD's answer without its layout.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch import ops
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pipeline import get_backend, segment_ids_from_starts
 from repro_torch.models.layers import apply_norm, mlp_block, mlp_decl, norm_decl
-from repro_torch.parallel.sharding import ParamDecl
+from repro_torch.parallel.sharding import (
+    ParamDecl,
+    anchor_grad,
+    constrain,
+    data_axes_of,
+    get_mesh,
+    mesh_shape,
+    redistribute,
+    replicate,
+    settle,
+)
 
 Tensor = torch.Tensor
 
@@ -84,15 +105,23 @@ def _router(p, xn: Tensor, cfg: ModelConfig, *, backend: str = "cuda"):
     """xn: (n, d) -> (gates (n, k), experts (n, k), load-balance loss,
     z-loss). The top-1 dispatch fraction is a ``counts_only`` call
     (:func:`expert_load_stats`): exact integer counts."""
-    logits = torch.einsum("nd,de->ne", xn, p["router"].to(xn.dtype)).float()
+    logits = torch.einsum("nd,de->ne", xn, replicate(p["router"]).to(xn.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     gates, experts = torch.topk(probs, cfg.moe.top_k, dim=-1)
     experts = experts.to(torch.int32)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     e = cfg.moe.num_experts
     me = probs.mean(0)
-    counts, _ = expert_load_stats(experts[:, 0].contiguous(), e, backend=backend,
-                                  device=xn.device)
+    top1 = experts[:, 0]
+    if isinstance(top1, DTensor):
+        # each rank counts its token shard (K1); the counts are summed over
+        # the data axes, a partial over them
+        local, _ = expert_load_stats(top1.to_local().contiguous(), e, backend=backend,
+                                     device=top1.device)
+        parts = [Partial() if pl.is_shard() else Replicate() for pl in top1.placements]
+        counts = settle(DTensor.from_local(local, top1.device_mesh, parts, run_check=False))
+    else:
+        counts, _ = expert_load_stats(top1.contiguous(), e, backend=backend, device=xn.device)
     ce = counts.float() / experts.shape[0]
     lb = e * torch.sum(me * ce)
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
@@ -231,54 +260,192 @@ def _expert_ffn(p, x: Tensor, dtype) -> Tensor:
     return torch.einsum("ecf,efd->ecd", act, p["w_down"].to(dtype))
 
 
+def _ep_slots(experts_l: Tensor, j: int, e_loc: int, cap_loc: int, *, backend: str = "cuda",
+              device="cuda") -> Tuple[Tensor, Tensor, Tensor]:
+    """A model rank's share of the expert-parallel routing: its local
+    tokens' (n_loc, k) expert ids restricted to its group ``[j·e_loc,
+    (j+1)·e_loc)``, the foreign experts in bucket ``e_loc``; ranks from ONE
+    ``positions_only`` call over ``e_loc + 1`` buckets. Returns (ranks, keep:
+    in the group and under ``cap_loc``, slot: ``sub_id·cap_loc + rank``, or
+    ``e_loc·cap_loc`` for a token the rank does not keep)."""
+    lo = j * e_loc
+    flat_e = experts_l.reshape(-1)                                  # (n_loc·k,)
+    in_group = (flat_e >= lo) & (flat_e < lo + e_loc)
+    sub_ids = torch.where(in_group, flat_e - lo, e_loc).to(torch.int32)   # e_loc: foreign
+    ranks, _ = _ranks_multisplit(sub_ids, e_loc + 1, backend=backend, device=device)
+    keep = in_group & (ranks < cap_loc)
+    slot = torch.where(keep, sub_ids * cap_loc + ranks, e_loc * cap_loc).long()
+    return ranks, keep, slot
+
+
+def _dispatch_multisplit_ep(p, xn, gates, experts, cfg: ModelConfig, cap: int, dtype, *,
+                            backend: str = "cuda"):
+    """Manual expert-parallel dispatch over the mesh in scope
+    (dispatch="multisplit_ep"), the JAX ``shard_map`` body line for line.
+
+    The paper's {local, global, local} model mapped by hand:
+
+      * local:  each (data, model) rank multisplits ITS token shard by
+                expert id restricted to ITS model rank's expert group (one
+                ``positions_only`` call over ``e_loc + 1`` buckets, bucket
+                ``e_loc`` the foreign experts: K1 + K3 on the card);
+      * global: the ONLY collective is one all-reduce of the combined
+                output over the model axis (tokens are replicated across
+                "model", experts are sharded across it — no token moves);
+      * local:  capacity-bounded gather + grouped FFN + weighted combine.
+
+    Capacity is per data shard (cap / DP), the standard local-capacity MoE
+    semantics. The output matches the ``multisplit`` dispatch when nothing
+    drops. Returns None where JAX's does (no ``model`` axis in scope,
+    experts or tokens that do not divide), and the caller falls back.
+
+    The region is DTensor-exact for autograd: the token shard's local
+    gradient is a partial sum over ``model`` (each rank reads the tokens for
+    its own experts), and the expert weights' a partial sum over the data
+    axes; the combined output is a partial over ``model`` reduced once."""
+    mesh = get_mesh()
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if "model" not in names:
+        return None
+    shape = mesh_shape(mesh)
+    dp_axes = data_axes_of(mesh)
+    n, e = xn.shape[0], cfg.moe.num_experts
+    tp = shape["model"]
+    n_dp = math.prod(shape[a] for a in dp_axes)
+    if e % tp != 0 or n % n_dp != 0:
+        return None
+    e_loc = e // tp
+    cap_loc = max(8, ((-(-cap // n_dp) + 7) // 8) * 8)
+    mi = names.index("model")
+
+    # tokens: the batch over the data axes, whole over model
+    tok = tuple(Shard(0) if a in dp_axes else Replicate() for a in names)
+    tok_grad = tuple(Partial() if a == "model" else pl for a, pl in zip(names, tok))
+    xn_l = anchor_grad(redistribute(xn, tok)).to_local(grad_placements=tok_grad)
+    gates_l = anchor_grad(redistribute(gates, tok)).to_local(grad_placements=tok_grad)
+    experts_l = redistribute(experts, tok).to_local()
+    # expert weights: experts over model, whole over the data axes
+    wsh = tuple(Shard(0) if a == "model" else Replicate() for a in names)
+    wgrad = tuple(Partial() if a in dp_axes else pl for a, pl in zip(names, wsh))
+    w = {name: anchor_grad(redistribute(anchor_grad(p[name]), wsh)).to_local(
+        grad_placements=wgrad).to(dtype) for name in ("w_gate", "w_up", "w_down")}
+
+    _, keep, slot = _ep_slots(experts_l, mesh.get_coordinate()[mi], e_loc, cap_loc,
+                              backend=backend, device=xn_l.device)
+    y = _slots_ffn_combine(w, xn_l, gates_l, keep, slot, e_loc, cap_loc, dtype)
+    # the ONE global op: combine the partial outputs across expert groups
+    y = settle(DTensor.from_local(y, mesh, tok_grad, run_check=False))
+    # each virtual token is kept on exactly one model rank => global kept
+    # fraction = tp * mean(keep); drop = 1 - that, averaged over the ranks
+    drop = 1.0 - tp * keep.float().mean()
+    for i in range(mesh.ndim):
+        dist.all_reduce(drop, group=mesh.get_group(i))
+    return y, drop / mesh.size()
+
+
+def _replicated(fn, *args):
+    """``fn`` on whole tensors on every rank: each DTensor argument made
+    whole (a leaf of a dict argument too), the result's tensors wrapped as
+    replicated DTensors. A dispatch that is not expert-parallel computes
+    GSPMD's answer this way under a mesh."""
+    mesh = get_mesh()
+
+    def whole(x):
+        if isinstance(x, dict):
+            return {k: whole(v) for k, v in x.items()}
+        return replicate(x).to_local() if isinstance(x, DTensor) else x
+
+    out = fn(*(whole(a) for a in args))
+    wrap = lambda t: DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return tuple(wrap(t) for t in out)
+
+
 def moe_block(p, x: Tensor, cfg: ModelConfig, *, backend: str = "cuda") -> Tuple[Tensor, MoEAux]:
     """x: (B, S, d) -> (residual delta, aux losses)."""
-    if cfg.moe.dispatch == "multisplit_ep":
-        # no process group in scope: the JAX block's own fallback
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch="multisplit"))
     b, s, d = x.shape
     e, k = cfg.moe.num_experts, cfg.moe.top_k
     dtype = x.dtype
-    xn = apply_norm(p["norm"], x, cfg).reshape(b * s, d)
+    # the (b, s) -> (n,) flatten keeps the data-sharded batch dim (the JAX anchor)
+    xn = constrain(apply_norm(p["norm"], x, cfg).reshape(b * s, d), "dp", None)
     n = b * s
     gates, experts, lb, z = _router(p, xn, cfg, backend=backend)
 
-    if cfg.moe.dispatch == "dense":
-        # every expert on every token (no data movement, O(n·E) compute)
-        all_out = _expert_ffn(p, xn[None].expand(e, n, d), dtype)          # (E, n, d)
-        combine = torch.zeros((n, e), dtype=torch.float32, device=x.device)
-        combine.scatter_add_(1, experts.long(), gates)
-        y = torch.einsum("ne,end->nd", combine.to(dtype), all_out)
-        drop = torch.zeros((), dtype=torch.float32, device=x.device)
+    dispatch = cfg.moe.dispatch
+    if dispatch == "multisplit_ep":
+        out = _dispatch_multisplit_ep(p, xn, gates, experts, cfg, _capacity(n, cfg), dtype,
+                                      backend=backend)
+        if out is not None:
+            y, drop = out
+            y = y.view(b, s, d)
+            if cfg.moe.shared_expert:
+                y = y + mlp_block(p["shared"], x, cfg)
+            return y, MoEAux(lb, z, drop)
+        dispatch = "multisplit"    # no model axis in scope: JAX's own fallback
+    experts_p = {name: p[name] for name in ("w_gate", "w_up", "w_down")}
+    if isinstance(xn, DTensor):
+        y, drop = _replicated(
+            lambda *a: _dispatch(*a, dispatch=dispatch, cfg=cfg, backend=backend),
+            experts_p, xn, gates, experts)
+        y = constrain(y, "dp", None)
     else:
-        cap = _capacity(n, cfg)
-        flat_experts = experts.reshape(-1)                          # (n·k,) virtual tokens
-        if cfg.moe.dispatch == "multisplit":
-            ranks, _ = _ranks_multisplit(flat_experts, e, backend=backend, device=x.device)
-        elif cfg.moe.dispatch == "sort":
-            ranks, _ = _ranks_sort(flat_experts, e, device=x.device)
-        else:
-            raise ValueError(f"unknown dispatch {cfg.moe.dispatch!r}")
-
-        keep = ranks < cap
-        slot = torch.where(keep, flat_experts * cap + ranks, e * cap).long()   # e·cap: dropped
-        token_idx = torch.arange(n * k, dtype=torch.int32, device=x.device) // k
-        # one spare row takes the dropped tokens, then is cut off (JAX: mode="drop")
-        token_for_slot = torch.full((e * cap + 1,), n, dtype=torch.int32, device=x.device)
-        token_for_slot = token_for_slot.index_put_((slot,), token_idx)[:e * cap]
-        valid_slot = (token_for_slot < n)[:, None].to(dtype)                 # (E·C, 1)
-        expert_in = xn[token_for_slot.clamp(max=n - 1).long()] * valid_slot
-        flat_out = _expert_ffn(p, expert_in.view(e, cap, d), dtype).reshape(e * cap, d)
-        # combine: a loop over the k routed experts, one (n, d) gather each;
-        # a dropped slot's gate times keep is 0
-        w = (gates * keep.view(n, k)).to(dtype)                             # (n, k)
-        slot_nk = slot.view(n, k).clamp(max=e * cap - 1)
-        y = torch.zeros((n, d), dtype=dtype, device=x.device)
-        for kk in range(k):
-            y = y + flat_out[slot_nk[:, kk]] * w[:, kk:kk + 1]
-        drop = 1.0 - keep.float().mean()
-
+        y, drop = _dispatch(experts_p, xn, gates, experts, dispatch=dispatch, cfg=cfg,
+                            backend=backend)
     y = y.view(b, s, d)
     if cfg.moe.shared_expert:
         y = y + mlp_block(p["shared"], x, cfg)   # always-on shared expert (own pre-norm)
     return y, MoEAux(lb, z, drop)
+
+
+def _dispatch(p, xn: Tensor, gates: Tensor, experts: Tensor, *, dispatch: str,
+              cfg: ModelConfig, backend: str) -> Tuple[Tensor, Tensor]:
+    """The one-device dispatches: (n, d) output and drop fraction."""
+    n, d = xn.shape
+    e = cfg.moe.num_experts
+    dtype = xn.dtype
+    if dispatch == "dense":
+        # every expert on every token (no data movement, O(n·E) compute)
+        all_out = _expert_ffn(p, xn[None].expand(e, n, d), dtype)          # (E, n, d)
+        combine = torch.zeros((n, e), dtype=torch.float32, device=xn.device)
+        combine.scatter_add_(1, experts.long(), gates)
+        y = torch.einsum("ne,end->nd", combine.to(dtype), all_out)
+        return y, torch.zeros((), dtype=torch.float32, device=xn.device)
+    cap = _capacity(n, cfg)
+    flat_experts = experts.reshape(-1)                          # (n·k,) virtual tokens
+    if dispatch == "multisplit":
+        ranks, _ = _ranks_multisplit(flat_experts, e, backend=backend, device=xn.device)
+    elif dispatch == "sort":
+        ranks, _ = _ranks_sort(flat_experts, e, device=xn.device)
+    else:
+        raise ValueError(f"unknown dispatch {dispatch!r}")
+
+    keep = ranks < cap
+    slot = torch.where(keep, flat_experts * cap + ranks, e * cap)   # e·cap: dropped
+    y = _slots_ffn_combine(p, xn, gates, keep, slot, e, cap, dtype)
+    return y, 1.0 - keep.float().mean()
+
+
+def _slots_ffn_combine(p, x: Tensor, gates: Tensor, keep: Tensor, slot: Tensor, n_exp: int,
+                       cap: int, dtype) -> Tensor:
+    """The capacity-bounded half of a dispatch: the (n, d) tokens ``x``
+    gathered into ``n_exp`` buckets of ``cap`` slots by ``slot`` ((n·k,),
+    ``n_exp·cap`` for a token not kept), the grouped FFN on ``p``'s
+    ``n_exp`` experts, and the combine weighted by ``gates`` times ``keep``
+    ((n, k) each). Returns (n, d)."""
+    n, d = x.shape
+    k = gates.shape[-1]
+    slot = slot.long()
+    token_idx = torch.arange(n * k, dtype=torch.int32, device=x.device) // k
+    # one spare row takes the dropped tokens, then is cut off (JAX: mode="drop")
+    token_for_slot = torch.full((n_exp * cap + 1,), n, dtype=torch.int32, device=x.device)
+    token_for_slot = token_for_slot.index_put_((slot,), token_idx)[:n_exp * cap]
+    valid_slot = (token_for_slot < n)[:, None].to(dtype)                 # (E·C, 1)
+    expert_in = x[token_for_slot.clamp(max=n - 1).long()] * valid_slot
+    flat_out = _expert_ffn(p, expert_in.view(n_exp, cap, d), dtype).reshape(n_exp * cap, d)
+    # combine: a loop over the k routed experts, one (n, d) gather each;
+    # a dropped slot's gate times keep is 0
+    w = (gates * keep.view(n, k)).to(dtype)                             # (n, k)
+    slot_nk = slot.view(n, k).clamp(max=n_exp * cap - 1)
+    y = torch.zeros((n, d), dtype=dtype, device=x.device)
+    for kk in range(k):
+        y = y + flat_out[slot_nk[:, kk]] * w[:, kk:kk + 1]
+    return y

@@ -24,13 +24,7 @@ import repro_torch
 SRC = Path(repro.__file__).resolve().parent
 
 # name -> the ROADMAP queue item that brings it
-PENDING = {
-    # the mesh layer: logical axes onto a device mesh, and the train, batch
-    # and cache shardings over it
-    "repro.parallel.sharding": {"spec_for_decl": "A13c", "decl_to_sharding": "A13c"},
-    "repro.launch.steps": {"state_shardings": "A13c", "batch_sharding": "A13c",
-                           "cache_shardings": "A13c"},
-}
+PENDING = {}
 
 _TPU_HELPER = ("a TPU workaround inside the Pallas bodies (one-hot MXU matmuls, 128-lane "
                "padding, VMEM budgets); the Hopper kernels do not need it")
@@ -94,7 +88,7 @@ def test_the_twins_cover_the_ported_modules():
                  "repro.launch.serve", "repro.core.distributed", "repro.configs",
                  "repro.configs.base", "repro.configs.dbrx_132b", "repro.parallel.sharding",
                  "repro.models.layers", "repro.models.model", "repro.models.ssm",
-                 "repro.models.xlstm"):
+                 "repro.models.xlstm", "repro.launch.mesh", "repro.launch.steps"):
         assert name in TWINS
 
 
