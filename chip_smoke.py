@@ -310,6 +310,23 @@ Phases, one line or more each, every one of which must pass:
    functional all-gather, which gloo cannot run on CUDA tensors); the
    logits against the one-process run routed as the ranks routed, within
    what a relative 2^-8 perturbation of its parameters moves them.
+   The sharded training step (``train_mesh_phase``, after the mesh phase):
+   gloo ranks on the card again. (a) tinyllama-1.1b at full width, 2
+   layers, float32, on a (2, 2) ``(data, model)`` mesh, 2 steps of 4 x 2048
+   with ``fsdp`` off and on: the loss, the gradient norm and every leaf of
+   the state against the one-process step, each within ``TM_MULT`` times
+   what a relative 2^-21 perturbation of the parameters moves the
+   one-process run; a control that keeps one rank's gradients unreduced
+   over ``data`` must break that limit; no functional all-gather in a
+   step. (b) ``launch.train`` at tinyllama-1.1b's full config on two ranks
+   (a (2,) data mesh): ms/step, tokens/s, peak memory a rank, a resume
+   from the rank-sharded checkpoint replaying to the same losses. (c)
+   dbrx-132b at full width, 1 layer, bfloat16 with a float32 master,
+   ``multisplit_ep`` on a (1, 2) mesh, 3 steps of 1 x 2048: ms/step, peak
+   memory, K1, K3 and B11 on each rank, every route bitwise ``vmap``'s; its
+   MoE block alone in float32, gradients within 1e-4 of the one-process
+   ``multisplit`` dispatch's. (d) ``compressed_psum`` over the ``pod`` and
+   ``data`` groups of a (2, 2) mesh on CUDA tensors, bitwise its CPU answer.
 6. launches — every kernel's launch count from its own path's run alone
    (flat, segmented, flat callable, segmented callable, and the four
    packed paths, which launch K1p-K3p and no onehot kernel; each fused
@@ -3503,6 +3520,565 @@ def mesh_phase(dev, registry, log, smi):
     return counts
 
 
+TM_WORLD = 4                   # gloo ranks on the one card for (a) and (d)
+TM_LAYERS, TM_BATCH, TM_SEQ, TM_STEPS = 2, 4, 2048, 2   # (a): tinyllama at full width
+TM_LR = 1e-4
+TM_PERTURB = 2.0 ** -21
+# (a)'s limit: each figure of the sharded run against the one-process run's
+# may part by TM_MULT times what a relative 2^-21 perturbation of every
+# parameter moves the one-process run's own figure (a fixed multiple of
+# that movement)
+TM_MULT = 4.0
+TM_LAUNCH_ARGV = ["--arch", "tinyllama-1.1b", "--steps", "4", "--batch", "4", "--seq", "2048",
+                  "--ckpt-every", "2"]
+TM_ONE_PROCESS = "train tinyllama-1.1b ms/step, the last run before the mesh layer"
+TM_RESUME_STEPS = 3             # (b)'s resume from step 2 replays step 2 alone
+TM_DBRX_STEPS, TM_DBRX_SEQ = 3, 2048   # (c): dbrx-132b at full width, 1 layer, (1, 2) mesh
+TM_MOE_GRAD_RTOL = 1e-4        # (c) the MoE block's gradients against one process (JAX's)
+TM_PSUM_N = 1 << 20            # (d) compressed_psum's gradient, a rank
+
+
+def _tm_cfg(arch: str, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    moe = cfg.moe
+    if moe.num_experts:
+        moe = dataclasses.replace(moe, dispatch="multisplit_ep")
+    return dataclasses.replace(cfg, moe=moe, **kw)
+
+
+def _tm_batches(dev, cfg, n, batch, seq, seed):
+    """``n`` batches of (batch, seq) tokens and their labels from ``seed``."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    t = torch.randint(0, cfg.vocab, (n, batch, seq + 1), device=dev, generator=g,
+                      dtype=torch.int32)
+    return [{"tokens": x[:, :-1].contiguous(), "labels": x[:, 1:].contiguous()} for x in t]
+
+
+def _tm_one_process(dev, perturb=False):
+    """(a)'s reference: the one-process ``make_train_step`` on the card,
+    :data:`TM_STEPS` steps; (metrics a step, the state's leaves)."""
+    import torch
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import init_params, tree_leaves
+
+    cfg = _tm_cfg("tinyllama-1.1b", n_layers=TM_LAYERS, dtype="float32")
+    tc = TrainConfig(lr=TM_LR, warmup_steps=1, total_steps=100)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 60)
+    params = init_params(M.decl_model(cfg), g)
+    if perturb:
+        pg = torch.Generator(device=dev)
+        pg.manual_seed(SEED + 61)
+        for t in tree_leaves(params):
+            t.mul_(1 + TM_PERTURB * torch.randn(t.shape, device=dev, generator=pg))
+    state = S.TrainState(params, adamw_init(params, tc))
+    step = S.make_train_step(cfg, tc)
+    metrics = []
+    for b in _tm_batches(dev, cfg, TM_STEPS, TM_BATCH, TM_SEQ, SEED + 62):
+        state, m = step(state, b)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return metrics, tree_leaves(state)
+
+
+def train_mesh_rank(rank: int, world: int, store: str, work: str, device: str) -> None:
+    """One gloo rank of :func:`train_mesh_phase` (a ``spawn`` target).
+
+    On all four ranks: (d) ``compressed_psum`` over the ``pod`` and ``data``
+    groups of a (2, 2) ``(pod, data)`` mesh on CUDA tensors and on CPU
+    tensors; (a) tinyllama-1.1b at full width and :data:`TM_LAYERS` layers
+    in float32 on a (2, 2) ``(data, model)`` mesh: :data:`TM_STEPS` steps
+    of ``make_train_step`` with ``fsdp`` off, on, and a control on which
+    rank 0 keeps its own gradients over ``data`` (its all-reduce runs, its
+    result is dropped); each run's metrics, and the largest difference of
+    each leaf of its state from the one-process run's (``work/ref.pt``) on
+    the rank's slice; the collectives of a step. Then ranks 2 and 3 leave,
+    and ranks 0 and 1 start a world of two: (c) dbrx-132b at full width, 1
+    layer, bfloat16 with its float32 master, ``multisplit_ep`` on a (1, 2)
+    mesh: :data:`TM_DBRX_STEPS` steps of 1 x :data:`TM_DBRX_SEQ`, times,
+    peak memory, launches, every route's ranks and counts against ``vmap``'s;
+    then dbrx's MoE block alone in float32, its gradients against the
+    one-process ``multisplit`` dispatch's (``work/moe_grads.pt``); (b)
+    ``launch.train.main`` at tinyllama-1.1b's full config on a (2,) data
+    mesh, 4 steps with checkpoints every 2, then a resume from the step-2
+    checkpoint replaying step 2, its gradient reductions timed apart. Each
+    rank writes
+    ``work/rank{r}.json``."""
+    import contextlib
+    import io
+    import json as _json
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    import repro_torch.kernels as registry
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.compress import compressed_psum
+    from repro_torch.parallel import sharding as sh
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    rep = {"rank": rank, "seconds": {}}
+    t_part = [time.perf_counter()]
+
+    def stamp(part):
+        now = time.perf_counter()
+        rep["seconds"][part] = now - t_part[0]
+        t_part[0] = now
+
+    launched = lambda: {k: v for k, v in registry.launch_counts().items() if v}
+    comms = lambda mode: {str(k): v for k, v in mode.get_comm_counts().items()}
+    try:
+        # ---- (d) compressed_psum over the mesh's pod and data groups
+        pod = init_device_mesh("cuda", (2, 2), mesh_dim_names=("pod", "data"))
+        g = torch.Generator().manual_seed(SEED + 70 + rank)
+        grad = torch.randn(TM_PSUM_N, generator=g) * 3.0
+        err = torch.randn(TM_PSUM_N, generator=g) * 1e-2
+        groups = dict(fast_group=pod.get_group("data"), slow_group=pod.get_group("pod"))
+        on_card = compressed_psum(grad.to(dev), err.to(dev), **groups)
+        on_host = compressed_psum(grad, err, **groups)
+        rep["psum"] = [bits_equal(a.cpu(), b) for a, b in zip(on_card, on_host)]
+        rep["psum_err"] = [float((a.cpu() - b).abs().max() / b.abs().max())
+                           for a, b in zip(on_card, on_host)]
+        del on_card, on_host
+        stamp("d")
+
+        # ---- (a) tinyllama, float32, (2, 2) (data, model)
+        mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
+        coord = tuple(mesh.get_coordinate())
+        cfg = _tm_cfg("tinyllama-1.1b", n_layers=TM_LAYERS, dtype="float32")
+        decls = M.decl_model(cfg)
+        tc = TrainConfig(lr=TM_LR, warmup_steps=1, total_steps=100)
+        ref = torch.load(f"{work}/ref.pt", mmap=True)
+        batches = _tm_batches(dev, cfg, TM_STEPS, TM_BATCH, TM_SEQ, SEED + 62)
+        layout = S.grad_layout
+        for run in ("plain", "fsdp", "control"):
+            shard = S.state_shardings(decls, ParallelConfig(fsdp=run == "fsdp"), mesh, tc)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(SEED + 60)
+            params = sh.init_params(decls, gen, shardings=shard.params)
+            state = sh.place(S.TrainState(params, adamw_init(params, tc)), shard)
+            step = S.make_train_step(cfg, tc)
+
+            def keeps_own(grad, placements):
+                """Rank 0 of the control: the all-reduce over data runs (its
+                peer waits in it), its own partial gradient is kept."""
+                out = layout(grad, placements)
+                if isinstance(grad, DTensor) and grad.placements[0].is_partial():
+                    return DTensor.from_local(grad.to_local(), mesh, out.placements,
+                                              run_check=False)
+                return out
+
+            if run == "control" and rank == 0:
+                S.grad_layout = keeps_own
+            metrics = []
+            registry.reset_launches()
+            try:
+                with sh.set_mesh(mesh):
+                    for t, b in enumerate(batches):
+                        mode = CommDebugMode()
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        with mode:
+                            placed = sh.place(b, S.batch_sharding(cfg, mesh, b))
+                            state, m = step(state, placed)
+                        torch.cuda.synchronize()
+                        metrics.append((float(m["loss"]), float(m["grad_norm"]),
+                                        (time.perf_counter() - t0) * 1e3))
+            finally:
+                S.grad_layout = layout
+            leaf_err = []
+            for x, want in zip(sh.tree_leaves(state), ref):
+                local, _ = sh.local_shard(x)
+                cut = (sh.shard_slices(x.shape, mesh, x.placements, coord)
+                       if isinstance(x, DTensor) else ())
+                leaf_err.append(float((local.float() - want[cut].to(dev).float()).abs().max()))
+            rep[run] = {"metrics": metrics, "leaf_err": leaf_err, "comms": comms(mode),
+                        "launches": launched()}
+            del state, params, m
+            torch.cuda.empty_cache()
+        del ref
+        dist.barrier()
+        stamp("a")
+        dist.destroy_process_group()
+        if rank >= 2:
+            return
+
+        # ---- a world of two: (c) dbrx on (1, 2), then (b) the launcher on (2,)
+        dist.init_process_group("gloo", init_method=f"file://{store}_two", rank=rank,
+                                world_size=2)
+        mesh = init_device_mesh("cuda", (1, 2), mesh_dim_names=("data", "model"))
+        cfg = _tm_cfg("dbrx-132b", n_layers=1)
+        decls = M.decl_model(cfg)
+        tc = TrainConfig(global_batch=1, seq_len=TM_DBRX_SEQ, lr=3e-4, warmup_steps=1,
+                         total_steps=TM_DBRX_STEPS, params_dtype="bfloat16",
+                         moments_dtype="bfloat16")
+        shard = S.state_shardings(decls, ParallelConfig(), mesh, tc)
+        torch.cuda.reset_peak_memory_stats()
+        params = draw_in_turn(rank, 2, decls, SEED, torch.bfloat16, shard.params, dev)
+        state = sh.place(S.TrainState(params, adamw_init(params, tc)), shard)
+        rep["dbrx_state_gib"] = torch.cuda.memory_allocated() / 2**30
+        routed, loads = [], []
+        ranks_fn, loads_fn = moe_mod._ranks_multisplit, moe_mod.expert_load_stats
+
+        def rec_ranks(ids, e, *a, **kw):
+            r = ranks_fn(ids, e, *a, **kw)
+            routed.append((ids.clone(), e, r[0].clone(), r[1].clone()))
+            return r
+
+        def rec_loads(ids, e, *a, **kw):
+            r = loads_fn(ids, e, *a, **kw)
+            loads.append((ids.clone(), e, r[0].clone()))
+            return r
+
+        steps_log = []
+        step = _step_recorder(registry, S.make_train_step, steps_log)(cfg, tc)
+        moe_mod._ranks_multisplit, moe_mod.expert_load_stats = rec_ranks, rec_loads
+        registry.reset_launches()
+        try:
+            with sh.set_mesh(mesh):
+                for b in _tm_batches(dev, cfg, TM_DBRX_STEPS, 1, TM_DBRX_SEQ, SEED + 63):
+                    state, m = step(state, sh.place(b, S.batch_sharding(cfg, mesh, b)))
+        finally:
+            moe_mod._ranks_multisplit, moe_mod.expert_load_stats = ranks_fn, loads_fn
+        rep["dbrx_launches"] = launched()
+        rep["dbrx_steps"] = [(loss, ms, launches) for loss, ms, launches, _ in steps_log]
+        rep["dbrx_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rep["dbrx_routes"] = [len(routed), len(loads)]
+        rep["dbrx_bitwise"] = all(
+            bits_equal(r, p[0]) and bits_equal(c, p[1])
+            for ids, e, r, c in routed
+            for p in [ranks_fn(ids, e, backend="vmap", device=dev)]) and all(
+            bits_equal(c, loads_fn(ids, e, backend="vmap", device=dev)[0])
+            for ids, e, c in loads)
+        del state, params, m, routed, loads
+        torch.cuda.empty_cache()
+        stamp("c")
+
+        # dbrx's MoE block alone, float32: gradients against one process's
+        cfg32 = _tm_cfg("dbrx-132b", n_layers=1, dtype="float32")
+        mdecls = moe_mod.moe_decl(cfg32)
+        p = draw_in_turn(rank, 2, mdecls, SEED + 64, torch.float32,
+                         sh.decl_to_sharding(mdecls, ParallelConfig(), mesh), dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 65)
+        x = torch.randn((1, TM_DBRX_SEQ, cfg32.d_model), generator=gen, device=dev)
+        for leaf in sh.tree_leaves(p):
+            leaf.requires_grad_()
+        x.requires_grad_()
+        registry.reset_launches()
+        with sh.set_mesh(mesh):
+            y, _ = moe_mod.moe_block(p, sh.distribute_input(x, "dp", None, None), cfg32)
+            whole = sh.replicate(y)
+            (whole * whole).sum().to_local().backward()
+        rep["moe_launches"] = launched()
+        want = torch.load(f"{work}/moe_grads.pt", mmap=True)
+        errs = []
+        for leaf, w in zip(sh.tree_leaves(p) + [x], want):
+            gl = leaf.grad
+            local = gl.to_local() if isinstance(gl, DTensor) else gl
+            cut = (sh.shard_slices(gl.shape, mesh, gl.placements, tuple(mesh.get_coordinate()))
+                   if isinstance(gl, DTensor) else ())
+            errs.append(float((local - w[cut].to(dev)).abs().max() / w.abs().max()))
+        rep["moe_grad_err"] = errs
+        del p, x, y, whole, want
+        torch.cuda.empty_cache()
+        stamp("c, MoE block")
+
+        # ---- (b) the launcher at tinyllama-1.1b's full config on two ranks:
+        # TM_LAUNCH_ARGV's steps as they run; then a resume from the step-2
+        # checkpoint that replays TM_RESUME_STEPS - 2 steps, in which the host
+        # time inside grads_of's gradient reductions (grad_layout: gloo's
+        # all-reduces through the host) is kept apart, each call between two
+        # synchronisations (which the timed steps do not pay)
+        ckpt = os.path.join(work, "launch")
+        steps_log, reduce_ms = [], []
+        make = S.make_train_step
+        S.make_train_step = _step_recorder(registry, make, steps_log)
+
+        def timed_layout(grad, placements):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = layout(grad, placements)
+            torch.cuda.synchronize()
+            reduce_ms.append((len(steps_log), (time.perf_counter() - t0) * 1e3))
+            return out
+
+        torch.cuda.reset_peak_memory_stats()
+        out = io.StringIO()
+        registry.reset_launches()
+        try:
+            with contextlib.redirect_stdout(out):
+                t0 = time.perf_counter()
+                sup = train.main(TM_LAUNCH_ARGV + ["--ckpt-dir", ckpt, "--seed", str(SEED)])
+                first_s = time.perf_counter() - t0
+                first_latest = sup.ckpt.latest_step()
+                rep["launch_files"] = sorted(os.listdir(os.path.join(ckpt, "step_00000002")))
+                dist.barrier()
+                if rank == 0:          # the resume starts from the step-2 checkpoint
+                    shutil.rmtree(os.path.join(ckpt, "step_00000004"))
+                dist.barrier()
+                S.grad_layout = timed_layout
+                again = train.main(TM_LAUNCH_ARGV + ["--ckpt-dir", ckpt, "--seed", str(SEED),
+                                                     "--steps", str(TM_RESUME_STEPS)])
+        finally:
+            S.make_train_step, S.grad_layout = make, layout
+        n_first = int(TM_LAUNCH_ARGV[TM_LAUNCH_ARGV.index("--steps") + 1])
+        rep["launch_reduce_ms"] = [sum(ms for i, ms in reduce_ms if i == k)
+                                   for k in range(n_first, len(steps_log))]
+        rep["launch_launches"] = launched()
+        rep["launch_text"] = out.getvalue()
+        rep["launch_steps"] = [(loss, ms, launches) for loss, ms, launches, _ in steps_log]
+        rep["launch_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rep["launch_s"] = first_s
+        rep["launch_latest"] = [first_latest, again.ckpt.latest_step()]
+        del sup, again
+        torch.cuda.empty_cache()
+        stamp("b")
+        dist.barrier()
+        dist.destroy_process_group()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        with open(f"{work}/rank{rank}.json", "w") as f:
+            _json.dump(rep, f)
+
+
+def train_mesh_phase(dev, registry, log, smi):
+    """The sharded training step (A13d) on the card, after the mesh phase:
+    :data:`TM_WORLD` gloo ranks on the one card (:func:`train_mesh_rank`).
+    The one-process references run here before the spawn: (a)'s
+    ``make_train_step`` (and the same with every parameter moved by a
+    relative :data:`TM_PERTURB`, whose movement sets each limit:
+    :data:`TM_MULT` times it), and (c)'s MoE block with the ``multisplit``
+    dispatch and its gradients. Checks: (a) every metric and leaf within its
+    limit with ``fsdp`` off and on, the control over it; no functional
+    all-gather in a step; (b) the launcher's first line its (2,) mesh, the
+    resume replaying step 2 to the first run's loss
+    (:data:`SUP_REPLAY_RTOL`), both runs ending at step 4; (c) K1, K3 and
+    B11 launched on each rank, every route's ranks and counts bitwise
+    ``vmap``'s, the block's gradients within :data:`TM_MOE_GRAD_RTOL`;
+    (d) ``compressed_psum`` on CUDA tensors bitwise its CPU answer. Returns
+    the summed launch counts of the ranks' main-path drives ((a)'s plain
+    and fsdp runs, (c)'s steps, (b)'s launcher)."""
+    import torch
+    import torch.multiprocessing as tmp
+
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel.sharding import init_params, tree_leaves
+
+    work = os.path.join(ROOT, "build", "train_mesh_work")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+
+    # ---- (a)'s references
+    ref_metrics, ref = _tm_one_process(dev)
+    torch.save([t.detach().cpu() for t in ref], os.path.join(work, "ref.pt"))
+    pert_metrics, pert = _tm_one_process(dev, perturb=True)
+    tops = [float(t.float().abs().max()) for t in ref]
+    moved = [float((a.float() - b.float()).abs().max()) for a, b in zip(pert, ref)]
+    del pert, ref
+    torch.cuda.empty_cache()
+
+    # ---- (c)'s MoE block reference: one process, the multisplit dispatch
+    import dataclasses
+    cfg32 = _tm_cfg("dbrx-132b", n_layers=1, dtype="float32")
+    one = dataclasses.replace(cfg32, moe=dataclasses.replace(cfg32.moe, dispatch="multisplit"))
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 64)
+    p = init_params(moe_mod.moe_decl(cfg32), g, torch.float32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 65)
+    x = torch.randn((1, TM_DBRX_SEQ, cfg32.d_model), generator=gen, device=dev)
+    leaves = tree_leaves(p) + [x]
+    for leaf in leaves:
+        leaf.requires_grad_()
+    y, _ = moe_mod.moe_block(p, x, one)
+    grads = torch.autograd.grad((y * y).sum(), leaves)
+    torch.save([gr.cpu() for gr in grads], os.path.join(work, "moe_grads.pt"))
+    del p, x, y, grads, leaves
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t_phase
+
+    store = os.path.join(work, "store")
+    t0 = time.perf_counter()
+    tmp.spawn(train_mesh_rank, args=(TM_WORLD, store, work, str(dev)), nprocs=TM_WORLD,
+              join=True)
+    wall = time.perf_counter() - t0
+    reps = []
+    for r in range(TM_WORLD):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            reps.append(json.load(f))
+    shutil.rmtree(work, ignore_errors=True)
+
+    counts = {}
+    for rep in reps:
+        for part in ([rep["plain"]["launches"], rep["fsdp"]["launches"]]
+                     + ([rep["dbrx_launches"], rep["launch_launches"]] if rep["rank"] < 2
+                        else [])):
+            for k, v in part.items():
+                counts[k] = counts.get(k, 0) + v
+
+    failed = []
+    # (d)
+    for rep in reps:
+        if not all(rep["psum"]):
+            failed.append(f"rank {rep['rank']}: compressed_psum on CUDA tensors parts "
+                          f"from its CPU answer by {rep['psum_err']}")
+    # (a): each figure against TM_MULT x the perturbation's movement
+    metric_moved = [max(abs(a - b) / abs(b) for a, b in zip(pm, rm))
+                    for pm, rm in zip(zip(*pert_metrics), zip(*ref_metrics))]
+    report = {}
+    for run in ("plain", "fsdp", "control"):
+        metric_err = [max(abs(m[i] - r[i]) / abs(r[i]) for rep in reps
+                          for m, r in zip(rep[run]["metrics"], ref_metrics)) for i in (0, 1)]
+        leaf_err = [max(rep[run]["leaf_err"][i] for rep in reps) / max(tops[i], 1e-30)
+                    for i in range(len(tops))]
+        leaf_lim = [TM_MULT * mv / max(top, 1e-30) for mv, top in zip(moved, tops)]
+        over = [i for i, (e, lim) in enumerate(zip(leaf_err, leaf_lim)) if e > lim]
+        over_m = [i for i in (0, 1) if metric_err[i] > TM_MULT * metric_moved[i]]
+        report[run] = (metric_err, max(leaf_err), over, over_m,
+                       max(e / lim if lim else (math.inf if e else 0.0)
+                           for e, lim in zip(leaf_err, leaf_lim)))
+        if run != "control" and (over or over_m):
+            failed.append(f"(a) {run}: the sharded step parts from the one-process step "
+                          f"beyond {TM_MULT} x the 2^-21 movement: leaves {over}, "
+                          f"metrics {over_m} (loss, grad_norm errors {metric_err} against "
+                          f"movements {metric_moved})")
+        if run == "control" and not (over or over_m):
+            failed.append("(a) the control (rank 0 keeps its own gradients over data) "
+                          "stays within the limit")
+        for rep in reps:
+            if any("functional" in k and "gather" in k for k in rep[run]["comms"]):
+                failed.append(f"(a) {run}: rank {rep['rank']} issued a functional "
+                              f"all-gather: {rep[run]['comms']}")
+    # (c)
+    for rep in reps[:2]:
+        steps = rep["dbrx_steps"]
+        for name in ("flash_attention", "spec_tile_histograms", "spec_tile_positions"):
+            if not all(launches.get(name) for _, _, launches in steps):
+                failed.append(f"(c) rank {rep['rank']}: a dbrx step launched no {name}: "
+                              f"{[s[2] for s in steps]}")
+        if not rep["dbrx_bitwise"] or not all(rep["dbrx_routes"]):
+            failed.append(f"(c) rank {rep['rank']}: the routes' ranks or counts are not "
+                          f"vmap's ({rep['dbrx_routes']} recorded)")
+        if not all(math.isfinite(loss) for loss, *_ in steps):
+            failed.append(f"(c) dbrx losses {[s[0] for s in steps]}")
+        if not max(rep["moe_grad_err"]) <= TM_MOE_GRAD_RTOL:
+            failed.append(f"(c) rank {rep['rank']}: the MoE block's gradients part from "
+                          f"one process's by {rep['moe_grad_err']}")
+    # (b)
+    r0 = reps[0]
+    lines = r0["launch_text"].strip().splitlines()
+    if not lines or "mesh {'data': 2} over 2 rank(s), gloo on cuda" not in lines[0]:
+        failed.append(f"(b) the launcher's first line: {lines[:1]}")
+    if reps[1]["launch_text"].strip():
+        failed.append(f"(b) rank 1 printed {reps[1]['launch_text'][:200]!r}")
+    replay = []
+    for rep in reps[:2]:
+        ls = [loss for loss, *_ in rep["launch_steps"]]
+        n_first = int(TM_LAUNCH_ARGV[TM_LAUNCH_ARGV.index("--steps") + 1])
+        if len(ls) != n_first + TM_RESUME_STEPS - 2 or rep["launch_latest"] != [
+                n_first, TM_RESUME_STEPS]:
+            failed.append(f"(b) rank {rep['rank']}: {len(ls)} steps, latest "
+                          f"{rep['launch_latest']}")
+        replay.append([(a, b, abs(a - b) / abs(b))
+                       for a, b in zip(ls[n_first:], ls[2:TM_RESUME_STEPS])])
+        if not replay[-1] or any(r > SUP_REPLAY_RTOL for *_, r in replay[-1]):
+            failed.append(f"(b) rank {rep['rank']}: the resume's losses {ls[n_first:]} "
+                          f"against the first run's {ls[2:TM_RESUME_STEPS]}")
+    # the first run's steps after its first, none of them paying the timing
+    # synchronisations of the resume's
+    ms = statistics.median(s for rep in reps[:2] for _, s, _ in rep["launch_steps"][1:n_first])
+    ms_timed = [round(s, 1) for rep in reps[:2] for _, s, _ in rep["launch_steps"][n_first:]]
+
+    log("train-mesh", f"{TM_WORLD} gloo ranks on one card, {wall:.1f} s (the one-process "
+                      f"references before: {ref_s:.1f} s; rank 0's parts in s: "
+                      f"{ {k: round(v, 1) for k, v in r0['seconds'].items()} }) [{smi}]")
+    log("train-mesh", f"(a) tinyllama-1.1b full width, {TM_LAYERS} layers, float32, (2, 2) "
+                      f"(data, model), {TM_STEPS} steps of {TM_BATCH} x {TM_SEQ}: one process "
+                      f"(loss, grad_norm) {[(round(a, 6), round(b, 4)) for a, b in ref_metrics]}; "
+                      f"the 2^-21 perturbation moves them {metric_moved} and the leaves by up "
+                      f"to {max(mv / max(t, 1e-30) for mv, t in zip(moved, tops)):.3e} of their "
+                      f"largest; limit {TM_MULT} x that movement, a figure each: "
+                      + "; ".join(f"{run}: loss, grad_norm errors "
+                                  f"{[f'{e:.3e}' for e in report[run][0]]}, worst leaf "
+                                  f"{report[run][1]:.3e} ({report[run][4]:.3f} of its limit), "
+                                  f"over the limit: leaves {report[run][2][:8]}, metrics "
+                                  f"{report[run][3]}" for run in report)
+                      + f"; ms a step by rank (host clock, plain / fsdp): "
+                      + ", ".join(f"{rep['plain']['metrics'][-1][2]:.1f} / "
+                                  f"{rep['fsdp']['metrics'][-1][2]:.1f}" for rep in reps))
+    log("train-mesh", f"(a) collectives of a step (CommDebugMode, rank 0): plain "
+                      f"{r0['plain']['comms']}; fsdp {r0['fsdp']['comms']}")
+    log("train-mesh", f"(b) launch.train --arch tinyllama-1.1b (full config) on 2 ranks, "
+                      f"{lines[0].split('] ', 1)[-1]}: {ms:.2f} ms/step (median of the first "
+                      f"run's steps 2-{n_first} on both ranks; steps by rank, the last the "
+                      f"resume's "
+                      + "; ".join(str([round(s, 1) for _, s, _ in rep["launch_steps"]])
+                                  for rep in reps[:2])
+                      + f") beside one process's {MESH_MS_BEFORE[TM_ONE_PROCESS][0]} ms/step "
+                      f"({TM_ONE_PROCESS}), "
+                      f"{TM_BATCH * TM_SEQ / ms * 1e3:.0f} tokens/s; peak "
+                      + ", ".join(f"{rep['launch_peak_gib']:.2f}" for rep in reps[:2])
+                      + f" GiB a rank; the resume's step, timed apart: the gradients' "
+                      f"reduction over data (gloo, through the host; host ms between "
+                      f"synchronisations, rank 0) {[round(x, 1) for x in r0['launch_reduce_ms']]}"
+                      f" of {ms_timed} ms (both ranks, the synchronisations included); first run "
+                      f"{r0['launch_s']:.1f} s with its checkpoints "
+                      f"(step 2 holds {r0['launch_files']}); the resume from step 2 replays "
+                      f"(loss, first run's, relative) "
+                      f"{[(round(a, 6), round(b, 6), f'{r:.1e}') for a, b, r in replay[0]]}; "
+                      f"launches a step {r0['launch_steps'][0][2]} [{smi}]")
+    log("train-mesh", f"(c) dbrx-132b full width, 1 of 40 layers, bfloat16 with a float32 "
+                      f"master, multisplit_ep on (1, 2), {TM_DBRX_STEPS} steps of 1 x "
+                      f"{TM_DBRX_SEQ}: ms/step by rank "
+                      + "; ".join(str([round(s, 1) for _, s, _ in rep["dbrx_steps"]])
+                                  for rep in reps[:2])
+                      + "; state " + ", ".join(f"{rep['dbrx_state_gib']:.2f}" for rep in reps[:2])
+                      + " GiB and peak " + ", ".join(f"{rep['dbrx_peak_gib']:.2f}"
+                                                    for rep in reps[:2])
+                      + " GiB a rank; launches a step by rank "
+                      + "; ".join(str(rep["dbrx_steps"][0][2]) for rep in reps[:2])
+                      + f"; {reps[0]['dbrx_routes']} routes (K3 ranks, K1 loads) a rank bitwise "
+                      f"vmap's; losses {[round(s[0], 4) for s in r0['dbrx_steps']]}; the MoE block "
+                      f"alone in float32, gradients against one process (norm, router, w_down, "
+                      f"w_gate, w_up, x) "
+                      + "; ".join(str([f"{e:.2e}" for e in rep["moe_grad_err"]])
+                                  for rep in reps[:2])
+                      + f" (limit {TM_MOE_GRAD_RTOL}) [{smi}]")
+    log("train-mesh", f"(d) compressed_psum over the pod and data groups of a (2, 2) mesh on "
+                      f"{TM_PSUM_N} float32 a rank, CUDA tensors against the CPU answer, (reduced, "
+                      f"residual) bitwise by rank {[rep['psum'] for rep in reps]}, relative "
+                      f"{[rep['psum_err'] for rep in reps]}")
+    log("train-mesh", f"phase {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5579,10 +6155,11 @@ def main() -> int:
     # dense and MoE), 5p. the other families (A13a, after dbrx has freed
     # its memory) and 5q. training (A13b, after the families have freed
     # theirs), each with its own launch counts
-    # 5r. subnormal float32 keys (ROADMAP §C) and 5s. the mesh layer (A13c:
-    # four gloo ranks on the card, after training has freed its memory)
+    # 5r. subnormal float32 keys (ROADMAP §C), 5s. the mesh layer (A13c:
+    # four gloo ranks on the card, after training has freed its memory) and
+    # 5t. the sharded training step (A13d: gloo ranks on the card again)
     for phase in (distributed_phase, model_phase, families_phase, training_phase,
-                  subnormal_phase, mesh_phase):
+                  subnormal_phase, mesh_phase, train_mesh_phase):
         for name, count in phase(dev, registry, log, smi).items():
             launches[name] += count
 

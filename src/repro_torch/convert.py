@@ -11,7 +11,8 @@ carries an array, ``np.asarray`` of a JAX array, into a tensor bit for bit.
 port's, :func:`params_from_numpy` carries a parameter tree of numpy
 arrays (``jax.tree.map(np.asarray, params)``) into the port's tree on a
 device, bit for bit, and :func:`train_state_from_numpy` a whole train state
-(params, the AdamW moments and step, the float32 master) likewise. This module imports nothing of the JAX package: it
+(params, the AdamW moments and step, the float32 master) likewise, placed
+on a mesh when given its shardings. This module imports nothing of the JAX package: it
 reads only plain values.
 """
 
@@ -79,19 +80,24 @@ def params_from_numpy(tree, device: Optional[torch.device] = None):
     return tree_map(lambda a: tensor_from_numpy(a, device), tree)
 
 
-def train_state_from_numpy(state, device: Optional[torch.device] = None):
+def train_state_from_numpy(state, device: Optional[torch.device] = None, shardings=None):
     """A train state of numpy arrays (``jax.tree.map(np.asarray, state)`` of
     a JAX ``TrainState``, read by its field names) as the port's
     :class:`repro_torch.launch.steps.TrainState` on ``device``, bit for
-    bit; a missing master stays None."""
+    bit; a missing master stays None. With ``shardings`` (a
+    ``launch.steps.state_shardings`` tree) the state is placed on its mesh
+    as ``parallel.sharding.place`` places it: each rank keeps its slice of
+    every leaf (every rank passes the whole state)."""
     from repro_torch.launch.steps import TrainState
     from repro_torch.optim import AdamWState
+    from repro_torch.parallel.sharding import place
 
     opt = state.opt
-    return TrainState(
+    out = TrainState(
         params=params_from_numpy(state.params, device),
         opt=AdamWState(step=tensor_from_numpy(np.asarray(opt.step), device),
                        mu=params_from_numpy(opt.mu, device),
                        nu=params_from_numpy(opt.nu, device),
                        master=None if opt.master is None else params_from_numpy(opt.master,
                                                                                  device)))
+    return out if shardings is None else place(out, shardings)

@@ -16,6 +16,7 @@ import math
 from typing import Any, Dict, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models import model as M
@@ -27,7 +28,12 @@ from repro_torch.parallel.sharding import (
     data_axes_of,
     decl_to_abstract,
     decl_to_sharding,
+    gather_full,
+    grad_layout,
+    local_shard,
     mesh_shape,
+    place,
+    replicate,
     tree_leaves,
     tree_map,
     tree_unflatten,
@@ -45,22 +51,64 @@ class TrainState(NamedTuple):
 # Step builders
 # ---------------------------------------------------------------------------
 
+def _plain(x: Tensor) -> Tensor:
+    """A replicated (or partial) DTensor's whole value as a plain tensor,
+    the same on every rank; a plain tensor as it is."""
+    return replicate(x).to_local() if isinstance(x, DTensor) else x
+
+
 def grads_of(params, cfg: ModelConfig, batch: Dict[str, Tensor], *, backend: str = "cuda"):
     """((loss, metrics), grads): :func:`repro_torch.models.model.loss_fn`
     and its gradient for every parameter, as ``jax.value_and_grad`` gives
-    them (a parameter the loss does not reach gets zeros). The metrics are
-    detached."""
+    them (a parameter the loss does not reach gets zeros). The loss and the
+    metrics are detached plain tensors, the same on every rank.
+
+    Under a mesh the parameters are DTensors and each gradient comes back in
+    its parameter's layout (:func:`~repro_torch.parallel.sharding.grad_layout`):
+    the partial sums over the data axes that a data-sharded batch leaves
+    are all-reduced (reduce-scattered for an ``fsdp`` shard), the psum
+    GSPMD inserts after ``value_and_grad``."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
         loss, metrics = M.loss_fn(tree_unflatten(params, leaves), cfg, batch,
                                   backend=backend)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    return (loss.detach(), metrics), tree_unflatten(params, grads)
+        root = loss.to_local() if isinstance(loss, DTensor) else loss
+        grads = torch.autograd.grad(root, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None
+             else grad_layout(g, p.placements) if isinstance(p, DTensor) else g
+             for p, g in zip(leaves, grads)]
+    metrics = {k: _plain(v.detach()) for k, v in metrics.items()}
+    return (_plain(loss.detach()), metrics), tree_unflatten(params, grads)
+
+
+def _whole(batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """The global batch as plain tensors on every rank (a placed leaf
+    gathered by c10d)."""
+    return {k: gather_full(v) for k, v in batch.items()}
+
+
+def _placed_like(batch: Dict[str, Tensor], part: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """``part`` (plain tensors, whole on every rank) placed as ``batch`` is:
+    by :func:`batch_sharding` on the mesh of ``batch``'s DTensors, each
+    rank keeping its slice; as it is when ``batch`` holds no DTensor."""
+    placed = [v for v in batch.values() if isinstance(v, DTensor)]
+    if not placed:
+        return part
+    mesh = placed[0].device_mesh
+    return place(part, batch_sharding(None, mesh, part))
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, backend: str = "cuda"):
+    """The train step ``(state, batch) -> (state, metrics)``: JAX's
+    ``value_and_grad`` of :func:`~repro_torch.models.model.loss_fn`, the
+    ``accum_steps`` microbatches, the schedule and AdamW, the state updated
+    in place. On a mesh the state is placed by :func:`state_shardings` and
+    the batch by :func:`batch_sharding` (DTensors), the step runs inside
+    ``parallel.sharding.set_mesh`` of that mesh, and it computes what JAX's
+    step jitted with those shardings computes: a microbatch is the JAX one
+    (global rows ``[i·B/a, (i+1)·B/a)``, placed again over the data axes),
+    the gradients are reduced over the data axes in :func:`grads_of`, and
+    the metrics are plain tensors, the same on every rank."""
     sched = make_schedule(tc)
 
     def train_step(state: TrainState, batch: Dict[str, Tensor]):
@@ -73,11 +121,11 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, backend: str = "cuda")
             # optimizer math is unchanged
             a = tc.accum_steps
             micro = {k: v.reshape((a, v.shape[0] // a) + tuple(v.shape[1:]))
-                     for k, v in batch.items()}
+                     for k, v in _whole(batch).items()}
             grads = metrics = None
             for i in range(a):
-                (_, m), g = grads_of(state.params, cfg, {k: v[i] for k, v in micro.items()},
-                                     backend=backend)
+                mb = _placed_like(batch, {k: v[i] for k, v in micro.items()})
+                (_, m), g = grads_of(state.params, cfg, mb, backend=backend)
                 if grads is None:
                     grads, metrics = g, m
                 else:
@@ -89,7 +137,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, backend: str = "cuda")
             for g in tree_leaves(grads):
                 g.mul_(inv)
             metrics = {k: v * inv for k, v in metrics.items()}
-        lr = sched(state.opt.step)
+        lr = sched(local_shard(state.opt.step)[0])
         new_params, new_opt, om = adamw_update(grads, state.opt, state.params, tc, lr)
         metrics = dict(metrics, **om)
         return TrainState(new_params, new_opt), metrics

@@ -7,21 +7,26 @@ by default::
 ``--smoke`` runs the reduced config; without it the full config runs. The
 launcher builds its mesh as the JAX launcher does and prints it on its
 first line (``launch.mesh.launch_mesh``: the production mesh in a world of
-256 or 512 ranks, else the host mesh over the world — on one card a
-``(1,)`` ``data`` mesh of one rank) and places the train state by
-``state_shardings`` (``parallel.sharding.place``; on one rank the leaves
-stay plain tensors). The sharded train step over several ranks is not
-ported yet (``ROADMAP.md`` A13d): a world of more than one rank raises.
-Parameters are drawn from ``--seed`` on
+256 or 512 ranks, else the host mesh, a ``data`` mesh over the world — on
+one card a ``(1,)`` mesh of one rank). It runs in any world: under
+``torchrun`` (``--nproc-per-node N``; nccl with one card a rank, gloo with
+``--device cpu``), or in a process group the caller has started (several
+gloo ranks sharing one card). A mesh with a ``model`` axis takes an MoE
+model's ``multisplit`` dispatch as ``multisplit_ep``
+(``launch.mesh.expert_parallel``). Parameters are drawn from ``--seed`` on
 ``--device`` in ``TrainConfig.params_dtype`` (a bfloat16 one keeps a
-float32 master in the optimizer state), batches come from the port's
-:class:`~repro_torch.data.DataPipeline`, and the loop always runs under the
-fault-tolerant :class:`~repro_torch.runtime.Supervisor` (checkpoint/restart,
-retry, straggler tracking). On ``cuda`` attention inside B11's contract runs
-its forward on the kernel and an MoE model routes on K1 and K3;
-``--device cpu`` runs their plain versions. Without a card and without
-``--device cpu`` the launcher raises. Returns the supervisor (its
-``history`` and ``stats``).
+float32 master in the optimizer state), each rank keeping its slices of the
+train state as ``state_shardings`` lays it out (``init_params(...,
+shardings=)``, ``parallel.sharding.place``; on one rank the leaves stay
+plain tensors); every rank builds the same global batch from the port's
+:class:`~repro_torch.data.DataPipeline` and keeps its slice
+(``batch_sharding``), and the loop always runs under the fault-tolerant
+:class:`~repro_torch.runtime.Supervisor` (checkpoint/restart, retry,
+straggler tracking; every rank saves its own shards). Rank 0 prints. On
+``cuda`` attention inside B11's contract runs its forward on the kernel and
+an MoE model routes on K1 and K3; ``--device cpu`` runs their plain
+versions. Without a card and without ``--device cpu`` the launcher raises.
+Returns the supervisor (its ``history`` and ``stats``).
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ParallelConfig, TrainConfig
 from repro_torch.data import DataPipeline
 from repro_torch.launch import steps as S
-from repro_torch.launch.mesh import data_axes, describe, launch_mesh
+from repro_torch.launch.mesh import data_axes, describe, expert_parallel, launch_mesh
 from repro_torch.models import model as M
 from repro_torch.optim import adamw_init
 from repro_torch.parallel.sharding import init_params, param_count, place, set_mesh
@@ -70,22 +75,21 @@ def main(argv=None):
                            "--device cpu to run it on the host")
     mesh, started, device = launch_mesh(device)
     try:
-        print(f"[train] {describe(mesh)}")
-        if mesh.size() > 1:
-            raise NotImplementedError(f"the sharded train step over {mesh.size()} ranks is not "
-                                      f"ported yet (ROADMAP.md A13d); train on one rank")
-        return _train(args, device, mesh)
+        say = print if dist.get_rank() == 0 else (lambda *a, **k: None)
+        say(f"[train] {describe(mesh)}")
+        return _train(args, device, mesh, say)
     finally:
         if started:
             dist.destroy_process_group()
 
 
-def _train(args, device, mesh):
+def _train(args, device, mesh, say):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     if args.dispatch and cfg.moe.num_experts:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch=args.dispatch))
+    cfg = expert_parallel(cfg, mesh)
     schedule = args.schedule or ("wsd" if cfg.name.startswith("minicpm") else "cosine")
     tc = TrainConfig(
         global_batch=args.batch, seq_len=args.seq, lr=args.lr, schedule=schedule,
@@ -95,12 +99,12 @@ def _train(args, device, mesh):
     pcfg = ParallelConfig(dp_axes=data_axes(mesh))
 
     decls = M.decl_model(cfg)
-    print(f"[train] {cfg.name}: {param_count(decls) / 1e6:.1f}M params, device {device}")
+    say(f"[train] {cfg.name}: {param_count(decls) / 1e6:.1f}M params, device {device}")
     gen = torch.Generator(device=device)
     gen.manual_seed(tc.seed)
-    params = init_params(decls, gen, getattr(torch, tc.params_dtype))
-    state = S.TrainState(params=params, opt=adamw_init(params, tc))
-    state = place(state, S.state_shardings(decls, pcfg, mesh, tc))
+    shardings = S.state_shardings(decls, pcfg, mesh, tc)
+    params = init_params(decls, gen, getattr(torch, tc.params_dtype), shardings=shardings.params)
+    state = place(S.TrainState(params=params, opt=adamw_init(params, tc)), shardings)
 
     pipeline = DataPipeline(
         vocab=cfg.vocab, seq_len=tc.seq_len, batch_per_host=tc.global_batch,
@@ -115,7 +119,8 @@ def _train(args, device, mesh):
             b["vis_embeds"] = rng.randn(
                 tc.global_batch, cfg.n_vis_tokens, cfg.d_model
             ).astype(np.float32)
-        return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        b = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        return place(b, S.batch_sharding(cfg, mesh, b))
 
     sup = Supervisor(
         S.make_train_step(cfg, tc), batch_fn,
@@ -124,10 +129,10 @@ def _train(args, device, mesh):
     )
     with set_mesh(mesh):
         sup.run(state)
-    print(f"[train] done; stats={sup.stats}")
+    say(f"[train] done; stats={sup.stats}")
     if sup.history:
-        print(f"[train] first loss={sup.history[0]['loss']:.4f} "
-              f"last loss={sup.history[-1]['loss']:.4f}")
+        say(f"[train] first loss={sup.history[0]['loss']:.4f} "
+            f"last loss={sup.history[-1]['loss']:.4f}")
     return sup
 
 

@@ -40,12 +40,20 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ops as kops
-from repro_torch.parallel.sharding import ParamDecl, constrain, redistribute, settle, tp_size
+from repro_torch.parallel.sharding import (
+    ParamDecl,
+    anchor_grad,
+    constrain,
+    redistribute,
+    settle,
+    shard_slices,
+    tp_size,
+)
 
 Tensor = torch.Tensor
 
@@ -68,15 +76,24 @@ def norm_decl(cfg: ModelConfig, d: Optional[int] = None):
 
 def apply_norm(p, x: Tensor, cfg: ModelConfig) -> Tensor:
     """Stats in fp32, elementwise math in the activation dtype (the JAX
-    package's mixed-precision form)."""
+    package's mixed-precision form).
+
+    Under a mesh the output's gradient is laid out as the output
+    (:func:`anchor_grad`): the projections that read a norm's output hold
+    their weights sharded over ``model``, so its gradient arrives as a
+    partial sum over ``model``, reduced here by one all-reduce, as GSPMD
+    reduces it; left partial, it would reach the residual stream and make
+    DTensor gather activations in the backward."""
     if cfg.norm == "layernorm":
         mu = x.mean(-1, keepdim=True, dtype=torch.float32)
         var = (x.float() - mu).square().mean(-1, keepdim=True)
         inv = torch.rsqrt(var + 1e-5).to(x.dtype)
-        return (x - mu.to(x.dtype)) * inv * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
-    var = x.square().mean(-1, keepdim=True, dtype=torch.float32)
-    inv = torch.rsqrt(var + 1e-6).to(x.dtype)
-    return x * inv * p["scale"].to(x.dtype)
+        y = (x - mu.to(x.dtype)) * inv * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
+    else:
+        var = x.square().mean(-1, keepdim=True, dtype=torch.float32)
+        inv = torch.rsqrt(var + 1e-6).to(x.dtype)
+        y = x * inv * p["scale"].to(x.dtype)
+    return anchor_grad(y)
 
 
 # ---------------------------------------------------------------------------
@@ -531,10 +548,40 @@ def embed_decl(cfg: ModelConfig):
 
 
 def embed_tokens(p, tokens: Tensor, cfg: ModelConfig) -> Tensor:
-    """The token table's rows; on a vocab-sharded table (a DTensor) each
-    rank looks up the rows it holds and the partial rows are summed once
-    (:func:`settle`)."""
-    return settle(F.embedding(tokens.long(), p["tok"]).to(_dt(cfg)))
+    """The token table's rows; on a table that is a DTensor each rank looks
+    up the rows it holds (:func:`_embed_sharded`) and the partial rows are
+    summed once (:func:`settle`)."""
+    table = p["tok"]
+    if isinstance(table, DTensor):
+        return settle(_embed_sharded(table, tokens)).to(_dt(cfg))
+    return F.embedding(tokens.long(), table).to(_dt(cfg))
+
+
+def _embed_sharded(table: Tensor, tokens: Tensor) -> Tensor:
+    """The rows of DTensor ``table`` (vocab, d) — vocab sharded over some
+    mesh dimensions, whole over the others — at ``tokens`` (a DTensor, or a
+    tensor every rank holds whole), on local tensors: each rank reads the
+    rows of its vocab shard, zeros where a token lies in another shard, so
+    the result is a partial sum over the vocab's mesh dimensions (the rows
+    are exact: the other shards add zeros). The table's local gradient is
+    laid out as a DTensor by hand: sharded as the table is, partial over the
+    mesh dimensions that shard the tokens. DTensor's own embedding rule
+    leaves a masked partial whose gradient it cannot lay out."""
+    mesh = table.device_mesh
+    tp = tuple(table.placements)
+    kp = tuple(tokens.placements) if isinstance(tokens, DTensor) else (Replicate(),) * mesh.ndim
+    if any(t.is_shard() and (t.dim != 0 or k.is_shard()) for t, k in zip(tp, kp)):
+        raise ValueError(f"a table placed {tp} for tokens placed {kp}")
+    ids = (tokens.to_local() if isinstance(tokens, DTensor) else tokens).long()
+    rows = shard_slices(table.shape, mesh, tp, mesh.get_coordinate())[0]
+    grad_pl = tuple(t if t.is_shard() else Partial() if k.is_shard() else Replicate()
+                    for t, k in zip(tp, kp))
+    local = table.to_local(grad_placements=grad_pl)
+    inside = (ids >= rows.start) & (ids < rows.stop)
+    out = F.embedding((ids - rows.start).clamp(0, local.shape[0] - 1), local)
+    out = torch.where(inside[..., None], out, 0.0)
+    out_pl = tuple(Partial() if t.is_shard() else k for t, k in zip(tp, kp))
+    return DTensor.from_local(out, mesh, out_pl, run_check=False)
 
 
 def lm_head(p, x: Tensor, cfg: ModelConfig) -> Tensor:

@@ -44,6 +44,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -63,9 +64,12 @@ from repro_torch.models.layers import (
 from repro_torch.parallel.sharding import (
     ParamDecl,
     distribute_input,
+    gather_fsdp,
     get_mesh,
     init_params,
     place,
+    set_mesh,
+    settle,
     tree_map,
 )
 
@@ -358,10 +362,20 @@ def forward(
 
 def _remat(fn, cfg: ModelConfig):
     """``fn`` under ``torch.utils.checkpoint`` when ``cfg.remat`` (JAX's
-    ``jax.checkpoint``): its activations are recomputed in the backward."""
+    ``jax.checkpoint``): its activations are recomputed in the backward.
+    The recomputation runs in the mesh that was in scope at the call
+    (:func:`set_mesh` again: on the card the backward runs on autograd's
+    device thread, where the caller's context is not), so it takes the
+    same branches and layouts as the first run."""
     if not cfg.remat:
         return fn
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    mesh = get_mesh()
+
+    def body(*args):
+        with set_mesh(mesh):
+            return fn(*args)
+
+    return lambda *args: checkpoint(body, *args, use_reentrant=False)
 
 
 def _unstack(tree, n: int) -> list:
@@ -392,20 +406,23 @@ def _forward_trunk(params, cfg: ModelConfig, batch: Dict[str, Tensor], *,
     if cfg.embed_frontend_stub:
         x = distribute_input(batch["embeds"].to(dtype), "dp", None, None)
     else:
-        x = embed_tokens(params["embed"], distribute_input(batch["tokens"], "dp", None), cfg)
+        x = embed_tokens(gather_fsdp(params["embed"]), distribute_input(batch["tokens"], "dp",
+                                                                        None), cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     vis_embeds = batch.get("vis_embeds")
     if vis_embeds is not None:
         vis_embeds = distribute_input(vis_embeds.to(dtype), "dp", None, None)
-    run = dict(positions=positions, vis_embeds=vis_embeds,
-               shared_params=params.get("shared_attn"), backend=backend)
+    run = dict(positions=positions, vis_embeds=vis_embeds, backend=backend)
     layers = [_unstack(stack, n_super) for stack in params["blocks"]]
 
     def superblock(x, i):
+        # fsdp: a layer's weights are gathered here, at use, and again in
+        # the recomputation (ZeRO-3); with fsdp off this changes nothing
+        shared = gather_fsdp(params.get("shared_attn"))
         aux = _zero_aux(x.device)
         for pi, kind in enumerate(pattern):
-            p = None if slots[pi] is None else layers[slots[pi]][i]
-            x, _, a = apply_block(kind, p, x, cfg, **run)
+            p = None if slots[pi] is None else gather_fsdp(layers[slots[pi]][i])
+            x, _, a = apply_block(kind, p, x, cfg, shared_params=shared, **run)
             aux = _add_aux(aux, a)
         return (x, *aux)
 
@@ -414,10 +431,30 @@ def _forward_trunk(params, cfg: ModelConfig, batch: Dict[str, Tensor], *,
     for i in range(n_super):
         x, *a = superblock(x, i)
         aux = _add_aux(aux, moe_mod.MoEAux(*a))
+    shared = gather_fsdp(params.get("shared_attn"))
     for ti, kind in enumerate(tail):
-        x, _, a = apply_block(kind, params["tail"][ti], x, cfg, **run)
+        x, _, a = apply_block(kind, gather_fsdp(params["tail"][ti]), x, cfg,
+                              shared_params=shared, **run)
         aux = _add_aux(aux, a)
     return x, None, aux
+
+
+def _sharded_xent_terms(logits: Tensor, lab: Tensor) -> Tuple[Tensor, Tensor]:
+    """(logsumexp, the label's logit) of DTensor ``logits`` (B, chunk, V),
+    vocab-sharded or not, in float32: the max and the sum over the vocab
+    reduced where they arise (:func:`settle`: a MAX and a SUM all-reduce
+    over ``model`` when the vocab is sharded), and the label's logit picked
+    in each rank's vocab shard by a mask — the other shards add exact zeros
+    — as GSPMD lowers ``take_along_axis``; DTensor's own ``gather`` has no
+    sharded rule and would replicate the logits. The max is held constant
+    in the gradient, as ``logsumexp``'s is."""
+    m = settle(logits.detach().amax(-1))
+    lse = m.float() + torch.log(settle(torch.exp(logits - m[..., None]).sum(
+        -1, dtype=torch.float32)))
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    hit = col == lab.clamp_min(0).long()[..., None]
+    picked = settle(torch.where(hit, logits, 0.0).sum(-1)).float()
+    return lse, picked
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Tensor], *, backend: str = "cuda"):
@@ -428,9 +465,14 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Tensor], *, backend: str 
     each chunk's logits in float32, or, with ``loss_bf16_logits``, in the
     compute dtype with the logsumexp summed in float32; the MoE aux terms
     are added to the mean. The metrics are JAX's: loss, the two aux losses,
-    the drop fraction and the count of labelled tokens."""
-    labels = batch["labels"]
+    the drop fraction and the count of labelled tokens. Under a mesh the
+    labels are sharded as the tokens, the head's logits are vocab-sharded
+    DTensors (:func:`_sharded_xent_terms`), and a chunk's sums are reduced
+    over the data axes where they are made, so the mean is the global
+    batch's."""
+    labels = distribute_input(batch["labels"], "dp", None)
     trunk_out, _, aux = _forward_trunk(params, cfg, batch, backend=backend)
+    head = gather_fsdp(params["embed"])
     b, s, d = trunk_out.shape
     chunk = min(cfg.loss_chunk, s)
     pad = (-s) % chunk
@@ -439,18 +481,24 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Tensor], *, backend: str 
         labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
 
     def chunk_loss(h, lab):
-        logits = lm_head(params["embed"], h, cfg)
-        if cfg.loss_bf16_logits:
-            # the logsumexp accumulates in fp32 without an fp32 (B, chunk, V) tensor
-            m = logits.amax(-1)
-            lse = m.float() + torch.log(torch.exp(logits - m[..., None]).sum(
-                -1, dtype=torch.float32))
-        else:
+        logits = lm_head(head, h, cfg)
+        if not cfg.loss_bf16_logits:
             logits = logits.float()
-            lse = torch.logsumexp(logits, -1)
-        picked = logits.gather(-1, lab.clamp_min(0).long()[..., None])[..., 0].float()
+        if isinstance(logits, DTensor):
+            lse, picked = _sharded_xent_terms(logits, lab)
+        else:
+            if cfg.loss_bf16_logits:
+                # the logsumexp accumulates in fp32 without an fp32 (B, chunk, V) tensor
+                m = logits.amax(-1)
+                lse = m.float() + torch.log(torch.exp(logits - m[..., None]).sum(
+                    -1, dtype=torch.float32))
+            else:
+                lse = torch.logsumexp(logits, -1)
+            picked = logits.gather(-1, lab.clamp_min(0).long()[..., None])[..., 0].float()
         valid = lab >= 0
-        return torch.where(valid, lse - picked, 0.0).sum(), valid.sum(dtype=torch.int32)
+        # a data-sharded chunk's sums are partial over the data axes: reduced here
+        return (settle(torch.where(valid, lse - picked, 0.0).sum()),
+                settle(valid.sum(dtype=torch.int32)))
 
     body = _remat(chunk_loss, cfg)
     total = torch.zeros((), dtype=torch.float32, device=trunk_out.device)

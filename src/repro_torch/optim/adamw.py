@@ -23,9 +23,11 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import TrainConfig
-from repro_torch.parallel.sharding import tree_leaves, tree_map
+from repro_torch.parallel.sharding import local_shard, tree_leaves, tree_map
 
 CHUNK = 1 << 24              # elements of a leaf updated at a time
 
@@ -44,37 +46,58 @@ class AdamWState(NamedTuple):
 
 
 def adamw_init(params, tc: TrainConfig) -> AdamWState:
-    """Zero moments in ``moments_dtype`` beside each parameter, a step
-    counter (int32, on the parameters' device) and, when ``params_dtype``
-    is not float32, the float32 master copy of the parameters."""
+    """Zero moments in ``moments_dtype`` beside each parameter (DTensors
+    laid out as theirs), a step counter (int32, on the parameters' device)
+    and, when ``params_dtype`` is not float32, the float32 master copy of
+    the parameters."""
     mdt = getattr(torch, tc.moments_dtype)
     leaves = tree_leaves(params)
-    device = leaves[0].device if leaves else None
+    device = local_shard(leaves[0])[0].device if leaves else None
     master = None
     if tc.params_dtype != "float32":
         master = tree_map(lambda p: p.detach().to(torch.float32, copy=True), params)
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=device),
-        mu=tree_map(lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device), params),
-        nu=tree_map(lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device), params),
+        mu=tree_map(lambda p: torch.zeros_like(p, dtype=mdt), params),
+        nu=tree_map(lambda p: torch.zeros_like(p, dtype=mdt), params),
         master=master,
     )
 
 
 def _slices(t: torch.Tensor):
-    flat = t.view(-1)
+    flat = local_shard(t)[0].view(-1)
     return [flat[i:i + CHUNK] for i in range(0, flat.numel(), CHUNK)]
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in float32."""
-    total = None
+    """sqrt of the sum of every leaf's squares, in float32 (a plain tensor).
+
+    Over a mesh (DTensor leaves) each rank sums the squares of its shards,
+    and the sums are all-reduced over the mesh dimensions that shard each
+    leaf, and only those: the leaves are grouped by those dimensions, so a
+    leaf replicated over ``data`` counts once, as in JAX's norm of the whole
+    tree."""
+    sums, mesh = {}, None
     for g in tree_leaves(tree):
-        for part in _slices(g.detach()):
+        local, rep = local_shard(g.detach())
+        if isinstance(g, DTensor):
+            mesh = g.device_mesh
+            if any(p.is_partial() for p in g.placements):
+                raise ValueError(f"a partial leaf {g.placements} has no norm until it is reduced")
+            key = tuple(i for i in range(mesh.ndim) if i not in rep)
+        else:
+            key = ()
+        for part in _slices(local):
             sq = part.float().square().sum()
-            total = sq if total is None else total + sq
-    if total is None:
+            sums[key] = sq if key not in sums else sums[key] + sq
+    if not sums:
         return torch.zeros((), dtype=torch.float32)
+    total = None
+    for key in sorted(sums):
+        part = sums[key]
+        for i in key:
+            dist.all_reduce(part, group=mesh.get_group(i))
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
@@ -83,17 +106,24 @@ def adamw_update(grads, state: AdamWState, params, tc: TrainConfig, lr):
     """Returns (new_params, new_state, metrics), updating ``params`` and
     ``state`` in place.
 
+    Over a mesh every leaf (parameter, gradient, moments, master) is a
+    DTensor of one layout, and each rank updates its own shards
+    (``to_local()``); the clip scale, the step, ``lr`` and the bias
+    corrections are the same on every rank. The norm's all-reduces come
+    before the first write, so a failure after it is this rank's alone.
+
     With ``params_dtype="bfloat16"`` the update reads and writes the fp32
     MASTER weights held in the state and re-emits the bf16 params.
     ``lr`` is a number or a 0-d tensor."""
     gnorm = global_norm(grads)
     device = gnorm.device
     scale = torch.clamp(tc.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    lr = torch.as_tensor(lr, dtype=torch.float32, device=device)
+    lr = torch.as_tensor(local_shard(lr)[0], dtype=torch.float32, device=device)
+    counter = local_shard(state.step)[0]
     try:
-        state.step.add_(1)
+        counter.add_(1)
         b1, b2 = tc.beta1, tc.beta2
-        step = state.step.to(torch.float32)
+        step = counter.to(torch.float32)
         bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=device), step)
         bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=device), step)
         flat_p, flat_g = tree_leaves(params), tree_leaves(grads)

@@ -11,7 +11,10 @@ Design, the JAX package's:
 
 The shard_map axis names of the JAX function become two
 ``torch.distributed`` process groups: ``fast_group`` (the ranks one fast
-link joins) and ``slow_group`` (one rank of each fast group).
+link joins) and ``slow_group`` (one rank of each fast group); on a
+``(pod, data, ...)`` mesh, ``mesh.get_group("data")`` and
+``mesh.get_group("pod")``, on CPU or CUDA tensors alike (gloo runs both).
+JAX's train step does not call it; neither does the port's.
 :func:`quantize` and :func:`dequantize` are pure and run anywhere.
 """
 
@@ -38,6 +41,14 @@ def _blocks(flat: Tensor) -> Tensor:
     return F.pad(flat, (0, (-flat.shape[0]) % BLOCK)).view(-1, BLOCK)
 
 
+def _scale(absmax: Tensor) -> Tensor:
+    """A block's scale, ``absmax / 127 + 1e-12``, the division a true one
+    on every device: PyTorch's CUDA division by a Python number multiplies
+    by its reciprocal, an ulp away from JAX's quotient at times, so the
+    divisor is a tensor on the blocks' device."""
+    return absmax / torch.full((), 127.0, device=absmax.device) + 1e-12
+
+
 def _quantize_blocks(fp: Tensor, scale: Tensor) -> Tensor:
     return torch.clamp(torch.round(fp / scale[:, None]), -127, 127).to(torch.int8)
 
@@ -47,7 +58,7 @@ def quantize(x: Tensor) -> Tuple[Quantized, Tensor]:
     flat = x.reshape(-1).to(torch.float32)
     n = flat.shape[0]
     fp = _blocks(flat)
-    scale = fp.abs().amax(1) / 127.0 + 1e-12
+    scale = _scale(fp.abs().amax(1))
     q = _quantize_blocks(fp, scale)
     deq = (q.float() * scale[:, None]).reshape(-1)[:n]
     residual = (flat - deq).reshape(x.shape).to(x.dtype)
@@ -76,7 +87,7 @@ def compressed_psum(grad: Tensor, error: Tensor, *, fast_group, slow_group):
     fp = _blocks(flat)
     absmax = fp.abs().amax(1)
     dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=slow_group)
-    scale = absmax / 127.0 + 1e-12
+    scale = _scale(absmax)
     q = _quantize_blocks(fp, scale)
     local_deq = (q.float() * scale[:, None]).reshape(-1)[:n]
     residual = (flat - local_deq).reshape(grad.shape).to(grad.dtype)

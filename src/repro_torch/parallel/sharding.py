@@ -23,6 +23,12 @@ DTensor's sharding propagation plays the part of GSPMD: the program means
 what it means on one device, and :func:`constrain` (a ``redistribute``)
 pins the layout where the JAX package pins it. With no mesh in scope
 :func:`constrain` is the identity and :func:`tp_size` is 1.
+
+The training step's gradients come back in their parameters' layout
+(:func:`grad_layout`: a partial sum reduced by c10d, an all-reduce or a
+reduce-scatter, where GSPMD puts its psum); an ``fsdp`` weight is gathered
+at use (:func:`gather_fsdp`, ZeRO-3). The optimizer and the checkpoints
+read a leaf as its local shard (:func:`local_shard`, :func:`shard_slices`).
 """
 
 from __future__ import annotations
@@ -31,11 +37,13 @@ import contextlib
 import contextvars
 import dataclasses
 import math
+import threading
 from typing import Any, Callable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 
 Tensor = torch.Tensor
 
@@ -133,6 +141,31 @@ def tree_unflatten(like, leaves):
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh", default=None)
 
+# DTensor's implicit replication is one switch for the process, which its
+# context manager clears on exit. It is entered once, by the outermost
+# set_mesh of a mesh of several devices, and the blocks inside it are
+# counted on every thread: remat's recomputation enters the mesh again on
+# the card's autograd thread while the caller's block is still open.
+_IMPLICIT_LOCK = threading.Lock()
+_IMPLICIT = {"depth": 0, "block": None}
+
+
+def _enter_implicit() -> None:
+    with _IMPLICIT_LOCK:
+        if _IMPLICIT["depth"] == 0:
+            block = implicit_replication()
+            block.__enter__()
+            _IMPLICIT["block"] = block
+        _IMPLICIT["depth"] += 1
+
+
+def _leave_implicit() -> None:
+    with _IMPLICIT_LOCK:
+        _IMPLICIT["depth"] -= 1
+        if _IMPLICIT["depth"] == 0:
+            block, _IMPLICIT["block"] = _IMPLICIT["block"], None
+            block.__exit__(None, None, None)
+
 
 @contextlib.contextmanager
 def set_mesh(mesh):
@@ -140,17 +173,17 @@ def set_mesh(mesh):
     as ``jax.set_mesh`` does. Under a mesh of more than one device the
     block also runs under DTensor's ``implicit_replication``: a plain tensor
     the model makes (positions, masks, zeros) meets a DTensor as a
-    replicated one, as a constant meets a sharded array under GSPMD."""
+    replicated one, as a constant meets a sharded array under GSPMD. A
+    nested block, on this thread or another, leaves it on for the outer."""
     token = _MESH.set(mesh)
+    wide = mesh is not None and mesh.size() > 1
+    if wide:
+        _enter_implicit()
     try:
-        if mesh is not None and mesh.size() > 1:
-            from torch.distributed.tensor.experimental import implicit_replication
-
-            with implicit_replication():
-                yield mesh
-        else:
-            yield mesh
+        yield mesh
     finally:
+        if wide:
+            _leave_implicit()
         _MESH.reset(token)
 
 
@@ -188,18 +221,20 @@ P = PartitionSpec
 
 def placements_of(spec: PartitionSpec, mesh) -> tuple:
     """DTensor placements of ``spec`` on ``mesh``, one a mesh dimension:
-    ``Shard(i)`` where tensor dimension ``i`` names the axis, else
-    ``Replicate()``. A dimension split over several axes takes them in the
+    ``Shard(i)`` where tensor dimension ``i`` names the axis (an axis of
+    size 1 excepted), else ``Replicate()``. A dimension split over several axes takes them in the
     mesh's order, as DTensor shards over successive mesh dimensions; a tuple
     in another order has no DTensor placement and raises."""
     names = tuple(mesh.mesh_dim_names)
     out = []
-    for name in names:
+    for name, size in zip(names, mesh.shape):
         dims = [i for i, e in enumerate(spec)
                 if e == name or (isinstance(e, tuple) and name in e)]
         if len(dims) > 1:
             raise ValueError(f"axis {name!r} shards two dimensions of {spec}")
-        out.append(Shard(dims[0]) if dims else Replicate())
+        # a one-wide axis splits nothing; DTensor would still refuse to
+        # merge or split the dimension it "shards" in a view
+        out.append(Shard(dims[0]) if dims and size > 1 else Replicate())
     for e in spec:
         if isinstance(e, tuple) and list(e) != sorted(e, key=names.index):
             raise ValueError(f"entry {e} of {spec} is not in the mesh's axis order {names}")
@@ -223,31 +258,18 @@ def local_slices(shape, sharding: NamedSharding) -> Tuple[slice, ...]:
     ``sharding``: a dimension split over axes ``a1, a2, ...`` (mesh order)
     is cut into their product of equal pieces, and the rank at coordinate
     ``c`` holds piece ``(c1·|a2| + c2)·...`` — JAX's
-    ``devices_indices_map``. A dimension that the pieces do not divide
-    raises, as JAX refuses it."""
+    ``devices_indices_map`` (:func:`shard_slices` of its placements). A
+    dimension that the pieces do not divide raises, as JAX refuses it."""
     mesh = sharding.mesh
-    names, sizes = tuple(mesh.mesh_dim_names), tuple(mesh.shape)
-    coord = mesh.get_coordinate()
-    out = []
-    for i, n in enumerate(shape):
-        e = sharding.spec[i] if i < len(sharding.spec) else None
-        axes = () if e is None else (e if isinstance(e, tuple) else (e,))
-        count, index = 1, 0
-        for a in sorted(axes, key=names.index):
-            k = names.index(a)
-            count, index = count * sizes[k], index * sizes[k] + coord[k]
-        if n % count:
-            raise ValueError(f"dimension {i} of {tuple(shape)} does not divide over {axes}")
-        step = n // count
-        out.append(slice(index * step, (index + 1) * step))
-    return tuple(out)
+    return shard_slices(shape, mesh, sharding.placements, mesh.get_coordinate())
 
 
 def place(tree, shardings):
     """What ``jit(in_shardings=...)`` does to its inputs: each leaf of
     ``tree`` (a tensor holding the whole value, the same on every rank)
     laid out by its :class:`NamedSharding` in ``shardings`` (a tree of the
-    same structure; a None sharding leaves the leaf as it is). Each rank
+    same structure; a None sharding, or a DTensor already placed by it,
+    leaves the leaf as it is; a DTensor placed otherwise raises). Each rank
     keeps its own slice (:func:`local_slices`) and wraps it with
     ``DTensor.from_local`` — no scatter, so nothing here depends on which
     collectives the group's backend offers. :func:`init_params` with
@@ -259,6 +281,11 @@ def place(tree, shardings):
     def one(full, sh):
         if sh is None or sh.mesh.size() == 1:
             return full
+        if isinstance(full, DTensor):
+            if full.device_mesh == sh.mesh and tuple(full.placements) == sh.placements:
+                return full
+            raise ValueError(f"a leaf placed as {tuple(full.placements)} on "
+                             f"{full.device_mesh}, asked for {sh.placements} on {sh.mesh}")
         local = full[local_slices(full.shape, sh)].clone()
         return DTensor.from_local(local, sh.mesh, sh.placements, run_check=False)
 
@@ -292,8 +319,7 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        mesh, placements = ctx.spec
-        return grad.redistribute(mesh, placements), None
+        return grad_layout(grad, ctx.spec[1]), None
 
 
 def redistribute(x: Tensor, placements) -> Tensor:
@@ -314,7 +340,7 @@ def redistribute(x: Tensor, placements) -> Tensor:
 
 class _AnchorGrad(torch.autograd.Function):
     """The identity; the backward lays the gradient out as the input was
-    (:func:`redistribute`: a partial gradient is reduced, a replicated one
+    (:func:`grad_layout`: a partial gradient is reduced, a replicated one
     sliced) — :func:`constrain` for the gradient."""
 
     @staticmethod
@@ -324,7 +350,7 @@ class _AnchorGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return redistribute(grad, ctx.placements)
+        return grad_layout(grad, ctx.placements)
 
 
 def anchor_grad(x: Tensor) -> Tensor:
@@ -332,6 +358,90 @@ def anchor_grad(x: Tensor) -> Tensor:
     a plain tensor as it is. The boundary of a local region whose inputs'
     gradients are partial sums."""
     return _AnchorGrad.apply(x) if isinstance(x, DTensor) else x
+
+
+def grad_layout(grad: Tensor, placements) -> Tensor:
+    """A gradient (a DTensor) laid out as ``placements`` (its parameter's or
+    input's, none partial): each partial sum reduced by c10d on its mesh
+    dimension's group, outermost dimension first — ``reduce_scatter_tensor``
+    where ``placements`` shards a dimension the pieces divide, else
+    ``all_reduce`` — then :func:`redistribute` for what is left (a local
+    slice of a replicated gradient, a gather). This is the ``psum`` (or
+    reduce-scatter) that GSPMD puts after a gradient; the port issues it
+    through c10d, whose collectives gloo runs on CUDA tensors. A plain
+    tensor is returned as it is."""
+    if not isinstance(grad, DTensor):
+        return grad
+    mesh, placements = grad.device_mesh, tuple(placements)
+    cur = list(grad.placements)
+    if not any(p.is_partial() for p in cur):
+        return grad if tuple(cur) == placements else redistribute(grad, placements)
+    local = grad.to_local()
+    for i, (c, want) in enumerate(zip(grad.placements, placements)):
+        if not c.is_partial():
+            continue
+        if getattr(c, "reduce_op", "sum") != "sum":
+            raise ValueError(f"a gradient partial over {c} on mesh dimension {i}")
+        group = mesh.get_group(i)
+        n = dist.get_world_size(group)
+        if want.is_shard() and local.shape[want.dim] % n == 0:
+            src = local.movedim(want.dim, 0).contiguous()
+            out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]), dtype=src.dtype,
+                              device=src.device)
+            dist.reduce_scatter_tensor(out, src, group=group)
+            local, cur[i] = out.movedim(0, want.dim).contiguous(), want
+        else:
+            local = local.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(local, group=group)
+            cur[i] = Replicate()
+    grad = DTensor.from_local(local, mesh, cur, run_check=False)
+    return grad if tuple(cur) == placements else redistribute(grad, placements)
+
+
+def gather_fsdp(tree):
+    """``tree``'s leaves made whole over the data axes (``pod``, ``data``)
+    where the ``fsdp`` rule sharded them: each such DTensor gathered by
+    :func:`redistribute` (c10d), its gradient reduce-scattered back to the
+    shard (:func:`grad_layout`) — ZeRO-3, a weight whole only while it is in
+    use. Other leaves as they are (with ``fsdp`` off, every leaf)."""
+    def one(x):
+        if not isinstance(x, DTensor):
+            return x
+        names, data = x.device_mesh.mesh_dim_names, data_axes_of(x.device_mesh)
+        want = tuple(Replicate() if n in data and p.is_shard() else p
+                     for n, p in zip(names, x.placements))
+        return x if want == tuple(x.placements) else redistribute(x, want)
+
+    return tree_map(one, tree)
+
+
+def local_shard(x: Tensor) -> Tuple[Tensor, Tuple[int, ...]]:
+    """(the part of leaf ``x`` this rank holds, the mesh dimensions that
+    replicate it): a DTensor's local tensor and its dimensions placed
+    ``Replicate``; a plain tensor whole, replicated over nothing. The
+    optimizer and the checkpoints read the state through it: the elements
+    of a leaf are the union of its ranks' shards, each held once on the
+    ranks at coordinate 0 of its replicated dimensions."""
+    if not isinstance(x, DTensor):
+        return x, ()
+    return x.to_local(), tuple(i for i, p in enumerate(x.placements) if p.is_replicate())
+
+
+def shard_slices(shape, mesh, placements, coord) -> Tuple[slice, ...]:
+    """The slice of a ``shape`` tensor that the rank at mesh coordinate
+    ``coord`` holds under DTensor ``placements`` (even pieces, a dimension
+    sharded over several mesh dimensions cut outermost first: JAX's
+    ``devices_indices_map``)."""
+    lo, hi = [0] * len(shape), list(shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            d, n = p.dim, mesh.shape[i]
+            step = (hi[d] - lo[d]) // n
+            if step * n != hi[d] - lo[d]:
+                raise ValueError(f"dimension {d} of {tuple(shape)} does not divide over {n}")
+            lo[d] += coord[i] * step
+            hi[d] = lo[d] + step
+    return tuple(slice(a, b) for a, b in zip(lo, hi))
 
 
 def replicate(x: Tensor) -> Tensor:

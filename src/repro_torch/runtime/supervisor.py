@@ -51,8 +51,10 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.checkpoint.manager import gloo_group
 from repro_torch.optim.adamw import StateConsumedError
 from repro_torch.parallel.sharding import tree_leaves
 
@@ -175,7 +177,21 @@ def _block_until_ready(x) -> None:
 
 
 class Supervisor:
-    """Drives (state, batch) -> (state, metrics) with full fault tolerance."""
+    """Drives (state, batch) -> (state, metrics) with full fault tolerance.
+
+    In a process group of several ranks every rank runs its own supervisor
+    on its shard of the state, built at the same point on each of them (the
+    checkpoint manager and the supervisor each make a gloo group of every
+    rank). After each attempt the ranks agree (:meth:`_agree`): if any rank
+    failed, every rank retries when no rank had begun writing its state,
+    else every rank restores the same committed step and replays. A fault
+    is recovered when it strikes outside the step's collectives: before the
+    step on every rank (the injector is seeded alike everywhere), or on one
+    rank after its last collective (the gradient norm's all-reduces), in the
+    update or at the wait for the metrics; a rank that fails before a
+    collective the others have entered leaves them waiting in it, as a JAX
+    host would. ``remesh_fn`` is a one-rank hook: in a world of several
+    ranks a spent restore budget raises, as with no hook."""
 
     def __init__(
         self,
@@ -197,6 +213,19 @@ class Supervisor:
         self.step_times: deque = deque(maxlen=loop_cfg.straggler_window)
         self.stats = {"retries": 0, "restores": 0, "stragglers": 0, "remeshes": 0}
         self.history = []
+        self._group = gloo_group()
+        self._world = 1 if self._group is None else dist.get_world_size(self._group)
+
+    def _agree(self, failed: bool, wrote: bool, persistent: bool) -> Tuple[bool, bool, bool]:
+        """(did any rank fail, did any rank write its state, did any rank
+        fail persistently): one MAX all-reduce of the three flags over a
+        gloo group of every rank, so that every rank retries, restores or
+        goes on together. One rank: the flags as they are."""
+        if self._group is None:
+            return failed, wrote, persistent
+        flags = torch.tensor([failed, wrote, persistent], dtype=torch.int32)
+        dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=self._group)
+        return tuple(bool(f) for f in flags.tolist())
 
     def _backoff(self, attempt: int) -> float:
         """Seeded, capped exponential backoff with jitter: deterministic
@@ -220,7 +249,7 @@ class Supervisor:
             batch = self.batch_fn(step)
             ok = consumed = False
             for attempt in range(cfg.max_retries_per_step + 1):
-                returned = False
+                returned, err = False, None
                 try:
                     t0 = time.time()
                     if self.faults is not None:
@@ -229,35 +258,43 @@ class Supervisor:
                     returned = True
                     _block_until_ready(tree_leaves(metrics)[0])
                     dt = time.time() - t0
+                except Exception as e:  # noqa: BLE001 — supervisor boundary
+                    err = e
+                # the update had begun writing the state in place (this rank
+                # finished the step, or failed after its first write)
+                wrote = err is None or returned or isinstance(err, StateConsumedError)
+                # a persistent lowering/resource failure: the same program
+                # cannot succeed on retry
+                persistent = err is not None and isinstance(
+                    resilience.classify(err), (resilience.KernelLoweringError,
+                                               resilience.KernelResourceError))
+                failed, wrote, persistent = self._agree(err is not None, wrote, persistent)
+                if not failed:
                     self._track_straggler(step, dt)
                     ok = True
                     break
-                except Exception as e:  # noqa: BLE001 — supervisor boundary
-                    self.stats["retries"] += 1
-                    log.warning("step %d attempt %d failed: %s", step, attempt, e)
-                    if returned or isinstance(e, StateConsumedError):
-                        # the update had begun writing the state in place: a
-                        # retry would apply a second update on top of it
-                        log.warning("step %d: the state is partly updated; restoring instead "
-                                    "of retrying", step)
-                        consumed = True
-                        break
-                    kerr = resilience.classify(e)
-                    if isinstance(kerr, (resilience.KernelLoweringError,
-                                         resilience.KernelResourceError)):
-                        # persistent lowering/resource failure: the same
-                        # program cannot succeed on retry — go straight to
-                        # restore instead of burning the retry budget
-                        log.warning("step %d: persistent %s; skipping remaining retries",
-                                    step, type(kerr).__name__)
-                        break
-                    if attempt < cfg.max_retries_per_step:
-                        self.sleep_fn(self._backoff(attempt))
+                self.stats["retries"] += 1
+                log.warning("step %d attempt %d failed: %s", step, attempt,
+                            err if err is not None else "on another rank")
+                if wrote:
+                    # a retry would apply a second update on top of a state
+                    # some rank has partly or wholly updated
+                    log.warning("step %d: the state is partly updated; restoring instead "
+                                "of retrying", step)
+                    consumed = True
+                    break
+                if persistent:
+                    log.warning("step %d: persistent failure; skipping remaining retries",
+                                step)
+                    break
+                if attempt < cfg.max_retries_per_step:
+                    self.sleep_fn(self._backoff(attempt))
             if not ok:
                 restores += 1
                 self.stats["restores"] += 1
                 if restores > cfg.max_restores:
-                    if self.remesh_fn is not None and self.stats["remeshes"] < cfg.max_remeshes:
+                    if (self.remesh_fn is not None and self._world == 1
+                            and self.stats["remeshes"] < cfg.max_remeshes):
                         log.error("restore budget exhausted; elastic re-mesh")
                         state = self.remesh_fn(state)
                         self.stats["remeshes"] += 1

@@ -21,6 +21,10 @@ import pytest
 import repro
 import repro_torch
 
+import _torch_threads
+
+_torch_threads.pin()
+
 SRC = Path(repro.__file__).resolve().parent
 
 # name -> the ROADMAP queue item that brings it
@@ -187,3 +191,34 @@ def test_stage_graph_and_fusion_records():
     assert all(isinstance(s, tp.Stage) for s in graph)
     assert [f"{s.name}:{s.impl}" for s in graph] == list(plan.stages())
     assert tp.fusion_decisions() == {k: tp.fusion_decision(*k) for k in tp.fusion_decisions()}
+
+
+TRAINING_ENTRY_POINTS = [
+    ("repro.launch.steps", "make_train_step"),
+    ("repro.launch.train", "main"),
+    ("repro.optim.adamw", "adamw_update"),
+    ("repro.optim.adamw", "global_norm"),
+    ("repro.checkpoint.manager", "save_checkpoint"),
+    ("repro.checkpoint.manager", "load_checkpoint"),
+    ("repro.checkpoint.manager", "CheckpointManager"),
+    ("repro.runtime.supervisor", "Supervisor"),
+]
+
+
+@pytest.mark.parametrize("module,name", TRAINING_ENTRY_POINTS,
+                         ids=[f"{m.rsplit('.', 1)[1]}.{n}" for m, n in TRAINING_ENTRY_POINTS])
+def test_training_entry_points_keep_the_jax_signatures(module, name):
+    """The sharded training step keeps the training entry points' JAX
+    signatures: JAX's parameters first, as JAX has them; what the port adds
+    (a backend, the process group or ranks that save and agree together) is
+    keyword-only and has a default, so a one-process caller of JAX's form
+    runs unchanged on a mesh."""
+    def params(fn):
+        return [(p.name, p.kind, p.default) for p in inspect.signature(fn).parameters.values()]
+
+    want = params(getattr(importlib.import_module(module), name))
+    got = params(getattr(importlib.import_module("repro_torch" + module[len("repro"):]), name))
+    assert got[:len(want)] == want
+    for pname, kind, default in got[len(want):]:
+        assert kind is inspect.Parameter.KEYWORD_ONLY and default is not inspect.Parameter.empty, \
+            pname

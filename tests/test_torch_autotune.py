@@ -37,6 +37,10 @@ from repro_torch.core.pipeline import (
 from repro_torch.core.pipeline import autotune as at
 from repro_torch.core.pipeline import tiles
 
+import _torch_threads
+
+_torch_threads.pin()
+
 N = 4096
 M = 32
 CSRC = Path(tiles.__file__).resolve().parents[2] / "kernels" / "csrc"

@@ -53,6 +53,10 @@ from repro_torch.core import sort as tsort
 from repro_torch.kernels import multisplit_tile as mst
 from repro_torch.kernels import ops as tkops
 
+import _torch_threads
+
+_torch_threads.pin()
+
 FIELDS = ("keys", "values", "bucket_starts", "bucket_counts", "permutation")
 METHODS = ["dms", "wms", "bms"]
 SWEEP = [(1, 128, 2), (4, 256, 8), (2, 1024, 32), (3, 512, 256), (2, 384, 13)]

@@ -14,6 +14,10 @@ import pytest
 
 from repro_torch.kernels import build
 
+import _torch_threads
+
+_torch_threads.pin()
+
 CSRC = Path(build.__file__).resolve().parent / "csrc"
 LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 

@@ -21,6 +21,10 @@ from repro.models import moe as jmoe
 from repro_torch import data as tdata
 from repro_torch.models import moe as tmoe
 
+import _torch_threads
+
+_torch_threads.pin()
+
 BACKENDS = ["cuda", "vmap"]
 
 

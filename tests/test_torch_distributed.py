@@ -30,6 +30,10 @@ from repro.core.multisplit import multisplit_ref
 from repro_torch.convert import convert_spec
 from repro_torch.core import distributed as tdist
 
+import _torch_threads
+
+_torch_threads.pin()
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 WORLD = 4
 N_DEV = 512                           # keys a rank
@@ -81,6 +85,7 @@ def test_all_shards_equals_jax_and_the_oracle(m, key_value):
 _WORKER = """
 import sys
 import numpy as np, torch, torch.distributed as dist
+torch.set_num_threads(1)
 rank, world, store, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
 dist.init_process_group("gloo", init_method="file://" + store, rank=rank, world_size=world)
 from repro_torch.core import distributed as D

@@ -41,6 +41,10 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import model as TM
 from repro_torch.parallel import sharding as tsharding
 
+import _torch_threads
+
+_torch_threads.pin()
+
 LOGIT_RTOL = 2e-4
 BLOCK_RTOL = 2e-5
 PERTURB = 1e-6

@@ -31,6 +31,10 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as tkops
 from repro_torch.kernels import ref as tref
 
+import _torch_threads
+
+_torch_threads.pin()
+
 CSRC = Path(fa.__file__).resolve().parent / "csrc"
 _SMOKE = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")

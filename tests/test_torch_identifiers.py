@@ -15,6 +15,10 @@ from repro.core import identifiers as jid
 from repro_torch.convert import convert_spec, spec_from_fields
 from repro_torch.core import identifiers as tid
 
+import _torch_threads
+
+_torch_threads.pin()
+
 U32_MAX = 2**32 - 1
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 

@@ -42,6 +42,10 @@ from repro_torch.kernels import multisplit_tile as mst
 from repro_torch.kernels import ops as tkops
 from test_torch_kernels import SPECS, _keys
 
+import _torch_threads
+
+_torch_threads.pin()
+
 METHODS = ["dms", "wms", "bms"]
 MODES = ["reorder", "counts_only", "positions_only"]
 FIELDS = ("keys", "values", "bucket_starts", "bucket_counts", "permutation")

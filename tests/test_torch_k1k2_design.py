@@ -21,6 +21,10 @@ import pytest
 from repro.core import identifiers as jid
 from repro.kernels import ops as jkops
 
+import _torch_threads
+
+_torch_threads.pin()
+
 WARPS = 8                # K2's warps a block
 COPY_WORDS = 2056        # K1's words a set of counter copies
 

@@ -35,6 +35,10 @@ from repro.kernels import ops as jkops
 from test_torch_k2fk2p_design import _fused_bases, _same, k2f_design
 from test_torch_k3k2s_design import _strip
 
+import _torch_threads
+
+_torch_threads.pin()
+
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
 K1P_SRC = (CSRC / "packed_tile_histograms.cu").read_text()
 # the block, the words of a set of copies and the copies a lane at T > 4096,

@@ -29,6 +29,10 @@ from repro.kernels import ops as jkops
 from test_torch_k1k2_design import COPY_WORDS               # K1's copy budget
 from test_torch_k3k2s_design import SHORT_RUN, _bases, _runs, _strip, warp_rank
 
+import _torch_threads
+
+_torch_threads.pin()
+
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
 # the words of K1s's window of counters, as the kernel's source sets them
 SET_WORDS = int(re.search(r"kSetWords = (\d+);",

@@ -43,6 +43,10 @@ from repro.kernels import ops as jkops
 from test_torch_k1k2_design import _label_bits, _peers
 from test_torch_k3k2s_design import SHORT_RUN, _bases, _runs, _strip, warp_rank
 
+import _torch_threads
+
+_torch_threads.pin()
+
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
 # K2f's body, shared with K3f, lives in the fused-pair header
 K2F_SRC = (CSRC / "multisplit_fused2.cuh").read_text()

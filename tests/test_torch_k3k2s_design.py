@@ -26,6 +26,10 @@ from repro.core import identifiers as jid
 from repro.kernels import ops as jkops
 from test_torch_k1k2_design import WARPS, _label_bits, _peers   # K2's block and ballots
 
+import _torch_threads
+
+_torch_threads.pin()
+
 SHORT_RUN = 32           # ms::kShortRun: the longest run one warp solves alone
 
 

@@ -38,6 +38,10 @@ from test_torch_k1k2_design import WARPS as K2_WARPS
 from test_torch_k2fk2p_design import LANE_CAP, packed_warp_rank
 from test_torch_k3k2s_design import SHORT_RUN, _bases, _runs, _strip, warp_rank
 
+import _torch_threads
+
+_torch_threads.pin()
+
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
 K3P_SRC = (CSRC / "packed_tile_positions.cu").read_text()
 B10_SRC = (CSRC / "tile_reorder.cu").read_text()

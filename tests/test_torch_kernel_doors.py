@@ -35,6 +35,10 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import multisplit_tile as mst
 from repro_torch.kernels import ops as tkops
 
+import _torch_threads
+
+_torch_threads.pin()
+
 ROOT = Path(__file__).resolve().parents[1]
 JAX_KERNELS = ROOT / "src" / "repro" / "kernels"
 PORT_KERNELS = ROOT / "src" / "repro_torch" / "kernels"

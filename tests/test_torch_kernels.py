@@ -24,6 +24,10 @@ import repro_torch.kernels as kernels
 from repro_torch.kernels import build, common, flash_attention, multisplit_tile as mst, ops as tkops
 from repro_torch.kernels import radix_pass
 
+import _torch_threads
+
+_torch_threads.pin()
+
 CSRC = Path(mst.__file__).resolve().parent / "csrc"
 
 

@@ -49,6 +49,10 @@ from repro_torch.launch import steps as tsteps
 from repro_torch.models import model as TM
 from repro_torch.parallel import sharding as ts
 
+import _torch_threads
+
+_torch_threads.pin()
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 MESHES = {"pod1": ((16, 16), ("data", "model")), "pod2": ((2, 16, 16), ("pod", "data", "model"))}
 CACHE_BATCHES = (32, 1)                 # divides both meshes' data axes; does not

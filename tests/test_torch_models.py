@@ -38,6 +38,10 @@ from repro_torch.models import model as TM
 from repro_torch.models import moe as tmoe
 from repro_torch.parallel import sharding as tsharding
 
+import _torch_threads
+
+_torch_threads.pin()
+
 LOGIT_RTOL = 2e-4
 ROUTER_MARGIN = 1e-5
 B, S, S_DEC = 2, 64, 24

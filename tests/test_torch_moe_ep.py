@@ -58,6 +58,10 @@ from repro.parallel.sharding import init_params as jinit
 from repro_torch import convert
 from repro_torch.models import moe as tmoe
 
+import _torch_threads
+
+_torch_threads.pin()
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 WORLD = 8
 ATOL = 1e-5                     # multisplit_ep's output and drop against JAX's
@@ -154,6 +158,7 @@ np.savez("{out}", **out)
 _WORKER = """
 import dataclasses, json, sys
 import numpy as np, torch, torch.distributed as dist
+torch.set_num_threads(1)
 rank, world, store, inputs, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]
 dist.init_process_group("gloo", init_method="file://" + store, rank=rank, world_size=world)
 from torch.distributed.device_mesh import DeviceMesh

@@ -30,6 +30,10 @@ from repro_torch.core.pipeline import radix as tradix
 from repro_torch.core.sort import rb_sort_multisplit
 from repro_torch.kernels import ops as tkops
 
+import _torch_threads
+
+_torch_threads.pin()
+
 ROOT = Path(__file__).resolve().parents[1]
 BACKENDS = ["reference", "vmap", "cuda"]
 METHODS = ["dms", "wms", "bms"]

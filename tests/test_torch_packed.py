@@ -48,6 +48,10 @@ from repro_torch.core.pipeline import stages as tst
 from repro_torch.kernels import common, multisplit_tile as mst
 from repro_torch.kernels import ops as tkops
 
+import _torch_threads
+
+_torch_threads.pin()
+
 BACKENDS = ["reference", "vmap", "cuda"]
 FIELDS = ("keys", "values", "bucket_starts", "bucket_counts", "permutation")
 BIG = (1 << 24) + 1          # bases past 2^24

@@ -17,6 +17,10 @@ from repro_torch.kernels import multisplit_tile as mst
 from repro_torch.kernels import ops as tkops
 from repro_torch.kernels import ref as tref
 
+import _torch_threads
+
+_torch_threads.pin()
+
 # (tiles, tile width, buckets): one bucket, an odd m over a ragged tile, the
 # widest m; for the radix oracles (shift, bits) of a 4- and an 8-bit digit
 SHAPES = [(2, 64, 1), (3, 100, 7), (2, 256, 256)]

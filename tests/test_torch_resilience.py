@@ -33,6 +33,10 @@ from repro_torch.models import moe
 from repro_torch.runtime import FaultInjector
 from repro_torch.runtime import resilience as rz
 
+import _torch_threads
+
+_torch_threads.pin()
+
 N = 1024
 M = 8
 FAULT_RATE = 0.05

@@ -37,6 +37,10 @@ from repro_torch.kernels import multisplit_tile as mst
 from repro_torch.kernels import ops as tkops
 from repro_torch.kernels import radix_pass
 
+import _torch_threads
+
+_torch_threads.pin()
+
 BACKENDS = ["reference", "vmap", "cuda"]
 METHODS = ["dms", "wms", "bms"]
 FIELDS = ("keys", "values", "bucket_starts", "bucket_counts", "permutation")

@@ -36,6 +36,10 @@ from repro_torch.serving import (
     synthetic_requests,
 )
 
+import _torch_threads
+
+_torch_threads.pin()
+
 E = 4
 CLASSES = (64, 256)
 

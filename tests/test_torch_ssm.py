@@ -31,6 +31,10 @@ from repro_torch.models import ssm as tssm
 from repro_torch.models import xlstm as txl
 from repro_torch.parallel.sharding import tree_leaves
 
+import _torch_threads
+
+_torch_threads.pin()
+
 TOL = dict(rtol=2e-4, atol=2e-5)
 B, S, CHUNK = 2, 40, 16
 FAMILY_ARCHS = ["zamba2-1.2b", "xlstm-350m", "llama-3.2-vision-90b", "musicgen-large"]

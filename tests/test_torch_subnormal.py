@@ -18,6 +18,10 @@ import torch
 from repro_torch import ops
 from repro_torch.core.sort import direct_sort_multisplit
 
+import _torch_threads
+
+_torch_threads.pin()
+
 TINY = np.array([1e-38, -1e-38, 1e-39, -1e-39, 1.4e-45, -1.4e-45, 5e-39, -5e-39, 0.0, -0.0],
                 np.float32)
 SPECS = {"range": ops.RangeSpec((-2.0, -0.0, 0.5, 1.0, 4.0)),

@@ -49,6 +49,10 @@ from repro_torch.optim import schedules as tsched
 from repro_torch.parallel.sharding import tree_leaves, tree_map
 from repro_torch.runtime import supervisor as tsup
 
+import _torch_threads
+
+_torch_threads.pin()
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
@@ -183,6 +187,7 @@ PSUM_SHAPE, PSUM_WORLD = (8, 125), 4
 _PSUM_WORKER = """
 import sys
 import numpy as np, torch, torch.distributed as dist
+torch.set_num_threads(1)
 rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 dist.init_process_group("gloo", init_method="file://" + store, rank=rank, world_size=4)
 from repro_torch.optim.compress import compressed_psum

@@ -46,6 +46,10 @@ from repro_torch.models import model as TM
 from repro_torch.models import moe as tmoe
 from repro_torch.parallel.sharding import tree_leaves, tree_map
 
+import _torch_threads
+
+_torch_threads.pin()
+
 GRAD_RTOL = 1e-3
 LOSS_RTOL = 1e-5
 PERTURB = 1e-6
