@@ -327,6 +327,16 @@ Phases, one line or more each, every one of which must pass:
    MoE block alone in float32, gradients within 1e-4 of the one-process
    ``multisplit`` dispatch's. (d) ``compressed_psum`` over the ``pod`` and
    ``data`` groups of a (2, 2) mesh on CUDA tensors, bitwise its CPU answer.
+   The dry-run (``dryrun_phase``, A17): (a) ``launch.dryrun.lower_cell`` of
+   tinyllama-1.1b's ``decode_32k`` cell on the ``single`` mesh of 256 fake
+   ranks on fake CUDA tensors, against the same cell on fake CPU tensors in
+   the same run: flops, bytes and collectives equal, no kernel launched.
+   (b) tinyllama at full width, 2 layers: a train step of 4 x 2048 on a
+   (1,) mesh on the card under the counting mode, against its dry-run on
+   fake CUDA tensors: flops and argument bytes equal; the dry-run's peak
+   beside ``torch.cuda.max_memory_allocated``; the roofline's time
+   (``max(compute_s, memory_s)``, H100 data-sheet constants) no more than
+   the step's measured time.
 6. launches — every kernel's launch count from its own path's run alone
    (flat, segmented, flat callable, segmented callable, and the four
    packed paths, which launch K1p-K3p and no onehot kernel; each fused
@@ -4079,6 +4089,147 @@ def train_mesh_phase(dev, registry, log, smi):
     return counts
 
 
+# (b) of the dry-run phase: tinyllama-1.1b at full width, depth cut to 2,
+# a train step of 4 x 2048 tokens; the step's time is the median of
+# DRYRUN_REPS steps after a warm one
+DRYRUN_LAYERS, DRYRUN_BATCH, DRYRUN_SEQ, DRYRUN_REPS = 2, 4, 2048, 3
+DRYRUN_CELL = ("tinyllama-1.1b", "decode_32k", "single")
+
+
+def dryrun_phase(dev, registry, log, smi):
+    """The dry-run and its accounting (A17) on the card, after the sharded
+    training step (no process group may be running in this process).
+
+    (a) ``launch.dryrun.lower_cell`` of :data:`DRYRUN_CELL` on fake CUDA
+    tensors over a fake world of 256 ranks, and the same cell on fake CPU
+    tensors: their flops, bytes and collectives equal; B11's, K1's and K3's
+    launch counts unchanged. (b) tinyllama at full width, depth cut to
+    :data:`DRYRUN_LAYERS`: ``make_train_step`` on a (1,) mesh of one gloo
+    rank on the card, :data:`DRYRUN_BATCH` x :data:`DRYRUN_SEQ` tokens, once
+    under ``launch.hlo_analysis.CountingMode`` and timed without it (the
+    median of :data:`DRYRUN_REPS` synchronised steps after a warm one),
+    against ``launch.dryrun.trace_step`` of the same step on fake CUDA
+    tensors: flops and argument bytes equal; the dry-run's peak printed
+    beside ``torch.cuda.max_memory_allocated`` of the counted step; the
+    roofline's ``max(compute_s, memory_s)`` from the dry-run's counts no
+    more than the measured step. Returns the launch counts of (b)'s steps
+    on the card."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.hlo_analysis import CountingMode, roofline_terms
+    from repro_torch.launch.mesh import launch_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import init_params, set_mesh
+
+    if dist.is_initialized():
+        raise AssertionError("the dry-run phase starts its own process groups; one is running")
+    t_phase = time.perf_counter()
+    doors = ("flash_attention", "spec_tile_histograms", "spec_tile_positions")
+
+    # ---- (a) one production cell on fake CUDA tensors and on fake CPU ones
+    before = registry.launch_counts()
+    recs = {d: dryrun.lower_cell(*DRYRUN_CELL, device=d) for d in (dev.type, "cpu")}
+    moved = {k: registry.launch_counts()[k] - before[k] for k in doors}
+    # the peaks differ: an allocation on the card is rounded to its block
+    keys = ("per_device", "collectives_full_graph")
+    gpu, cpu = recs[dev.type], recs["cpu"]
+    log("dryrun", f"(a) {' '.join(DRYRUN_CELL)} on fake {dev.type} tensors over "
+                  f"{gpu['n_chips']} fake ranks: {gpu['per_device']['flops']:.6g} flops, "
+                  f"{gpu['per_device']['bytes']:.6g} bytes, collectives "
+                  f"{gpu['collectives_full_graph']} a device; traced in {gpu['trace_s']} s "
+                  f"({cpu['trace_s']} s on fake cpu tensors); roofline (H100 data sheet, an "
+                  f"estimate) {gpu['roofline']}, dominant {gpu['dominant']}; doors' launches "
+                  f"{moved}")
+    if any(gpu[k] != cpu[k] for k in keys) or gpu["status"] != "ok":
+        raise AssertionError(f"the dry-run on fake {dev.type} tensors parts from fake cpu: "
+                             + "; ".join(f"{k}: {gpu[k]} vs {cpu[k]}" for k in keys
+                                         if gpu[k] != cpu[k]))
+    if any(moved.values()):
+        raise AssertionError(f"a door launched its kernel in a dry-run: {moved}")
+
+    # ---- (b) a train step on the card against its dry-run
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=DRYRUN_LAYERS)
+    tc = TrainConfig(global_batch=DRYRUN_BATCH, seq_len=DRYRUN_SEQ)
+    torch.cuda.empty_cache()
+    mesh, started, _ = launch_mesh(dev)
+    counts = {}
+    try:
+        before = registry.launch_counts()
+        fake = dryrun.trace_step(cfg, "train", DRYRUN_BATCH, DRYRUN_SEQ, mesh, tc,
+                                 device=dev.type)
+        moved = {k: registry.launch_counts()[k] - before[k] for k in doors}
+        if any(moved.values()):
+            raise AssertionError(f"a door launched its kernel in the dry-run of (b): {moved}")
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED)
+        params = init_params(M.decl_model(cfg), g)
+        state = S.TrainState(params, adamw_init(params, tc))
+        tokens = torch.randint(0, cfg.vocab, (DRYRUN_BATCH, DRYRUN_SEQ + 1), device=dev,
+                               generator=g, dtype=torch.int32)
+        batch = {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()}
+        arg_bytes = dryrun.local_bytes((state, batch))
+        step = S.make_train_step(cfg, tc)
+        before = registry.launch_counts()
+        times = []
+        with set_mesh(mesh):
+            for i in range(DRYRUN_REPS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.reset_peak_memory_stats()
+            with CountingMode() as real:
+                state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        after = registry.launch_counts()
+        counts = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        loss = float(metrics["loss"])
+        del state, params, batch, tokens, metrics
+    finally:
+        if started:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    ms = statistics.median(times[1:])
+    terms = roofline_terms(fake["flops"], fake["bytes"], fake["collective_bytes"], 1)
+    bound_ms = max(terms["compute_s"], terms["memory_s"]) * 1e3
+    log("dryrun", f"(b) tinyllama-1.1b at full width, {DRYRUN_LAYERS} layers, a train step of "
+                  f"{DRYRUN_BATCH} x {DRYRUN_SEQ} on a (1,) mesh: on the card "
+                  f"{real.flops:.6g} flops (B11 {real.door_work['flash_attention']}), "
+                  f"{real.bytes:.6g} bytes, argument bytes {arg_bytes}, "
+                  f"max_memory_allocated {peak / 2**30:.3f} GiB, {ms:.2f} ms a step "
+                  f"(median of {[round(t, 2) for t in times[1:]]} after a warm "
+                  f"{times[0]:.2f}), loss {loss:.4f}; the dry-run on fake {dev.type} tensors "
+                  f"{fake['flops']:.6g} flops, {fake['bytes']:.6g} bytes, argument bytes "
+                  f"{fake['memory']['argument_size_in_bytes']}, peak "
+                  f"{fake['memory']['peak_size_in_bytes'] / 2**30:.3f} GiB, traced in "
+                  f"{fake['trace_s']} s; roofline (H100 data sheet, an estimate) compute "
+                  f"{terms['compute_s'] * 1e3:.3f} ms, memory {terms['memory_s'] * 1e3:.3f} ms: "
+                  f"{bound_ms / ms:.1%} of the step [{smi}]")
+    if real.flops != fake["flops"]:
+        raise AssertionError(f"the card's step counts {real.flops} flops, its dry-run "
+                             f"{fake['flops']}")
+    if arg_bytes != fake["memory"]["argument_size_in_bytes"]:
+        raise AssertionError(f"the card's step takes {arg_bytes} argument bytes, its dry-run "
+                             f"{fake['memory']['argument_size_in_bytes']}")
+    if not bound_ms <= ms:
+        raise AssertionError(f"the roofline's {bound_ms:.3f} ms exceeds the measured step's "
+                             f"{ms:.3f} ms: a count or a constant is wrong")
+    if not counts.get("flash_attention"):
+        raise AssertionError(f"the card's train steps launched no B11: {counts}")
+    log("dryrun", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6158,8 +6309,10 @@ def main() -> int:
     # 5r. subnormal float32 keys (ROADMAP §C), 5s. the mesh layer (A13c:
     # four gloo ranks on the card, after training has freed its memory) and
     # 5t. the sharded training step (A13d: gloo ranks on the card again)
+    # 5u. the dry-run (A17: fake process groups and fake tensors in this
+    # process, then a train step on the card against its dry-run)
     for phase in (distributed_phase, model_phase, families_phase, training_phase,
-                  subnormal_phase, mesh_phase, train_mesh_phase):
+                  subnormal_phase, mesh_phase, train_mesh_phase, dryrun_phase):
         for name, count in phase(dev, registry, log, smi).items():
             launches[name] += count
 

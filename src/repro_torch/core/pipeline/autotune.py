@@ -126,8 +126,21 @@ def autotune_status() -> dict:
 
 
 def active() -> bool:
-    """True when a miss may run a timing search now."""
-    return _CONFIG.enabled and not _IN_SEARCH
+    """True when a miss may run a timing search now: never inside a search,
+    and never inside a dry-run's trace (:func:`tracing`)."""
+    return _CONFIG.enabled and not _IN_SEARCH and not tracing()
+
+
+def tracing() -> bool:
+    """A trace is in force: a ``FakeTensorMode`` (a search on fake tensors
+    would time nothing) or a counting mode (``launch.hlo_analysis``), whose
+    counts a search's trials would join. A miss then takes the default and
+    pins nothing, so the shape is still searched outside the trace."""
+    from torch._guards import detect_fake_mode
+
+    from repro_torch.kernels import build
+
+    return bool(build.WORK_SINKS) or detect_fake_mode() is not None
 
 
 def armed() -> bool:

@@ -505,7 +505,8 @@ def resolve_kernel_family(
         hit = _FAMILY_CACHE.get(key)          # the search pins on success
     if hit is None:
         hit = _heuristic_family(n, m, method, backend)
-        _FAMILY_CACHE[key] = hit
+        if not _deferred():
+            _FAMILY_CACHE[key] = hit
     return hit[0]
 
 
@@ -563,8 +564,17 @@ def resolve_tile(
         tile = _TILE_CACHE.get(key)           # the search pins on success
     if tile is None:
         tile = _heuristic_tile(n, m, method, backend, digits)
-        _TILE_CACHE[key] = tile
+        if not _deferred():
+            _TILE_CACHE[key] = tile
     return tile
+
+
+def _deferred() -> bool:
+    """An armed autotuner's miss inside a trace takes the default without
+    pinning it (``autotune.tracing``)."""
+    from repro_torch.core.pipeline import autotune as _at
+
+    return _at.armed() and _at.tracing()
 
 
 def tile_decision(

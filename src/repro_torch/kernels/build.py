@@ -14,7 +14,10 @@ the plain version by the tensor's device, :func:`stream` is the current CUDA
 stream, and :func:`raise_on` turns a failed launch into
 :class:`KernelLaunchError`, which carries the CUDA error's code and name and
 whether the card refused the launcher's shared memory (the resilience
-layer classifies by them, ``runtime/resilience.py``).
+layer classifies by them, ``runtime/resilience.py``). :func:`is_fake`
+tells a door that it was handed a ``FakeTensor`` (a dry-run's trace:
+it then launches nothing), and :func:`counted` lets a door report its
+work to the counting modes in force (``launch.hlo_analysis``).
 
 The flags never include ``--use_fast_math``: EvenSpec labels need IEEE
 float32 division to match the JAX package bitwise, and flash attention's
@@ -23,6 +26,7 @@ softmax takes ``exp2f``, not its fast approximation.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -35,6 +39,7 @@ from pathlib import Path
 from typing import Dict
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -305,6 +310,37 @@ def on_cuda(x: torch.Tensor, what: str) -> bool:
     if x.device.type == "cpu":
         return False
     raise ValueError(f"{what}: tensors must lie on the CPU or a CUDA device, got {x.device}")
+
+
+# The counting modes in force (``launch.hlo_analysis.CountingMode``): each
+# door reports its work to them through :func:`counted`.
+WORK_SINKS: list = []
+
+
+def is_fake(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a ``FakeTensor`` (shape, dtype and device, no data),
+    or a ``DTensor`` whose local shard is one: a door then launches nothing
+    and returns its outputs' shapes."""
+    return isinstance(getattr(x, "_local_tensor", x), FakeTensor)
+
+
+@contextlib.contextmanager
+def counted(kernel: str, flops: float, nbytes: float):
+    """A door's body: each counting mode in force takes the door's work
+    once, from its formula, and counts none of the ops inside (a plain
+    version's, an output's allocation); a door called inside the block
+    reports nothing."""
+    sinks = list(WORK_SINKS)
+    for sink in sinks:
+        sink.add_work(kernel, flops, nbytes)
+        sink.paused += 1
+    WORK_SINKS.clear()
+    try:
+        yield
+    finally:
+        WORK_SINKS[:] = sinks
+        for sink in sinks:
+            sink.paused -= 1
 
 
 def stream(x: torch.Tensor) -> int:

@@ -48,7 +48,10 @@ Dispatch: a CPU tensor runs :func:`flash_attention_plain`; a CUDA tensor
 launches the kernel of its dtype on the current stream, counts it in
 ``flash_attention.launches`` (registered with the other wrappers in
 :mod:`repro_torch.kernels`) and raises on a failed build or launch. Nothing
-falls back.
+falls back. A ``FakeTensor`` (a dry-run's trace, on any device) launches
+nothing and gets an output of the contract's shape and dtype; under a
+counting mode (``launch.hlo_analysis.CountingMode``) the door reports its
+:func:`work` once, whatever it runs.
 """
 
 from __future__ import annotations
@@ -83,6 +86,40 @@ def _check(q: Tensor, k: Tensor, v: Tensor, block_q: int, block_k: int) -> None:
     if block_q < 1 or block_k < 1 or s % block_q or s % block_k:
         raise ValueError(f"S = {s} must be a multiple of block_q = {block_q} and "
                          f"block_k = {block_k}")
+
+
+def _check_cuda(q: Tensor, k: Tensor, v: Tensor) -> None:
+    """The CUDA kernels' own limits: head widths, contiguous operands."""
+    hd = q.shape[-1]
+    if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA kernel takes head widths that are multiples of 8 up to "
+                         f"{MAX_HEAD_DIM}, got hd = {hd}")
+    for x, what in ((q, "q"), (k, "k"), (v, "v")):
+        if not x.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+
+
+def work(q: Tensor, causal: bool):
+    """(flops, bytes) of one call on (BH, S, hd) inputs: 4·hd flops a (q, k)
+    pair the mask keeps (q·kᵀ and p·v, a multiply and an add each), and q,
+    k, v and o each moved once."""
+    bh, s, hd = q.shape
+    pairs = bh * (s * (s + 1) // 2 if causal else s * s)
+    return 4 * hd * pairs, 4 * q.numel() * q.element_size()
+
+
+def _accounted(q: Tensor, k: Tensor, v: Tensor, causal: bool, block_q: int,
+               block_k: int) -> Tensor:
+    """The door under a counting mode or on fake tensors: its :func:`work`
+    reported once (``build.counted``); on a ``FakeTensor`` no launch and no
+    plain version, only the output's shape and dtype (the CUDA kernels'
+    limits checked for a fake CUDA tensor), else the door as usual."""
+    with build.counted("flash_attention", *work(q, causal)):
+        if not build.is_fake(q):
+            return flash_attention(q, k, v, causal, block_q, block_k)
+        if q.device.type == "cuda":
+            _check_cuda(q, k, v)
+        return q.new_empty(q.shape)
 
 
 def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
@@ -130,15 +167,12 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
         raise RuntimeError("flash_attention has no gradient (the kernel's output carries no "
                            "autograd history): call it under torch.no_grad(), or differentiate "
                            "attention through repro_torch.models.layers.multihead_attention")
+    if build.WORK_SINKS or build.is_fake(q):
+        return _accounted(q, k, v, causal, block_q, block_k)
     if not build.on_cuda(q, "flash_attention"):
         return flash_attention_plain(q, k, v, causal, block_q, block_k)
+    _check_cuda(q, k, v)
     bh, s, hd = q.shape
-    if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes head widths that are multiples of 8 up to "
-                         f"{MAX_HEAD_DIM}, got hd = {hd}")
-    for x, what in ((q, "q"), (k, "k"), (v, "v")):
-        if not x.is_contiguous():
-            raise ValueError(f"{what} must be contiguous")
     o = torch.empty((bh, s, hd), dtype=q.dtype, device=q.device)
     if not o.numel():
         return o

@@ -87,7 +87,11 @@ version: an id outside ``[0, m)`` is outside the contract, as an
 bounds.
 
 Dispatch: a wrapper runs its plain version (``*_plain``, pure torch, the
-same function) only for a tensor on the CPU. For a CUDA tensor it launches
+same function) only for a tensor on the CPU. K1 and K3 (the routing path of
+``models.moe``) also take a ``FakeTensor`` (a dry-run's trace, on any
+device): they launch nothing and return outputs of the contract's shapes
+and dtypes; under a counting mode (``launch.hlo_analysis.CountingMode``)
+they report their bytes once, whatever they run (``build.counted``). For a CUDA tensor it launches
 the kernel on the current stream, checks the C function's return code
 (``cudaGetLastError()`` after the launch) and raises on any error; a failed
 build raises too. Nothing falls back. Each wrapper counts its launches in
@@ -233,8 +237,25 @@ def spec_tile_histograms_plain(keys_tiled: Tensor, spec) -> Tensor:
     return common.counts_body(spec.emit(keys_tiled), spec.num_buckets)
 
 
+def _fake_checked(keys_tiled: Tensor, m: int) -> None:
+    """A fake CUDA tensor meets the kernels' limits, as a real one would."""
+    if keys_tiled.device.type == "cuda":
+        _check_m(m)
+        _check_keys(keys_tiled)
+
+
 def spec_tile_histograms(keys_tiled: Tensor, spec) -> Tensor:
     """(L, T) keys -> (L, m) int32 per-tile histograms; labels in-kernel."""
+    if build.WORK_SINKS or build.is_fake(keys_tiled):
+        # the keys read once and H written once; a fake tensor launches nothing
+        m = spec.num_buckets
+        with build.counted("spec_tile_histograms", 0,
+                           (keys_tiled.element_size() * keys_tiled.shape[1] + 4 * m)
+                           * keys_tiled.shape[0]):
+            if not build.is_fake(keys_tiled):
+                return spec_tile_histograms(keys_tiled, spec)
+            _fake_checked(keys_tiled, m)
+            return keys_tiled.new_empty((keys_tiled.shape[0], m), dtype=torch.int32)
     if not on_cuda(keys_tiled, "spec_tile_histograms"):
         return spec_tile_histograms_plain(keys_tiled, spec)
     n_tiles, t = _check_keys(keys_tiled)
@@ -259,6 +280,15 @@ def spec_tile_positions_plain(keys_tiled: Tensor, g: Tensor, spec) -> Tensor:
 def spec_tile_positions(keys_tiled: Tensor, g: Tensor, spec) -> Tensor:
     """(L, T) keys + (L, m) int32 bases -> (L, T) int32 destinations
     ``G[b] + rank`` (paper eq. (2)); labels in-kernel."""
+    if build.WORK_SINKS or build.is_fake(keys_tiled):
+        # the keys and G read once, the positions written once
+        with build.counted("spec_tile_positions", 0,
+                           (keys_tiled.element_size() + 4) * keys_tiled.numel()
+                           + g.numel() * g.element_size()):
+            if not build.is_fake(keys_tiled):
+                return spec_tile_positions(keys_tiled, g, spec)
+            _fake_checked(keys_tiled, spec.num_buckets)
+            return keys_tiled.new_empty(keys_tiled.shape, dtype=torch.int32)
     if not on_cuda(keys_tiled, "spec_tile_positions"):
         return spec_tile_positions_plain(keys_tiled, g, spec)
     n_tiles, t = _check_keys(keys_tiled)

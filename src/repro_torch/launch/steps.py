@@ -74,8 +74,9 @@ def grads_of(params, cfg: ModelConfig, batch: Dict[str, Tensor], *, backend: str
                                   backend=backend)
         root = loss.to_local() if isinstance(loss, DTensor) else loss
         grads = torch.autograd.grad(root, leaves, allow_unused=True)
+    # contiguous: the optimizer reads each leaf's shard as one flat view
     grads = [torch.zeros_like(p) if g is None
-             else grad_layout(g, p.placements) if isinstance(p, DTensor) else g
+             else grad_layout(g, p.placements).contiguous() if isinstance(p, DTensor) else g
              for p, g in zip(leaves, grads)]
     metrics = {k: _plain(v.detach()) for k, v in metrics.items()}
     return (_plain(loss.detach()), metrics), tree_unflatten(params, grads)

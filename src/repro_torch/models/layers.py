@@ -40,7 +40,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as _fa
@@ -137,6 +137,34 @@ def attention_decl(cfg: ModelConfig, cross: bool = False):
     return decl
 
 
+def _sharded_on(w: Tensor, dim: int) -> bool:
+    return isinstance(w, DTensor) and any(p.is_shard(dim) for p in w.placements)
+
+
+def project_heads(x: Tensor, w: Tensor) -> Tensor:
+    """(B, S, d) · (d, H, hd) -> (B, S, H, hd). The einsum's matmul merges
+    (H, hd) into one dimension; a weight sharded on hd (the head-dim
+    fallback of ``spec_for_decl``: 4 kv heads over 16 model ranks) would
+    become a strided shard of it, which DTensor lays out only with data in
+    hand (on fake tensors it raises). Such a weight is projected a head at a
+    time, on the unmerged dimensions: the same products."""
+    if w.shape[1] > 1 and _sharded_on(w, 2):
+        return torch.stack([torch.einsum("bsd,dk->bsk", x, w[:, j]) for j in range(w.shape[1])],
+                           dim=2)
+    return torch.einsum("bsd,dhk->bshk", x, w)
+
+
+def project_out(o: Tensor, w: Tensor) -> Tensor:
+    """(B, S, H, hd) · (H, hd, d) -> (B, S, d), the heads summed; a weight
+    sharded on hd is taken a head at a time (:func:`project_heads`)."""
+    if w.shape[0] > 1 and _sharded_on(w, 1):
+        y = torch.einsum("bsk,kd->bsd", o[:, :, 0], w[0])
+        for j in range(1, w.shape[0]):
+            y = y + torch.einsum("bsk,kd->bsd", o[:, :, j], w[j])
+        return y
+    return torch.einsum("bshk,hkd->bsd", o, w)
+
+
 # ---------------------------------------------------------------------------
 # Attention: the B11 route and the plain triangular block schedule
 # ---------------------------------------------------------------------------
@@ -213,10 +241,14 @@ class _B11Attention(torch.autograd.Function):
         return (*_b11_backward(q, k, v, grad, ctx.chunk), None, None)
 
 
-def _attention_blocks(q, k, v, *, causal, chunk, window, q_offset, probs_bf16) -> Tensor:
+def _attention_blocks(q, k, v, *, causal, chunk, window, q_offset, probs_bf16,
+                      score_sum=None, head_dim=None) -> Tensor:
     """The JAX function's chunked online softmax over its static schedule of
     visible (q chunk, kv chunk) pairs, in plain PyTorch; the state is kept
-    per q chunk, which visits its kv chunks in the schedule's order."""
+    per q chunk, which visits its kv chunks in the schedule's order.
+    ``score_sum``: for a rank's shard of the head dimension, the sum of the
+    ranks' partial scores (float32), before the scale; ``head_dim`` is then
+    the whole head width, which sets the scale."""
     b, s, h, hd = q.shape
     t, n_kv_heads = k.shape[1], k.shape[2]
     g = h // n_kv_heads
@@ -232,7 +264,7 @@ def _attention_blocks(q, k, v, *, causal, chunk, window, q_offset, probs_bf16) -
     qp = qp.view(b, n_q, chunk, n_kv_heads, g, hd)
     kp = kp.view(b, n_kv, chunk, n_kv_heads, hd)
     vp = vp.view(b, n_kv, chunk, n_kv_heads, hd)
-    scale = 1.0 / np.sqrt(hd)
+    scale = 1.0 / np.sqrt(head_dim or hd)
     pos = torch.arange(max(n_q, n_kv) * chunk, device=q.device)
     outs = []                      # a q chunk's output each (a list: DTensors take no setitem)
     for qi in range(n_q):
@@ -247,7 +279,10 @@ def _attention_blocks(q, k, v, *, causal, chunk, window, q_offset, probs_bf16) -
         for kj in kjs.tolist():
             kpos = pos[kj * chunk:(kj + 1) * chunk]
             vc = vp[:, kj]
-            scores = torch.einsum("bikgd,bjkd->bkgij", qp[:, qi], kp[:, kj]).float() * scale
+            scores = torch.einsum("bikgd,bjkd->bkgij", qp[:, qi], kp[:, kj]).float()
+            if score_sum is not None:
+                scores = score_sum(scores)
+            scores = scores * scale
             mask = (kpos < t)[None, :]                                   # kv padding
             if causal:
                 mask = mask & (qpos[:, None] >= kpos[None, :])
@@ -281,6 +316,41 @@ def _b11_sharded(q: Tensor, k: Tensor, v: Tensor, backend: str, chunk: int) -> T
     q, v = (x if tuple(x.placements) == want else redistribute(x, want) for x in (q, v))
     out = _B11Attention.apply(q.to_local(), k.to_local(), v.to_local(), backend, chunk)
     return DTensor.from_local(out, k.device_mesh, want, run_check=False)
+
+
+def _local_rows(x: Tensor) -> bool:
+    """Whether a DTensor (B, S, H, hd) holds whole sequences on every rank
+    (batch, heads or the head dimension may be sharded, nothing partial)."""
+    return all(not p.is_partial() and not (p.is_shard() and p.dim == 1) for p in x.placements)
+
+
+def _local_attention(fn, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+    """``fn(q, k, v, score_sum)`` (the block schedule) on each rank's shard
+    of DTensor q, k and v whose sequences are whole (:func:`_local_rows`):
+    q and v laid out as k, and the result wrapped back, as
+    :func:`_b11_sharded` does. Attention is independent across rows and
+    heads, so each rank's rows are its own; where the head dimension is
+    sharded (the fallback of heads that do not divide), ``score_sum`` sums
+    the ranks' partial scores over those mesh dimensions (an all-reduce a
+    chunk pair, as GSPMD reduces the contraction), else it is None. On the DTensors
+    themselves the schedule's einsums would merge a sharded batch with
+    sharded heads into a strided shard, which DTensor lays out only with
+    data in hand."""
+    mesh, want = k.device_mesh, tuple(k.placements)
+    q, v = (x if tuple(x.placements) == want else redistribute(x, want) for x in (q, v))
+    groups = [mesh.get_group(i) for i, p in enumerate(want) if p.is_shard() and p.dim == 3]
+    score_sum = None
+    if groups:
+        from torch.distributed.nn.functional import all_reduce
+
+        def score_sum(s):
+            # c10d's differentiable all-reduce: its backward sums the ranks'
+            # gradients of the scores, each rank's from its own head-dim shard
+            for group in groups:
+                s = all_reduce(s, group=group)
+            return s
+    out = fn(q.to_local(), k.to_local(), v.to_local(), score_sum)
+    return DTensor.from_local(out, mesh, want, run_check=False)
 
 
 def _whole_rows(x: Tensor) -> bool:
@@ -350,13 +420,21 @@ def multihead_attention(
         v = constrain(v, "dp", None, head_entry, hd_entry)
 
     sharded = isinstance(k, DTensor)
-    if route and sharded and all(map(_whole_rows, (q, k, v))):
+    whole = sharded and all(map(_whole_rows, (q, k, v)))
+    blocks = dict(causal=causal, chunk=chunk, window=window, q_offset=q_offset,
+                  probs_bf16=probs_bf16)
+    if route and whole:
         out = _b11_sharded(q, k, v, backend, chunk)
     elif route and not sharded:
         out = _B11Attention.apply(q, k, v, backend, chunk)
-    else:                          # outside B11's contract, or the head-dim fallback
-        out = _attention_blocks(q, k, v, causal=causal, chunk=chunk, window=window,
-                                q_offset=q_offset, probs_bf16=probs_bf16)
+    elif sharded and all(map(_local_rows, (q, k, v))):
+        # outside B11's contract, or the head-dim fallback: each rank on its
+        # rows and heads (a head-dim shard's partial scores summed over its
+        # ranks)
+        out = _local_attention(lambda q_, k_, v_, score_sum: _attention_blocks(
+            q_, k_, v_, score_sum=score_sum, head_dim=q.shape[-1], **blocks), q, k, v)
+    else:
+        out = _attention_blocks(q, k, v, **blocks)
     return out if h == h_orig else out[:, :, :h_orig]
 
 
@@ -478,13 +556,13 @@ def attention_block(
     JAX function returns a new one."""
     dtype = x.dtype
     xn = apply_norm(p["norm"], x, cfg)
-    q = torch.einsum("bsd,dhk->bshk", xn, p["wq"].to(dtype))
+    q = project_heads(xn, p["wq"].to(dtype))
     if cross and cache is not None:
         k = v = None                      # K/V precomputed in the cache
     else:
         src = apply_norm(p["norm_kv"], kv_src, cfg) if cross else xn
-        k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(dtype))
-        v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(dtype))
+        k = project_heads(src, p["wk"].to(dtype))
+        v = project_heads(src, p["wv"].to(dtype))
 
     if not cross:
         q = apply_rope(q, positions[None, :], cfg.rope_theta, cfg.rope_pct)
@@ -505,7 +583,7 @@ def attention_block(
                                   **attend)
         cache = None
     # the heads' partial sums reduced once, to the residual's layout
-    y = settle(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype)))
+    y = settle(project_out(out, p["wo"].to(dtype)))
     return y, cache
 
 
@@ -549,17 +627,22 @@ def embed_decl(cfg: ModelConfig):
 
 def embed_tokens(p, tokens: Tensor, cfg: ModelConfig) -> Tensor:
     """The token table's rows; on a table that is a DTensor each rank looks
-    up the rows it holds (:func:`_embed_sharded`) and the partial rows are
-    summed once (:func:`settle`)."""
+    up the rows it holds (:func:`_embed_sharded`), the partial rows are
+    summed once (:func:`settle`) and the rows are laid out over the data
+    axes, whole in d (:func:`constrain`)."""
     table = p["tok"]
     if isinstance(table, DTensor):
-        return settle(_embed_sharded(table, tokens)).to(_dt(cfg))
+        # the residual stream whole over d: a table sharded on d (a vocab
+        # that does not divide) gives rows sharded on d, gathered here
+        x = settle(_embed_sharded(table, tokens))
+        return constrain(x, *("dp",) + (None,) * (x.dim() - 1)).to(_dt(cfg))
     return F.embedding(tokens.long(), table).to(_dt(cfg))
 
 
 def _embed_sharded(table: Tensor, tokens: Tensor) -> Tensor:
-    """The rows of DTensor ``table`` (vocab, d) — vocab sharded over some
-    mesh dimensions, whole over the others — at ``tokens`` (a DTensor, or a
+    """The rows of DTensor ``table`` (vocab, d) — vocab (or, where the vocab
+    does not divide, d) sharded over some mesh dimensions, whole over the
+    others — at ``tokens`` (a DTensor, or a
     tensor every rank holds whole), on local tensors: each rank reads the
     rows of its vocab shard, zeros where a token lies in another shard, so
     the result is a partial sum over the vocab's mesh dimensions (the rows
@@ -570,17 +653,20 @@ def _embed_sharded(table: Tensor, tokens: Tensor) -> Tensor:
     mesh = table.device_mesh
     tp = tuple(table.placements)
     kp = tuple(tokens.placements) if isinstance(tokens, DTensor) else (Replicate(),) * mesh.ndim
-    if any(t.is_shard() and (t.dim != 0 or k.is_shard()) for t, k in zip(tp, kp)):
+    if any(t.is_shard() and (t.dim not in (0, 1) or k.is_shard()) for t, k in zip(tp, kp)):
         raise ValueError(f"a table placed {tp} for tokens placed {kp}")
     ids = (tokens.to_local() if isinstance(tokens, DTensor) else tokens).long()
     rows = shard_slices(table.shape, mesh, tp, mesh.get_coordinate())[0]
     grad_pl = tuple(t if t.is_shard() else Partial() if k.is_shard() else Replicate()
                     for t, k in zip(tp, kp))
     local = table.to_local(grad_placements=grad_pl)
-    inside = (ids >= rows.start) & (ids < rows.stop)
     out = F.embedding((ids - rows.start).clamp(0, local.shape[0] - 1), local)
-    out = torch.where(inside[..., None], out, 0.0)
-    out_pl = tuple(Partial() if t.is_shard() else k for t, k in zip(tp, kp))
+    if rows != slice(0, table.shape[0]):
+        out = torch.where(((ids >= rows.start) & (ids < rows.stop))[..., None], out, 0.0)
+    # a vocab shard's rows are partial; a shard of d (the fallback of a vocab
+    # that does not divide) is the output's last dimension
+    out_pl = tuple(Partial() if t.is_shard() and t.dim == 0 else Shard(ids.dim()) if t.is_shard()
+                   else k for t, k in zip(tp, kp))
     return DTensor.from_local(out, mesh, out_pl, run_check=False)
 
 
@@ -588,6 +674,10 @@ def lm_head(p, x: Tensor, cfg: ModelConfig) -> Tensor:
     """Final norm + projection to vocab. x: (B, S, d) -> (B, S, V_padded)."""
     xn = apply_norm(p["norm_f"], x, cfg)
     w = (p["tok"].t() if cfg.tie_embeddings else p["head"]).to(x.dtype)
+    if isinstance(w, DTensor) and any(pl.is_shard(0) for pl in w.placements):
+        # a table sharded on d (a vocab that does not divide) made whole over
+        # d, as the lookup's rows are: the logits then shard as the vocab does
+        w = redistribute(w, [Replicate() if pl.is_shard(0) else pl for pl in w.placements])
     logits = torch.einsum("bsd,dv->bsv", xn, w)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)

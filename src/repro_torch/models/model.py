@@ -331,8 +331,10 @@ def forward(
     pattern, n_super, tail = block_pattern(cfg)
     slots = _pattern_param_slots(pattern)
     dtype = getattr(torch, cfg.dtype)
+    # fsdp: the weights are gathered at use, as in the trunk (a no-op without fsdp)
+    embed = gather_fsdp(params["embed"])
     if embeds is None:
-        x = embed_tokens(params["embed"], distribute_input(tokens, "dp", None), cfg)
+        x = embed_tokens(embed, distribute_input(tokens, "dp", None), cfg)
     else:
         x = distribute_input(embeds.to(dtype), "dp", None, None)
     if positions is None:
@@ -340,20 +342,20 @@ def forward(
     if vis_embeds is not None:
         vis_embeds = distribute_input(vis_embeds.to(dtype), "dp", None, None)
     run = dict(positions=positions, vis_embeds=vis_embeds,
-               shared_params=params.get("shared_attn"), backend=backend)
+               shared_params=gather_fsdp(params.get("shared_attn")), backend=backend)
 
     aux = _zero_aux(x.device)
     for i in range(n_super):
         for pi, kind in enumerate(pattern):
             c = None if cache is None else _layer(cache["pattern"][pi], i)
-            p = None if slots[pi] is None else _layer(params["blocks"][slots[pi]], i)
+            p = None if slots[pi] is None else gather_fsdp(_layer(params["blocks"][slots[pi]], i))
             x, _, a = apply_block(kind, p, x, cfg, cache=c, **run)
             aux = _add_aux(aux, a)
     for ti, kind in enumerate(tail):
         c = None if cache is None else cache["tail"][ti]
-        x, _, a = apply_block(kind, params["tail"][ti], x, cfg, cache=c, **run)
+        x, _, a = apply_block(kind, gather_fsdp(params["tail"][ti]), x, cfg, cache=c, **run)
         aux = _add_aux(aux, a)
-    return lm_head(params["embed"], x, cfg), cache, aux
+    return lm_head(embed, x, cfg), cache, aux
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 
 A prefill runs the chunked state-space-dual form: within a chunk a masked
 quadratic form (matmuls), across chunks the state carried by a loop over
-the chunks where the JAX package scans them. Decode is the O(1)-state
+the chunks where the JAX package scans them (under a mesh on each rank's
+rows and heads, ``parallel.sharding.on_local_rows``). Decode is the O(1)-state
 recurrence on one token; it writes the new conv and SSM state into the
 layer's cache in place (the cache leaves are views of the model's stacked
 cache), where the JAX function returns a new dict.
@@ -15,10 +16,11 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import apply_norm, norm_decl
-from repro_torch.parallel.sharding import ParamDecl
+from repro_torch.parallel.sharding import ParamDecl, constrain, on_local_rows, settle
 
 Tensor = torch.Tensor
 
@@ -78,7 +80,8 @@ def mamba2_block(p, x: Tensor, cfg: ModelConfig,
     b, s, _ = x.shape
 
     xn = apply_norm(p["norm"], x, cfg)
-    proj = torch.einsum("bsd,dk->bsk", xn, p["in_proj"].to(dtype))
+    # whole over model before the split: its pieces do not fall on the shards
+    proj = constrain(torch.einsum("bsd,dk->bsk", xn, p["in_proj"].to(dtype)), "dp", None, None)
     z, xbc, dt_raw = _split_proj(proj, cfg)
     conv_state = cache["conv"] if cache is not None else None
     xbc, new_conv = _causal_conv(xbc, p["conv_w"].to(dtype), p["conv_b"].to(dtype), conv_state)
@@ -90,7 +93,12 @@ def mamba2_block(p, x: Tensor, cfg: ModelConfig,
     a = -torch.exp(p["a_log"].float())                         # (nh,)
     log_decay = dt * a[None, None, :]                          # (B, S, nh)  <= 0
 
-    if cache is None:
+    if cache is None and isinstance(xs, DTensor):
+        # each rank's rows and heads (B and C whole over model)
+        y, _ = on_local_rows(
+            lambda *t: _ssd_chunked(*t, None, hd, st, chunk=cfg.ssd_chunk),
+            (xs, b_in, c_in, dt, log_decay), (2, None, None, 2, 2), (2, 1), nh)
+    elif cache is None:
         y, _ = _ssd_chunked(xs, b_in, c_in, dt, log_decay, nh, hd, st, chunk=cfg.ssd_chunk)
     else:
         h0 = cache["ssm"]                                      # (B, nh, hd, st)
@@ -105,7 +113,8 @@ def mamba2_block(p, x: Tensor, cfg: ModelConfig,
     y = y + xs.float() * p["d_skip"].float()[None, None, :, None]
     y = y.reshape(b, s, d_inner).to(dtype)
     y = apply_norm(p["norm_gate"], y * F.silu(z.float()).to(dtype), cfg)
-    out = torch.einsum("bsk,kd->bsd", y, p["out_proj"].to(dtype))
+    # the inner width's partial sums reduced once, to the residual's layout
+    out = settle(torch.einsum("bsk,kd->bsd", y, p["out_proj"].to(dtype)))
     return out, cache
 
 
@@ -114,7 +123,7 @@ def _ssd_chunked(xs, b_in, c_in, dt, log_decay, nh, hd, st, chunk: int = SSD_CHU
 
     xs: (B,S,nh,hd); b_in/c_in: (B,S,st); dt/log_decay: (B,S,nh).
     Returns y (B,S,nh,hd) fp32 and the final state (B,nh,hd,st)."""
-    b, s = xs.shape[0], xs.shape[1]
+    b, s, nh = xs.shape[0], xs.shape[1], xs.shape[2]
     chunk = min(chunk, s)
     pad = (-s) % chunk
     if pad:

@@ -42,7 +42,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
 Tensor = torch.Tensor
@@ -452,6 +452,16 @@ def replicate(x: Tensor) -> Tensor:
     return redistribute(x, (Replicate(),) * x.device_mesh.ndim)
 
 
+def whole_over_model(x: Tensor) -> Tensor:
+    """A DTensor made whole over ``model`` (gathered or reduced there), its
+    placements on the other mesh dimensions kept; anything else as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    want = tuple(Replicate() if a == "model" else p
+                 for a, p in zip(x.device_mesh.mesh_dim_names, x.placements))
+    return x if want == tuple(x.placements) else redistribute(x, want)
+
+
 def gather_full(x: Tensor) -> Tensor:
     """The whole value of ``x`` as a plain tensor on every rank (DTensor's
     ``full_tensor()``, through :func:`redistribute`)."""
@@ -514,6 +524,49 @@ def distribute_input(x: Tensor, *entries) -> Tensor:
         return x
     x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
     return constrain(x, *entries)
+
+
+def on_local_rows(fn, tensors, head_dims, out_head_dims, n_heads: int, row_dims=None):
+    """``fn(*local tensors)`` on each rank's rows and heads of DTensor
+    ``tensors``, for a computation independent across rows (dimension 0)
+    and heads: the rows over the data axes where they divide, the heads
+    over ``model`` where ``n_heads`` divides its size (each tensor's head
+    dimension is its entry of ``head_dims``; None keeps it whole over
+    ``model``), every other dimension whole; ``row_dims`` (one entry a
+    tensor, 0 by default) names the tensors whose dimension 0 is not rows
+    (None: whole over the data axes, a weight). The outputs, rows first,
+    come back as DTensors laid out likewise (``out_head_dims``). A tensor whole over
+    ``model`` while the heads are split gets a gradient partial over
+    ``model``, reduced by :func:`anchor_grad`. On the DTensors themselves a
+    scan's einsums would merge a sharded batch with sharded heads into a
+    strided shard, which DTensor lays out only with data in hand."""
+    mesh = next(t.device_mesh for t in tensors if isinstance(t, DTensor))
+    names, sizes = tuple(mesh.mesh_dim_names), tuple(mesh.shape)
+    data = data_axes_of(mesh)
+    n_dp = math.prod(n for a, n in zip(names, sizes) if a in data)
+    rows = tensors[0].shape[0] % n_dp == 0 and tensors[0].shape[0] >= n_dp
+    tp = dict(zip(names, sizes)).get("model", 1)
+    heads = tp > 1 and n_heads % tp == 0
+
+    def layout(head_dim, row_dim=0):
+        return tuple(Shard(row_dim) if a in data and n > 1 and rows and row_dim is not None
+                     else Shard(head_dim) if a == "model" and heads and head_dim is not None
+                     else Replicate() for a, n in zip(names, sizes))
+
+    def local(x, head_dim, row_dim):
+        pl = layout(head_dim, row_dim)
+        # a tensor whole over an axis that splits the work: its gradient is partial there
+        grad = tuple(Partial() if (head_dim is None and a == "model" and heads)
+                     or (row_dim is None and a in data and n > 1 and rows) else p
+                     for a, n, p in zip(names, sizes, pl))
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+        return anchor_grad(redistribute(x, pl)).to_local(grad_placements=grad)
+
+    row_dims = row_dims or (0,) * len(tensors)
+    outs = fn(*(local(x, d, r) for x, d, r in zip(tensors, head_dims, row_dims)))
+    return tuple(DTensor.from_local(t, mesh, layout(d), run_check=False)
+                 for t, d in zip(outs, out_head_dims))
 
 
 def tp_size() -> int:

@@ -13,6 +13,7 @@ by default."""
 
 import importlib
 import inspect
+import os
 import types
 from pathlib import Path
 
@@ -45,6 +46,9 @@ NO_PORT = {
     "repro.core.pipeline": {"VMAP_FUSION_MAX_BUCKETS": _CPU_ERA},
     "repro.core.pipeline.spec": {"VMAP_FUSION_MAX_BUCKETS": _CPU_ERA},
     "repro.core.pipeline.tiles": {"PACKED_MIN_BUCKETS": _CPU_ERA},
+    "repro.launch.hlo_analysis": {"parse_collectives": "parses XLA's optimized HLO text; the "
+                                                      "port has no HLO (its counting mode "
+                                                      "records the collectives as they run)"},
 }
 # ``*_pallas``: the Pallas functions themselves, mapped to their Hopper
 # kernels by tests/test_torch_kernel_doors.py (ROADMAP A15)
@@ -96,9 +100,23 @@ def test_the_twins_cover_the_ported_modules():
         assert name in TWINS
 
 
+def _import_jax_module(name: str):
+    """``repro.launch.dryrun`` sets ``XLA_FLAGS`` (512 host devices) at
+    import: the variable is saved and restored around it, so later JAX tests
+    in this worker see the default device count."""
+    saved = os.environ.get("XLA_FLAGS")
+    try:
+        return importlib.import_module(name)
+    finally:
+        if saved is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = saved
+
+
 @pytest.mark.parametrize("name", TWINS)
 def test_every_public_name_has_a_port_or_a_listed_reason(name):
-    mod = importlib.import_module(name)
+    mod = _import_jax_module(name)
     twin = importlib.import_module("repro_torch" + name[len("repro"):])
     pending, no_port = PENDING.get(name, {}), NO_PORT.get(name, {})
     missing = []
@@ -113,6 +131,14 @@ def test_every_public_name_has_a_port_or_a_listed_reason(name):
     assert not missing, f"{twin.__name__} lacks {missing}"
     for attr in list(pending) + list(no_port):
         assert attr in _public(mod), f"{name}.{attr} is listed but is not public there"
+
+
+def test_the_dry_run_import_leaves_xla_flags_as_it_found_them():
+    before = os.environ.get("XLA_FLAGS")
+    _import_jax_module("repro.launch.dryrun")
+    assert os.environ.get("XLA_FLAGS") == before
+    assert {"repro.launch.dryrun", "repro.launch.hlo_analysis",
+            "repro.launch.input_specs"} <= set(TWINS)
 
 
 def test_the_pending_items_are_open_in_the_roadmap():

@@ -115,6 +115,26 @@ def test_armed_miss_runs_the_joint_search_once_and_persists(armed):
     assert at._SEARCHES - s0 == 1
 
 
+@pytest.mark.parametrize("trace", ["fake tensors", "counting mode"])
+def test_an_armed_miss_inside_a_trace_searches_and_pins_nothing(armed, trace):
+    """Inside a dry-run's trace (a ``FakeTensorMode``, or a counting mode in
+    force) a miss takes the default and pins nothing: a search on fake
+    tensors would time nothing, and its trials would join the counts. The
+    shape is searched once outside the trace."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.hlo_analysis import CountingMode
+
+    s0 = at._SEARCHES
+    with FakeTensorMode() if trace == "fake tensors" else CountingMode():
+        assert at.tracing() and not at.active()
+        make_plan(N, M, bucket_fn=_spec())
+    assert at._SEARCHES == s0 and not armed.exists()
+    assert not tiles.family_decisions() and not at.tracing()
+    make_plan(N, M, bucket_fn=_spec())
+    assert at._SEARCHES - s0 == 1 and armed.exists()
+
+
 def test_env_flag_arms(monkeypatch):
     assert set_autotune() == at._CONFIG                  # no-op: the current state
     for value, on in (("1", True), ("true", True), ("on", True), ("0", False), ("", False)):

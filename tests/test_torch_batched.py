@@ -28,9 +28,6 @@ Keys and values are compared as int32 bit patterns. The CUDA kernels are
 held against these plain versions on the card by ``chip_smoke.py``."""
 
 import functools
-import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -53,6 +50,7 @@ from repro_torch.core import sort as tsort
 from repro_torch.kernels import multisplit_tile as mst
 from repro_torch.kernels import ops as tkops
 
+import _fresh_process
 import _torch_threads
 
 _torch_threads.pin()
@@ -540,23 +538,23 @@ def test_new_entry_points_default_to_the_card(fn):
     assert inspect.signature(tcore.multisplit_unfused).parameters["device"].default == "cuda"
 
 
-def test_batched_path_loads_neither_jax_nor_repro():
+_PATH_CODE = (
+    "import sys, torch, numpy as np; from repro_torch import ops\n"
+    "from repro_torch.core import multisplit as c, sort as s, plan\n"
+    "k = torch.from_numpy((np.arange(3000, dtype=np.uint32) * 2654435761).reshape(3, 1000))\n"
+    "c.batched_multisplit(k, ops.DeltaSpec(8, 2**32), k.view(torch.int32), device='cpu')\n"
+    "torch.vmap(ops.histogram, in_dims=(0, None))(k, ops.DeltaSpec(8, 2**32), device='cpu')\n"
+    "ops.radix_sort(k, fuse_digits=True, device='cpu')\n"
+    "s.radix_sort_per_pass(k, device='cpu'); s.direct_sort_multisplit(k)\n"
+    "c.multisplit_unfused(k[0], ops.DeltaSpec(8, 2**32), k[1], device='cpu')\n"
+    "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+    "assert not bad, bad\n"
+)
+fresh_process = _fresh_process.started(_PATH_CODE)
+
+
+def test_batched_path_loads_neither_jax_nor_repro(fresh_process):
     """The batched ops, torch.vmap, the unfused baselines and the shim, in a
     fresh process, import no module of JAX and none of the JAX package."""
-    code = (
-        "import sys, torch, numpy as np; from repro_torch import ops\n"
-        "from repro_torch.core import multisplit as c, sort as s, plan\n"
-        "k = torch.from_numpy((np.arange(3000, dtype=np.uint32) * 2654435761).reshape(3, 1000))\n"
-        "c.batched_multisplit(k, ops.DeltaSpec(8, 2**32), k.view(torch.int32), device='cpu')\n"
-        "torch.vmap(ops.histogram, in_dims=(0, None))(k, ops.DeltaSpec(8, 2**32), device='cpu')\n"
-        "ops.radix_sort(k, fuse_digits=True, device='cpu')\n"
-        "s.radix_sort_per_pass(k, device='cpu'); s.direct_sort_multisplit(k)\n"
-        "c.multisplit_unfused(k[0], ops.DeltaSpec(8, 2**32), k[1], device='cpu')\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
-        "assert not bad, bad\n"
-    )
-    src = os.path.join(os.path.dirname(__file__), "..", "src")
-    env = dict(os.environ, PYTHONPATH=src)
-    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
-                         timeout=120)
-    assert out.returncode == 0, out.stderr
+    rc, _, err = _fresh_process.finished(fresh_process)
+    assert rc == 0, err

@@ -8,9 +8,9 @@ the JAX package's (``repro.core.distributed``) on the CPU.
   ``multisplit_sharded`` against the flat oracle's slices and
   ``multisplit_bucket_sharded`` (both transports, with and without drops)
   against an oracle of JAX's drop rule built from ``multisplit_ref``.
-* One subprocess with four XLA host devices runs JAX's own
-  ``multisplit_bucket_sharded`` at the dropping capacity, since the drop
-  rule is where a port can differ.
+* One subprocess with four XLA host devices, started beside the ranks,
+  runs JAX's own ``multisplit_bucket_sharded`` at the dropping capacity,
+  since the drop rule is where a port can differ.
 """
 
 import os
@@ -121,20 +121,41 @@ dist.destroy_process_group()
 
 
 @pytest.fixture(scope="module")
-def gloo_results(tmp_path_factory):
-    """Every collective case, run once by four gloo ranks: rank -> {tag:field
-    -> array}."""
+def spawned(tmp_path_factory):
+    """The four gloo ranks, and the JAX subprocess of
+    :func:`test_bucket_sharded_drops_as_jax_does`, started together:
+    (work directory, the ranks, the JAX process); any still running at the
+    module's end is killed."""
     tmp = tmp_path_factory.mktemp("gloo")
     script = tmp / "worker.py"
     script.write_text(textwrap.dedent(_WORKER).format(
         n_dev=N_DEV, sharded_m=SHARDED_M, bucket_m=BUCKET_M, capacities=CAPACITIES,
         key_range=KEY_RANGE))
-    env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep + os.environ.get("PYTHONPATH", ""),
-               OMP_NUM_THREADS="1")
+    path = str(SRC) + os.pathsep + os.environ.get("PYTHONPATH", "")
+    env = dict(os.environ, PYTHONPATH=path, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen([sys.executable, str(script), str(r), str(WORLD),
                                str(tmp / "store"), str(tmp / f"rank{r}.npz")],
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(WORLD)]
+    code = textwrap.dedent(_JAX_BUCKET).format(world=WORLD, n_dev=N_DEV,
+                                               capacity=CAPACITIES["drop"], bucket_m=BUCKET_M,
+                                               key_range=KEY_RANGE, out=tmp / "jax.npz")
+    jax_env = dict(os.environ, XLA_FLAGS=f"--xla_force_host_platform_device_count={WORLD}",
+                   PYTHONPATH=path)
+    jax_proc = subprocess.Popen([sys.executable, "-c", code], env=jax_env,
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    yield tmp, procs, jax_proc
+    for p in procs + [jax_proc]:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+@pytest.fixture(scope="module")
+def gloo_results(spawned):
+    """Every collective case, run once by four gloo ranks: rank -> {tag:field
+    -> array}."""
+    tmp, procs, _ = spawned
     outs = [p.communicate(timeout=300)[0] for p in procs]
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {r} failed:\n{out}"
@@ -222,18 +243,14 @@ np.savez("{out}", **got)
 """
 
 
-def test_bucket_sharded_drops_as_jax_does(gloo_results, tmp_path):
+def test_bucket_sharded_drops_as_jax_does(gloo_results, spawned):
     """JAX's own ``multisplit_bucket_sharded`` on four XLA host devices at
-    the dropping capacity, against the gloo ranks' results."""
-    out = tmp_path / "jax.npz"
-    code = textwrap.dedent(_JAX_BUCKET).format(world=WORLD, n_dev=N_DEV,
-                                               capacity=CAPACITIES["drop"], bucket_m=BUCKET_M,
-                                               key_range=KEY_RANGE, out=out)
-    env = dict(os.environ, XLA_FLAGS=f"--xla_force_host_platform_device_count={WORLD}",
-               PYTHONPATH=str(SRC) + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
-                          timeout=600)
-    assert proc.returncode == 0, proc.stderr
+    the dropping capacity (a subprocess started beside the ranks), against
+    the gloo ranks' results."""
+    tmp, _, proc = spawned
+    out = tmp / "jax.npz"
+    stdout = proc.communicate(timeout=600)[0]
+    assert proc.returncode == 0, stdout
     want = np.load(out)
     for m in BUCKET_M:
         for transport in ("dense", "ragged"):

@@ -6,10 +6,11 @@ devices.
 
 One spawn of eight gloo ranks runs every case in one session
 (``python worker.py RANK``, a file store under ``tmp_path``, one npz a
-rank), and one JAX subprocess with
-``XLA_FLAGS=--xla_force_host_platform_device_count=8`` computes JAX's side
-under the same meshes. The inputs (JAX's ``init_params`` and seeded numpy
-draws) are made once here and read by both.
+rank), and two JAX subprocesses with
+``XLA_FLAGS=--xla_force_host_platform_device_count=8`` compute JAX's side
+under the same meshes (one the MoE and attention cases, one the models).
+The inputs (JAX's ``init_params`` and seeded numpy draws) are made once
+here, while the processes start, and read by all of them.
 
 * ``multisplit_ep`` on a ``(2, 4)`` ``(data, model)`` mesh with
   ``tests/test_moe_ep.py``'s config (d 64, 8 experts top-2) at capacity
@@ -100,6 +101,9 @@ from repro.configs import get_config
 from repro.configs.base import ModelConfig, MoEConfig, SSMConfig
 from repro.models import layers, moe, model as M
 from repro.parallel.sharding import init_params, is_decl
+import os, time
+while not os.path.exists("{inputs}"):          # drawn while this process starts
+    time.sleep(0.05)
 inp = np.load("{inputs}")
 cfgs = json.loads('{cfgs}')
 def cfg_of(d, **moe_kw):
@@ -114,31 +118,34 @@ def tree(decl, prefix):
               for i in range(len(jax.tree.leaves(decl, is_leaf=is_decl)))]
     return jax.tree.unflatten(jax.tree.structure(decl, is_leaf=is_decl), leaves)
 out = {{}}
-x = jnp.asarray(inp["moe:x"])
-for cf in {factors}:
-    cfg = cfg_of(cfgs["moe"], capacity_factor=cf)
-    params = tree(moe.moe_decl(cfg), "moe")
-    f = lambda p, x: moe.moe_block(p, x, cfg)
+def head():
+    x = jnp.asarray(inp["moe:x"])
+    for cf in {factors}:
+        cfg = cfg_of(cfgs["moe"], capacity_factor=cf)
+        params = tree(moe.moe_decl(cfg), "moe")
+        f = lambda p, x: moe.moe_block(p, x, cfg)
+        with jax.set_mesh(mesh24):
+            y, aux = jax.jit(f)(params, x)
+            gp, gx = jax.jit(jax.grad(lambda p, x: jnp.sum(f(p, x)[0] ** 2), argnums=(0, 1)))(params, x)
+        out[f"moe{{cf}}:y"], out[f"moe{{cf}}:drop"] = np.asarray(y), np.asarray(aux.drop_fraction)
+        for i, g in enumerate(jax.tree.leaves(gp)):
+            out[f"moe{{cf}}:g{{i}}"] = np.asarray(g)
+        out[f"moe{{cf}}:gx"] = np.asarray(gx)
+    cfg = cfg_of(cfgs["moe"], dispatch="multisplit")
     with jax.set_mesh(mesh24):
-        y, aux = jax.jit(f)(params, x)
-        gp, gx = jax.jit(jax.grad(lambda p, x: jnp.sum(f(p, x)[0] ** 2), argnums=(0, 1)))(params, x)
-    out[f"moe{{cf}}:y"], out[f"moe{{cf}}:drop"] = np.asarray(y), np.asarray(aux.drop_fraction)
-    for i, g in enumerate(jax.tree.leaves(gp)):
-        out[f"moe{{cf}}:g{{i}}"] = np.asarray(g)
-    out[f"moe{{cf}}:gx"] = np.asarray(gx)
-cfg = cfg_of(cfgs["moe"], dispatch="multisplit")
-with jax.set_mesh(mesh24):
-    y, aux = jax.jit(lambda p, x: moe.moe_block(p, x, cfg))(tree(moe.moe_decl(cfg), "moe"), x)
-out["gspmd:y"], out["gspmd:drop"] = np.asarray(y), np.asarray(aux.drop_fraction)
-for name, (h, kv, pad) in {attn}.items():
-    q, k, v = (jnp.asarray(inp[f"attn:{{name}}:{{t}}"]) for t in "qkv")
-    fn = jax.jit(lambda q, k, v: layers.multihead_attention(q, k, v, causal=True, chunk=32,
-                                                            pad_heads=pad))
-    if pad:      # JAX's pad branch does not lower on this mesh: its function without one
-        out[f"attn:{{name}}"] = np.asarray(fn(q, k, v))
-        continue
-    with jax.set_mesh(mesh24):
-        out[f"attn:{{name}}"] = np.asarray(fn(q, k, v))
+        y, aux = jax.jit(lambda p, x: moe.moe_block(p, x, cfg))(tree(moe.moe_decl(cfg), "moe"), x)
+    out["gspmd:y"], out["gspmd:drop"] = np.asarray(y), np.asarray(aux.drop_fraction)
+    for name, (h, kv, pad) in {attn}.items():
+        q, k, v = (jnp.asarray(inp[f"attn:{{name}}:{{t}}"]) for t in "qkv")
+        fn = jax.jit(lambda q, k, v: layers.multihead_attention(q, k, v, causal=True, chunk=32,
+                                                                pad_heads=pad))
+        if pad:      # JAX's pad branch does not lower on this mesh: its function without one
+            out[f"attn:{{name}}"] = np.asarray(fn(q, k, v))
+            continue
+        with jax.set_mesh(mesh24):
+            out[f"attn:{{name}}"] = np.asarray(fn(q, k, v))
+if {head}:
+    head()
 for name in {models}:
     cfg = cfg_of(cfgs[name])
     params = tree(M.decl_model(cfg), name)
@@ -166,6 +173,9 @@ from torch.distributed.tensor.debug import CommDebugMode
 from repro_torch.configs.base import ModelConfig, MoEConfig, ParallelConfig, SSMConfig
 from repro_torch.models import layers, moe, model as M
 from repro_torch.parallel import sharding as S
+import os, time
+while not os.path.exists(inputs):                # drawn while the ranks start
+    time.sleep(0.05)
 inp = np.load(inputs)
 cfgs = json.loads('{cfgs}')
 got = {{}}
@@ -250,34 +260,24 @@ dist.destroy_process_group()
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """(JAX's results, each rank's results): the inputs drawn here, then the
-    JAX subprocess and the eight gloo ranks run side by side."""
+    """(JAX's results, each rank's results): the two JAX subprocesses (the
+    MoE and attention cases; the models) and the eight gloo ranks start
+    first, and wait for the inputs, drawn here meanwhile."""
     tmp = tmp_path_factory.mktemp("moe_ep")
-    inputs, cfgs = {}, {"moe": dataclasses.asdict(_moe_cfg(8.0))}
-    for i, a in enumerate(_leaves(jinit(jmoe.moe_decl(_moe_cfg(8.0)), jax.random.PRNGKey(0)))):
-        inputs[f"moe:{i}"] = a
-    inputs["moe:x"] = np.asarray(jax.random.normal(jax.random.PRNGKey(1), (4, 64, 64)))
-    rng = np.random.RandomState(5)
-    for name, (h, kv, _) in ATTN_CASES.items():
-        for t, heads in (("q", h), ("k", kv), ("v", kv)):
-            inputs[f"attn:{name}:{t}"] = rng.randn(2, 64, heads, 16).astype(np.float32)
+    cfgs = {"moe": dataclasses.asdict(_moe_cfg(8.0))}
     for name in MODELS:
-        cfg = _model_cfg(name)
-        cfgs[name] = dataclasses.asdict(cfg)
-        for i, a in enumerate(_leaves(jinit(JM.decl_model(cfg), jax.random.PRNGKey(0)))):
-            inputs[f"{name}:{i}"] = a
-    inputs["tokens"] = np.random.RandomState(0).randint(0, 512, (B, S)).astype(np.int32)
-    np.savez(tmp / "inputs.npz", **inputs)
+        cfgs[name] = dataclasses.asdict(_model_cfg(name))
     fmt = dict(inputs=tmp / "inputs.npz", cfgs=json.dumps(cfgs), factors=CAPACITY_FACTORS,
                attn=ATTN_CASES, b=B, max_len=MAX_LEN, steps=DECODE_STEPS)
 
     path = str(SRC) + os.pathsep + os.environ.get("PYTHONPATH", "")
     jax_env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
                    PYTHONPATH=path)
-    jax_proc = subprocess.Popen(
-        [sys.executable, "-c", textwrap.dedent(_JAX).format(models=list(MODELS),
-                                                            out=tmp / "jax.npz", **fmt)],
+    jax_procs = [subprocess.Popen(
+        [sys.executable, "-c", textwrap.dedent(_JAX).format(head=head, models=models,
+                                                            out=tmp / f"jax{i}.npz", **fmt)],
         env=jax_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i, (head, models) in enumerate(((True, []), (False, list(MODELS))))]
     script = tmp / "worker.py"
     halves = [["tinyllama-1.1b", "dbrx-gqa"], ["dbrx-132b"]]
     script.write_text(textwrap.dedent(_WORKER).format(models=halves, **fmt))
@@ -287,13 +287,36 @@ def runs(tmp_path_factory):
                                str(tmp / f"rank{r}.npz")],
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(WORLD)]
+    try:
+        inputs = {}
+        for i, a in enumerate(_leaves(jinit(jmoe.moe_decl(_moe_cfg(8.0)), jax.random.PRNGKey(0)))):
+            inputs[f"moe:{i}"] = a
+        inputs["moe:x"] = np.asarray(jax.random.normal(jax.random.PRNGKey(1), (4, 64, 64)))
+        rng = np.random.RandomState(5)
+        for name, (h, kv, _) in ATTN_CASES.items():
+            for t, heads in (("q", h), ("k", kv), ("v", kv)):
+                inputs[f"attn:{name}:{t}"] = rng.randn(2, 64, heads, 16).astype(np.float32)
+        for name in MODELS:
+            decl = JM.decl_model(_model_cfg(name))
+            for i, a in enumerate(_leaves(jinit(decl, jax.random.PRNGKey(0)))):
+                inputs[f"{name}:{i}"] = a
+        inputs["tokens"] = np.random.RandomState(0).randint(0, 512, (B, S)).astype(np.int32)
+        np.savez(tmp / "drawn.npz", **inputs)
+        os.replace(tmp / "drawn.npz", tmp / "inputs.npz")     # the processes wait for this name
+    except BaseException:
+        for p in procs + jax_procs:
+            p.kill()
+        raise
     outs = [p.communicate(timeout=600)[0] for p in procs]
-    jax_out = jax_proc.communicate(timeout=600)[0]
+    jax_outs = [p.communicate(timeout=600)[0] for p in jax_procs]
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {r} failed:\n{out[-5000:]}"
-    assert jax_proc.returncode == 0, jax_out[-5000:]
-    return dict(np.load(tmp / "jax.npz")), [dict(np.load(tmp / f"rank{r}.npz"))
-                                            for r in range(WORLD)]
+    for p, out in zip(jax_procs, jax_outs):
+        assert p.returncode == 0, out[-5000:]
+    want = {}
+    for i in range(len(jax_procs)):
+        want.update(np.load(tmp / f"jax{i}.npz"))
+    return want, [dict(np.load(tmp / f"rank{r}.npz")) for r in range(WORLD)]
 
 
 def _rel(got, want):

@@ -30,6 +30,7 @@ from repro_torch.core.pipeline import radix as tradix
 from repro_torch.core.sort import rb_sort_multisplit
 from repro_torch.kernels import ops as tkops
 
+import _fresh_process
 import _torch_threads
 
 _torch_threads.pin()
@@ -300,15 +301,16 @@ def test_port_imports_neither_jax_nor_repro(path):
     assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
 
 
-def test_importing_the_port_loads_no_jax():
-    code = ("import sys, repro_torch.ops, repro_torch.convert, repro_torch.kernels.build, "
-            "repro_torch.runtime, repro_torch.serving, repro_torch.launch.serve; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
-            "assert not bad, bad; print('clean')")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
-                         timeout=120)
-    assert out.returncode == 0 and out.stdout.strip() == "clean", out.stderr
+fresh_process = _fresh_process.started(
+    "import sys, repro_torch.ops, repro_torch.convert, repro_torch.kernels.build, "
+    "repro_torch.runtime, repro_torch.serving, repro_torch.launch.serve; "
+    "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
+    "assert not bad, bad; print('clean')")
+
+
+def test_importing_the_port_loads_no_jax(fresh_process):
+    rc, out, err = _fresh_process.finished(fresh_process)
+    assert rc == 0 and out.strip() == "clean", err
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path, capsys):

@@ -24,9 +24,6 @@ kernels themselves are held against these plain versions on the card by
 
 import functools
 import inspect
-import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -48,6 +45,7 @@ from repro_torch.core.pipeline import stages as tst
 from repro_torch.kernels import common, multisplit_tile as mst
 from repro_torch.kernels import ops as tkops
 
+import _fresh_process
 import _torch_threads
 
 _torch_threads.pin()
@@ -565,19 +563,19 @@ def test_core_entry_points_default_to_the_card(fn):
             fn(keys, np.array([0, 4], np.int32))
 
 
-def test_packed_path_loads_neither_jax_nor_repro():
+_PATH_CODE = (
+    "import sys, numpy as np; from repro_torch import ops\n"
+    "k = np.arange(3000, dtype=np.uint32) * 2654435761\n"
+    "ops.multisplit(k, ops.DeltaSpec(32, 2**32), k.view(np.int32), family='packed', device='cpu')\n"
+    "ops.segmented_radix_sort(k, np.array([0, 100]), family='packed', device='cpu')\n"
+    "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+    "assert not bad, bad\n"
+)
+fresh_process = _fresh_process.started(_PATH_CODE)
+
+
+def test_packed_path_loads_neither_jax_nor_repro(fresh_process):
     """Running the packed path on the CPU, in a fresh process, imports no
     module of JAX and none of the JAX package."""
-    code = (
-        "import sys, numpy as np; from repro_torch import ops\n"
-        "k = np.arange(3000, dtype=np.uint32) * 2654435761\n"
-        "ops.multisplit(k, ops.DeltaSpec(32, 2**32), k.view(np.int32), family='packed', device='cpu')\n"
-        "ops.segmented_radix_sort(k, np.array([0, 100]), family='packed', device='cpu')\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
-        "assert not bad, bad\n"
-    )
-    src = os.path.join(os.path.dirname(__file__), "..", "src")
-    env = dict(os.environ, PYTHONPATH=src)
-    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
-                         timeout=120)
-    assert out.returncode == 0, out.stderr
+    rc, _, err = _fresh_process.finished(fresh_process)
+    assert rc == 0, err

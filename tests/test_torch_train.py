@@ -49,6 +49,7 @@ from repro_torch.optim import schedules as tsched
 from repro_torch.parallel.sharding import tree_leaves, tree_map
 from repro_torch.runtime import supervisor as tsup
 
+import _fresh_process
 import _torch_threads
 
 _torch_threads.pin()
@@ -628,16 +629,23 @@ def test_gradient_norm_grows_with_depth_as_in_jax():
     t = rs.randint(0, 512, (2, 65)).astype(np.int32)
     batch = {"tokens": t[:, :-1], "labels": t[:, 1:]}
     norms = {}
+    wide = lambda layers: dataclasses.replace(jget("tinyllama-1.1b").smoke(), n_layers=layers,
+                                              d_model=256, n_heads=8, n_kv=2, head_dim=32)
+    # one JAX init (eager, a compile a leaf shape); the 2-layer stack is the
+    # 12-layer stack's first two layers
+    deep = jinit(JM.decl_model(wide(12)), jax.random.PRNGKey(0))
     for layers in (2, 12):
-        jc = dataclasses.replace(jget("tinyllama-1.1b").smoke(), n_layers=layers, d_model=256,
-                                 n_heads=8, n_kv=2, head_dim=32)
-        jp = jinit(JM.decl_model(jc), jax.random.PRNGKey(0))
+        jc = wide(layers)
+        jp = dict(deep, blocks=jax.tree.map(lambda x: x[:layers], deep["blocks"]))
+        assert [x.shape for x in jax.tree.leaves(jp)] == [
+            d.shape for d in jax.tree.leaves(JM.decl_model(jc), is_leaf=lambda d: hasattr(d, "axes"))]
         _, jg = jax.jit(jax.value_and_grad(lambda p, b: JM.loss_fn(p, jc, b), has_aux=True))(
             jp, {k: jnp.asarray(v) for k, v in batch.items()})
         (_, _), tg = TS.grads_of(convert.params_from_numpy(jax.tree.map(np.asarray, jp)),
                                  convert.convert_config(jc),
                                  {k: torch.from_numpy(v) for k, v in batch.items()})
-        norms[layers] = (float(jadamw.global_norm(jg)), float(tadamw.global_norm(tg)))
+        # one compile of JAX's norm over the tree, not one a leaf shape
+        norms[layers] = (float(jax.jit(jadamw.global_norm)(jg)), float(tadamw.global_norm(tg)))
     (j2, t2), (j12, t12) = norms[2], norms[12]
     assert t2 == pytest.approx(j2, rel=1e-4)           # two layers: well conditioned
     assert j12 > 1e3 * j2 and t12 > 1e3 * t2, norms
@@ -670,34 +678,35 @@ def test_train_launcher_needs_the_card_or_the_cpu(monkeypatch):
         ttrain.main(["--arch", "tinyllama-1.1b", "--smoke"])
 
 
-def test_training_path_loads_neither_jax_nor_repro():
+_PATH_CODE = (
+    "import sys, tempfile, torch\n"
+    "from repro_torch.configs import get_config\n"
+    "from repro_torch.configs.base import TrainConfig\n"
+    "from repro_torch.launch import steps as S\n"
+    "from repro_torch.models import model as M\n"
+    "from repro_torch.optim import adamw_init\n"
+    "from repro_torch.checkpoint import save_checkpoint\n"
+    "from repro_torch.parallel.sharding import init_params\n"
+    "cfg = get_config('dbrx-132b').smoke()\n"
+    "p = init_params(M.decl_model(cfg), torch.Generator().manual_seed(0))\n"
+    "tc = TrainConfig()\n"
+    "st = S.TrainState(p, adamw_init(p, tc))\n"
+    "g = torch.Generator().manual_seed(1)\n"
+    "b = {'tokens': torch.randint(0, cfg.vocab, (2, 32), generator=g),\n"
+    "     'labels': torch.randint(0, cfg.vocab, (2, 32), generator=g)}\n"
+    "st, m = S.make_train_step(cfg, tc)(st, b)\n"
+    "assert torch.isfinite(m['loss'])\n"
+    "save_checkpoint(tempfile.mkdtemp(), 1, st)\n"
+    "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+    "assert not bad, bad\n"
+)
+fresh_process = _fresh_process.started(_PATH_CODE)
+
+
+def test_training_path_loads_neither_jax_nor_repro(fresh_process):
     """A step of ``make_train_step`` (dbrx's smoke config, the multisplit
     dispatch, B11's route through the door on CPU tensors) and a
     checkpoint save, in a fresh process, import no module of JAX and none
     of the JAX package."""
-    code = (
-        "import sys, tempfile, torch\n"
-        "from repro_torch.configs import get_config\n"
-        "from repro_torch.configs.base import TrainConfig\n"
-        "from repro_torch.launch import steps as S\n"
-        "from repro_torch.models import model as M\n"
-        "from repro_torch.optim import adamw_init\n"
-        "from repro_torch.checkpoint import save_checkpoint\n"
-        "from repro_torch.parallel.sharding import init_params\n"
-        "cfg = get_config('dbrx-132b').smoke()\n"
-        "p = init_params(M.decl_model(cfg), torch.Generator().manual_seed(0))\n"
-        "tc = TrainConfig()\n"
-        "st = S.TrainState(p, adamw_init(p, tc))\n"
-        "g = torch.Generator().manual_seed(1)\n"
-        "b = {'tokens': torch.randint(0, cfg.vocab, (2, 32), generator=g),\n"
-        "     'labels': torch.randint(0, cfg.vocab, (2, 32), generator=g)}\n"
-        "st, m = S.make_train_step(cfg, tc)(st, b)\n"
-        "assert torch.isfinite(m['loss'])\n"
-        "save_checkpoint(tempfile.mkdtemp(), 1, st)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
-        "assert not bad, bad\n"
-    )
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
-                         timeout=120)
-    assert out.returncode == 0, out.stderr
+    rc, _, err = _fresh_process.finished(fresh_process)
+    assert rc == 0, err
